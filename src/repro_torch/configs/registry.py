@@ -1,0 +1,26 @@
+"""--arch <id> registry.  Only the architectures the port serves are
+registered."""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+ARCHS = {
+    "qwen2-0.5b": "qwen2_0_5b",
+}
+
+
+def _module(arch: str):
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; choose from {list(ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
+
+
+def get_config(arch: str, **overrides):
+    cfg = _module(arch).CONFIG
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def smoke_config(arch: str, **overrides):
+    cfg = _module(arch).smoke()
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg

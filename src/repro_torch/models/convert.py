@@ -1,0 +1,34 @@
+"""Parameters of the JAX package, turned into the port's layout."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+from .transformer import _check_family, map_params
+
+
+def params_from_jax(tree, cfg: ModelConfig, device="cpu"):
+    """`tree` is the dense-family tree of `repro.models.transformer.
+    init_params` (tp = 1) with every leaf already a numpy array: per-layer
+    leaves stacked to [n_layers, ...] under "layers".  Returns the port's
+    parameters on `device`: one dict per layer, leaves of two or more
+    dims in `cfg.param_dtype`, the rest in f32."""
+    _check_family(cfg)
+    device = torch.device(device)
+
+    def leaf(a):
+        t = torch.tensor(np.asarray(a, np.float32), device=device)
+        return t.to(cfg.param_dtype) if t.dim() >= 2 else t
+
+    def layer(i):
+        def pick(a):
+            if a.shape[0] != cfg.n_layers:
+                raise ValueError(f"stacked leaf of shape {a.shape} has no "
+                                 f"leading n_layers={cfg.n_layers} dim")
+            return a[i]
+        return map_params(leaf, map_params(pick, tree["layers"]))
+
+    return {"embed": map_params(leaf, tree["embed"]),
+            "final_norm": leaf(tree["final_norm"]),
+            "layers": [layer(i) for i in range(cfg.n_layers)]}

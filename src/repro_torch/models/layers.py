@@ -1,0 +1,263 @@
+"""Model layers of the dense family, paged serving path.
+
+Counterpart of `repro/models/layers.py`.  Each function takes a `Comm`
+and calls its collectives where `repro` does; on one device they are the
+identity.  Weights are plain tensors in dicts, initialised from a
+`torch.Generator`.  The paged KV pool is updated in place (the JAX
+functions return a new pool): one pool per engine, no copy per step.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops as kops
+from ..kernels.ref import NEG_INF
+from ..parallel.comm import Comm
+from .config import ModelConfig
+
+Params = dict
+
+
+# ---------------------------------------------------------------------------
+# basics
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, w, eps: float = 1e-6):
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + w.float())).to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """x: (..., L, H, D) with D even; positions: (..., L).  Half-split
+    rotation."""
+    d = x.shape[-1]
+    half = d // 2
+    exponent = torch.arange(0, half, dtype=torch.float32,
+                            device=x.device) / half
+    freqs = 1.0 / (theta ** exponent)
+    ang = positions[..., None].float() * freqs          # (..., L, half)
+    cos = torch.cos(ang)[..., None, :]                  # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def _dense(x, w, b=None):
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def _normal(gen, shape, scale: float, device):
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32) * scale
+
+
+# ---------------------------------------------------------------------------
+# embedding / LM head
+# ---------------------------------------------------------------------------
+
+def init_embedding(gen, cfg: ModelConfig, tp: int, device) -> Params:
+    v_local = -(-cfg.vocab // tp)
+    scale = 1.0 / math.sqrt(cfg.d_model)
+    p = {"table": _normal(gen, (v_local, cfg.d_model), scale, device)}
+    if not cfg.tie_embeddings:
+        p["head"] = _normal(gen, (cfg.d_model, v_local), scale, device)
+    return p
+
+
+def embed(comm: Comm, cfg: ModelConfig, p: Params, tokens):
+    """tokens: (B, L) global ids -> (B, L, d).  Ids outside this shard's
+    vocabulary embed to zero (as in `repro`), rather than raising."""
+    v_local = p["table"].shape[0]
+    base = comm.axis_index(comm.axes.model) * v_local
+    local_ids = tokens - base
+    ok = (local_ids >= 0) & (local_ids < v_local)
+    emb = p["table"][local_ids.clamp(0, v_local - 1)]
+    emb = torch.where(ok[..., None], emb, 0.0)
+    emb = comm.allreduce(emb, comm.axes.model)
+    return emb.to(cfg.dtype)
+
+
+def lm_logits(comm: Comm, cfg: ModelConfig, p: Params, x):
+    w = p["table"].T if cfg.tie_embeddings else p["head"]
+    return _dense(x, w.to(cfg.logit_dtype))   # (B, L, V_local)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def _gqa_dims(cfg: ModelConfig, tp: int):
+    """(q heads per device, kv heads stored per device, kv replicated?)."""
+    nq_local = -(-cfg.n_heads // tp)
+    kv_repl = cfg.n_kv_heads < tp or cfg.n_heads % tp != 0
+    nkv_store = cfg.n_kv_heads if kv_repl else cfg.n_kv_heads // tp
+    return nq_local, nkv_store, kv_repl
+
+
+def init_attention(gen, cfg: ModelConfig, tp: int, device) -> Params:
+    d, hd = cfg.d_model, cfg.hd
+    nq_local, nkv_store, _ = _gqa_dims(cfg, tp)
+    s_in = 1.0 / math.sqrt(d)
+    s_out = 1.0 / math.sqrt(cfg.n_heads * hd)
+    p = {
+        "wq": _normal(gen, (d, nq_local * hd), s_in, device),
+        "wk": _normal(gen, (d, nkv_store * hd), s_in, device),
+        "wv": _normal(gen, (d, nkv_store * hd), s_in, device),
+        "wo": _normal(gen, (nq_local * hd, d), s_out, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(nq_local * hd, device=device)
+        p["bk"] = torch.zeros(nkv_store * hd, device=device)
+        p["bv"] = torch.zeros(nkv_store * hd, device=device)
+    return p
+
+
+def init_attn_cache(cfg: ModelConfig, tp: int, batch_local: int,
+                    cache_len: int, device):
+    _, nkv_store, _ = _gqa_dims(cfg, tp)
+    shape = (batch_local, cache_len, nkv_store, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Paged KV attention (serving engine)
+# ---------------------------------------------------------------------------
+
+def paged_kv_update(pool_leaf, page_table, new, positions, page_size: int):
+    """Scatter per-position rows into a paged KV pool, in place.
+
+    pool_leaf: (num_pages, page_size, ...) — one layer's page pool;
+    page_table: (B, max_pages) int64 physical page ids (0 = null page);
+    new: (B, L, ...) rows to write; positions: (B, L) global positions.
+    Rows land at pool[page_table[b, pos // page_size], pos % page_size].
+    Distinct sequences own distinct pages, so batched writes never
+    collide except on the reserved null page, whose contents no valid
+    read sees.  Returns pool_leaf."""
+    page = positions // page_size
+    off = positions % page_size
+    phys = torch.gather(page_table, 1, page)                 # (B, L)
+    pool_leaf[phys, off] = new.to(pool_leaf.dtype)
+    return pool_leaf
+
+
+def paged_kv_gather(pool_leaf, page_table):
+    """Gather a sequence-contiguous (B, S_max, ...) copy of each row's
+    pages (S_max = max_pages * page_size).  Unassigned entries point at
+    the null page; the attention mask excludes them."""
+    got = pool_leaf[page_table]                     # (B, P, ps, ...)
+    B, P, ps = got.shape[0], got.shape[1], got.shape[2]
+    return got.reshape((B, P * ps) + tuple(got.shape[3:]))
+
+
+def _attend_mq(cfg, q, ck, cv, valid):
+    """Multi-query attention against a gathered cache, plain torch in f32.
+
+    q: (B,L,Hq,hd); ck/cv: (B,S,K,hd); valid: (B,L,S) -> (B,L,Hq,hd).
+    Every op is per row, so a row's result does not depend on the other
+    rows of the batch (the engine's batched-vs-alone bit-identity)."""
+    B, S, K = ck.shape[0], ck.shape[1], ck.shape[2]
+    L, hq, hd = q.shape[1], q.shape[2], cfg.hd
+    group = hq // K
+    qf = q.float() / math.sqrt(hd)
+    kf, vf = ck.float(), cv.float()
+    qg = qf.reshape(B, L, K, group, hd)
+    logits = torch.einsum("blkgd,bskd->blkgs", qg, kf).reshape(B, L, hq, S)
+    if cfg.softcap is not None:
+        logits = cfg.softcap * torch.tanh(logits / cfg.softcap)
+    logits = torch.where(valid[:, :, None, :], logits, NEG_INF)
+    m = logits.amax(-1, keepdim=True)
+    p_ = torch.exp(logits - m)
+    l_den = p_.sum(-1, keepdim=True)
+    pg = p_.reshape(B, L, K, group, S)
+    acc = torch.einsum("blkgs,bskd->blkgd", pg, vf).reshape(B, L, hq, hd)
+    return acc / l_den.clamp_min(1e-30)
+
+
+def check_prefill_positions(positions):
+    """Raise unless positions (B, L) are arange(L) in every row, the only
+    positions paged prefill takes.  Reads the tensor back to the host."""
+    B, L = positions.shape
+    arange = torch.arange(L, device=positions.device)
+    if not torch.equal(positions, arange.expand(B, L)):
+        raise ValueError("paged prefill needs positions = arange(L) in "
+                         "every row")
+
+
+def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
+                    page_table, positions, *, page_size: int,
+                    positions_checked: bool = False):
+    """GQA attention against a paged KV pool, for prefill (x: (B, L, d),
+    L = prompt bucket) and decode (L = 1).
+
+    pool: {"k","v"} (num_pages, page_size, K, hd), updated in place;
+    page_table: (B, max_pages) physical page ids.  K/V rows of every
+    position are scattered into the owning page, then each row's pages
+    are gathered back sequence-contiguous.  Prefill must come with
+    positions = arange(L) in every row: its causal(+window) mask is then
+    the flash kernel's `k_pos <= q_pos`, and it attends through
+    `ops.attention`.  The positions are checked here unless the caller
+    has checked them (`positions_checked`, as `prefill_paged` does once
+    for the whole stack).  Decode attends through `_attend_mq`."""
+    tp = comm.axis_size(comm.axes.model)
+    B, L, d = x.shape
+    hd = cfg.hd
+    nq_local, nkv_store, _ = _gqa_dims(cfg, tp)
+    q = _dense(x, p["wq"], p.get("bq")).reshape(B, L, nq_local, hd)
+    k = _dense(x, p["wk"], p.get("bk")).reshape(B, L, nkv_store, hd)
+    v = _dense(x, p["wv"], p.get("bv")).reshape(B, L, nkv_store, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    paged_kv_update(pool["k"], page_table, k, positions, page_size)
+    paged_kv_update(pool["v"], page_table, v, positions, page_size)
+    ck = paged_kv_gather(pool["k"], page_table)              # (B,S_max,K,hd)
+    cv = paged_kv_gather(pool["v"], page_table)
+
+    window = cfg.window
+    if L > 1:
+        if not positions_checked:
+            check_prefill_positions(positions)
+        out = kops.attention(
+            q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
+            causal=True, window=window, softcap=cfg.softcap,
+            sm_scale=1.0 / math.sqrt(hd)).transpose(1, 2)
+    else:
+        S_max = ck.shape[1]
+        kv_pos = torch.arange(S_max, device=x.device)[None, None, :]
+        valid = kv_pos <= positions[:, :, None]
+        if window is not None:
+            valid &= kv_pos > (positions[:, :, None] - window)
+        out = _attend_mq(cfg, q, ck, cv, valid)
+    out = out.reshape(B, L, nq_local * hd).to(cfg.dtype)
+    y = _dense(out, p["wo"])
+    return comm.allreduce(y, comm.axes.model), pool
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense swiglu)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, cfg: ModelConfig, tp: int, device,
+             d_ff: int | None = None) -> Params:
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
+    ff_local = ff // tp
+    return {
+        "w_gate": _normal(gen, (d, ff_local), 1.0 / math.sqrt(d), device),
+        "w_up": _normal(gen, (d, ff_local), 1.0 / math.sqrt(d), device),
+        "w_down": _normal(gen, (ff_local, d), 1.0 / math.sqrt(ff), device),
+    }
+
+
+def mlp(comm: Comm, cfg: ModelConfig, p: Params, x):
+    h = F.silu(_dense(x, p["w_gate"])) * _dense(x, p["w_up"])
+    return comm.allreduce(_dense(h, p["w_down"]), comm.axes.model)

@@ -1,0 +1,125 @@
+"""Model assembly for the paged serving path: parameters, KV pools, and
+the prefill/decode entries over the layer stack.
+
+Counterpart of the dense-family parts of `repro/models/transformer.py`.
+Parameters hold one dict per layer in `params["layers"]` (the JAX package
+stacks each leaf to [n_layers, ...] for `lax.scan`); the stack is a
+Python loop.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..parallel.comm import Comm
+from . import layers as L
+from .config import ModelConfig
+
+Params = dict
+
+
+def paged_families() -> tuple[str, ...]:
+    """Families the port's paged serving path supports."""
+    return ("dense",)
+
+
+def _check_family(cfg: ModelConfig):
+    if cfg.family not in paged_families() or cfg.local_global_period:
+        raise ValueError(
+            f"the port serves the {paged_families()} families without "
+            f"local/global layer pairs, not {cfg.name!r} ({cfg.family})")
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu") -> Params:
+    """Random parameters from a `torch.Generator` seeded with `seed`, made
+    on `device`.  Weights are f32, then cast to `cfg.param_dtype` for
+    leaves of two or more dims, as in `repro`."""
+    _check_family(cfg)
+    device = torch.device(device)
+    tp = 1
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p: Params = {"embed": L.init_embedding(gen, cfg, tp, device),
+                 "final_norm": torch.zeros(cfg.d_model, device=device)}
+    p["layers"] = [
+        {"attn": L.init_attention(gen, cfg, tp, device),
+         "mlp": L.init_mlp(gen, cfg, tp, device),
+         "ln1": torch.zeros(cfg.d_model, device=device),
+         "ln2": torch.zeros(cfg.d_model, device=device)}
+        for _ in range(cfg.n_layers)]
+    if cfg.param_dtype != torch.float32:
+        p = map_params(
+            lambda w: w.to(cfg.param_dtype) if w.dim() >= 2 else w, p)
+    return p
+
+
+def map_params(fn, tree):
+    """Apply `fn` to every tensor of a nested dict/list parameter tree."""
+    if isinstance(tree, dict):
+        return {k: map_params(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_params(fn, v) for v in tree]
+    return fn(tree)
+
+
+def init_kv_pool(cfg: ModelConfig, tp: int, num_pages: int, page_size: int,
+                 device) -> Params:
+    """Paged KV pools of every layer: {"k", "v"} of shape (n_layers,
+    num_pages, page_size, K, hd).  Page p of a sequence lives at the same
+    physical index in every layer's pool, so one page table serves the
+    whole stack."""
+    _check_family(cfg)
+    flat = L.init_attn_cache(cfg, tp, cfg.n_layers * num_pages, page_size,
+                             device)
+    return {name: t.view((cfg.n_layers, num_pages) + tuple(t.shape[1:]))
+            for name, t in flat.items()}
+
+
+def _attn_block_paged(comm, cfg, bp, x, pool, page_table, positions,
+                      page_size, positions_checked):
+    h = L.rms_norm(x, bp["ln1"])
+    a, _ = L.attention_paged(comm, cfg, bp["attn"], h, pool, page_table,
+                             positions, page_size=page_size,
+                             positions_checked=positions_checked)
+    x = x + a
+    h = L.rms_norm(x, bp["ln2"])
+    return x + L.mlp(comm, cfg, bp["mlp"], h)
+
+
+def _paged_stack(comm, cfg, params, pool, page_table, x, positions,
+                 page_size, positions_checked=False):
+    """Run the layer stack against the paged KV pools, updating them in
+    place.  One code path for prefill (L = prompt bucket) and decode
+    (L = 1)."""
+    for i, bp in enumerate(params["layers"]):
+        layer_pool = {"k": pool["k"][i], "v": pool["v"][i]}
+        x = _attn_block_paged(comm, cfg, bp, x, layer_pool, page_table,
+                              positions, page_size, positions_checked)
+    return x, pool
+
+
+def prefill_paged(comm: Comm, cfg: ModelConfig, params: Params, pool: Params,
+                  page_table, tokens, positions, *, page_size: int):
+    """One forward pass over the whole prompt bucket that also fills the
+    sequence's KV pages.  tokens, positions: (B, L_bucket).  Returns
+    (full-bucket logits (B, L, vocab_local), pool).  Rows past the true
+    prompt length write garbage K/V into the row's own reserved (or null)
+    pages; decode overwrites each position before the causal mask can
+    expose it.  positions must be arange(L) in every row; that is checked
+    once here, not in every layer."""
+    L.check_prefill_positions(positions)
+    x = L.embed(comm, cfg, params["embed"], tokens)
+    x, pool = _paged_stack(comm, cfg, params, pool, page_table, x,
+                           positions, page_size, positions_checked=True)
+    x = L.rms_norm(x, params["final_norm"])
+    return L.lm_logits(comm, cfg, params["embed"], x), pool
+
+
+def decode_step_paged(comm: Comm, cfg: ModelConfig, params: Params,
+                      pool: Params, page_table, tokens, positions, *,
+                      page_size: int):
+    """One paged decode step: tokens (B,1), positions (B,) -> (logits
+    (B,1,vocab_local), pool)."""
+    x = L.embed(comm, cfg, params["embed"], tokens)
+    x, pool = _paged_stack(comm, cfg, params, pool, page_table, x,
+                           positions[:, None], page_size)
+    x = L.rms_norm(x, params["final_norm"])
+    return L.lm_logits(comm, cfg, params["embed"], x), pool

@@ -1,0 +1,64 @@
+"""The port stands alone: no file of `src/repro_torch/` and not
+`chip_smoke.py` imports jax or the JAX package, and the serving path runs
+in a process where neither can be imported."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_exist():
+    assert len(FILES) > 15
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+            / "flash_attention.cu").is_file()
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_jax_or_repro_import(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+BLOCKED = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "repro"):
+        sys.modules[name] = None          # any import of them now fails
+    import numpy as np
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import convert
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(smoke_config("qwen2-0.5b"), device="cpu", max_slots=2,
+                      page_size=8, max_seq=32, prompt_bucket=16)
+    rid = eng.submit(np.arange(1, 6), 3)
+    assert len(eng.run()[rid]) == 3
+    print("ALONE-OK")
+""")
+
+
+def test_serving_runs_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", BLOCKED], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "ALONE-OK" in r.stdout
