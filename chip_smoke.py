@@ -19,7 +19,24 @@ Phases; any failure exits non-zero before the result line is printed:
      the run must have gone through every kernel of the path.  Then two
      requests served alone must give the batched run's tokens bit for
      bit, and one request's prefill logits through the kernel must match
-     those through the plain version.
+     those through the plain version;
+  4. runtime kernels — put_copy, dma_copy (kernels 1-2, csrc/put_copy.cu)
+     and reduce_combine (kernel 3) against their plain versions, bit for
+     bit, over the CPU tests' shapes, ragged edges (1 row, 1 column, odd
+     byte widths, unaligned rows), f32/i32/bf16/f64 (and more for the
+     combine), NaN for max/min, and 64 MiB buffers; then timed at the
+     runtime's real size beside the plain version and one PyTorch call;
+  5. runtime — the OpenSHMEM SIM runtime on 16 PEs of the paper's 4x4
+     mesh (sim_ctx, plain and with NoC waves): the paper's message-size
+     sweep (8 B .. 16 KB per PE) of put, get, put_nbi + quiet, fence,
+     barrier_all, broadcast, fcollect, collect, to_all (rd, ring; i32 and
+     f32), reduce_scatter + allgather_unpad and alltoall, each checked on
+     the host against numpy; then the trainer's 64 MiB-per-PE gradient
+     bucket (1 GiB PE-stacked) through to_all rd and ring and
+     reduce_scatter + allgather_unpad.  Every launch count is set to 0
+     just before this phase and read just after; each must equal the
+     count the runtime's own schedules imply.  Then the wall time of a
+     few single calls at 8 B and 16 KB per PE.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi gives them, and
@@ -29,14 +46,16 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ["flash_attention"]
+KERNELS = ["flash_attention", "put_copy", "reduce_combine"]
 
 # published peaks of one H100 SXM (dense): bytes over 3.35 TB/s, products
 # over the tensor-core rate of their type (bf16) or the f32 CUDA-core rate
@@ -323,6 +342,440 @@ def prefill_logits_check(torch, np, ref, layers, eng, prompts, serving,
         raise AssertionError(f"prefill logits differ by {err}")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the runtime's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+RUNTIME_KERNELS = [
+    ("put_copy", "src/repro_torch/kernels/csrc/put_copy.cu",
+     "src/repro/kernels/put_copy.py:37"),
+    ("dma_copy", "src/repro_torch/kernels/csrc/put_copy.cu",
+     "src/repro/kernels/put_copy.py:59"),
+    ("reduce_combine", "src/repro_torch/kernels/csrc/reduce_combine.cu",
+     "src/repro/kernels/reduce_combine.py:39"),
+]
+# the runtime's real size: the trainer's gradient-sync bucket, 64 MiB of
+# f32 per PE (BUCKET_BYTES, src/repro/train/step.py:36), on the paper's 16
+# PEs: 1 GiB of PE-stacked payload
+BUCKET_ELEMS = (64 << 20) // 4
+
+
+def rand(torch, gen, shape, dtype):
+    """Seeded values of `dtype` on the card (floats at 100x unit scale)."""
+    if dtype.is_floating_point:
+        return (torch.randn(shape, generator=gen, device="cuda") * 100
+                ).to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.randint(max(info.min, -(1 << 30)), min(info.max, 1 << 30),
+                         shape, generator=gen, device="cuda",
+                         dtype=torch.int64).to(dtype)
+
+
+def bitwise(torch, got, want, what: str) -> None:
+    """Kernel output == plain output value for value (NaN where NaN)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if want.dtype.is_floating_point:
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan) or \
+                not torch.equal(got[~nan], want[~nan]):
+            raise AssertionError(f"{what}: kernel != plain version")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{what}: kernel != plain version")
+
+
+def check_runtime_kernels(torch, gen) -> None:
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import put_copy as pc
+    from repro_torch.kernels import reduce_combine as rc
+    cases = {"put_copy": 0, "dma_copy": 0, "reduce_combine": 0}
+    f32, i32, bf16, f64 = (torch.float32, torch.int32, torch.bfloat16,
+                           torch.float64)
+    # put_copy: identity, source-row tables with zero rows and more rows
+    # out than in, rows at a stride (unaligned row starts)
+    for shape in [(37, 300), (100, 1), (1, 513), (1, 1), (7, 37),
+                  (16, 4096)]:
+        for dt in (f32, i32, bf16, f64, torch.uint8):
+            x = rand(torch, gen, shape, dt)
+            tables = [None, torch.randint(-1, shape[0], (shape[0] + 3,),
+                                          generator=gen, device="cuda",
+                                          dtype=torch.int32)]
+            for rows in tables:
+                bitwise(torch, pc.put_copy(x, rows),
+                        ref.put_copy_ref(x, rows), f"put_copy {shape} {dt}")
+                cases["put_copy"] += 1
+            if shape[1] > 1:
+                bitwise(torch, pc.put_copy(x[:, 1:], tables[1]),
+                        ref.put_copy_ref(x[:, 1:], tables[1]),
+                        f"put_copy strided {shape} {dt}")
+                cases["put_copy"] += 1
+            bitwise(torch, ops.put_copy(x), x, f"ops.put_copy {shape} {dt}")
+    # dma_copy: the CPU tests' descriptor, ragged regions, 1 row, 1
+    # column, and a batch of 96 descriptors in one launch
+    batch = [[r, c, 95 - r, 383 - c - 1, 1, 2] for r in range(0, 64, 2)
+             for c in (0, 77, 201)]
+    for descs in ([[32, 128, 0, 256, 32, 128]], [[3, 5, 7, 11, 13, 17]],
+                  [[63, 0, 0, 0, 1, 256]], [[0, 255, 1, 1, 64, 1]], batch):
+        for dt in (f32, f64, i32, bf16, torch.uint8):
+            src = rand(torch, gen, (64, 256), dt)
+            dst = rand(torch, gen, (96, 384), dt)
+            plan = pc.DmaPlan(descs, src.shape, dst.shape)
+            bitwise(torch, pc.dma_copy(src, dst.clone(), plan),
+                    ref.dma_copy_ref(src, dst.clone(), plan.descs),
+                    f"dma_copy {descs[0]} x{len(descs)} {dt}")
+            cases["dma_copy"] += 1
+    # reduce_combine: k in {2, 3, 5} x 4 ops x 6 dtypes, rows at a
+    # stride, more buffers than one launch takes, NaN for max/min
+    for dt in (f32, f64, bf16, torch.float16, i32, torch.int64):
+        for op in ("sum", "prod", "max", "min"):
+            for k in (2, 3, 5):
+                bufs = [torch.randn((40, 200), generator=gen,
+                                    device="cuda").to(dt)
+                        if dt.is_floating_point
+                        else rand(torch, gen, (40, 200), dt)
+                        for _ in range(k)]
+                bitwise(torch, rc.reduce_combine(bufs, op),
+                        ref.reduce_combine_ref(bufs, op),
+                        f"reduce_combine {dt} {op} k{k}")
+                cases["reduce_combine"] += 1
+    wide = rand(torch, gen, (16, 1000), f32)
+    blocks = [wide[:, 25 * t:25 * (t + 1)] for t in range(40)]
+    bitwise(torch, rc.reduce_combine(blocks, "sum"),
+            ref.reduce_combine_ref(blocks, "sum"), "reduce_combine k40")
+    nan = torch.tensor([[1.0, float("nan"), 3.0, -1.0, float("nan")]],
+                       device="cuda")
+    other = torch.tensor([[float("nan"), 2.0, 1.0, float("nan"), 0.5]],
+                         device="cuda")
+    for dt in (f32, bf16):
+        for op in ("max", "min"):
+            got = rc.reduce_combine([nan.to(dt), other.to(dt)], op)
+            bitwise(torch, got, ref.reduce_combine_ref(
+                [nan.to(dt), other.to(dt)], op), f"NaN {op} {dt}")
+            if int(torch.isnan(got).sum()) != 4:
+                raise AssertionError(f"NaN {op} {dt}: {got.tolist()}")
+    cases["reduce_combine"] += 6
+    # 64 MiB per buffer
+    big = rand(torch, gen, (16, 1 << 20), f32)
+    ring = torch.tensor([(i - 1) % 16 for i in range(16)], dtype=torch.int32,
+                        device="cuda")
+    bitwise(torch, pc.put_copy(big, ring), ref.put_copy_ref(big, ring),
+            "put_copy 64 MiB")
+    B = (1 << 20) // 16
+    plan = pc.DmaPlan([[p, ((p + t) % 16) * B, p, t * B, 1, B]
+                       for p in range(16) for t in range(16)],
+                      big.shape, big.shape)
+    bitwise(torch, pc.dma_copy(big, torch.empty_like(big), plan),
+            ref.dma_copy_ref(big, torch.empty_like(big), plan.descs),
+            "dma_copy 64 MiB")
+    big2 = rand(torch, gen, (16, 1 << 20), f32)
+    bitwise(torch, rc.reduce_combine([big, big2], "sum"),
+            ref.reduce_combine_ref([big, big2], "sum"),
+            "reduce_combine 64 MiB")
+    torch.cuda.synchronize()
+    log(f"  bit for bit with the plain versions: {cases} cases, plus "
+        f"strided/k40/NaN combines and 64 MiB buffers of each kernel")
+
+
+def time_runtime_kernels(torch, gen) -> dict:
+    """Each kernel at the shapes the 1 GiB bucket gives it on the main
+    path: put_copy = one delivery of the rd allreduce's first stage
+    (16 rows of 64 MiB), dma_copy = the ring reduce-scatter's
+    pre-rotation (256 descriptors of 4 MiB), reduce_combine = one rd
+    stage combine (two 1 GiB buffers).  The kernel alone is its C entry
+    called back to back; the plain version is `kernels/ref.py`; the
+    library call is one PyTorch op computing the same function."""
+    import ctypes
+    import numpy as np
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.pattern import xor_pattern
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import put_copy as pc
+    from repro_torch.kernels import reduce_combine as rc
+    n, L = 16, BUCKET_ELEMS
+    stream = torch.cuda.current_stream().cuda_stream
+    x = torch.randn((n, L), generator=gen, device="cuda")
+    nbytes = x.numel() * x.element_size()
+    out = {}
+
+    def row(name, err, ms, plain_ms, library_ms, moved, what):
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        log(f"  {name} at {what}: kernel {ms:.5f} ms, plain {plain_ms:.5f} "
+            f"ms, library {library_ms:.5f} ms; bound {bound:.5f} ms "
+            f"({moved} B at 3.35 TB/s), max|err| {err}")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound,
+                         bound_by="bytes")
+
+    lib = pc._library()
+    table = xor_pattern(n, 1).gather_table_device(x.device)
+    y = torch.empty_like(x)
+    got = pc.put_copy(x, table)
+    err = float((got - ref.put_copy_ref(x, table)).abs().max())
+    idx = table.long()
+    if not torch.equal(torch.index_select(x, 0, idx), got):
+        raise AssertionError("index_select != put_copy")
+    del got
+    row("put_copy",
+        err, time_ms(lambda: lib.repro_put_copy(
+            x.data_ptr(), y.data_ptr(), table.data_ptr(), n, L * 4, L * 4,
+            stream), iters=20, warmup=3),
+        time_ms(lambda: ref.put_copy_ref(x, table), iters=10, warmup=2),
+        time_ms(lambda: torch.index_select(x, 0, idx), iters=20, warmup=3),
+        2 * nbytes, "16 x 64 MiB f32, one delivery")
+
+    rank = np.arange(n)
+    plan = coll._plan("take", (rank[:, None] + rank) % n, 1, L // n, n, n)
+    got = pc.dma_copy(x, torch.empty_like(x), plan)
+    err = float((got - ref.dma_copy_ref(x, torch.empty_like(x),
+                                         plan.descs)).abs().max())
+    blk = torch.as_tensor((rank[:, None] + rank) % n, device="cuda")
+    pe = torch.arange(n, device="cuda")[:, None]
+    xv = x.view(n, n, L // n)
+    if not torch.equal(xv[pe, blk].reshape(n, L), got):
+        raise AssertionError("advanced indexing != dma_copy")
+    del got
+    segs = -(-(L // n * 4) // pc.SEG_BYTES)
+    descs = plan.on(x.device)
+    row("dma_copy",
+        err, time_ms(lambda: lib.repro_dma_copy(
+            x.data_ptr(), y.data_ptr(), descs.data_ptr(), len(plan), segs, 4,
+            L, L, stream), iters=20, warmup=3),
+        time_ms(lambda: ref.dma_copy_ref(x, y, plan.descs), iters=10,
+                warmup=2),
+        time_ms(lambda: xv[pe, blk], iters=20, warmup=3),
+        2 * nbytes, "16 x 64 MiB f32, 256 descriptors of 4 MiB")
+
+    clib = rc._library()
+    b = torch.randn((n, L), generator=gen, device="cuda")
+    got = rc.reduce_combine([x, b], "sum")
+    err = float((got - ref.reduce_combine_ref([x, b], "sum")).abs().max())
+    if not torch.equal(torch.add(x, b), got):
+        raise AssertionError("torch.add != reduce_combine")
+    del got
+    ptrs = (ctypes.c_void_p * 2)(x.data_ptr(), b.data_ptr())
+    lds = (ctypes.c_int64 * 2)(L, L)
+    row("reduce_combine",
+        err, time_ms(lambda: clib.repro_reduce_combine(
+            ptrs, lds, 2, y.data_ptr(), n, L, 0, 0, stream), iters=20,
+            warmup=3),
+        time_ms(lambda: ref.reduce_combine_ref([x, b], "sum"), iters=10,
+                warmup=2),
+        time_ms(lambda: torch.add(x, b, out=y), iters=20, warmup=3),
+        3 * nbytes, "two 16 x 64 MiB f32 buffers, sum")
+    del x, y, b
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the OpenSHMEM runtime on the card
+# ---------------------------------------------------------------------------
+
+def f32_sum_ok(np, got, x64) -> float:
+    """Largest |got - exact| over its bound (n-1) * 2^-24 * sum|x|, the
+    worst case of n f32 additions in any order; <= 1 passes."""
+    exact = x64.sum(0)
+    bound = (x64.shape[0] - 1) * 2.0 ** -24 * np.abs(x64).sum(0) + 1e-30
+    return float((np.abs(got.astype(np.float64) - exact) / bound).max())
+
+
+def runtime(torch, np) -> dict:
+    from repro_torch.configs import epiphany16 as paper
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import sim_ctx
+    from repro_torch.kernels import put_copy as pc
+    from repro_torch.kernels import reduce_combine as rc
+    n, topo = paper.N_PES, paper.TOPOLOGY
+    rng = np.random.default_rng(0)
+    ring = [(i, (i + 1) % n) for i in range(n)]
+    mirror = [(i, n - 1 - i) for i in range(n)]
+    want = {"put_copy": 0, "dma_copy": 0, "reduce_combine": 0}
+
+    def expect(ctx, stages_or_patterns, dma=0, combines=0):
+        """Launches one op must make: a put per ppermute (plus, under
+        NoC waves, a wave fold per multi-wave pattern), a DMA per block
+        gather, a combine per reduction stage."""
+        pats = [getattr(p, "pattern", p) for p in stages_or_patterns]
+        want["put_copy"] += len(pats)
+        want["dma_copy"] += dma
+        want["reduce_combine"] += combines
+        if getattr(ctx.net, "topo", None) is not None:
+            want["reduce_combine"] += sum(len(p.link_waves(topo)) > 1
+                                          for p in pats)
+
+    def exact(got, oracle, what):
+        g = got.cpu().numpy()
+        if g.shape != oracle.shape or not np.array_equal(g, oracle):
+            raise AssertionError(f"{what}: differs from numpy")
+
+    def close(got, x64, what):
+        ratio = f32_sum_ok(np, got.cpu().numpy(), x64)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{what}: f32 sum off by {ratio:.3g}x its "
+                                 f"bound")
+        return ratio
+
+    def with_rows(x, pairs):
+        out = x.copy()
+        for s, d in pairs:
+            out[d] = x[s]
+        return out
+
+    pc.launches = pc.dma_launches = rc.launches = 0     # phase 5 starts
+    t0 = time.perf_counter()
+    worst = 0.0
+    for noc in (False, True):
+        ctx = sim_ctx(n, topo, noc=noc, device="cuda")
+        for size in paper.MSG_SIZES:
+            e = size // 4
+            xi_h = rng.integers(-1000, 1000, (n, e), dtype=np.int32)
+            xf_h = rng.standard_normal((n, e), dtype=np.float32)
+            xi, xf = torch.from_numpy(xi_h).cuda(), \
+                torch.from_numpy(xf_h).cuda()
+            tag = f"noc={noc} {size} B"
+            exact(ctx.put(xi, ring), with_rows(xi_h, ring), f"put {tag}")
+            expect(ctx, [ctx.compile(ring)])
+            exact(ctx.get(xf, ring), np.roll(xf_h, -1, 0), f"get {tag}")
+            expect(ctx, [ctx._owner_push(ring)])
+            pats = [[(0, 5)], ring, mirror]
+            for p in pats:
+                ctx.put_nbi(xi, p)
+            for p, v in zip(pats, ctx.quiet()):
+                exact(v, with_rows(xi_h, p), f"put_nbi+quiet {tag}")
+            expect(ctx, [ctx.compile(p) for p in pats])
+            f1 = ctx.put_nbi(xi, [(0, 3)])
+            f2 = ctx.put_nbi(2 * xi, [(1, 3)])
+            if len(ctx.fence()) != 2 or f1.done or ctx.pending_count != 2:
+                raise AssertionError(f"fence completed ops {tag}")
+            ctx.quiet()
+            exact(f2.value, with_rows(2 * xi_h, [(1, 3)]), f"fence {tag}")
+            expect(ctx, [ctx.compile([(0, 3)]), ctx.compile([(1, 3)])])
+            tok = ctx.barrier_all(torch.ones(n, dtype=torch.int32,
+                                             device="cuda"))
+            exact(tok, np.full(n, n, np.int32), f"barrier_all {tag}")
+            expect(ctx, coll.barrier_schedule(n).stages)
+            exact(ctx.broadcast(xf, 5), np.tile(xf_h[5], (n, 1)),
+                  f"broadcast {tag}")
+            expect(ctx, coll.broadcast_schedule(n, 0.0, 5).stages)
+            allv = np.tile(xi_h.reshape(-1), (n, 1))
+            exact(ctx.fcollect(xi), allv, f"fcollect {tag}")
+            expect(ctx, coll.fcollect_schedule(n, 0.0, "rd").stages, dma=1)
+            exact(ctx.collect(xi), allv, f"collect {tag}")
+            expect(ctx, coll.fcollect_schedule(n, 0.0, "ring").stages, dma=1)
+            isum = np.tile(xi_h.sum(0, dtype=np.int64).astype(np.int32),
+                           (n, 1))
+            for algo, dma, comb in (("rd", 0, 4), ("ring", 2, n - 1)):
+                sched = coll.allreduce_schedule(n, 0.0, algo).stages
+                exact(ctx.to_all(xi, "sum", algorithm=algo), isum,
+                      f"to_all {algo} i32 {tag}")
+                expect(ctx, sched, dma=dma, combines=comb)
+                got = ctx.to_all(xf, "sum", algorithm=algo)
+                worst = max(worst, close(got, xf_h.astype(np.float64),
+                                         f"to_all {algo} f32 {tag}"))
+                expect(ctx, sched, dma=dma, combines=comb)
+            own, info = ctx.reduce_scatter(xi)
+            exact(coll.allgather_unpad(ctx.net, own, info), isum,
+                  f"reduce_scatter+allgather {tag}")
+            expect(ctx, coll.reduce_scatter_schedule(n).stages, dma=1,
+                   combines=n - 1)
+            expect(ctx, coll.allgather_schedule(n).stages, dma=1)
+            blk = max(1, e // n)
+            a_h = rng.integers(-99, 99, (n, n * blk), dtype=np.int32)
+            exact(ctx.alltoall(torch.from_numpy(a_h).cuda()),
+                  a_h.reshape(n, n, blk).transpose(1, 0, 2)
+                  .reshape(n, n * blk), f"alltoall {tag}")
+            expect(ctx, coll.alltoall_schedule(n).stages, dma=2)
+    torch.cuda.synchronize()
+    log(f"  paper sweep: {len(paper.MSG_SIZES)} sizes "
+        f"({paper.MSG_SIZES[0]} B .. {paper.MSG_SIZES[-1]} B per PE) x 2 "
+        f"nets x 14 ops checked against numpy in "
+        f"{time.perf_counter() - t0:.1f} s; worst f32 sum error "
+        f"{worst:.3f} of its bound")
+
+    # the trainer's 64 MiB-per-PE gradient bucket on 16 PEs
+    ctx = sim_ctx(n, topo, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xf = torch.randn((n, BUCKET_ELEMS), generator=gen, device="cuda")
+    xi = torch.randint(-1000, 1000, (n, BUCKET_ELEMS), generator=gen,
+                       device="cuda", dtype=torch.int32)
+    xf64 = xf.cpu().numpy().astype(np.float64)
+    isum = xi.cpu().numpy().sum(0, dtype=np.int64).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.setdefault(label, []).append(time.perf_counter() - t)
+        if not torch.equal(out, out[:1].expand_as(out)):
+            raise AssertionError(f"{label}: PEs disagree")
+        return out[0].cpu().numpy()
+
+    rs_ag = lambda v: coll.allgather_unpad(  # noqa: E731
+        ctx.net, *ctx.reduce_scatter(v))
+    runs = [(algo, (lambda v, a=algo: ctx.to_all(v, "sum", algorithm=a)),
+             coll.allreduce_schedule(n, 0.0, algo).stages, dma, comb)
+            for algo, dma, comb in (("rd", 0, 4), ("ring", 2, n - 1))]
+    runs.append(("rs+ag", rs_ag, coll.reduce_scatter_schedule(n).stages
+                 + coll.allgather_schedule(n).stages, 2, n - 1))
+    for label, fn, stages, dma, comb in runs:
+        for _ in range(2):
+            got = timed(f"{label} i32", lambda: fn(xi))
+            if not np.array_equal(got, isum):
+                raise AssertionError(f"bucket {label} i32 differs")
+            expect(ctx, stages, dma=dma, combines=comb)
+            got = timed(f"{label} f32", lambda: fn(xf))
+            ratio = f32_sum_ok(np, got, xf64)
+            if not ratio <= 1.0:
+                raise AssertionError(f"bucket {label} f32 off by {ratio}x")
+            expect(ctx, stages, dma=dma, combines=comb)
+    peak = torch.cuda.max_memory_allocated()
+    got = {"put_copy": pc.launches, "dma_copy": pc.dma_launches,
+           "reduce_combine": rc.launches}                # phase 5 ends
+    for label, ws in walls.items():
+        log(f"  bucket 16 x 64 MiB {label}: wall "
+            + ", ".join(f"{w * 1e3:.3f}" for w in ws) + " ms")
+    log(f"  bucket peak device memory {peak / 2**30:.3f} GiB (inputs "
+        f"2 x 1 GiB); launches {got}, implied by the schedules {want}")
+    for name in want:
+        if got[name] != want[name] or got[name] < 1:
+            raise AssertionError(f"{name}: {got[name]} launches, the "
+                                 f"schedules imply {want[name]}")
+    small_op_walls(torch, ctx, n, ring)
+    return got
+
+
+def small_op_walls(torch, ctx, n, ring) -> None:
+    """Wall time of single calls at the paper's smallest and largest
+    message sizes (synchronised host clock, median of 21): what one
+    launch-bound collective costs on the card's host."""
+    import statistics
+    for size in (8, 16384):
+        x = torch.ones((n, size // 4), dtype=torch.int32, device="cuda")
+        ops = {"put": lambda: ctx.put(x, ring),
+               "barrier_all": lambda: ctx.barrier_all(),
+               "to_all rd": lambda: ctx.to_all(x, "sum", algorithm="rd"),
+               "to_all ring": lambda: ctx.to_all(x, "sum",
+                                                 algorithm="ring"),
+               "fcollect": lambda: ctx.fcollect(x)}
+        walls = {}
+        for name, fn in ops.items():
+            ts = []
+            for _ in range(21):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t)
+            walls[name] = statistics.median(ts) * 1e3
+        log(f"  {size} B per PE, median wall ms: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()))
+
+
 def main() -> int:
     try:
         import torch
@@ -355,12 +808,15 @@ def main() -> int:
     log(f"  card: {torch.cuda.get_device_name(0)} ({card}), "
         f"{torch.cuda.device_count()} visible")
     t = time.perf_counter()
-    libs = {name: _build.build(name) for name in KERNELS}
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
+        libs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     log(f"  built {KERNELS} in {time.perf_counter() - t:.1f} s")
     for name, path in libs.items():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+        report = path.with_suffix(".log").read_text()
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", report)]
+        spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", report))
+        log(f"    {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+            f"registers, {spills} bytes of spill (nvcc -Xptxas -v)")
 
     log("== phase 2: kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -372,6 +828,13 @@ def main() -> int:
     prefill_logits_check(torch, np, ref, layers, eng, prompts, serving,
                          ServeEngine)
 
+    log("== phase 4: runtime kernels against their plain versions")
+    check_runtime_kernels(torch, gen)
+    rt_timing = time_runtime_kernels(torch, gen)
+
+    log("== phase 5: the OpenSHMEM runtime on 16 PEs")
+    rt_launches = runtime(torch, np)
+
     kernels = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -380,6 +843,13 @@ def main() -> int:
         max_abs_err=timing["max_abs_err"], ms=timing["ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"])]
+    for name, source, replaces in RUNTIME_KERNELS:
+        t = rt_timing[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=rt_launches[name], max_abs_err=t["max_abs_err"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")

@@ -1,4 +1,6 @@
-"""repro_torch: the PyTorch/CUDA port of the `repro` model-serving stack.
+"""repro_torch: the PyTorch/CUDA port of `repro`: the paper's OpenSHMEM
+runtime on the SIM backend (`core/`: patterns, teams, the §3.6
+collectives, ShmemContext) and the model-serving stack.
 
 Module names and layout follow `repro` so that each counterpart is easy to
 find.  Entry points run on the CUDA card unless the caller passes

@@ -1,4 +1,5 @@
-"""Symmetric heap: the paper's §3.2 brk/sbrk bump allocator.
+"""Symmetric heap: the paper's §3.2 brk/sbrk bump allocator, plus tree
+packing onto one flat buffer (many small reductions fuse into one).
 
 Rules enforced exactly as in the paper:
   1. free() must be called in reverse order of allocation when followed by
@@ -8,11 +9,19 @@ Rules enforced exactly as in the paper:
 
 There is no virtual-address abstraction: an allocation *is* an offset into
 one flat symmetric buffer, identical on every PE.  The serving engine's KV
-pages are such offsets (serve/kv.py).
+pages are such offsets (serve/kv.py).  `pack`/`unpack` lay a tree of
+tensors (dicts, lists and tuples of them) out on such a buffer: the
+alpha term of one large reduction is paid once, not per leaf — the
+paper's small-message lesson.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
+from typing import Any
+
+import torch
 
 
 class HeapError(RuntimeError):
@@ -85,3 +94,88 @@ class SymmetricHeap:
 
     def live_bytes(self) -> int:
         return self._brk
+
+
+# ---------------------------------------------------------------------------
+# tree packing onto a symmetric flat buffer
+# ---------------------------------------------------------------------------
+
+def tree_flatten(tree) -> tuple[list, Any]:
+    """Leaves of a tree of dicts (keys in sorted order, as JAX orders
+    them), lists and tuples, and the structure to rebuild it."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        subs = [tree_flatten(tree[k]) for k in keys]
+        return ([l for ls, _ in subs for l in ls],
+                ("dict", tuple(keys), tuple(d for _, d in subs)))
+    if isinstance(tree, (list, tuple)):
+        subs = [tree_flatten(v) for v in tree]
+        return ([l for ls, _ in subs for l in ls],
+                (type(tree), None, tuple(d for _, d in subs)))
+    return [tree], None
+
+
+def _build(treedef, leaves) -> Any:
+    if treedef is None:
+        return next(leaves)
+    kind, keys, subs = treedef
+    vals = [_build(s, leaves) for s in subs]
+    return dict(zip(keys, vals)) if kind == "dict" else kind(vals)
+
+
+def tree_unflatten(treedef, leaves) -> Any:
+    # a module-level recursion: a nested recursive closure would form a
+    # reference cycle holding `leaves` (large tensors) until the cyclic
+    # garbage collector ran
+    return _build(treedef, iter(leaves))
+
+
+@dataclasses.dataclass(frozen=True)
+class PackSpec:
+    treedef: Any
+    shapes: tuple[tuple[int, ...], ...]
+    dtypes: tuple[torch.dtype, ...]
+    offsets: tuple[int, ...]     # element offsets in the flat buffer
+    total: int                   # total elements (padded)
+    dtype: torch.dtype           # buffer dtype
+
+
+def plan_pack(tree, dtype=None, align_elems: int = 128) -> PackSpec:
+    """Lay a tree out on a flat symmetric buffer; each leaf starts at a
+    multiple of `align_elems` elements and the total is padded to one."""
+    leaves, treedef = tree_flatten(tree)
+    if dtype is None:
+        dtype = functools.reduce(torch.promote_types,
+                                 [l.dtype for l in leaves])
+    shapes, dtypes, offsets = [], [], []
+    off = 0
+    for l in leaves:
+        shapes.append(tuple(l.shape))
+        dtypes.append(l.dtype)
+        off = -(-off // align_elems) * align_elems
+        offsets.append(off)
+        off += math.prod(l.shape)
+    total = -(-off // align_elems) * align_elems
+    return PackSpec(treedef, tuple(shapes), tuple(dtypes), tuple(offsets),
+                    total, dtype)
+
+
+def pack(tree, spec: PackSpec) -> torch.Tensor:
+    """The flat buffer of `tree` laid out by `spec`; gaps are zero."""
+    leaves, _ = tree_flatten(tree)
+    device = leaves[0].device if leaves else None
+    buf = torch.zeros((spec.total,), dtype=spec.dtype, device=device)
+    for l, off in zip(leaves, spec.offsets):
+        flat = l.reshape(-1)
+        buf[off:off + flat.numel()] = flat.to(spec.dtype)
+    return buf
+
+
+def unpack(buf: torch.Tensor, spec: PackSpec):
+    """The tree `pack` laid out; a leaf whose dtype is the buffer's is a
+    view of `buf`, not a copy."""
+    leaves = []
+    for shape, dt, off in zip(spec.shapes, spec.dtypes, spec.offsets):
+        n = math.prod(shape)
+        leaves.append(buf[off:off + n].reshape(shape).to(dt))
+    return tree_unflatten(spec.treedef, leaves)

@@ -1,13 +1,20 @@
-"""Public ops over the kernels: each pads its inputs to the kernel's tile
-multiples (the ragged edge is masked through `lk_valid`), calls the
-kernel's wrapper, and slices the padding off.  The wrapper decides by the
-tensors' device: the plain version for CPU tensors, the kernel for CUDA
-tensors.  Forward only: the serving path takes no gradients."""
+"""Public ops over the kernels, with the signatures of
+`repro.kernels.ops`.  The wrapper decides by the tensors' device: the plain
+version for CPU tensors, the kernel for CUDA tensors.
+
+`attention` pads its inputs to the kernel's tile multiples (the ragged
+edge is masked through `lk_valid`) and slices the padding off.  The copy
+and combine kernels handle any row length and region themselves (a scalar
+edge path where 16-byte vectors do not fit), so `put_copy`, `dma_copy`
+and `reduce_combine` need no edge padding, which the TPU kernels needed
+for their (32, 128) tiles.  Forward only: nothing here takes gradients."""
 from __future__ import annotations
 
 import torch.nn.functional as F
 
 from . import flash_attention as _fa
+from . import put_copy as _pc
+from . import reduce_combine as _rc
 
 
 def _pad_seq(x, mult: int):
@@ -34,3 +41,26 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
         _pad_seq(q, bq), _pad_seq(k, bk), _pad_seq(v, bk), causal=causal,
         window=window, softcap=softcap, sm_scale=sm_scale, lk_valid=lk)
     return out[:, :, :lq]
+
+
+def put_copy(src):
+    """The shmem_put byte mover: an identity copy of `src` (any shape of
+    at least one dim), through the row-copy kernel."""
+    if src.dim() == 0:
+        raise ValueError("put_copy needs at least one dim")
+    x2 = src.reshape(-1, src.shape[-1]) if src.dim() != 2 else src
+    return _pc.put_copy(x2).reshape(src.shape)
+
+
+def dma_copy(src, dst, *, src_origin, dst_origin, region):
+    """2D strided descriptor copy: `region` of 2D `src` at `src_origin`
+    into a copy of 2D `dst` at `dst_origin`; returns the updated copy."""
+    (sr, sc), (dr, dc), (nr, nc) = src_origin, dst_origin, region
+    plan = _pc.DmaPlan([[sr, sc, dr, dc, nr, nc]], src.shape, dst.shape)
+    return _pc.dma_copy(src, dst.clone(), plan)
+
+
+def reduce_combine(bufs, op: str = "sum"):
+    """Elementwise `op` (sum, prod, max, min) folded over k >= 2
+    same-shape buffers in order."""
+    return _rc.reduce_combine(bufs, op)

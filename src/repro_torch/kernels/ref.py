@@ -38,3 +38,37 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vv.float())
     return out.to(q.dtype)
+
+
+def put_copy_ref(src, rows=None):
+    """Output row i = ``src[rows[i]]``, zeros where ``rows[i]`` is -1;
+    ``rows=None`` is the identity copy (`repro.kernels.ref.put_copy_ref`)."""
+    if rows is None:
+        return src.clone(memory_format=torch.contiguous_format)
+    rows = rows.long()
+    out = src[rows.clamp(min=0)]
+    out[rows < 0] = 0
+    return out
+
+
+def dma_copy_ref(src, dst, descs):
+    """Each descriptor ``(sr, sc, dr, dc, nr, nc)`` copies
+    ``src[sr:sr+nr, sc:sc+nc]`` into ``dst[dr:dr+nr, dc:dc+nc]``, in order,
+    IN PLACE; the rest of dst keeps its values.  Returns dst."""
+    for sr, sc, dr, dc, nr, nc in descs.tolist():
+        dst[dr:dr + nr, dc:dc + nc] = src[sr:sr + nr, sc:sc + nc]
+    return dst
+
+
+COMBINE_OPS = {"sum": torch.add, "prod": torch.mul,
+               "max": torch.maximum, "min": torch.minimum}
+
+
+def reduce_combine_ref(bufs, op: str = "sum"):
+    """``op`` folded over `bufs` in order from ``bufs[0]``, each step in
+    the storage dtype (`repro.kernels.ref.reduce_combine_ref`)."""
+    fn = COMBINE_OPS[op]
+    acc = bufs[0]
+    for b in bufs[1:]:
+        acc = fn(acc, b)
+    return acc.clone() if acc is bufs[0] else acc

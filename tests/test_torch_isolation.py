@@ -1,6 +1,6 @@
 """The port stands alone: no file of `src/repro_torch/` and not
-`chip_smoke.py` imports jax or the JAX package, and the serving path runs
-in a process where neither can be imported."""
+`chip_smoke.py` imports jax or the JAX package, and the serving path and
+the runtime run in a process where neither can be imported."""
 import ast
 import os
 import subprocess
@@ -28,8 +28,9 @@ def _imported_roots(path: Path):
 
 def test_port_files_exist():
     assert len(FILES) > 15
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-            / "flash_attention.cu").is_file()
+    for name in ("flash_attention", "put_copy", "reduce_combine"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+                / f"{name}.cu").is_file()
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -62,3 +63,26 @@ def test_serving_runs_without_jax_or_repro():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert "ALONE-OK" in r.stdout
+
+
+RUNTIME_BLOCKED = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "repro"):
+        sys.modules[name] = None          # any import of them now fails
+    import torch
+    from repro_torch.core import sim_ctx
+    ctx = sim_ctx(4, device="cpu")
+    x = torch.arange(12, dtype=torch.int32).reshape(4, 3)
+    for algo in ("rd", "ring"):
+        out = ctx.to_all(x, "sum", algorithm=algo)
+        assert torch.equal(out, x.sum(0, dtype=torch.int32).expand(4, 3))
+    print("RUNTIME-ALONE-OK")
+""")
+
+
+def test_runtime_runs_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", RUNTIME_BLOCKED], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "RUNTIME-ALONE-OK" in r.stdout
