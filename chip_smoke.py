@@ -8,7 +8,8 @@ Phases; any failure exits non-zero before the result line is printed:
      limit, and the build of every kernel from the sources in this
      checkout (one nvcc per source, all started together);
   2. kernels — each kernel against its plain PyTorch version on the card,
-     at the serving path's shapes and over a grid of edge cases, with the
+     at the serving and training paths' shapes and over a grid of edge
+     cases, with the
      tolerance stated per dtype; then timed beside its plain version and
      one PyTorch library call (a yardstick the port never calls);
   3. serve — qwen2-0.5b at full width (24 layers, vocab 151936) with
@@ -36,7 +37,18 @@ Phases; any failure exits non-zero before the result line is printed:
      reduce_scatter + allgather_unpad.  Every launch count is set to 0
      just before this phase and read just after; each must equal the
      count the runtime's own schedules imply.  Then the wall time of a
-     few single calls at 8 B and 16 KB per PE.
+     few single calls at 8 B and 16 KB per PE;
+  6. train — (a) the combine + AdamW kernel (kernel 5) bit for bit
+     against its plain version over k, lengths, offsets, masks, output
+     dtypes and extreme gradients, then timed at the 16-PE bucket and at
+     the full-width step; (b) fused_rs_adam on 16 PEs at the 64 MiB-per-PE
+     bucket, bit for bit against reduce_scatter + allgather_unpad + the
+     plain AdamW; (c) qwen2-0.5b trained at full width, N steps through
+     the launcher (default sync) and N through the fused sync, losses
+     finite and falling, launch counts equal to their formulas; (d) one
+     gradient tree through apply_updates and through fused_adam_sync, bit
+     for bit; (e) the loss and gradients through the flash kernel against
+     those through the plain attention, in f32 and bf16.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi gives them, and
@@ -55,7 +67,8 @@ from pathlib import Path
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ["flash_attention", "put_copy", "reduce_combine"]
+KERNELS = ["flash_attention", "put_copy", "reduce_combine",
+           "fused_update"]
 
 # published peaks of one H100 SXM (dense): bytes over 3.35 TB/s, products
 # over the tensor-core rate of their type (bf16) or the f32 CUDA-core rate
@@ -128,6 +141,10 @@ def attention_cases():
              ("slice_noncausal", 1, 2, 7, 128, 256, 64, "bfloat16",
               dict(causal=False)),
              ("slice_f32", 1, 2, 7, 128, 256, 64, "float32",
+              dict(causal=True)),
+             # the training step's shape (one microbatch of TRAIN_RUN)
+             ("train", 2, 2, 7, 128, 128, 64, "bfloat16", dict(causal=True)),
+             ("train_f32", 2, 2, 7, 128, 128, 64, "float32",
               dict(causal=True))]
     for kw in ATTN_CASES:
         for lq, lk, group in [(64, 64, 2), (100, 100, 1), (32, 96, 4)]:
@@ -157,6 +174,13 @@ def mask_counts(lq: int, lk: int, causal: bool, window) -> tuple[int, int]:
     return pairs, max(0, hi_max - lo_min + 1)
 
 
+def ulp(torch, x):
+    """The spacing of x's dtype at each element's magnitude, in f32."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.full_like(x, torch.finfo(x.dtype).eps,
+                                       dtype=torch.float32), e - 1)
+
+
 def check_attention(torch, ops, ref, gen) -> dict:
     worst = {}
     for label, b, hkv, group, lq, lk, d, dtype, kw in attention_cases():
@@ -171,15 +195,23 @@ def check_attention(torch, ops, ref, gen) -> dict:
                                  f"{want.shape}/{want.dtype}")
         if not torch.isfinite(out).all():
             raise AssertionError(f"{label} {kw}: non-finite output")
-        err = (out.float() - want.float()).abs().max().item()
+        diff = (out.float() - want.float()).abs()
+        err = diff.max().item()
         tol = TOL[str(dt)]
+        # an output rounded to its dtype cannot be held closer than one
+        # step of that dtype at its own magnitude: the limit of an element
+        # is the larger of `tol` and that step (for bf16 they differ only
+        # where |want| >= 4, where the step is 2^-5 = 0.03125)
+        limit = torch.maximum(torch.full_like(diff, tol), ulp(torch, want))
+        over = (diff / limit).max().item()
         typical = want.float().abs().mean().item()
         log(f"  attention {label:16s} {dtype:8s} B{b} Hq{hkv * group} "
             f"Hkv{hkv} Lq{lq} Lk{lk} D{d} {kw}: max|err| {err:.3e} "
-            f"(tol {tol:g}, mean|out| {typical:.3f})")
-        if not err <= tol:
-            raise AssertionError(f"{label} {dtype} {kw}: max|err| {err} > "
-                                 f"{tol}")
+            f"(tol {tol:g} or 1 ulp, worst err/limit {over:.3f}, mean|out| "
+            f"{typical:.3f})")
+        if not over <= 1.0:
+            raise AssertionError(f"{label} {dtype} {kw}: max|err| {err}, "
+                                 f"err/limit {over} > 1")
         if not typical > 10 * tol:
             raise AssertionError(f"{label} {dtype}: mean|out| {typical} is "
                                  f"not far above the tolerance {tol}")
@@ -776,6 +808,442 @@ def small_op_walls(torch, ctx, n, ring) -> None:
             + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training — kernel 5, the fused bucket, full-width steps
+# ---------------------------------------------------------------------------
+
+ADAM_HP = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd_coef=0.1)
+# offsets (elements) of g_0.., p, m, v, mask into larger buffers: all
+# aligned (the vector path), all odd or mixed (the outputs are aligned,
+# so the scalar path); the strided (16, cols) cases below reach the
+# vector path after a head
+OFFSETS = {"aligned": lambda i: 0, "odd": lambda i: 1,
+           "mixed": lambda i: 1 + i % 3}
+# tolerances of phase 6e: the loss through the kernel relative to the
+# loss through the plain attention, and every gradient leaf relative to
+# its own max |value|.  f32: 1e-5 and 1e-3.  bf16: set from the readings
+# of the H100 runs (loss rel 1.068e-4, worst leaf 3.585e-2, identical in
+# each run), at about 9x and 3x above them
+GRAD_RTOL = {"torch.float32": (1e-5, 1e-3), "torch.bfloat16": (1e-3, 0.1)}
+
+
+def adam_inputs(torch, gen, k, n, mode, g_scale=1.0, zero=False):
+    """k gradient chunks, p, m and v of length n, each a view at its
+    OFFSETS[mode] element offset into a larger buffer (zero gradients and
+    moments with `zero`), and a function placing a mask the same way."""
+    off = OFFSETS[mode]
+
+    def at(i, x):
+        buf = torch.empty(n + 8, dtype=x.dtype, device="cuda")
+        buf[off(i):off(i) + n] = x
+        return buf[off(i):off(i) + n]
+
+    def rnd(scale):
+        return torch.randn(n, generator=gen, device="cuda") * scale
+
+    gs = [at(i, torch.zeros(n, device="cuda") if zero else rnd(g_scale))
+          for i in range(k)]
+    p = at(k, rnd(1.0))
+    m = at(k + 1, torch.zeros(n, device="cuda") if zero else rnd(0.1))
+    v = at(k + 2, torch.zeros(n, device="cuda") if zero
+           else rnd(0.01).abs())
+    return gs, p, m, v, lambda mask: at(k + 3, mask)
+
+
+def check_fused_update(torch) -> None:
+    """Kernel 5 against its plain version, bit for bit: k 1-4; n 1, 7,
+    1000, 1003, 2^20+3; aligned, odd and mixed offsets; f32 and bf16 out;
+    t 1 and 1000 with scales 4 and 3; masks all zero, all one and
+    alternating; (16, cols) chunks with strided gradient rows; then zero
+    gradients and moments, and |g| up to 1e18."""
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = 0
+
+    def one(gs, p, m, v, w, t, scale, out, what):
+        nonlocal cases
+        c1 = torch.tensor(1 - 0.9 ** t, device="cuda")
+        c2 = torch.tensor(1 - 0.95 ** t, device="cuda")
+        kw = dict(scale=scale, out_dtype=out, **ADAM_HP)
+        got = fu.fused_adam(gs, p, m, v, w, c1, c2, **kw)
+        want = ref.fused_adam_ref(gs, p, m, v, w, c1, c2, **kw)
+        for name, a, b in zip("pmv", got, want):
+            bitwise(torch, a, b, f"fused_update {what} {name}")
+        cases += 1
+
+    for k in (1, 2, 3, 4):
+        for n in (1, 7, 1000, 1003, (1 << 20) + 3):
+            for mode in OFFSETS:
+                gs, p, m, v, at = adam_inputs(torch, gen, k, n, mode)
+                masks = {"zero": torch.zeros(n, dtype=torch.int8,
+                                             device="cuda"),
+                         "one": torch.ones(n, dtype=torch.int8,
+                                           device="cuda"),
+                         "alt": (torch.arange(n, device="cuda") % 2).to(
+                             torch.int8)}
+                for mname, mask in masks.items():
+                    w = at(mask)
+                    for t, scale in ((1, 4.0), (1000, 3.0)):
+                        for out in (torch.float32, torch.bfloat16):
+                            one(gs, p, m, v, w, t, scale, out,
+                                f"k{k} n{n} {mode} {mname} t{t} {out}")
+    # PE-stacked (rows, cols) chunks, the gradients column blocks of a
+    # wider buffer (as the ring's last local partial): ragged rows start
+    # at every alignment, so rows take the vector path after a head, or
+    # the scalar path
+    for k in (1, 2, 4):
+        for cols in (1000, 1003, (1 << 16) + 3):
+            wide = torch.randn((16, k * cols + 1), generator=gen,
+                               device="cuda")
+            gs = [wide[:, 1 + j * cols:1 + (j + 1) * cols] for j in range(k)]
+            p, m, v = (torch.randn((16, cols), generator=gen, device="cuda")
+                       for _ in range(3))
+            v = v.abs()
+            w = (torch.arange(16 * cols, device="cuda") % 3 == 0).to(
+                torch.int8).reshape(16, cols)
+            for out in (torch.float32, torch.bfloat16):
+                one(gs, p, m, v, w, 1000, 16.0, out,
+                    f"k{k} 16 x {cols} strided {out}")
+    for k in (1, 4):
+        for g_scale, zero in ((1e18, False), (1e9, False), (1.0, True)):
+            gs, p, m, v, at = adam_inputs(torch, gen, k, 1003, "odd",
+                                          g_scale, zero)
+            w = at((torch.arange(1003, device="cuda") % 2).to(torch.int8))
+            for out in (torch.float32, torch.bfloat16):
+                one(gs, p, m, v, w, 1, 1.0, out,
+                    f"k{k} |g|~{g_scale:g} zero={zero} {out}")
+    torch.cuda.synchronize()
+    log(f"  fused_update: {cases} cases bit for bit with the plain version "
+        f"(p, m, v)")
+
+
+def time_fused_update(torch, n_params: int) -> dict:
+    """Kernel 5 at the two shapes the training paths give it: the 16-PE
+    bucket (k 2, 16 rows of 1,048,576) and the full-width step (k 1,
+    every parameter once).  The kernel alone is its C entry called back
+    to back; the plain version is `ref.fused_adam_ref`; no single PyTorch
+    call computes the function (library: none)."""
+    import ctypes
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lib = fu._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for label, k, rows, cols in (("bucket16", 2, 16, 1 << 20),
+                                 ("full", 1, 1, n_params)):
+        gs = [torch.randn((rows, cols), generator=gen, device="cuda")
+              for _ in range(k)]
+        p = torch.randn((rows, cols), generator=gen, device="cuda")
+        m = torch.randn((rows, cols), generator=gen, device="cuda") * 0.1
+        v = torch.rand((rows, cols), generator=gen, device="cuda") * 0.01
+        w = (torch.arange(cols, device="cuda") % 2).to(torch.int8) \
+            .expand(rows, cols).contiguous()
+        hyper = torch.tensor([1 - 0.9 ** 10, 1 - 0.95 ** 10], device="cuda")
+        kw = dict(scale=float(k), out_dtype=torch.float32, **ADAM_HP)
+        got = fu.fused_adam(gs, p, m, v, w, hyper[0], hyper[1], **kw)
+        want = ref.fused_adam_ref(gs, p, m, v, w, hyper[0], hyper[1], **kw)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        del want
+        po, mo, vo = got
+        args = ((ctypes.c_void_p * k)(*[g.data_ptr() for g in gs]),
+                (ctypes.c_int64 * k)(*[cols] * k), k, p.data_ptr(),
+                m.data_ptr(), v.data_ptr(), w.data_ptr(), hyper.data_ptr(),
+                po.data_ptr(), mo.data_ptr(), vo.data_ptr(), rows, cols, 0,
+                ADAM_HP["lr"], ADAM_HP["b1"], ADAM_HP["b2"],
+                1.0 - ADAM_HP["b1"], 1.0 - ADAM_HP["b2"], ADAM_HP["eps"],
+                ADAM_HP["wd_coef"], float(k), stream)
+        iters = 50 if label == "bucket16" else 10
+        ms = time_ms(lambda: lib.repro_fused_adam(*args), iters=iters,
+                     warmup=3)
+        plain_ms = time_ms(lambda: ref.fused_adam_ref(
+            gs, p, m, v, w, hyper[0], hyper[1], **kw), iters=5, warmup=1)
+        nbytes = rows * cols * (4 * k + 13 + 12)
+        flops = rows * cols * (k + 14)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_OPS_PER_S["torch.float32"] * 1e3
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, bound_ms=max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops
+                          else "operations")
+        log(f"  fused_update {label} (k {k}, {rows} x {cols} f32): kernel "
+            f"{ms:.5f} ms, plain {plain_ms:.5f} ms, library none; bound "
+            f"{max(t_bytes, t_ops):.5f} ms ({nbytes} B at 3.35 TB/s), "
+            f"max|err| {err}")
+        del gs, p, m, v, w, got, po, mo, vo
+        torch.cuda.empty_cache()
+    return out
+
+
+def fused_bucket(torch, np) -> dict:
+    """fused_rs_adam + allgather_unpad on the paper's 16 PEs at the
+    trainer's 64 MiB-per-PE f32 bucket, bit for bit against
+    reduce_scatter + allgather_unpad + the plain AdamW on full moments
+    (`tests/test_fused.py`'s identity contract, with nonzero moments and
+    t 1000); each PE's owned moment chunks against the matching slices.
+    Returns the launch counts of the fused call."""
+    from repro_torch.configs import epiphany16 as paper
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import fusion, sim_ctx
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import put_copy as pc
+    from repro_torch.kernels import reduce_combine as rc
+    from repro_torch.kernels import ref
+    n, L = paper.N_PES, BUCKET_ELEMS
+    chunk = -(-L // n)
+    net = sim_ctx(n, paper.TOPOLOGY, device="cuda").net
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    g = torch.randn((n, L), generator=gen, device="cuda")
+    p = torch.randn(L, generator=gen, device="cuda").expand(n, L) \
+        .contiguous()
+    wd = (torch.arange(L, device="cuda") % 3 == 0).to(torch.int8)
+    m = torch.randn((n, chunk), generator=gen, device="cuda") * 0.1
+    v = torch.rand((n, chunk), generator=gen, device="cuda") * 0.01
+    c1 = torch.tensor(1 - 0.9 ** 1000, device="cuda")
+    c2 = torch.tensor(1 - 0.95 ** 1000, device="cuda")
+    kw = dict(scale=float(n), out_dtype=torch.float32, **ADAM_HP)
+
+    def fused():
+        new_p, new_m, new_v, info = fusion.fused_rs_adam(
+            net, g, p, m, v, wd, c1, c2, **kw)
+        return coll.allgather_unpad(net, new_p, info), new_m, new_v
+
+    torch.cuda.synchronize()
+    pc.launches = pc.dma_launches = rc.launches = fu.launches = 0
+    full, new_m, new_v = fused()                  # the path's one call
+    torch.cuda.synchronize()
+    got = {"put_copy": pc.launches, "dma_copy": pc.dma_launches,
+           "reduce_combine": rc.launches, "fused_update": fu.launches}
+    stages = len(coll.reduce_scatter_schedule(n).stages)
+    want = {"put_copy": stages + len(coll.allgather_schedule(n).stages),
+            "dma_copy": 2, "reduce_combine": stages - 1, "fused_update": 1}
+    if got != want:
+        raise AssertionError(f"fused bucket launches {got}, the schedules "
+                             f"imply {want}")
+
+    own = (torch.arange(n, device="cuda") + 1) % n
+    m_full = torch.zeros(chunk * n, device="cuda")
+    v_full = torch.zeros(chunk * n, device="cuda")
+    m_full.view(n, chunk)[own] = m
+    v_full.view(n, chunk)[own] = v
+    g_sum = coll.allgather_unpad(net, *coll.reduce_scatter(net, g))
+    want_p, want_m, want_v = ref.fused_adam_ref(
+        [g_sum], p, m_full[:L].expand(n, L), v_full[:L].expand(n, L),
+        wd.expand(n, L), c1, c2, **kw)
+    del g_sum
+    bitwise(torch, full, want_p, "fused bucket p")
+    if not torch.equal(full, full[:1].expand_as(full)):
+        raise AssertionError("fused bucket: PEs disagree")
+    idx = own[:, None] * chunk + torch.arange(chunk, device="cuda")
+    bitwise(torch, new_m, torch.gather(want_m, 1, idx), "fused bucket m")
+    bitwise(torch, new_v, torch.gather(want_v, 1, idx), "fused bucket v")
+    del want_p, want_m, want_v, full
+    walls = {}
+    for label, fn in (("fused", fused), ("unfused", lambda: ref.fused_adam_ref(
+            [coll.allgather_unpad(net, *coll.reduce_scatter(net, g))], p,
+            m_full[:L].expand(n, L), v_full[:L].expand(n, L),
+            wd.expand(n, L), c1, c2, **kw))):
+        ts = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        walls[label] = ts
+    log(f"  fused_rs_adam on 16 PEs x 64 MiB f32: bit for bit with "
+        f"reduce_scatter + allgather_unpad + plain AdamW (p, owned m, v); "
+        f"launches {got}; wall ms fused "
+        + ", ".join(f"{w:.3f}" for w in walls["fused"]) + ", unfused "
+        + ", ".join(f"{w:.3f}" for w in walls["unfused"]))
+    del g, p, m, v, m_full, v_full
+    torch.cuda.empty_cache()
+    return got
+
+
+def _counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import put_copy as pc
+    from repro_torch.kernels import reduce_combine as rc
+    return {"flash_attention": fa.launches, "put_copy": pc.launches,
+            "dma_copy": pc.dma_launches, "reduce_combine": rc.launches,
+            "fused_update": fu.launches}
+
+
+def _reset_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import put_copy as pc
+    from repro_torch.kernels import reduce_combine as rc
+    fa.launches = pc.launches = pc.dma_launches = rc.launches = 0
+    fu.launches = 0
+
+
+def train(torch, np, serving) -> dict:
+    """6c: qwen2-0.5b at full width, TRAIN_RUN's steps through the
+    launcher (default sync: apply_updates) and as many through
+    build_train_step(grad_rs="fused") from the same seed-0 weights.
+    Returns the launch counts of both runs and what 6d needs."""
+    from repro_torch.core.heap import tree_flatten
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as tstep
+    cfg, run = serving.CONFIG, serving.TRAIN_RUN
+    steps, tokens = run["steps"], run["seq_len"] * run["batch"]
+    per_step_fa = 2 * cfg.n_layers * cfg.microbatches
+
+    def report(label, losses, walls, peak, counts):
+        tok_s = tokens * (len(walls) - 1) / sum(walls[1:])
+        log(f"  train {label}: {steps} steps, losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; step wall ms " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+            + f"; {tok_s:.1f} train tok/s (steps 2..{steps}); peak device "
+            f"memory {peak / 2**30:.3f} GiB; launches {counts}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train {label}: non-finite loss")
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"train {label}: loss did not fall")
+        if counts["flash_attention"] != per_step_fa * steps:
+            raise AssertionError(
+                f"train {label}: flash_attention launched "
+                f"{counts['flash_attention']} times, want 2 x "
+                f"{cfg.n_layers} x {cfg.microbatches} x {steps}")
+
+    argv = ["--arch", "qwen2-0.5b", "--steps", str(steps), "--seq-len",
+            str(run["seq_len"]), "--batch", str(run["batch"]), "--lr",
+            str(run["lr"]), "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                                 # path (i) starts
+    res = train_mod.run(argv)
+    torch.cuda.synchronize()
+    counts_i = _counts()                            # path (i) ends
+    report("(i) launcher, default sync", res.losses, res.step_s,
+                   torch.cuda.max_memory_allocated(), counts_i)
+    if counts_i["fused_update"] != 0:
+        raise AssertionError("the default sync launched kernel 5")
+
+    adamw = opt.AdamWConfig(lr=run["lr"], moment_dtype=cfg.moment_dtype)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    n_buckets = len(tstep.plan_fused_buckets(tree_flatten(params)[0]))
+    state = tstep.init_fused_opt_state(params)
+    step = tstep.build_train_step(cfg, adamw=adamw, grad_rs="fused")
+    pipe = SyntheticLM(cfg.vocab, run["seq_len"], run["batch"])
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                                 # path (ii) starts
+    for s in range(steps):
+        t0 = time.perf_counter()
+        loss, params, state = step(params, state, pipe.batch(s))
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    counts_ii = _counts()                           # path (ii) ends
+    report("(ii) fused sync", losses, walls,
+                    torch.cuda.max_memory_allocated(), counts_ii)
+    if counts_ii["fused_update"] != n_buckets * steps:
+        raise AssertionError(f"kernel 5 launched {counts_ii['fused_update']} "
+                             f"times, want {n_buckets} buckets x {steps}")
+    log(f"  step-0 loss: launcher {res.losses[0]!r}, fused {losses[0]!r}; "
+        f"{n_buckets} fused buckets of at most 64 MiB")
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(counts=[counts_i, counts_ii], params=res.params, opt_state=res.opt_state, adamw=adamw,
+                batch=pipe.batch(steps), n_params=sum(
+                    l.numel() for l in tree_flatten(res.params)[0]))
+
+
+def same_grads_both_optimizers(torch, serving, trained) -> None:
+    """6d: one gradient tree, computed once, through apply_updates and
+    through fused_adam_sync (moments packed from the same state): the new
+    parameters and moments bit for bit."""
+    from repro_torch.core import heap
+    from repro_torch.core.heap import tree_flatten
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.comm import Comm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as tstep
+    cfg = serving.CONFIG
+    params, state, adamw = (trained["params"], trained["opt_state"],
+                            trained["adamw"])
+    comm = Comm()
+    batch = tstep.batch_to_device(trained["batch"], "cuda")
+    _, grads = tstep.loss_and_grads(comm, cfg, params, batch,
+                                    cfg.microbatches)
+    leaves = tree_flatten(params)[0]
+    buckets = tstep.plan_fused_buckets(leaves)
+    specs = [heap.plan_pack([leaves[i] for i in idxs], dtype=torch.float32)
+             for idxs in buckets]
+    fstate = {"step": state["step"], "fused": [
+        {key: heap.pack([state["mv"][i][key] for i in idxs], spec)
+         for key in ("m", "v")} for idxs, spec in zip(buckets, specs)]}
+    new_a, st_a = opt.apply_updates(params, grads, state, adamw)
+    new_f, st_f = tstep.fused_adam_sync(
+        comm, params, grads, fstate, adamw,
+        sharding.needs_data_sync(cfg, params))
+    torch.cuda.synchronize()
+    for i, (a, f) in enumerate(zip(tree_flatten(new_a)[0],
+                                   tree_flatten(new_f)[0])):
+        bitwise(torch, f, a, f"6d param leaf {i}")
+    for idxs, spec, mv in zip(buckets, specs, st_f["fused"]):
+        for key in ("m", "v"):
+            for i, val in zip(idxs, heap.unpack(mv[key], spec)):
+                bitwise(torch, val, st_a["mv"][i][key], f"6d {key} {i}")
+    log(f"  one gradient tree through apply_updates and fused_adam_sync: "
+        f"{len(leaves)} params and their m, v bit for bit ({len(buckets)} "
+        f"buckets, step {int(st_a['step'])})")
+
+
+def grads_through_the_kernel(torch, np, serving, ref, layers) -> None:
+    """6e: one microbatch at full width: the loss and every gradient leaf
+    through the flash kernel (its Function's reference-recompute
+    backward) against those through the plain attention, in f32 and
+    bf16, each within GRAD_RTOL."""
+    import dataclasses
+    from repro_torch.core.heap import tree_flatten
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.parallel.comm import Comm
+    from repro_torch.train import step as tstep
+    cfg, run = serving.CONFIG, serving.TRAIN_RUN
+    rows = run["batch"] // cfg.microbatches
+    batch = {k: v[:rows] for k, v in
+             SyntheticLM(cfg.vocab, run["seq_len"], run["batch"]).batch(0)
+             .items()}
+    batch = tstep.batch_to_device(batch, "cuda")
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        before = fa.launches
+        loss_k, g_k = tstep.loss_and_grads(Comm(), c, params, batch)
+        if fa.launches - before != 2 * cfg.n_layers:
+            raise AssertionError("6e: the kernel path did not launch the "
+                                 "kernel in every layer")
+        with mock.patch.object(layers.kops, "attention", ref.attention_ref):
+            loss_p, g_p = tstep.loss_and_grads(Comm(), c, params, batch)
+        rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(tree_flatten(g_k)[0],
+                                    tree_flatten(g_p)[0]))
+        log(f"  grads through the kernel vs plain attention, {dtype}: loss "
+            f"{float(loss_k):.6f} vs {float(loss_p):.6f} (rel {rel_loss:.3e})"
+            f", worst leaf max|diff|/max|grad| {worst:.3e}")
+        loss_tol, leaf_tol = GRAD_RTOL[str(dtype)]
+        if not (rel_loss <= loss_tol and worst <= leaf_tol):
+            raise AssertionError(f"6e {dtype}: loss rel {rel_loss} (tol "
+                                 f"{loss_tol}), worst leaf {worst} (tol "
+                                 f"{leaf_tol})")
+        del g_k, g_p
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -835,21 +1303,41 @@ def main() -> int:
     log("== phase 5: the OpenSHMEM runtime on 16 PEs")
     rt_launches = runtime(torch, np)
 
-    kernels = [dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:79",
-        launches=launches["flash_attention"],
-        max_abs_err=timing["max_abs_err"], ms=timing["ms"],
-        plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-        bound_by=timing["bound_by"], library_ms=timing["library_ms"])]
-    for name, source, replaces in RUNTIME_KERNELS:
-        t = rt_timing[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=rt_launches[name], max_abs_err=t["max_abs_err"],
-            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    log(f"== phase 6: train {serving.CONFIG.name} at full width")
+    check_fused_update(torch)
+    bucket_launches = fused_bucket(torch, np)
+    trained = train(torch, np, serving)
+    same_grads_both_optimizers(torch, serving, trained)
+    trained_counts, n_params = trained["counts"], trained["n_params"]
+    del trained
+    torch.cuda.empty_cache()
+    grads_through_the_kernel(torch, np, serving, ref, layers)
+    fu_timing = time_fused_update(torch, n_params)
+
+    # each path's counts, set to 0 just before it and read just after
+    paths = [launches, rt_launches, bucket_launches] + trained_counts
+    total = {name: sum(c.get(name, 0) for c in paths)
+             for name in ("flash_attention", "put_copy", "dma_copy",
+                          "reduce_combine", "fused_update")}
+    log(f"  launches on the main paths: serve {launches}, runtime "
+        f"{rt_launches}, fused bucket {bucket_launches}, train "
+        f"{trained_counts}")
+    rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
+             "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
+             timing)]
+    rows += [(name, source, replaces, rt_timing[name])
+             for name, source, replaces in RUNTIME_KERNELS]
+    rows.append(("fused_update", "src/repro_torch/kernels/csrc/"
+                 "fused_update.cu", "src/repro/kernels/fused_update.py:73",
+                 dict(fu_timing["full"], max_abs_err=max(
+                     fu_timing["full"]["max_abs_err"],
+                     fu_timing["bucket16"]["max_abs_err"]))))
+    kernels = [dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=total[name],
+                    max_abs_err=t["max_abs_err"], ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=t["library_ms"])
+               for name, source, replaces, t in rows]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")

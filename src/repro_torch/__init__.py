@@ -1,6 +1,7 @@
 """repro_torch: the PyTorch/CUDA port of `repro`: the paper's OpenSHMEM
 runtime on the SIM backend (`core/`: patterns, teams, the §3.6
-collectives, ShmemContext) and the model-serving stack.
+collectives, ShmemContext, the fused reduce-scatter -> AdamW), the
+model-serving stack and the one-device trainer (`train/`, `launch/`).
 
 Module names and layout follow `repro` so that each counterpart is easy to
 find.  Entry points run on the CUDA card unless the caller passes

@@ -5,7 +5,7 @@ from ..models.config import ModelConfig
 CONFIG = ModelConfig(
     name="qwen2-0.5b", family="dense", n_layers=24, d_model=896,
     n_heads=14, n_kv_heads=2, head_dim=64, d_ff=4864, vocab=151936,
-    qkv_bias=True, tie_embeddings=True, rope_theta=1e6,
+    qkv_bias=True, tie_embeddings=True, rope_theta=1e6, microbatches=4,
 )
 
 # The serving run the port is checked and profiled at on the card
@@ -14,9 +14,14 @@ CONFIG = ModelConfig(
 SERVE_ENGINE = dict(max_slots=4, page_size=16, max_seq=256, prompt_bucket=128)
 SERVE_TRAFFIC = dict(requests=8, prompt_len=100, new_tokens=32)
 
+# The training run the port is checked at on the card (chip_smoke.py):
+# the reference launcher's defaults (`repro/launch/train.py`: --seq-len
+# 128, --batch 8, --lr 3e-4) and the steps of each gradient sync.
+TRAIN_RUN = dict(seq_len=128, batch=8, lr=3e-4, steps=12)
+
 
 def smoke():
     return ModelConfig(
         name="qwen2-smoke", family="dense", n_layers=2, d_model=48,
         n_heads=3, n_kv_heads=1, head_dim=16, d_ff=96, vocab=128,
-        qkv_bias=True, tie_embeddings=True)
+        qkv_bias=True, tie_embeddings=True, remat="none", microbatches=1)

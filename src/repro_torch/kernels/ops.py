@@ -3,18 +3,24 @@
 version for CPU tensors, the kernel for CUDA tensors.
 
 `attention` pads its inputs to the kernel's tile multiples (the ragged
-edge is masked through `lk_valid`) and slices the padding off.  The copy
-and combine kernels handle any row length and region themselves (a scalar
-edge path where 16-byte vectors do not fit), so `put_copy`, `dma_copy`
-and `reduce_combine` need no edge padding, which the TPU kernels needed
-for their (32, 128) tiles.  Forward only: nothing here takes gradients."""
+edge is masked through `lk_valid`) and slices the padding off.  It is a
+`torch.autograd.Function`, as the reference's is a `jax.custom_vjp`: the
+forward is the flash kernel (its plain version on the CPU), the backward
+recomputes through `ref.attention_ref` and differentiates that, on either
+device.  The copy, combine and AdamW kernels handle any length and region
+themselves (a scalar edge path where 16-byte vectors do not fit), so
+`put_copy`, `dma_copy`, `reduce_combine` and `fused_adam_update` need no
+edge padding, which the TPU kernels needed for their (32, 128) tiles."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from . import flash_attention as _fa
+from . import fused_update as _fu
 from . import put_copy as _pc
 from . import reduce_combine as _rc
+from . import ref
 
 
 def _pad_seq(x, mult: int):
@@ -36,11 +42,32 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
     if bq % _fa.BQ or bk % _fa.BK or bq <= 0 or bk <= 0:
         raise ValueError(f"bq={bq}, bk={bk}: the kernel needs positive "
                          f"multiples of {_fa.BQ} and {_fa.BK}")
-    lq, lk = q.shape[2], k.shape[2]
-    out = _fa.flash_attention(
-        _pad_seq(q, bq), _pad_seq(k, bk), _pad_seq(v, bk), causal=causal,
-        window=window, softcap=softcap, sm_scale=sm_scale, lk_valid=lk)
-    return out[:, :, :lq]
+    return _Attention.apply(q, k, v, causal, window, softcap, sm_scale, bq,
+                            bk)
+
+
+class _Attention(torch.autograd.Function):
+    """Flash forward, reference-recompute backward
+    (`repro.kernels.ops._attention`'s custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, sm_scale, bq, bk):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        sm_scale=sm_scale)
+        lq, lk = q.shape[2], k.shape[2]
+        out = _fa.flash_attention(
+            _pad_seq(q, bq), _pad_seq(k, bk), _pad_seq(v, bk),
+            lk_valid=lk, **ctx.opts)
+        return out[:, :, :lq]
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.attention_ref(q, k, v, **ctx.opts)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def put_copy(src):
@@ -64,3 +91,19 @@ def reduce_combine(bufs, op: str = "sum"):
     """Elementwise `op` (sum, prod, max, min) folded over k >= 2
     same-shape buffers in order."""
     return _rc.reduce_combine(bufs, op)
+
+
+def fused_adam_update(g_bufs, p, m, v, wd_mask, c1, c2, *, lr: float,
+                      b1: float, b2: float, eps: float, wd_coef: float,
+                      scale: float = 1.0, out_dtype=None):
+    """Combine + mean + AdamW on flat f32 chunks (kernel 5).
+
+    g_bufs: 1 to 4 f32 gradient partials to sum in order (the local ring
+    partial and the final incoming chunk); p/m/v: f32 param and moment
+    chunks; wd_mask: int8, nonzero where weight decay applies; c1/c2:
+    ``1 - beta**t``.  Returns (new_p in `out_dtype`, default p's dtype;
+    new_m, new_v in f32)."""
+    out_dtype = p.dtype if out_dtype is None else out_dtype
+    return _fu.fused_adam(g_bufs, p, m, v, wd_mask, c1, c2, lr=lr, b1=b1,
+                          b2=b2, eps=eps, wd_coef=wd_coef, scale=scale,
+                          out_dtype=out_dtype)

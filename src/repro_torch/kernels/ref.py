@@ -72,3 +72,35 @@ def reduce_combine_ref(bufs, op: str = "sum"):
     for b in bufs[1:]:
         acc = fn(acc, b)
     return acc.clone() if acc is bufs[0] else acc
+
+
+def sqrt_rn(x):
+    """The correctly rounded f32 square root of f32 `x` (IEEE
+    round-to-nearest, as the kernel's ``__fsqrt_rn`` and JAX's sqrt give
+    it).  ``torch.sqrt`` on some CPU builds is off by one ulp on ~0.6% of
+    inputs; the f64 root rounded to f32 is exact, since 53 >= 2 * 24 + 2
+    bits rule out double rounding."""
+    return torch.sqrt(x.double()).float()
+
+
+def fused_adam_ref(g_bufs, p, m, v, wd_mask, c1, c2, *, lr, b1, b2, eps,
+                   wd_coef, scale, out_dtype):
+    """k gradient chunks summed in order, divided by `scale`, then AdamW:
+    the op sequence of `repro.kernels.fused_update._fused_ref` and of
+    `train.optimizer.apply_updates`, elementwise on f32 chunks.  Returns
+    (new p in `out_dtype`, new m, new v), m and v in f32.
+
+    Each step is one correctly rounded f32 operation: the sqrt through
+    `sqrt_rn`, and the division by `scale` by a 0-d tensor (a CUDA tensor
+    divided by a Python number is multiplied by its reciprocal)."""
+    g = g_bufs[0]
+    for r in g_bufs[1:]:
+        g = g + r
+    g = g / torch.full((), scale, dtype=torch.float32, device=g.device)
+    c1 = torch.as_tensor(c1, dtype=torch.float32, device=g.device)
+    c2 = torch.as_tensor(c2, dtype=torch.float32, device=g.device)
+    m_n = b1 * m + (1.0 - b1) * g
+    v_n = b2 * v + (1.0 - b2) * g * g
+    upd = (m_n / c1) / (sqrt_rn(v_n / c2) + eps)
+    upd = torch.where(wd_mask != 0, upd + wd_coef * p, upd)
+    return (p - lr * upd).to(out_dtype), m_n, v_n

@@ -1,9 +1,10 @@
 """ModelConfig — the architecture description shared by every module.
 
 Counterpart of `repro/models/config.py` with torch dtypes.  The fields
-are those the model code and the parameter count read; the JAX package's
-training and sharding switches (remat, fsdp, microbatches, ...) belong to
-slices not yet ported.
+are those the model code, the parameter count and the one-device trainer
+read (remat, microbatches, moment_dtype); the JAX package's sharding
+switches (fsdp, shard_strategy, attention="ring") belong to slices not
+yet ported.
 """
 from __future__ import annotations
 
@@ -79,6 +80,10 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32   # stored weights
     logit_dtype: torch.dtype = torch.float32
+    remat: str = "full"          # none | full: recompute each layer in the
+                                 # backward pass (torch.utils.checkpoint)
+    microbatches: int = 1        # grad-accumulation steps per train step
+    moment_dtype: str = "f32"    # f32 | bf16 | int8 (optimizer moments)
 
     @property
     def hd(self) -> int:

@@ -1,4 +1,4 @@
-"""Parameters of the JAX package, turned into the port's layout."""
+"""Parameter trees between the JAX package's layout and the port's."""
 from __future__ import annotations
 
 import numpy as np
@@ -32,3 +32,23 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu"):
     return {"embed": map_params(leaf, tree["embed"]),
             "final_norm": leaf(tree["final_norm"]),
             "layers": [layer(i) for i in range(cfg.n_layers)]}
+
+
+def params_to_jax(params, cfg: ModelConfig):
+    """The inverse of `params_from_jax`: the port's tree (parameters, or
+    gradients of the same structure) as numpy arrays in the JAX package's
+    layout, per-layer leaves stacked to [n_layers, ...] under "layers"."""
+    _check_family(cfg)
+
+    def leaf(t):
+        return t.detach().float().cpu().numpy()
+
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([l[k] for l in layers]) for k in first}
+        return np.stack([leaf(t) for t in layers])
+
+    return {"embed": map_params(leaf, params["embed"]),
+            "final_norm": leaf(params["final_norm"]),
+            "layers": stack(params["layers"])}

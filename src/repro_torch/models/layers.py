@@ -1,10 +1,13 @@
-"""Model layers of the dense family, paged serving path.
+"""Model layers of the dense family: the full-sequence training path and
+the paged serving path.
 
 Counterpart of `repro/models/layers.py`.  Each function takes a `Comm`
 and calls its collectives where `repro` does; on one device they are the
 identity.  Weights are plain tensors in dicts, initialised from a
 `torch.Generator`.  The paged KV pool is updated in place (the JAX
 functions return a new pool): one pool per engine, no copy per step.
+Gradients come from autograd; attention's goes through the
+`kernels/ops.attention` Function.
 """
 from __future__ import annotations
 
@@ -90,6 +93,30 @@ def lm_logits(comm: Comm, cfg: ModelConfig, p: Params, x):
     return _dense(x, w.to(cfg.logit_dtype))   # (B, L, V_local)
 
 
+def sharded_xent(comm: Comm, cfg: ModelConfig, logits, targets):
+    """Cross-entropy with the vocabulary sharded over `model`: the
+    logsumexp and the target-logit pick each take one small allreduce
+    (max, then sum).  Returns the (B, L) token losses."""
+    v_local = logits.shape[-1]
+    base = comm.axis_index(comm.axes.model) * v_local
+    lg = logits.float()
+    if cfg.final_softcap is not None:
+        lg = cfg.final_softcap * torch.tanh(lg / cfg.final_softcap)
+    # no gradient through the stabiliser: the logsumexp's gradient is
+    # exact without it, and the max-allreduce needs none
+    m_loc = lg.amax(-1).detach()
+    m = comm.allreduce(m_loc, comm.axes.model, "max")
+    se = torch.exp(lg - m[..., None]).sum(-1)
+    se = comm.allreduce(se, comm.axes.model)
+    lse = torch.log(se) + m
+    loc_t = targets.long() - base
+    ok = (loc_t >= 0) & (loc_t < v_local)
+    tl = torch.gather(lg, -1, loc_t.clamp(0, v_local - 1)[..., None])[..., 0]
+    tl = torch.where(ok, tl, 0.0)
+    tl = comm.allreduce(tl, comm.axes.model)
+    return lse - tl
+
+
 # ---------------------------------------------------------------------------
 # GQA attention
 # ---------------------------------------------------------------------------
@@ -118,6 +145,32 @@ def init_attention(gen, cfg: ModelConfig, tp: int, device) -> Params:
         p["bk"] = torch.zeros(nkv_store * hd, device=device)
         p["bv"] = torch.zeros(nkv_store * hd, device=device)
     return p
+
+
+def attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions):
+    """Full-sequence attention (training): x (B, L, d) -> (B, L, d), one
+    allreduce over `model`.  Attends through `ops.attention` (the flash
+    kernel forward on the card, a reference-recompute backward).  One
+    device means tp = 1, where the reference's replicated-KV gather and
+    ghost-head mask are identities."""
+    tp = comm.axis_size(comm.axes.model)
+    if tp != 1:
+        raise NotImplementedError("tensor parallelism is not ported yet "
+                                  "(slice 5)")
+    B, L, d = x.shape
+    hd = cfg.hd
+    nq_local, nkv_store, _ = _gqa_dims(cfg, tp)
+    q = _dense(x, p["wq"], p.get("bq")).reshape(B, L, nq_local, hd)
+    k = _dense(x, p["wk"], p.get("bk")).reshape(B, L, nkv_store, hd)
+    v = _dense(x, p["wv"], p.get("bv")).reshape(B, L, nkv_store, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = kops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal=cfg.causal,
+                       window=cfg.window, softcap=cfg.softcap
+                       ).transpose(1, 2)
+    o = o.reshape(B, L, nq_local * hd).to(cfg.dtype)
+    return comm.allreduce(_dense(o, p["wo"]), comm.axes.model)
 
 
 def init_attn_cache(cfg: ModelConfig, tp: int, batch_local: int,

@@ -1,5 +1,6 @@
-"""Model assembly for the paged serving path: parameters, KV pools, and
-the prefill/decode entries over the layer stack.
+"""Model assembly: parameters, the full-sequence training entries
+(`forward`, `train_loss`), KV pools, and the paged prefill/decode entries
+over the layer stack.
 
 Counterpart of the dense-family parts of `repro/models/transformer.py`.
 Parameters hold one dict per layer in `params["layers"]` (the JAX package
@@ -9,6 +10,7 @@ Python loop.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from ..parallel.comm import Comm
 from . import layers as L
@@ -25,7 +27,7 @@ def paged_families() -> tuple[str, ...]:
 def _check_family(cfg: ModelConfig):
     if cfg.family not in paged_families() or cfg.local_global_period:
         raise ValueError(
-            f"the port serves the {paged_families()} families without "
+            f"the port runs the {paged_families()} families without "
             f"local/global layer pairs, not {cfg.name!r} ({cfg.family})")
 
 
@@ -71,6 +73,45 @@ def init_kv_pool(cfg: ModelConfig, tp: int, num_pages: int, page_size: int,
                              device)
     return {name: t.view((cfg.n_layers, num_pages) + tuple(t.shape[1:]))
             for name, t in flat.items()}
+
+
+def _attn_block(comm, cfg, bp, x, positions):
+    h = L.rms_norm(x, bp["ln1"])
+    x = x + L.attention(comm, cfg, bp["attn"], h, positions)
+    h = L.rms_norm(x, bp["ln2"])
+    return x + L.mlp(comm, cfg, bp["mlp"], h)
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """`fn` recomputed in the backward pass when ``cfg.remat == "full"``
+    (the reference's `jax.checkpoint`), else `fn`."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat != "full":
+        raise ValueError(f"remat={cfg.remat!r}: the port has none|full")
+    return lambda *a: torch.utils.checkpoint.checkpoint(
+        fn, *a, use_reentrant=False)
+
+
+def forward(comm: Comm, cfg: ModelConfig, params: Params, tokens):
+    """Full-sequence forward of the dense family: tokens (B, L) ->
+    (hidden (B, L, d), aux loss 0)."""
+    _check_family(cfg)
+    x = L.embed(comm, cfg, params["embed"], tokens)
+    B, seq = tokens.shape
+    positions = torch.arange(seq, device=tokens.device).expand(B, seq)
+    for bp in params["layers"]:
+        x = _maybe_remat(
+            cfg, lambda x, bp=bp: _attn_block(comm, cfg, bp, x, positions))(x)
+    x = L.rms_norm(x, params["final_norm"])
+    return x, torch.zeros((), device=x.device)
+
+
+def train_loss(comm: Comm, cfg: ModelConfig, params: Params, batch: dict):
+    """Token-mean cross-entropy of batch {"tokens", "targets"} (B, L)."""
+    h, _ = forward(comm, cfg, params, batch["tokens"])
+    logits = L.lm_logits(comm, cfg, params["embed"], h)
+    return L.sharded_xent(comm, cfg, logits, batch["targets"]).mean()
 
 
 def _attn_block_paged(comm, cfg, bp, x, pool, page_table, positions,

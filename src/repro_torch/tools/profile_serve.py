@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 
-def _trace(fn, n: int) -> dict:
+def trace_steps(fn, n: int) -> dict:
     """Profile `n` calls of fn; device events summed by name."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -46,7 +46,7 @@ def _trace(fn, n: int) -> dict:
                 for name, us in by_name.most_common(12)]}
 
 
-def _wall_ms(fn, n: int) -> float:
+def wall_ms(fn, n: int) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -79,8 +79,8 @@ def main(argv=None):
         eng.submit(p, max_new)
     for _ in range(3):                       # admit every slot, warm up
         eng.step()
-    decode = {"wall_ms_per_step": _wall_ms(eng.step, STEPS),
-              **_trace(eng.step, STEPS)}
+    decode = {"wall_ms_per_step": wall_ms(eng.step, STEPS),
+              **trace_steps(eng.step, STEPS)}
 
     def first_step():
         e = ServeEngine(cfg, params=eng.params, **engine_kw)
@@ -90,11 +90,11 @@ def main(argv=None):
     first_step().step()                      # warm up
     engines = [first_step() for _ in range(STEPS)]
     it = iter(engines)
-    prefill_wall = _wall_ms(lambda: next(it).step(), STEPS)
+    prefill_wall = wall_ms(lambda: next(it).step(), STEPS)
     engines = [first_step() for _ in range(3)]
     it = iter(engines)
     prefill = {"wall_ms_per_step": prefill_wall,
-               **_trace(lambda: next(it).step(), 3)}
+               **trace_steps(lambda: next(it).step(), 3)}
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,0 +1,129 @@
+"""AdamW in plain torch, with optimizer-state compression (port of
+`repro/train/optimizer.py`).
+
+  * moment dtype f32 / bf16 / int8: int8 moments use 128-element
+    blockwise absmax scales (the symmetric heap's alignment unit), second
+    moments in the sqrt domain.
+  * The update's operations run in the reference's order, each one
+    correctly rounded f32 operation (the sqrt through `ref.sqrt_rn`), so
+    the fused kernel (`kernels/fused_update.py`) equals this bit for bit.
+  * Weight decay applies to a leaf whose rank in the reference's STACKED
+    layout is at least 2 (`decay_flags`): the port keeps one dict per
+    layer, where a norm or a bias is 1-D, but the reference stacks every
+    per-layer leaf to [n_layers, ...] and decays all of them.
+
+The state is {"mv": one {"m", "v"} per leaf in `heap.tree_flatten`
+order, "step": int32 0-d tensor}, on the parameters' device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..core.heap import tree_flatten, tree_unflatten
+from ..kernels.ref import sqrt_rn
+
+BLOCK = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    moment_dtype: str = "f32"      # f32 | bf16 | int8
+
+
+def _q_encode(x32, dtype: str, nonneg: bool = False):
+    if dtype == "f32":
+        return x32
+    if dtype == "bf16":
+        return x32.to(torch.bfloat16)
+    if dtype != "int8":
+        raise ValueError(f"moment_dtype {dtype!r} not in f32|bf16|int8")
+    # int8 blockwise absmax; non-negative tensors (second moments) are
+    # stored in the sqrt domain, which linearises their dynamic range
+    flat = x32.reshape(-1)
+    fp = F.pad(flat, (0, (-flat.numel()) % BLOCK)).reshape(-1, BLOCK)
+    if nonneg:
+        fp = sqrt_rn(fp.clamp_min(0.0))
+    scale = fp.abs().amax(1, keepdim=True) / torch.full(
+        (), 127.0, device=fp.device)
+    q = torch.round(fp / scale.clamp_min(1e-20)).to(torch.int8)
+    return {"q": q, "scale": scale}
+
+
+def _q_decode(s, dtype: str, shape=None, nonneg: bool = False):
+    if dtype == "f32":
+        return s
+    if dtype == "bf16":
+        return s.float()
+    flat = s["q"].float() * s["scale"]
+    if nonneg:
+        flat = flat * flat
+    return flat.reshape(-1)[:math.prod(shape)].reshape(shape)
+
+
+def decay_flags(params) -> list[bool]:
+    """Per leaf, in `tree_flatten` order: whether AdamW decays it, i.e.
+    whether its rank is at least 2 in the reference's stacked layout
+    (every leaf under "layers" has one more dim there)."""
+    if not isinstance(params, dict):
+        return [l.dim() >= 2 for l in tree_flatten(params)[0]]
+    flags = []
+    for key in sorted(params):
+        extra = 1 if key == "layers" else 0
+        flags += [l.dim() + extra >= 2 for l in tree_flatten(params[key])[0]]
+    return flags
+
+
+def bias_corrections(cfg: AdamWConfig, step):
+    """(c1, c2) = (1 - b1**t, 1 - b2**t) for the int32 step tensor `step`,
+    as f32 0-d tensors on its device (no host read)."""
+    t = step.float()
+    return 1.0 - torch.pow(cfg.b1, t), 1.0 - torch.pow(cfg.b2, t)
+
+
+def init_state(params, cfg: AdamWConfig):
+    leaves, _ = tree_flatten(params)
+
+    def one(p):
+        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"m": _q_encode(z, cfg.moment_dtype),
+                "v": _q_encode(z, cfg.moment_dtype, nonneg=True)}
+
+    return {"mv": [one(p) for p in leaves],
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=leaves[0].device)}
+
+
+def apply_updates(params, grads, state, cfg: AdamWConfig):
+    """One AdamW step: (new params, new state), the reference's
+    arithmetic operation for operation."""
+    step = state["step"] + 1
+    c1, c2 = bias_corrections(cfg, step)
+
+    def one(p, g, mv, decay):
+        g32 = g.float()
+        m = _q_decode(mv["m"], cfg.moment_dtype, p.shape)
+        v = _q_decode(mv["v"], cfg.moment_dtype, p.shape, nonneg=True)
+        m = cfg.b1 * m + (1 - cfg.b1) * g32
+        v = cfg.b2 * v + (1 - cfg.b2) * g32 * g32
+        upd = (m / c1) / (sqrt_rn(v / c2) + cfg.eps)
+        if decay:
+            upd = upd + cfg.weight_decay * p.float()
+        new_p = (p.float() - cfg.lr * upd).to(p.dtype)
+        return new_p, {"m": _q_encode(m, cfg.moment_dtype),
+                       "v": _q_encode(v, cfg.moment_dtype, nonneg=True)}
+
+    flat_p, treedef = tree_flatten(params)
+    flat_g, _ = tree_flatten(grads)
+    out = [one(p, g, mv, d) for p, g, mv, d in
+           zip(flat_p, flat_g, state["mv"], decay_flags(params))]
+    return (tree_unflatten(treedef, [o[0] for o in out]),
+            {"mv": [o[1] for o in out], "step": step})

@@ -159,3 +159,49 @@ def test_wrapper_rejects_bad_options(kw):
     q, k, v = (torch.from_numpy(a) for a in _inputs(6, 1, 2, 2, 32, 64, 16))
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the gradient: ops.attention is an autograd Function (flash forward,
+# reference-recompute backward), as the reference's custom_vjp
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)     # f32 grads of O(1) inputs
+
+
+def test_attention_output_carries_its_grad_fn():
+    """The same Function serves both devices, so the output has the
+    Function's grad_fn on the CPU too; before it, the card's path (a
+    ctypes launch into an empty tensor) dropped the gradient."""
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _inputs(9, 1, 2, 2, 32, 32, 16))
+    out = ops.attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "_AttentionBackward"
+    out.sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (q, k, v))
+
+
+GRAD_GRID = [(kw, lq, lk, group) for kw, lq, lk, group in GRID
+             if (lq, lk) != (100, 100) or kw == dict(causal=True)]
+
+
+@pytest.mark.parametrize("kw,lq,lk,group", GRAD_GRID,
+                         ids=[_case_id(c) for c in GRAD_GRID])
+def test_attention_grads_match_jax_grad_f32(kw, lq, lk, group):
+    """dq, dk, dv against `jax.vjp` of the reference attention on the
+    same cotangent: causal, bidirectional, window, softcap, GQA groups 1,
+    2 and 4, ragged lengths."""
+    import jax
+    arrays = _inputs(10, 2, 2 * group, 2, lq, lk, 32)
+    cot = np.random.RandomState(11).randn(2, 2 * group, lq, 32).astype(
+        np.float32)
+    (q, k, v), (jq, jk, jv) = _both(arrays, "float32")
+    for t in (q, k, v):
+        t.requires_grad_()
+    ops.attention(q, k, v, **kw).backward(torch.from_numpy(cot))
+    _, vjp = jax.vjp(lambda a, b, c: jref.attention_ref(a, b, c, **kw),
+                     jq, jk, jv)
+    for t, want in zip((q, k, v), vjp(jnp.asarray(cot))):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                                   **GRAD_TOL)

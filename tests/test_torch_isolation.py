@@ -1,6 +1,7 @@
 """The port stands alone: no file of `src/repro_torch/` and not
-`chip_smoke.py` imports jax or the JAX package, and the serving path and
-the runtime run in a process where neither can be imported."""
+`chip_smoke.py` imports jax or the JAX package, and the serving path, the
+runtime and the training path run in a process where neither can be
+imported."""
 import ast
 import os
 import subprocess
@@ -28,7 +29,8 @@ def _imported_roots(path: Path):
 
 def test_port_files_exist():
     assert len(FILES) > 15
-    for name in ("flash_attention", "put_copy", "reduce_combine"):
+    for name in ("flash_attention", "put_copy", "reduce_combine",
+                 "fused_update"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / f"{name}.cu").is_file()
 
@@ -86,3 +88,35 @@ def test_runtime_runs_without_jax_or_repro():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert "RUNTIME-ALONE-OK" in r.stdout
+
+
+TRAIN_BLOCKED = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "repro"):
+        sys.modules[name] = None          # any import of them now fails
+    import numpy as np
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.train import step as tstep
+    from repro_torch.data.pipeline import SyntheticLM
+    losses = train.main(["--arch", "qwen2-0.5b", "--smoke", "--device",
+                         "cpu", "--steps", "3", "--seq-len", "16",
+                         "--batch", "4"])
+    assert np.isfinite(losses).all() and len(losses) == 3
+    cfg = smoke_config("qwen2-0.5b")
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    step = tstep.build_train_step(cfg, grad_rs="fused")
+    loss, params, state = step(params, tstep.init_fused_opt_state(params),
+                               SyntheticLM(cfg.vocab, 16, 4).batch(0))
+    assert np.isfinite(float(loss))
+    print("TRAIN-ALONE-OK")
+""")
+
+
+def test_training_runs_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", TRAIN_BLOCKED], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "TRAIN-ALONE-OK" in r.stdout
