@@ -48,7 +48,24 @@ Phases; any failure exits non-zero before the result line is printed:
      finite and falling, launch counts equal to their formulas; (d) one
      gradient tree through apply_updates and through fused_adam_sync, bit
      for bit; (e) the loss and gradients through the flash kernel against
-     those through the plain attention, in f32 and bf16.
+     those through the plain attention, in f32 and bf16;
+  7. serve mamba2-2.7b — (a) the SSD scan kernel (kernel 7,
+     csrc/ssd_scan.cu) through ops.ssd against the plain chunked version
+     over tests/test_kernels.py's shapes, h0, ragged L, and the model's
+     head shape (H 80, P 64, N 128, chunk 128) contiguous and strided,
+     f32 and bf16, and the sequential-scan oracle against the chunked
+     version; (b) kernel 7 timed at the prefill's shape beside its plain
+     version; (c) build_prefill on mamba2-2.7b at full width (64 layers,
+     d 2560, vocab 50280, seeded random weights, bf16 compute) over one
+     32768-token prompt: exactly 64 kernel-7 launches (counts set to 0
+     just before, read just after) and finite logits; the same prefill
+     through the plain version with kernel 7 held to it in each layer on
+     that layer's inputs; the prefill in f32 compute through both, logits
+     within 1e-2 of the largest;
+     (d) `launch.serve --arch mamba2-2.7b` through main(): the dense-cache
+     decode loop at batch 4, prompt 32, 16 tokens, (4, 16) tokens, and
+     the loop's logits at the last prompt position against
+     build_prefill's on the same prompts.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi gives them, and
@@ -56,6 +73,7 @@ the card's name and power limit as nvidia-smi gives them, and
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -68,7 +86,7 @@ from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 KERNELS = ["flash_attention", "put_copy", "reduce_combine",
-           "fused_update"]
+           "fused_update", "ssd_scan"]
 
 # published peaks of one H100 SXM (dense): bytes over 3.35 TB/s, products
 # over the tensor-core rate of their type (bf16) or the f32 CUDA-core rate
@@ -1067,9 +1085,10 @@ def _counts():
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import put_copy as pc
     from repro_torch.kernels import reduce_combine as rc
+    from repro_torch.kernels import ssd_scan as ks
     return {"flash_attention": fa.launches, "put_copy": pc.launches,
             "dma_copy": pc.dma_launches, "reduce_combine": rc.launches,
-            "fused_update": fu.launches}
+            "fused_update": fu.launches, "ssd_scan": ks.launches}
 
 
 def _reset_counts():
@@ -1077,8 +1096,9 @@ def _reset_counts():
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import put_copy as pc
     from repro_torch.kernels import reduce_combine as rc
+    from repro_torch.kernels import ssd_scan as ks
     fa.launches = pc.launches = pc.dma_launches = rc.launches = 0
-    fu.launches = 0
+    fu.launches = ks.launches = 0
 
 
 def train(torch, np, serving) -> dict:
@@ -1204,7 +1224,6 @@ def grads_through_the_kernel(torch, np, serving, ref, layers) -> None:
     through the flash kernel (its Function's reference-recompute
     backward) against those through the plain attention, in f32 and
     bf16, each within GRAD_RTOL."""
-    import dataclasses
     from repro_torch.core.heap import tree_flatten
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import flash_attention as fa
@@ -1244,6 +1263,347 @@ def grads_through_the_kernel(torch, np, serving, ref, layers) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: serve mamba2-2.7b at full width — kernel 7, prefill, decode
+# ---------------------------------------------------------------------------
+
+# kernel 7 against ref.ssd_chunked_ref: y in f32 and the f32 state within
+# tests/test_kernels.py's atol 2e-4, scaled by |want| where that is above
+# 1 (model-scale values); y in bf16 within the larger of 3e-2 and one bf16
+# step of |want| (phase 2's rule for a rounded output)
+SSD_ATOL = 2e-4
+# the prefill's last-position logits through kernel 7 against those
+# through the plain version, relative to the largest logit, with f32
+# compute: 1e-2.  In bf16 no such gate can tell a right kernel from a
+# wrong one: the random-weight 64-layer stack amplifies each flipped bf16
+# rounding of y.  A CPU probe at reduced width (d 256, L 1024; the plain
+# version at chunk 128 against chunk 64, two f32 orders of the same sums)
+# moved the bf16 logits by 1.1% of the largest at 4 layers, 3.2% at 16
+# and 27% at 64, the f32 logits by 1.4e-5, 3.3e-5 and 4.8e-4.  So the
+# bf16 prefill holds kernel 7 to the plain version layer by layer, on each
+# layer's own inputs (the rule of 7a), and prints the end-to-end
+# difference; the f32 prefill gates it at 20x the probe's reading
+MAMBA_F32_LOGITS_RTOL = 1e-2
+
+
+def ssd_inputs(torch, gen, b, seq, h, p, n, g, dtype, *, scale=0.3,
+               model=False, h0=False):
+    """x, dt, A, B, C, h0 on the card.  tests/test_kernels.py's draws (x,
+    B, C at `scale`, dt in [0, 0.5), A in (-1.1, -0.1], h0 at 0.2), or
+    with `model` the mamba2 layer's: A = -linspace(1, 16, H) (`a_log`'s
+    init) and dt = softplus(N(0, 1)) (dt_bias 0)."""
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+    x = rnd(b, seq, h, p, s=scale).to(dtype)
+    if model:
+        dt = torch.nn.functional.softplus(rnd(b, seq, h))
+        a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    else:
+        dt = torch.rand(b, seq, h, generator=gen, device="cuda") * 0.5
+        a = -torch.rand(h, generator=gen, device="cuda") - 0.1
+    bm = rnd(b, seq, g, n, s=scale).to(dtype)
+    cm = rnd(b, seq, g, n, s=scale).to(dtype)
+    return x, dt, a, bm, cm, (rnd(b, h, p, n, s=0.2) if h0 else None)
+
+
+def ssd_cases():
+    """(label, B, L, H, P, N, G, chunk, dtype name, options)."""
+    cases = []
+    for dtype, scale in (("float32", 0.3), ("bfloat16", 1.0)):
+        for seq, q in ((64, 16), (64, 64), (48, 16)):   # test_kernels
+            for g in (1, 2):
+                cases.append((f"tests_L{seq}q{q}", 2, seq, 4, 16, 8, g, q,
+                              dtype, dict(scale=scale)))
+        cases.append(("tests_h0", 1, 32, 2, 8, 4, 1, 8, dtype,
+                      dict(scale=scale, h0=True)))
+        cases.append(("ragged_L50q16", 2, 50, 4, 16, 8, 2, 16, dtype,
+                      dict(scale=scale, h0=True)))
+        cases.append(("ragged_L200q128", 1, 200, 8, 64, 128, 1, 128, dtype,
+                      dict(scale=scale)))
+        # the model's head shape and A, dt draws; "strided" slices x, B, C
+        # out of one (B, L, H*P + 2*N) tensor, as mamba2 hands them over
+        cases.append(("model_L4096", 1, 4096, 80, 64, 128, 1, 128, dtype,
+                      dict(scale=scale, model=True)))
+        cases.append(("model_strided", 1, 1024, 80, 64, 128, 1, 128, dtype,
+                      dict(scale=scale, model=True, strided=True)))
+    return cases
+
+
+def ssd_over(torch, y, h, want_y, want_h):
+    """(worst err/limit, max|err| of y, of the state, smallest y limit):
+    y in bf16 within the larger of 3e-2 and one bf16 step of |want|, y in
+    f32 and the f32 state within SSD_ATOL x max(1, |want|)."""
+    dy = (y.float() - want_y.float()).abs()
+    dh = (h - want_h).abs()
+    if y.dtype == torch.bfloat16:
+        lim_y = torch.maximum(torch.full_like(dy, TOL[str(y.dtype)]),
+                              ulp(torch, want_y))
+    else:
+        lim_y = SSD_ATOL * want_y.float().abs().clamp_min(1.0)
+    lim_h = SSD_ATOL * want_h.abs().clamp_min(1.0)
+    over = max((dy / lim_y).max().item(), (dh / lim_h).max().item())
+    return over, dy.max().item(), dh.max().item(), lim_y.min().item()
+
+
+def check_ssd(torch, ops, ref, gen) -> float:
+    """Kernel 7 through ops.ssd against the plain chunked version on the
+    same inputs, each case within its limit; returns the worst err/limit.
+    Then the sequential-scan oracle against the plain chunked version."""
+    worst = 0.0
+    for label, b, seq, h, p, n, g, q, dtype, opt in ssd_cases():
+        dt_ = getattr(torch, dtype)
+        opt = dict(opt)
+        strided = opt.pop("strided", False)
+        x, dt, a, bm, cm, h0 = ssd_inputs(torch, gen, b, seq, h, p, n, g,
+                                          dt_, **opt)
+        if strided:
+            fused = torch.cat([x.reshape(b, seq, h * p),
+                               bm.reshape(b, seq, g * n),
+                               cm.reshape(b, seq, g * n)], -1)
+            x = fused[..., :h * p].reshape(b, seq, h, p)
+            bm = fused[..., h * p:h * p + g * n].reshape(b, seq, g, n)
+            cm = fused[..., h * p + g * n:].reshape(b, seq, g, n)
+            assert not x.is_contiguous()
+        y, hf = ops.ssd(x, dt, a, bm, cm, h0, chunk=q)
+        want_y, want_h = ops._ssd_padded(x, dt, a, bm, cm, h0, q,
+                                         ref.ssd_chunked_ref)
+        torch.cuda.synchronize()
+        if y.shape != want_y.shape or y.dtype != dt_ \
+                or hf.dtype != torch.float32:
+            raise AssertionError(f"ssd {label}: {y.shape}/{y.dtype}, state "
+                                 f"{hf.dtype}")
+        if not (torch.isfinite(y).all() and torch.isfinite(hf).all()):
+            raise AssertionError(f"ssd {label} {dtype}: non-finite output")
+        over, err_y, err_h, min_lim = ssd_over(torch, y, hf, want_y, want_h)
+        typical = want_y.float().abs().mean().item()
+        log(f"  ssd {label:16s} {dtype:8s} B{b} L{seq} H{h} P{p} N{n} G{g} "
+            f"Q{q}: max|err| y {err_y:.3e}, state {err_h:.3e} (worst "
+            f"err/limit {over:.3f}, mean|y| {typical:.4f})")
+        if not over <= 1.0:
+            raise AssertionError(f"ssd {label} {dtype}: err/limit {over}")
+        if not typical > 10 * min_lim:
+            raise AssertionError(f"ssd {label} {dtype}: mean|y| {typical} "
+                                 f"is not far above the tolerance")
+        worst = max(worst, over)
+    x, dt, a, bm, cm, h0 = ssd_inputs(torch, gen, 2, 64, 4, 16, 8, 2,
+                                      torch.float32, h0=True)
+    ys, hs = ref.ssd_ref(x, dt, a, bm, cm, h0)
+    yc, hc = ref.ssd_chunked_ref(x, dt, a, bm, cm, h0, chunk=16)
+    err = max((ys - yc).abs().max().item(), (hs - hc).abs().max().item())
+    log(f"  ssd_ref (sequential scan) vs ssd_chunked_ref, L64 Q16 G2 with "
+        f"h0: max|err| {err:.3e} (atol {SSD_ATOL})")
+    if not err <= SSD_ATOL:
+        raise AssertionError(f"ssd_ref vs ssd_chunked_ref: {err}")
+    return worst
+
+
+def ssd_counts(b, seq, h, p, n, g, q, itemsize) -> tuple[int, int]:
+    """(bytes, products-ops) the SSD scan needs: x, dt, A, B, C read once,
+    y and the f32 state written once; the products of the pairs u <= t the
+    mask keeps, C B^T once per group (its heads share it), and per head
+    the intra term, C @ state^T and the state update."""
+    nbytes = (2 * b * seq * h * p * itemsize + b * seq * h * 4 + h * 4
+              + 2 * b * seq * g * n * itemsize + b * h * p * n * 4)
+    pairs = q * (q + 1) // 2
+    per_chunk = 2 * n * pairs * g + h * (2 * p * pairs + 4 * q * n * p)
+    return nbytes, b * (seq // q) * per_chunk
+
+
+def time_ssd(torch, kssd, ref, gen) -> dict:
+    """Kernel 7 at the mamba2-2.7b prefill's shapes (one layer's scan):
+    its C entry back to back, the wrapper, and the plain version."""
+    b, seq, h, p, n, g, q = 1, 32768, 80, 64, 128, 1, 128
+    x, dt, a, bm, cm, _ = ssd_inputs(torch, gen, b, seq, h, p, n, g,
+                                     torch.bfloat16, scale=1.0, model=True)
+    y, hf = kssd.ssd_scan(x, dt, a, bm, cm, chunk=q)
+    want_y, want_h = ref.ssd_chunked_ref(x, dt, a, bm, cm, chunk=q)
+    err = (y.float() - want_y.float()).abs().max().item()
+    lib = kssd._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+            cm.data_ptr(), None, y.data_ptr(), hf.data_ptr(), 1, b, seq, h,
+            g, p, n, q, x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
+            cm.stride(0), cm.stride(1), stream)
+    kernel_ms = time_ms(lambda: lib.repro_ssd_scan(*args), iters=20,
+                        warmup=2)
+    wrapper_ms = time_ms(lambda: kssd.ssd_scan(x, dt, a, bm, cm, chunk=q),
+                         iters=20, warmup=2)
+    plain_ms = time_ms(lambda: ref.ssd_chunked_ref(x, dt, a, bm, cm,
+                                                   chunk=q),
+                       iters=3, warmup=1)
+    nbytes, ops_count = ssd_counts(b, seq, h, p, n, g, q, 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_count / PEAK_OPS_PER_S["torch.float32"] * 1e3
+    full_q = b * (seq // q) * h * (2 * q * q * (n + p) + 4 * q * n * p)
+    log(f"  times at B{b} L{seq} H{h} P{p} N{n} G{g} Q{q} bf16: kernel "
+        f"{kernel_ms:.5f} ms, wrapper {wrapper_ms:.5f} ms, plain "
+        f"{plain_ms:.5f} ms; max|err| vs plain {err:.3e}; bound "
+        f"{max(t_bytes, t_ops):.6f} ms ({nbytes} B = {t_bytes:.6f} ms; "
+        f"{ops_count} f32 products-ops = {t_ops:.6f} ms at 67 TFLOP/s; the "
+        f"full Q x Q per head, as the TPU kernel computes it, is {full_q} "
+        f"= {full_q / PEAK_OPS_PER_S['torch.float32'] * 1e3:.6f} ms, and "
+        f"{ops_count / PEAK_OPS_PER_S['torch.bfloat16'] * 1e3:.6f} ms at "
+        f"the bf16 tensor-core rate)")
+    log("  ssd_scan library_ms: none; no PyTorch call computes the SSD "
+        "chunked scan (the plain version is a dozen einsum/cumsum/exp "
+        "calls and a loop over the chunks)")
+    del x, dt, bm, cm, y, hf, want_y, want_h
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=kernel_ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, library_ms=None,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def serve_mamba(torch, np, mamba, ops, ref) -> dict:
+    """7c: build_prefill on mamba2-2.7b at full width (seeded random
+    weights, bf16 compute on f32 weights) over SERVE_RUN's prompt: 64
+    ssd_scan launches and finite logits.  Then the same prefill through
+    the plain version, kernel 7 held to it in every layer on the layer's
+    own inputs, and the prefill in f32 compute through both, its logits
+    within MAMBA_F32_LOGITS_RTOL of the largest.  Returns the launch counts
+    of the path."""
+    from repro_torch.core.heap import tree_flatten
+    from repro_torch.models import transformer
+    from repro_torch.serve import step as sstep
+    cfg, run = mamba.CONFIG, mamba.SERVE_RUN
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(w.numel() for w in tree_flatten(params)[0])
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(
+        1, cfg.vocab, size=(run["prefill_batch"], run["prefill_len"])),
+        device="cuda")
+    prefill = sstep.build_prefill(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                                  # path starts
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()                               # path ends
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  prefill {cfg.name} ({n_params} parameters, {cfg.n_layers} "
+        f"layers, d {cfg.d_model}, vocab {cfg.vocab}), batch "
+        f"{run['prefill_batch']} x L {run['prefill_len']}: wall {wall:.3f} s "
+        f"({run['prefill_batch'] * run['prefill_len'] / wall:.1f} prompt "
+        f"tok/s), peak memory {peak / 2**30:.3f} GiB, launches {counts}")
+    if counts["ssd_scan"] != cfg.n_layers:
+        raise AssertionError(f"ssd_scan launched {counts['ssd_scan']} times "
+                             f"in the prefill, want {cfg.n_layers}")
+    if logits.shape != (run["prefill_batch"], 1, cfg.vocab) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    # the same prefill through the plain version; each layer's kernel 7
+    # output on that layer's inputs held to the plain output
+    kernel_scan, layer_over = ops._ssd.ssd_scan, []
+
+    def plain_and_kernel(x, dt, a, bm, cm, h0=None, *, chunk):
+        want = ref.ssd_chunked_ref(x, dt, a, bm, cm, h0, chunk=chunk)
+        got = kernel_scan(x, dt, a, bm, cm, h0, chunk=chunk)
+        layer_over.append(ssd_over(torch, *got, *want)[0])
+        return want
+
+    t0 = time.perf_counter()
+    with mock.patch.object(ops._ssd, "ssd_scan", plain_and_kernel):
+        plain = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    both_wall = time.perf_counter() - t0
+    err = (logits - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    log(f"  kernel 7 vs plain on each layer's inputs in the bf16 prefill: "
+        f"{len(layer_over)} layers, worst err/limit {max(layer_over):.3f} "
+        f"(first, middle, last layer: {layer_over[0]:.3f}, "
+        f"{layer_over[len(layer_over) // 2]:.3f}, {layer_over[-1]:.3f}); "
+        f"plain + kernel prefill wall "
+        f"{both_wall:.3f} s")
+    log(f"  bf16 prefill logits, kernel path vs plain path (not gated, see "
+        f"MAMBA_F32_LOGITS_RTOL): max|err| {err:.4e}, max|logit| "
+        f"{scale:.4f}, {err / scale / 2.0 ** -8:.2f} bf16 ulps of the "
+        f"largest; argmax {int(logits.argmax())} vs {int(plain.argmax())}")
+    if len(layer_over) != cfg.n_layers or not max(layer_over) <= 1.0:
+        raise AssertionError(f"kernel 7 in the prefill's layers: "
+                             f"{layer_over}")
+    del logits, plain
+    torch.cuda.empty_cache()
+    prefill32 = sstep.build_prefill(dataclasses.replace(cfg,
+                                                        dtype=torch.float32))
+    t0 = time.perf_counter()
+    logits = prefill32(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+    with mock.patch.object(ops._ssd, "ssd_scan", ref.ssd_chunked_ref):
+        plain = prefill32(params, {"tokens": tokens})
+    err = (logits - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    log(f"  f32 prefill logits, kernel path vs plain path: max|err| "
+        f"{err:.4e}, max|logit| {scale:.4f}, rel {err / scale:.3e} (tol "
+        f"{MAMBA_F32_LOGITS_RTOL}); argmax {int(logits.argmax())} vs "
+        f"{int(plain.argmax())}; kernel-path wall {wall32:.3f} s")
+    if not (torch.isfinite(logits).all()
+            and err <= MAMBA_F32_LOGITS_RTOL * scale):
+        raise AssertionError(f"f32 prefill logits differ by {err} "
+                             f"(max|logit| {scale})")
+    del logits, plain, tokens, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def decode_mamba(torch, np, mamba) -> None:
+    """7d: `python -m repro_torch.launch.serve --arch mamba2-2.7b` through
+    its main() (the dense-cache decode loop at the reference's defaults),
+    then the loop's logits at the last prompt position against
+    build_prefill's on the same prompts and weights."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+    from repro_torch.serve import step as sstep
+    cfg, run = mamba.CONFIG, mamba.SERVE_RUN
+    seen = {}
+    real = transformer.decode_step
+
+    def spy(comm, cfg_, params_, cache, tokens, positions):
+        logits, cache = real(comm, cfg_, params_, cache, tokens, positions)
+        step = seen.setdefault("steps", 0)
+        if step == run["prompt_len"] - 1:
+            seen.update(logits=logits.clone(), params=params_)
+        seen["steps"] = step + 1
+        return logits, cache
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(transformer, "decode_step", spy):
+        gen = launch_serve.main(["--arch", cfg.name])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = (run["batch"], run["new_tokens"])
+    log(f"  decode loop (launch.serve main, batch {run['batch']}, prompt "
+        f"{run['prompt_len']}, {run['new_tokens']} tokens): tokens "
+        f"{gen.shape}, wall {wall:.3f} s with the weights' init, "
+        f"{gen.size / wall:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB, "
+        f"{seen['steps']} decode steps; first row {gen[0].tolist()}")
+    if gen.shape != want or seen["steps"] != run["prompt_len"] \
+            + run["new_tokens"] - 1:
+        raise AssertionError(f"decode loop gave {gen.shape} in "
+                             f"{seen['steps']} steps, want {want}")
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(run["batch"], run["prompt_len"]), dtype=np.int32)
+    pre = sstep.build_prefill(cfg)(seen["params"], {"tokens": torch.as_tensor(
+        prompts, device="cuda").long()})
+    diff = (seen["logits"] - pre).abs().max().item()
+    scale = pre.abs().max().item()
+    log(f"  decode-loop logits at the last prompt position vs build_prefill"
+        f"'s on the same prompts: max|diff| {diff:.4e}, max|logit| "
+        f"{scale:.4f} (the recurrence vs the chunked scan in bf16; the CPU "
+        f"test of the smoke config gates 0.12)")
+    if not np.isfinite(diff):
+        raise AssertionError("decode-loop or prefill logits are not finite")
+    seen.clear()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -1257,9 +1617,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.configs import mamba2_2_7b as mamba
     from repro_torch.configs import qwen2_0_5b as serving
     from repro_torch.kernels import _build, ref, ops
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as kssd
     from repro_torch.models import layers
     from repro_torch.serve.engine import ServeEngine
 
@@ -1314,14 +1676,21 @@ def main() -> int:
     grads_through_the_kernel(torch, np, serving, ref, layers)
     fu_timing = time_fused_update(torch, n_params)
 
+    log(f"== phase 7: serve {mamba.CONFIG.name} at full width")
+    check_ssd(torch, ops, ref, gen)
+    ssd_timing = time_ssd(torch, kssd, ref, gen)
+    mamba_launches = serve_mamba(torch, np, mamba, ops, ref)
+    decode_mamba(torch, np, mamba)
+
     # each path's counts, set to 0 just before it and read just after
-    paths = [launches, rt_launches, bucket_launches] + trained_counts
+    paths = [launches, rt_launches, bucket_launches] + trained_counts \
+        + [mamba_launches]
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
-                          "reduce_combine", "fused_update")}
+                          "reduce_combine", "fused_update", "ssd_scan")}
     log(f"  launches on the main paths: serve {launches}, runtime "
         f"{rt_launches}, fused bucket {bucket_launches}, train "
-        f"{trained_counts}")
+        f"{trained_counts}, mamba2 prefill {mamba_launches}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]
@@ -1332,6 +1701,8 @@ def main() -> int:
                  dict(fu_timing["full"], max_abs_err=max(
                      fu_timing["full"]["max_abs_err"],
                      fu_timing["bucket16"]["max_abs_err"]))))
+    rows.append(("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:86", ssd_timing))
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=total[name],
                     max_abs_err=t["max_abs_err"], ms=t["ms"],

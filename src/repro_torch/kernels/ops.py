@@ -7,10 +7,13 @@ edge is masked through `lk_valid`) and slices the padding off.  It is a
 `torch.autograd.Function`, as the reference's is a `jax.custom_vjp`: the
 forward is the flash kernel (its plain version on the CPU), the backward
 recomputes through `ref.attention_ref` and differentiates that, on either
-device.  The copy, combine and AdamW kernels handle any length and region
-themselves (a scalar edge path where 16-byte vectors do not fit), so
-`put_copy`, `dma_copy`, `reduce_combine` and `fused_adam_update` need no
-edge padding, which the TPU kernels needed for their (32, 128) tiles."""
+device.  `ssd` zero-pads L to a multiple of the chunk and slices y back;
+it is a Function of the same shape, its backward recomputing through
+`ref.ssd_chunked_ref` (the function the reference trains through).  The
+copy, combine and AdamW kernels handle any length and region themselves
+(a scalar edge path where 16-byte vectors do not fit), so `put_copy`,
+`dma_copy`, `reduce_combine` and `fused_adam_update` need no edge
+padding, which the TPU kernels needed for their (32, 128) tiles."""
 from __future__ import annotations
 
 import torch
@@ -21,6 +24,7 @@ from . import fused_update as _fu
 from . import put_copy as _pc
 from . import reduce_combine as _rc
 from . import ref
+from . import ssd_scan as _ssd
 
 
 def _pad_seq(x, mult: int):
@@ -68,6 +72,58 @@ class _Attention(torch.autograd.Function):
             out = ref.attention_ref(q, k, v, **ctx.opts)
         dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
         return dq, dk, dv, None, None, None, None, None, None
+
+
+def ssd(x, dt, a_log, b_mat, c_mat, h0=None, *,
+        chunk: int = _ssd.DEFAULT_CHUNK):
+    """SSD scan: (y, h_final), `repro.kernels.ops.ssd`'s function.
+
+    x: (B, L, H, P); dt: (B, L, H) f32; a_log: (H,) f32, negative (A
+    itself, not its log); b_mat, c_mat: (B, L, G, N) in x's dtype; h0:
+    (B, H, P, N) f32 or None.  Any L: the sequence is zero-padded to a
+    multiple of `chunk` (a padded step has dt = 0, so it leaves the state
+    alone) and y is sliced back to L.  The forward is kernel 7 on the card
+    (its plain version on the CPU); the backward recomputes through
+    `ref.ssd_chunked_ref`."""
+    return _Ssd.apply(x, dt, a_log, b_mat, c_mat, h0, chunk)
+
+
+def _ssd_padded(x, dt, a_log, b_mat, c_mat, h0, chunk, scan):
+    length = x.shape[1]
+    pad = (-length) % chunk
+    if pad:
+        x, b_mat, c_mat = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                           for t in (x, b_mat, c_mat))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    y, h = scan(x, dt, a_log, b_mat, c_mat, h0, chunk=chunk)
+    return y[:, :length], h
+
+
+class _Ssd(torch.autograd.Function):
+    """Kernel forward, chunked-reference-recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b_mat, c_mat, h0, chunk):
+        ctx.save_for_backward(x, dt, a_log, b_mat, c_mat, h0)
+        ctx.chunk = chunk
+        return _ssd_padded(x, dt, a_log, b_mat, c_mat, h0, chunk,
+                           _ssd.ssd_scan)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        saved = ctx.saved_tensors
+        want = [i for i, t in enumerate(saved)
+                if t is not None and ctx.needs_input_grad[i]]
+        inputs = [t.detach().requires_grad_(i in want) if t is not None
+                  else None for i, t in enumerate(saved)]
+        with torch.enable_grad():
+            y, h = _ssd_padded(*inputs, ctx.chunk, ref.ssd_chunked_ref)
+        grads = torch.autograd.grad((y, h), [inputs[i] for i in want],
+                                    (gy, gh), allow_unused=True)
+        out = [None] * 7
+        for i, g in zip(want, grads):
+            out[i] = g
+        return tuple(out)
 
 
 def put_copy(src):

@@ -104,3 +104,84 @@ def fused_adam_ref(g_bufs, p, m, v, wd_mask, c1, c2, *, lr, b1, b2, eps,
     upd = (m_n / c1) / (sqrt_rn(v_n / c2) + eps)
     upd = torch.where(wd_mask != 0, upd + wd_coef * p, upd)
     return (p - lr * upd).to(out_dtype), m_n, v_n
+
+
+def ssd_ref(x, dt, a_log, b_mat, c_mat, h0=None):
+    """Sequential-scan oracle of the SSD scan, one step at a time
+    (`repro.kernels.ref.ssd_ref`).  x: (B,L,H,P); dt: (B,L,H); a_log: (H,)
+    (negative: it is A, not a log); b_mat/c_mat: (B,L,G,N), head h reading
+    group h // (H/G); h0: (B,H,P,N) or None.  Returns (y in x's dtype,
+    the final f32 state)."""
+    bsz, length, h, p = x.shape
+    n = b_mat.shape[3]
+    group = h // b_mat.shape[2]
+    bm = b_mat.repeat_interleave(group, dim=2).float()     # (B,L,H,N)
+    cm = c_mat.repeat_interleave(group, dim=2).float()
+    state = (torch.zeros(bsz, h, p, n, device=x.device) if h0 is None
+             else h0.float())
+    xf, dtf, a = x.float(), dt.float(), a_log.float()
+    ys = []
+    for t in range(length):
+        dt_t = dtf[:, t]                                     # (B,H)
+        decay = torch.exp(a[None, :] * dt_t)[..., None, None]
+        upd = dt_t[..., None, None] * xf[:, t, :, :, None] \
+            * bm[:, t, :, None, :]                           # (B,H,P,N)
+        state = decay * state + upd
+        ys.append(torch.einsum("bhn,bhpn->bhp", cm[:, t], state))
+    return torch.stack(ys, 1).to(x.dtype), state
+
+
+def ssd_chunked_ref(x, dt, a_log, b_mat, c_mat, h0=None, chunk: int = 128):
+    """The chunked SSD in plain torch, the math of the kernel
+    (`repro.kernels.ref.ssd_chunked_ref`): per chunk of Q steps the decay
+    cumsum s, the intra-chunk term ((C B^T) * exp(s_t - s_u) * dt_u,
+    u <= t) @ x, the inter-chunk term exp(s_t) * C @ state^T, and the
+    state update exp(s_Q) * state + (x * dt * exp(s_Q - s))^T @ B; every
+    product in f32.  L % chunk == 0.  The mask sits in the exponent:
+    exp(where(u <= t, s_t - s_u, -1e30)), since exp of the positive
+    difference above the diagonal overflows to inf and inf * 0 poisons
+    the gradient.  Differentiable; the inter-chunk recurrence is a loop
+    over the L / chunk chunks."""
+    bsz, length, h, p = x.shape
+    n = b_mat.shape[3]
+    group = h // b_mat.shape[2]
+    if length % chunk:
+        raise ValueError(f"L={length} is not a multiple of chunk={chunk}")
+    nc = length // chunk
+    bm = b_mat.repeat_interleave(group, dim=2)
+    cm = c_mat.repeat_interleave(group, dim=2)
+    state = (torch.zeros(bsz, h, p, n, device=x.device) if h0 is None
+             else h0.float())
+
+    xc = x.reshape(bsz, nc, chunk, h, p).float()
+    dtc = dt.reshape(bsz, nc, chunk, h).float()
+    bc = bm.reshape(bsz, nc, chunk, h, n).float()
+    cc = cm.reshape(bsz, nc, chunk, h, n).float()
+
+    a_dt = a_log.float()[None, None, None, :] * dtc          # (B,nc,Q,H)
+    s = torch.cumsum(a_dt, dim=2)
+    s_last = s[:, :, -1:, :]
+
+    idx = torch.arange(chunk, device=x.device)
+    tri = idx[:, None] >= idx[None, :]
+
+    cb = torch.einsum("bcthn,bcuhn->bchtu", cc, bc)
+    st = s.transpose(2, 3)                                   # (B,nc,H,Q)
+    delta = st[..., :, None] - st[..., None, :]              # (B,nc,H,Q,Q)
+    decay = torch.exp(torch.where(tri, delta, NEG_INF))
+    m = decay * cb * dtc.transpose(2, 3)[..., None, :]
+    y_intra = torch.einsum("bchtu,bcuhp->bcthp", m, xc)
+
+    w = xc * (dtc * torch.exp(s_last - s))[..., None]        # (B,nc,Q,H,P)
+    chunk_upd = torch.einsum("bcuhp,bcuhn->bchpn", w, bc)
+    chunk_decay = torch.exp(s_last[:, :, 0, :])              # (B,nc,H)
+
+    y_inter = []
+    for c in range(nc):
+        y_inter.append(
+            torch.exp(s[:, c]).transpose(1, 2)[..., None]
+            * torch.einsum("bthn,bhpn->bhtp", cc[:, c], state))  # (B,H,Q,P)
+        state = chunk_decay[:, c, :, None, None] * state + chunk_upd[:, c]
+    y_inter = torch.stack(y_inter, 1).transpose(2, 3)        # (B,nc,Q,H,P)
+    y = (y_intra + y_inter).reshape(bsz, length, h, p).to(x.dtype)
+    return y, state

@@ -2,9 +2,14 @@
 symmetric-heap KV cache, on the CUDA card (or the CPU with --device cpu).
 
 Submits --batch requests of random prompts up front and drains them.
+Families without attention KV caches (ssm) take the reference's
+dense-cache decode loop instead: the prompt fed teacher-forced through
+`decode_step`, then --tokens greedy tokens.
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b
   python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch mamba2-2.7b
+  python -m repro_torch.launch.serve --arch mamba2-2.7b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -13,6 +18,42 @@ import time
 
 import numpy as np
 import torch
+
+
+def _decode_loop(cfg, device, args):
+    """The reference's `_legacy_decode_loop`: seeded weights, a dense
+    decode cache, --prompt-len prompt tokens fed one step at a time, then
+    --tokens greedy tokens.  Returns the (batch, tokens) generated ids."""
+    from ..models import transformer
+    from ..serve import step as sstep
+
+    B = args.batch
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(1, cfg.vocab, size=(B, args.prompt_len),
+                          dtype=np.int32)
+    params = transformer.init_params(cfg, seed=0, device=device)
+    cache = transformer.init_cache(cfg, 1, B, args.prompt_len + args.tokens,
+                                   device=device)
+    decode = sstep.build_decode_step(cfg)
+    prompt_d = torch.as_tensor(prompt, device=device).long()
+    t0 = time.perf_counter()
+    tok = prompt_d[:, :1]
+    out_tokens = []
+    for t in range(args.prompt_len + args.tokens - 1):
+        batch = {"tokens": tok,
+                 "positions": torch.full((B,), t, device=device)}
+        logits, cache = decode(params, cache, batch)
+        nxt = logits[:, 0].argmax(-1)
+        if t + 1 < args.prompt_len:
+            tok = prompt_d[:, t + 1:t + 2]
+        else:
+            tok = nxt[:, None]
+            out_tokens.append(nxt)
+    gen = torch.stack(out_tokens, 1).cpu().numpy().astype(np.int32)
+    dt = time.perf_counter() - t0
+    print(f"[serve] (dense loop, {device}) generated {gen.shape} in "
+          f"{dt:.2f}s ({B * gen.shape[1] / dt:.1f} tok/s)")
+    return gen
 
 
 def main(argv=None):
@@ -35,10 +76,13 @@ def main(argv=None):
 
     from .. import resolve_device
     from ..configs import get_config, smoke_config
+    from ..models import transformer
     from ..serve.engine import ServeEngine
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)
+    if cfg.family not in transformer.paged_families():
+        return _decode_loop(cfg, device, args)
     slots = args.slots or min(args.batch, 8)
     max_seq = args.prompt_len + args.tokens
     bucket = -(-args.prompt_len // args.page_size) * args.page_size

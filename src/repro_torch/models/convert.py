@@ -9,11 +9,13 @@ from .transformer import _check_family, map_params
 
 
 def params_from_jax(tree, cfg: ModelConfig, device="cpu"):
-    """`tree` is the dense-family tree of `repro.models.transformer.
-    init_params` (tp = 1) with every leaf already a numpy array: per-layer
-    leaves stacked to [n_layers, ...] under "layers".  Returns the port's
-    parameters on `device`: one dict per layer, leaves of two or more
-    dims in `cfg.param_dtype`, the rest in f32."""
+    """`tree` is the dense- or ssm-family tree of `repro.models.
+    transformer.init_params` (tp = 1) with every leaf already a numpy
+    array: per-layer leaves stacked to [n_layers, ...] under "layers"
+    (dense: {"attn", "mlp", "ln1", "ln2"}; ssm: {"mamba": {w_in, conv_w,
+    conv_b, a_log, dt_bias, d_skip, norm_w, w_out}, "ln"}).  Returns the
+    port's parameters on `device`: one dict per layer, leaves of two or
+    more dims in `cfg.param_dtype`, the rest in f32."""
     _check_family(cfg)
     device = torch.device(device)
 

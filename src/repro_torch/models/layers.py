@@ -1,5 +1,6 @@
-"""Model layers of the dense family: the full-sequence training path and
-the paged serving path.
+"""Model layers of the dense family (the full-sequence training path and
+the paged serving path) and of the ssm family (Mamba2: the full-sequence
+prefill through the SSD scan and the one-step decode recurrence).
 
 Counterpart of `repro/models/layers.py`.  Each function takes a `Comm`
 and calls its collectives where `repro` does; on one device they are the
@@ -7,7 +8,7 @@ identity.  Weights are plain tensors in dicts, initialised from a
 `torch.Generator`.  The paged KV pool is updated in place (the JAX
 functions return a new pool): one pool per engine, no copy per step.
 Gradients come from autograd; attention's goes through the
-`kernels/ops.attention` Function.
+`kernels/ops.attention` Function, the SSD scan's through `ops.ssd`.
 """
 from __future__ import annotations
 
@@ -314,3 +315,128 @@ def init_mlp(gen, cfg: ModelConfig, tp: int, device,
 def mlp(comm: Comm, cfg: ModelConfig, p: Params, x):
     h = F.silu(_dense(x, p["w_gate"])) * _dense(x, p["w_up"])
     return comm.allreduce(_dense(h, p["w_down"]), comm.axes.model)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (ssm family)
+# ---------------------------------------------------------------------------
+
+def init_mamba2(gen, cfg: ModelConfig, tp: int, device) -> Params:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    d_in_local = d_in // tp
+    nheads_local = d_in_local // s.head_dim
+    conv_dim = d_in_local + 2 * s.n_groups * s.state
+    return {
+        # [z, x, B, C, dt] fused in-proj
+        "w_in": _normal(gen, (d, 2 * d_in_local + 2 * s.n_groups * s.state
+                              + nheads_local), 1.0 / math.sqrt(d), device),
+        "conv_w": _normal(gen, (s.conv_width, conv_dim),
+                          1.0 / math.sqrt(s.conv_width), device),
+        "conv_b": torch.zeros(conv_dim, device=device),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, nheads_local,
+                                          device=device)),
+        "dt_bias": torch.zeros(nheads_local, device=device),
+        "d_skip": torch.ones(nheads_local, device=device),
+        "norm_w": torch.zeros(d_in_local, device=device),
+        "w_out": _normal(gen, (d_in_local, d), 1.0 / math.sqrt(d_in),
+                         device),
+    }
+
+
+def _mamba_split(cfg: ModelConfig, tp: int):
+    s = cfg.ssm
+    d_in_local = s.expand * cfg.d_model // tp
+    nheads_local = d_in_local // s.head_dim
+    gdim = s.n_groups * s.state
+    return d_in_local, nheads_local, gdim
+
+
+def mamba2(comm: Comm, cfg: ModelConfig, p: Params, x):
+    """Full-sequence Mamba2 (prefill): x (B, L, d) -> (B, L, d), one
+    allreduce at the out-projection.  The causal depthwise conv is the
+    reference's shifted sum in the activation dtype; x, B and C reach
+    `ops.ssd` as views of the conv's output (no copy)."""
+    s = cfg.ssm
+    tp = comm.axis_size(comm.axes.model)
+    B, seq, _ = x.shape
+    d_in_local, nheads_local, gdim = _mamba_split(cfg, tp)
+
+    zxbcdt = _dense(x, p["w_in"])
+    z = zxbcdt[..., :d_in_local]
+    xbc = zxbcdt[..., d_in_local:d_in_local * 2 + 2 * gdim]
+    dt = zxbcdt[..., -nheads_local:]
+
+    # depthwise causal conv over [x, B, C]
+    w = p["conv_w"].to(xbc.dtype)
+    acc = xbc * w[-1]
+    for i in range(1, s.conv_width):
+        acc = acc + F.pad(xbc, (0, 0, i, 0))[:, :seq] * w[-1 - i]
+    xbc = F.silu(acc + p["conv_b"].to(acc.dtype))
+
+    xs = xbc[..., :d_in_local].reshape(B, seq, nheads_local, s.head_dim)
+    b_mat = xbc[..., d_in_local:d_in_local + gdim] \
+        .reshape(B, seq, s.n_groups, s.state)
+    c_mat = xbc[..., d_in_local + gdim:] \
+        .reshape(B, seq, s.n_groups, s.state)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    a = -torch.exp(p["a_log"].float())
+
+    y, _ = kops.ssd(xs, dt, a, b_mat, c_mat, chunk=s.chunk)
+    y = y + xs * p["d_skip"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(B, seq, d_in_local)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm_w"])
+    out = _dense(y.to(cfg.dtype), p["w_out"])
+    return comm.allreduce(out, comm.axes.model)
+
+
+def init_mamba_cache(cfg: ModelConfig, tp: int, batch_local: int, device):
+    s = cfg.ssm
+    d_in_local, nheads_local, gdim = _mamba_split(cfg, tp)
+    conv_dim = d_in_local + 2 * gdim
+    return {
+        "conv": torch.zeros((batch_local, s.conv_width - 1, conv_dim),
+                            dtype=cfg.dtype, device=device),
+        "ssm": torch.zeros((batch_local, nheads_local, s.head_dim, s.state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba2_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache):
+    """One-step recurrence (decode): x (B, 1, d) -> ((B, 1, d), new
+    cache).  The conv history and the state come back as new tensors."""
+    s = cfg.ssm
+    tp = comm.axis_size(comm.axes.model)
+    B = x.shape[0]
+    d_in_local, nheads_local, gdim = _mamba_split(cfg, tp)
+
+    zxbcdt = _dense(x[:, 0], p["w_in"])                     # (B, ...)
+    z = zxbcdt[..., :d_in_local]
+    xbc = zxbcdt[..., d_in_local:d_in_local * 2 + 2 * gdim]
+    dt = zxbcdt[..., -nheads_local:]
+
+    conv_hist = torch.cat([cache["conv"], xbc[:, None].to(cfg.dtype)], 1)
+    w = p["conv_w"].float()
+    acc = torch.einsum("bwc,wc->bc", conv_hist.float(), w)
+    xbc = F.silu(acc + p["conv_b"].float())
+
+    xs = xbc[..., :d_in_local].reshape(B, nheads_local, s.head_dim)
+    b_t = xbc[..., d_in_local:d_in_local + gdim].reshape(B, s.n_groups,
+                                                         s.state)
+    c_t = xbc[..., d_in_local + gdim:].reshape(B, s.n_groups, s.state)
+    group = nheads_local // s.n_groups
+    b_h = b_t.repeat_interleave(group, 1)
+    c_h = c_t.repeat_interleave(group, 1)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    a = torch.exp(-torch.exp(p["a_log"].float())[None] * dt)
+    state = cache["ssm"] * a[..., None, None] + (
+        dt[..., None, None] * xs[..., None].float()
+        * b_h[..., None, :].float())
+    y = torch.einsum("bhn,bhpn->bhp", c_h.float(), state)
+    y = y + xs.float() * p["d_skip"][None, :, None]
+    y = y.reshape(B, d_in_local)
+    y = rms_norm(y * F.silu(z.float()), p["norm_w"])
+    out = _dense(y[:, None].to(cfg.dtype), p["w_out"])
+    out = comm.allreduce(out, comm.axes.model)
+    return out, {"conv": conv_hist[:, 1:], "ssm": state}

@@ -1,17 +1,19 @@
-"""Model assembly: parameters, the full-sequence training entries
-(`forward`, `train_loss`), KV pools, and the paged prefill/decode entries
-over the layer stack.
+"""Model assembly: parameters, the full-sequence entries (`forward`,
+`train_loss`, `prefill`), KV pools and the paged prefill/decode entries
+of the dense family, and the dense-cache `init_cache`/`decode_step` of
+the ssm family.
 
-Counterpart of the dense-family parts of `repro/models/transformer.py`.
+Counterpart of the dense and ssm parts of `repro/models/transformer.py`.
 Parameters hold one dict per layer in `params["layers"]` (the JAX package
 stacks each leaf to [n_layers, ...] for `lax.scan`); the stack is a
-Python loop.
+Python loop.  Decode caches likewise hold one dict per layer.
 """
 from __future__ import annotations
 
 import torch
 import torch.utils.checkpoint
 
+from .. import resolve_device
 from ..parallel.comm import Comm
 from . import layers as L
 from .config import ModelConfig
@@ -24,29 +26,48 @@ def paged_families() -> tuple[str, ...]:
     return ("dense",)
 
 
-def _check_family(cfg: ModelConfig):
-    if cfg.family not in paged_families() or cfg.local_global_period:
-        raise ValueError(
-            f"the port runs the {paged_families()} families without "
-            f"local/global layer pairs, not {cfg.name!r} ({cfg.family})")
+# the slice of the port that brings each family not ported yet
+_LATER = {"hybrid": "4c", "moe": "4c", "audio": "4c", "vlm": "4c"}
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu") -> Params:
+def _check_family(cfg: ModelConfig, families=("dense", "ssm")):
+    """Raise NotImplementedError unless `cfg`'s family is among
+    `families`; gemma2's local/global pairs are not ported either."""
+    if cfg.family in families and not cfg.local_global_period:
+        return
+    if cfg.local_global_period:
+        why = "local/global layer pairs come with slice 4c of the port"
+    elif cfg.family in _LATER:
+        why = (f"the {cfg.family} family comes with slice "
+               f"{_LATER[cfg.family]} of the port")
+    else:
+        why = f"this entry takes the {', '.join(families)} families"
+    raise NotImplementedError(f"{cfg.name!r} ({cfg.family}): {why}")
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     """Random parameters from a `torch.Generator` seeded with `seed`, made
-    on `device`.  Weights are f32, then cast to `cfg.param_dtype` for
-    leaves of two or more dims, as in `repro`."""
+    on `device` (default: the CUDA card; raises without one unless
+    ``device="cpu"``).  Weights are f32, then cast to `cfg.param_dtype`
+    for leaves of two or more dims, as in `repro`."""
     _check_family(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     tp = 1
     gen = torch.Generator(device=device).manual_seed(seed)
     p: Params = {"embed": L.init_embedding(gen, cfg, tp, device),
                  "final_norm": torch.zeros(cfg.d_model, device=device)}
-    p["layers"] = [
-        {"attn": L.init_attention(gen, cfg, tp, device),
-         "mlp": L.init_mlp(gen, cfg, tp, device),
-         "ln1": torch.zeros(cfg.d_model, device=device),
-         "ln2": torch.zeros(cfg.d_model, device=device)}
-        for _ in range(cfg.n_layers)]
+    if cfg.family == "ssm":
+        p["layers"] = [
+            {"mamba": L.init_mamba2(gen, cfg, tp, device),
+             "ln": torch.zeros(cfg.d_model, device=device)}
+            for _ in range(cfg.n_layers)]
+    else:
+        p["layers"] = [
+            {"attn": L.init_attention(gen, cfg, tp, device),
+             "mlp": L.init_mlp(gen, cfg, tp, device),
+             "ln1": torch.zeros(cfg.d_model, device=device),
+             "ln2": torch.zeros(cfg.d_model, device=device)}
+            for _ in range(cfg.n_layers)]
     if cfg.param_dtype != torch.float32:
         p = map_params(
             lambda w: w.to(cfg.param_dtype) if w.dim() >= 2 else w, p)
@@ -68,7 +89,7 @@ def init_kv_pool(cfg: ModelConfig, tp: int, num_pages: int, page_size: int,
     num_pages, page_size, K, hd).  Page p of a sequence lives at the same
     physical index in every layer's pool, so one page table serves the
     whole stack."""
-    _check_family(cfg)
+    _check_family(cfg, paged_families())
     flat = L.init_attn_cache(cfg, tp, cfg.n_layers * num_pages, page_size,
                              device)
     return {name: t.view((cfg.n_layers, num_pages) + tuple(t.shape[1:]))
@@ -80,6 +101,10 @@ def _attn_block(comm, cfg, bp, x, positions):
     x = x + L.attention(comm, cfg, bp["attn"], h, positions)
     h = L.rms_norm(x, bp["ln2"])
     return x + L.mlp(comm, cfg, bp["mlp"], h)
+
+
+def _mamba_block(comm, cfg, bp, x):
+    return x + L.mamba2(comm, cfg, bp["mamba"], L.rms_norm(x, bp["ln"]))
 
 
 def _maybe_remat(cfg: ModelConfig, fn):
@@ -94,17 +119,64 @@ def _maybe_remat(cfg: ModelConfig, fn):
 
 
 def forward(comm: Comm, cfg: ModelConfig, params: Params, tokens):
-    """Full-sequence forward of the dense family: tokens (B, L) ->
-    (hidden (B, L, d), aux loss 0)."""
+    """Full-sequence forward of the dense and ssm families: tokens (B, L)
+    -> (hidden (B, L, d), aux loss 0)."""
     _check_family(cfg)
     x = L.embed(comm, cfg, params["embed"], tokens)
     B, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device).expand(B, seq)
     for bp in params["layers"]:
-        x = _maybe_remat(
-            cfg, lambda x, bp=bp: _attn_block(comm, cfg, bp, x, positions))(x)
+        if cfg.family == "ssm":
+            x = _maybe_remat(
+                cfg, lambda x, bp=bp: _mamba_block(comm, cfg, bp, x))(x)
+        else:
+            x = _maybe_remat(
+                cfg, lambda x, bp=bp: _attn_block(comm, cfg, bp, x,
+                                                  positions))(x)
     x = L.rms_norm(x, params["final_norm"])
     return x, torch.zeros((), device=x.device)
+
+
+def prefill(comm: Comm, cfg: ModelConfig, params: Params, tokens):
+    """Prefill forward: tokens (B, L) -> last-position logits (B, 1,
+    vocab_local).  As in the reference, the forward pass is the prefill;
+    the ssm family's decode cache is not filled by it."""
+    h, _ = forward(comm, cfg, params, tokens)
+    return L.lm_logits(comm, cfg, params["embed"], h[:, -1:])
+
+
+def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
+               seq_shards: int = 1, *, device=None) -> Params:
+    """Decode caches of the ssm family, one dict per layer under "layers":
+    {"conv": (B, conv_width - 1, conv_dim) in cfg.dtype, "ssm": (B, H, P,
+    N) f32}, on `device` (default: the CUDA card, as `init_params`).  A
+    Mamba2 cache has no length: `cache_len` is taken for the reference's
+    signature.  The dense family decodes through the paged KV pool
+    (`init_kv_pool`)."""
+    _check_family(cfg, ("ssm",))
+    if seq_shards != 1:
+        raise NotImplementedError("sequence-sharded caches come with the "
+                                  "multi-device backend (slice 5)")
+    device = resolve_device(device)
+    return {"layers": [L.init_mamba_cache(cfg, tp, batch_local, device)
+                       for _ in range(cfg.n_layers)]}
+
+
+def decode_step(comm: Comm, cfg: ModelConfig, params: Params, cache: Params,
+                tokens, positions):
+    """One decode step of the ssm family: tokens (B, 1), positions (B,)
+    -> (logits (B, 1, vocab_local), new cache).  A Mamba2 layer reads no
+    position."""
+    _check_family(cfg, ("ssm",))
+    x = L.embed(comm, cfg, params["embed"], tokens)
+    new = []
+    for bp, c in zip(params["layers"], cache["layers"]):
+        y, c = L.mamba2_decode(comm, cfg, bp["mamba"],
+                               L.rms_norm(x, bp["ln"]), c)
+        x = x + y
+        new.append(c)
+    x = L.rms_norm(x, params["final_norm"])
+    return L.lm_logits(comm, cfg, params["embed"], x), {"layers": new}
 
 
 def train_loss(comm: Comm, cfg: ModelConfig, params: Params, batch: dict):

@@ -1,9 +1,64 @@
-"""Greedy sampling over (vocab-sharded) logits."""
+"""Serve-step builders (batched prefill, single-token decode over the
+dense decode cache) and greedy sampling over (vocab-sharded) logits.
+
+The builders compute no gradient.  The reference threads the tuning
+stack (topology, link model, mesh embedding, tuner, profiler) through
+the `Comm` they build; those knobs come with the multi-device backend
+(slice 5) and raise here.  Its `allreduce_algo` picks among allreduce
+algorithms, all the identity on one device: the port's `Comm` has none."""
 from __future__ import annotations
 
 import torch
 
-from ..parallel.comm import Comm
+from ..models import transformer
+from ..models.config import ModelConfig
+from ..parallel.comm import AxisSpec, Comm
+
+
+def _refuse_unported(**knobs):
+    unported = sorted(k for k, v in knobs.items() if v is not None)
+    if unported:
+        raise NotImplementedError(f"{unported}: not ported yet (slice 5)")
+
+
+def build_prefill(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
+                  backend: str = "shmem", *, topo=None, link=None,
+                  embedding=None, tuner=None, profile=None):
+    """fn(params, batch) -> last-position logits (B, 1, vocab_local) of
+    batch["tokens"] (B, L), under `torch.no_grad()`."""
+    _refuse_unported(topo=topo, link=link, embedding=embedding, tuner=tuner,
+                     profile=profile)
+
+    @torch.no_grad()
+    def fn(params, batch):
+        if batch.get("frames") is not None \
+                or batch.get("frontend_embeds") is not None:
+            raise NotImplementedError("the audio and vlm frontends come "
+                                      "with slice 4c")
+        return transformer.prefill(Comm(axes, backend), cfg, params,
+                                   batch["tokens"])
+    return fn
+
+
+def build_decode_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
+                      backend: str = "shmem", seq_shards: int = 1, *,
+                      topo=None, link=None, embedding=None, tuner=None,
+                      profile=None):
+    """fn(params, cache, batch) -> (logits (B, 1, vocab_local), new cache)
+    for batch {"tokens": (B, 1), "positions": (B,)}, under
+    `torch.no_grad()`."""
+    _refuse_unported(topo=topo, link=link, embedding=embedding, tuner=tuner,
+                     profile=profile)
+    if seq_shards != 1:
+        raise NotImplementedError("sequence-sharded decode comes with the "
+                                  "multi-device backend (slice 5)")
+
+    @torch.no_grad()
+    def fn(params, cache, batch):
+        return transformer.decode_step(Comm(axes, backend), cfg, params,
+                                       cache, batch["tokens"],
+                                       batch["positions"])
+    return fn
 
 
 def sample_greedy(comm: Comm, logits):
