@@ -65,7 +65,24 @@ Phases; any failure exits non-zero before the result line is printed:
      (d) `launch.serve --arch mamba2-2.7b` through main(): the dense-cache
      decode loop at batch 4, prompt 32, 16 tokens, (4, 16) tokens, and
      the loop's logits at the last prompt position against
-     build_prefill's on the same prompts.
+     build_prefill's on the same prompts;
+  8. ring attention — (a) the ring-partials kernel (kernel 6,
+     csrc/ring_attention.cu) against its plain version over D 16-128, f32
+     and bf16, causal or not, window, softcap, GQA groups 1 and 7, ragged
+     Lq/Lk, -1 key slots, wholly and partly masked blocks, 1, 4 and 16
+     PEs (m, l within 1e-5 x sqrt(D/16), acc within 2e-5 x max(1,
+     l |v|max), finalize within 2e-5 x sqrt(D/16), wholly masked rows at
+     m = -1e30 and the plain l exactly); (b) kernel 6 timed at the ring
+     step's shape (16 PEs, Hq 14, Hkv 2, 2048 x 2048, D 64, bf16) beside
+     its plain version and SDPA with the block mask; (c) qwen2-0.5b's
+     layer-0 q, k, v over a 32768-token prompt, sharded over 16 PEs of
+     the 4x4 mesh, through fusion.ring_attention on the plain and the NoC
+     SIM: exactly 16 kernel-6 launches and the puts the code implies
+     (counts set to 0 just before, read just after), the output within
+     max(2e-5, 1 bf16 step) of kernel 4 over the gathered sequence and of
+     the ring through the plain partials, then with a window of 4096 and
+     a softcap of 50; the ring and mono walls, the peak memory, and
+     choose_attention's pick at the measured per-block time.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi gives them, and
@@ -86,7 +103,7 @@ from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 KERNELS = ["flash_attention", "put_copy", "reduce_combine",
-           "fused_update", "ssd_scan"]
+           "fused_update", "ssd_scan", "ring_attention"]
 
 # published peaks of one H100 SXM (dense): bytes over 3.35 TB/s, products
 # over the tensor-core rate of their type (bf16) or the f32 CUDA-core rate
@@ -1085,10 +1102,12 @@ def _counts():
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import put_copy as pc
     from repro_torch.kernels import reduce_combine as rc
+    from repro_torch.kernels import ring_attention as ra
     from repro_torch.kernels import ssd_scan as ks
     return {"flash_attention": fa.launches, "put_copy": pc.launches,
             "dma_copy": pc.dma_launches, "reduce_combine": rc.launches,
-            "fused_update": fu.launches, "ssd_scan": ks.launches}
+            "fused_update": fu.launches, "ssd_scan": ks.launches,
+            "ring_attention": ra.launches}
 
 
 def _reset_counts():
@@ -1096,9 +1115,10 @@ def _reset_counts():
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import put_copy as pc
     from repro_torch.kernels import reduce_combine as rc
+    from repro_torch.kernels import ring_attention as ra
     from repro_torch.kernels import ssd_scan as ks
     fa.launches = pc.launches = pc.dma_launches = rc.launches = 0
-    fu.launches = ks.launches = 0
+    fu.launches = ks.launches = ra.launches = 0
 
 
 def train(torch, np, serving) -> dict:
@@ -1604,6 +1624,433 @@ def decode_mamba(torch, np, mamba) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: sequence-sharded ring attention — kernel 6, the ring on 16 PEs
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+# 8a's limits, kernel 6 against its plain version on the same inputs: for
+# a row that keeps a key, m within RING_M_RTOL x max(1, |m|) (a max logit
+# near 0 has no relative precision left), l within RING_M_RTOL relative,
+# acc within RING_ACC_TOL x max(1, l |v|max) (|acc| <= l |v|max); a row
+# that keeps none: m exactly -1e30, l exactly the plain l (the count of
+# the block's slots), acc within the same acc limit.  Then finalize of
+# both within RING_OUT_ATOL (tests/test_fused.py's 2e-5, at D 16).  The m,
+# l and finalize limits are for D 16 and grow as sqrt(D / 16): the logits
+# are f32 dot products of D terms summed in two orders (the kernel's FMA
+# chain, cuBLAS's GEMM), whose difference grows as sqrt(D), and l and the
+# output inherit it.  The H100 run read, under the D-16 limits, worst l at
+# 0.31, 0.50, 0.61 and 1.05 of the limit at D 16, 32, 64 and 128 (finalize
+# 1.25 at D 128), masked rows exact everywhere.
+RING_M_RTOL = 1e-5
+RING_ACC_TOL = 2e-5
+RING_OUT_ATOL = 2e-5
+
+
+def ring_positions(torch, gen, layout, p, lq, lk, step=0):
+    """(q_pos (P, Lq), k_pos (P, Lk)) int32 on the card.  "ring": PE p's
+    queries at p*Lq.., its block from PE (p - step) % P at src*Lk.. (a
+    ring step: past, diagonal and future blocks side by side); "future":
+    every key after every query (wholly masked under causal);
+    "partly": keys from the middle of the query rows on; "pad": a ring
+    step with ~15% of the key slots at -1."""
+    pe = torch.arange(p, device="cuda")[:, None]
+    q_pos = pe * lq + torch.arange(lq, device="cuda")
+    src = (pe - step) % p
+    k_pos = src * lk + torch.arange(lk, device="cuda")
+    if layout == "future":
+        k_pos = k_pos + p * lq + 7
+    elif layout == "partly":
+        k_pos = q_pos[:, :1] + lq // 2 + torch.arange(lk, device="cuda")
+    elif layout == "pad":
+        drop = torch.rand((p, lk), generator=gen, device="cuda") < 0.15
+        k_pos = torch.where(drop, torch.full_like(k_pos, -1), k_pos)
+    return q_pos.to(torch.int32), k_pos.to(torch.int32)
+
+
+def ring_cases():
+    """(label, P, B, Hkv, group, Lq, Lk, layout, step, kwargs); each runs
+    at D 16, 32, 64, 128 in f32 and bf16."""
+    causal = dict(causal=True)
+    return [
+        ("ring16", 16, 1, 2, 7, 64, 64, "ring", 5, causal),
+        ("diag1", 1, 2, 2, 1, 100, 100, "ring", 0, causal),
+        ("noncausal4", 4, 2, 2, 7, 37, 70, "ring", 1,
+         dict(causal=False)),
+        ("window4", 4, 2, 2, 1, 96, 96, "ring", 1,
+         dict(causal=True, window=40)),
+        ("softcap4", 4, 1, 2, 7, 50, 50, "ring", 3,
+         dict(causal=True, softcap=30.0)),
+        ("future4", 4, 2, 2, 1, 33, 65, "future", 0, causal),
+        ("partly1", 1, 2, 2, 7, 64, 64, "partly", 0, causal),
+        ("pad4", 4, 2, 2, 7, 40, 45, "pad", 1,
+         dict(causal=True, window=30, softcap=50.0)),
+    ]
+
+
+def ring_over(torch, got, want, vmax) -> tuple[dict, int, int]:
+    """({component: worst err/limit} of acc, m, l and their finalize, rows
+    that keep a key, rows that keep none) under 8a's limits; a row that
+    keeps none counts as inf under "masked" unless its m and l equal the
+    plain version's exactly."""
+    acc, m, l = got
+    racc, rm, rl = want
+    grow = math.sqrt(acc.shape[-1] / 16)
+    kept = rm > NEG_INF
+    none = ~kept
+    exact = torch.equal(m[none], rm[none]) and torch.equal(l[none], rl[none])
+    lim_acc = RING_ACC_TOL * (rl * vmax).clamp_min(1.0)[..., None]
+    over = {"masked": 0.0 if exact else math.inf,
+            "acc": ((acc - racc).abs() / lim_acc).max().item()}
+    if kept.any():
+        over["m"] = ((m - rm).abs()[kept]
+                     / (grow * RING_M_RTOL * rm.abs()[kept].clamp_min(1.0))
+                     ).max().item()
+        over["l"] = ((l - rl).abs()[kept]
+                     / (grow * RING_M_RTOL * rl[kept])).max().item()
+    over["finalize"] = (acc / l.clamp_min(1e-30)[..., None]
+                        - racc / rl.clamp_min(1e-30)[..., None]
+                        ).abs().max().item() / (grow * RING_OUT_ATOL)
+    return over, int(kept.sum()), int(none.sum())
+
+
+def check_ring_partials(torch, ra, ref, gen) -> float:
+    """8a: kernel 6 against `ref.ring_partials_ref` on the same inputs over
+    ring_cases() x D x dtype; every case is checked and printed before a
+    failure is raised.  Returns the worst err/limit."""
+    worst, bad, rows = 0.0, [], [0, 0]
+    for label, p, b, hkv, group, lq, lk, layout, step, kw in ring_cases():
+        for d in (16, 32, 64, 128):
+            for dtype in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype)
+                q, k, v = attention_inputs(torch, gen, p * b, hkv * group,
+                                           hkv, lq, lk, d, dt)
+                q, k, v = (x.reshape((p, b) + tuple(x.shape[1:]))
+                           for x in (q, k, v))
+                q_pos, k_pos = ring_positions(torch, gen, layout, p, lq, lk,
+                                              step)
+                got = ra.attn_block_partials(q, k, v, q_pos, k_pos, **kw)
+                want = ref.ring_partials_ref(q, k, v, q_pos, k_pos, **kw)
+                torch.cuda.synchronize()
+                if any(g.shape != w.shape or g.dtype != torch.float32
+                       or not torch.isfinite(g).all()
+                       for g, w in zip(got, want)):
+                    bad.append(f"{label} D{d} {dtype}: shape/dtype/finite")
+                    continue
+                parts, kept, none = ring_over(torch, got, want,
+                                              v.float().abs().max().item())
+                over = max(parts.values())
+                rows[0] += kept
+                rows[1] += none
+                worst = max(worst, over)
+                log(f"  ring partials {label:10s} D{d:<3d} {dtype:8s} P{p} "
+                    f"B{b} Hq{hkv * group} Hkv{hkv} Lq{lq} Lk{lk} {layout} "
+                    f"{kw}: err/limit "
+                    + " ".join(f"{c} {x:.3f}" for c, x in parts.items())
+                    + f"; rows keeping a key {kept}, keeping none {none}")
+                if not over <= 1.0:
+                    bad.append(f"{label} D{d} {dtype}: err/limit {over}")
+    log(f"  kernel 6 vs plain: {len(ring_cases()) * 8} cases, worst "
+        f"err/limit {worst:.3f}; rows keeping a key {rows[0]}, wholly "
+        f"masked {rows[1]}")
+    if bad or not (rows[0] and rows[1]):
+        raise AssertionError(f"ring partials: {bad or rows}")
+    return worst
+
+
+def ring_block_counts(p, b, hq, hkv, lq, lk, d, itemsize, pairs):
+    """(bytes, products-ops) of one partials call: q, k, v and both
+    position tables read once, acc, m and l written once; 4 D operations
+    for each kept query-key pair."""
+    nbytes = (p * b * (hq * lq + 2 * hkv * lk) * d * itemsize
+              + 4 * p * (lq + lk) + 4 * p * b * hq * lq * (d + 2))
+    return nbytes, 4 * d * pairs * b * hq
+
+
+def time_ring_partials(torch, ra, ref, gen) -> dict:
+    """8b: kernel 6 at the ring step's shape (16 PEs, B 1, Hq 14, Hkv 2,
+    Lq = Lk = 2048, D 64, bf16, causal; the diagonal step, each PE its own
+    block): its C entry back to back, the wrapper, the plain version, and
+    scaled_dot_product_attention over the same 16 PEs with the block's
+    boolean mask (a yardstick of the work: it computes the normalised
+    output, not (acc, m, l))."""
+    import torch.nn.functional as F
+    p, b, hq, hkv, lq, lk, d = 16, 1, 14, 2, 2048, 2048, 64
+    dt = torch.bfloat16
+    q, k, v = attention_inputs(torch, gen, p * b, hq, hkv, lq, lk, d, dt)
+    q, k, v = (x.reshape((p, b) + tuple(x.shape[1:])) for x in (q, k, v))
+    q_pos, k_pos = ring_positions(torch, gen, "ring", p, lq, lk, 0)
+    scale = 1.0 / math.sqrt(d)
+    got = ra.attn_block_partials(q, k, v, q_pos, k_pos, causal=True)
+    want = ref.ring_partials_ref(q, k, v, q_pos, k_pos, causal=True)
+    over = max(ring_over(torch, got, want,
+                         v.float().abs().max().item())[0].values())
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if not over <= 1.0:
+        raise AssertionError(f"ring partials at the ring step: err/limit "
+                             f"{over}")
+    acc, m, l = got
+    lib = ra._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), 1,
+            p, b, hq, hkv, lq, lk, d, 1, 0, 0.0, scale, stream)
+    kernel_ms = time_ms(lambda: lib.repro_ring_partials(*args), iters=10,
+                        warmup=2)
+    wrapper_ms = time_ms(lambda: ra.attn_block_partials(
+        q, k, v, q_pos, k_pos, causal=True), iters=10, warmup=2)
+    plain_ms = time_ms(lambda: ref.ring_partials_ref(
+        q, k, v, q_pos, k_pos, causal=True), iters=3, warmup=1)
+    mask = (k_pos[:, None, :] <= q_pos[:, :, None])[:, None]   # (P,1,Lq,Lk)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[:, 0], k[:, 0], v[:, 0], attn_mask=mask, scale=scale,
+        enable_gqa=True)
+    sdpa_err = (sdpa().float() - (acc / l[..., None])[:, 0]).abs().max()
+    library_ms = time_ms(sdpa, iters=10, warmup=2)
+
+    pairs = int(mask.sum().item())
+    nbytes, ops_count = ring_block_counts(p, b, hq, hkv, lq, lk, d, 2, pairs)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_count / PEAK_OPS_PER_S[str(dt)] * 1e3
+    f32 = PEAK_OPS_PER_S["torch.float32"]
+    every = 4 * d * p * b * hq * lq * lk          # every tile, as computed
+    ring_kept = 4 * d * b * hq * (p * (p - 1) // 2 * lq * lk + pairs)
+    log(f"  times at P{p} B{b} Hq{hq} Hkv{hkv} Lq{lq} Lk{lk} D{d} bf16 "
+        f"causal (diagonal step): kernel {kernel_ms:.5f} ms, wrapper "
+        f"{wrapper_ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa with the "
+        f"block mask {library_ms:.5f} ms (sdpa max|err| vs the kernel's "
+        f"acc/l {sdpa_err.item():.3e}); max|err| vs plain {err:.3e}; bound "
+        f"{max(t_bytes, t_ops):.6f} ms ({nbytes} B = {t_bytes:.6f} ms; "
+        f"{ops_count} products-ops of the {pairs} kept pairs = "
+        f"{t_ops:.6f} ms at the bf16 tensor-core rate, "
+        f"{ops_count / f32 * 1e3:.6f} ms at the f32 rate)")
+    log(f"  every tile, as the kernel and the TPU kernel compute it: "
+        f"{every} ops = {every / f32 * 1e3:.6f} ms at the f32 rate, "
+        f"{every / PEAK_OPS_PER_S[str(dt)] * 1e3:.6f} ms at bf16; the "
+        f"causal ring of {p} steps computes {p * every} and keeps "
+        f"{ring_kept} ({ring_kept / f32 * 1e3:.6f} ms at the f32 rate); "
+        f"achieved {every / kernel_ms / 1e9:.3f} TFLOP/s of every-tile "
+        f"products")
+    del q, k, v, acc, m, l, got, want, mask
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=kernel_ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _shard_seq(x, n):
+    """(B, H, L, D) -> (n, B, H, L/n, D), contiguous: PE p holds rows
+    [p L/n, (p+1) L/n)."""
+    b, h, length, d = x.shape
+    return x.reshape(b, h, n, length // n, d).permute(2, 0, 1, 3, 4) \
+        .contiguous()
+
+
+def _unshard_seq(x):
+    n, b, h, ls, d = x.shape
+    return x.permute(1, 2, 0, 3, 4).reshape(b, h, n * ls, d)
+
+
+def bf16_over(torch, got, want) -> float:
+    """Worst |got - want| over the larger of 2e-5 and one step of want's
+    dtype at |want| (phase 2's rule)."""
+    diff = (got.float() - want.float()).abs()
+    limit = torch.maximum(torch.full_like(diff, RING_OUT_ATOL),
+                          ulp(torch, want))
+    return (diff / limit).max().item()
+
+
+def ring_path(torch, np, serving, ra, ref, ops, fa) -> list:
+    """8c: qwen2-0.5b's layer-0 q, k, v (seeded weights, bf16, after the
+    projections and RoPE) over RING_RUN's 32768-token prompt, sharded over
+    16 PEs, through fusion.ring_attention on the plain and the NoC SIM:
+    16 kernel-6 launches and 3 x 15 puts each; the output against kernel
+    4 over the gathered sequence and against the same ring through the
+    plain partials; the mono alternative (fcollect of k and v, then
+    kernel 4) timed; the merged f32 (acc, m, l) of the kernel ring and the
+    plain-partials ring held to each other under 8a's limits; then a
+    window of 4096 and a softcap of 50.  Returns the launch counts of
+    each run."""
+    from repro_torch.core import abmodel, fusion, sim_ctx
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.pattern import ring_pattern
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.parallel.comm import Comm
+    cfg, run = serving.CONFIG, serving.RING_RUN
+    n, topo, seq = run["n_pes"], run["topology"], run["seq_len"]
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    bp = params["layers"][run["layer"]]
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(run["batch"], seq)), device="cuda")
+    positions = torch.arange(seq, device="cuda").expand(run["batch"], seq)
+    with torch.no_grad():
+        h = L.rms_norm(L.embed(Comm(), cfg, params["embed"], tokens),
+                       bp["ln1"])
+        q, k, v = L.attention_qkv(cfg, bp["attn"], h, positions)
+    del params, h
+    qs, ks, vs = (_shard_seq(x, n) for x in (q, k, v))
+    pos = torch.arange(seq, dtype=torch.int32, device="cuda").reshape(n, -1)
+    waves = len(ring_pattern(n).link_waves(topo))
+    counts, outs, walls = [], {}, {}
+
+    def ring(noc, **kw):
+        ctx = sim_ctx(n, topo, noc=noc, device="cuda")
+        torch.cuda.synchronize()
+        _reset_counts()                                 # path starts
+        t0 = time.perf_counter()
+        out = fusion.ring_attention(ctx, qs, ks, vs, pos, pos, causal=True,
+                                    **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _counts()                                 # path ends
+        want = {"flash_attention": 0, "put_copy": 3 * (n - 1),
+                "dma_copy": 0, "fused_update": 0, "ssd_scan": 0,
+                "reduce_combine": 3 * (n - 1) if noc and waves > 1 else 0,
+                "ring_attention": n}
+        if got != want:
+            raise AssertionError(f"ring noc={noc} {kw}: launches {got}, the "
+                                 f"code implies {want}")
+        counts.append(got)
+        return out, wall
+
+    def plain_partials(q_, k_, v_, qp_, kp_, **kw):
+        return ref.ring_partials_ref(q_, k_, v_, qp_, kp_, **kw)
+
+    kernel_partials, real_finalize = ra.attn_block_partials, ra.finalize
+
+    def ring_through(partials, **kw):
+        """The ring on the plain SIM with `partials` in kernel 6's place:
+        (its output, the merged (acc, m, l) it hands to finalize)."""
+        seen = []
+
+        def capture(state, dtype=None):
+            seen.append(state)
+            return real_finalize(state, dtype)
+
+        with mock.patch.object(ra, "attn_block_partials", partials), \
+                mock.patch.object(ra, "finalize", capture):
+            out = fusion.ring_attention(ctx, qs, ks, vs, pos, pos,
+                                        causal=True, **kw)
+        return _unshard_seq(out), seen[0]
+
+    def states_over(**kw):
+        """8a's limits (ring_over) on the merged states of the ring
+        through kernel 6 and through the plain partials: the f32 check of
+        the full-size ring that one bf16 step of the output cannot make.
+        Returns (the plain ring's output, {component: err/limit})."""
+        _, got = ring_through(kernel_partials, **kw)
+        plain, want = ring_through(plain_partials, **kw)
+        parts, _, none = ring_over(torch, got, want,
+                                   vs.float().abs().max().item())
+        if none or not all(torch.isfinite(x).all() for x in got):
+            raise AssertionError(f"ring {kw}: {none} rows keep no key, or "
+                                 f"the merged state is not finite")
+        return plain, parts
+
+    torch.cuda.reset_peak_memory_stats()
+    for noc in (False, True):
+        outs[noc], walls[f"ring noc={noc}"] = ring(noc)
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(outs[False], outs[True]):
+        raise AssertionError("ring on the NoC SIM != ring on the plain SIM")
+    # mono: fcollect of k and v (each PE then holds the whole sequence),
+    # then kernel 4 over the gathered sequence: every PE's query rows in
+    # one launch against PE 0's copy (all copies are equal)
+    ctx = sim_ctx(n, topo, device="cuda")
+    torch.cuda.synchronize()
+    _reset_counts()                                     # mono starts
+    t0 = time.perf_counter()
+    kf = ctx.fcollect(ks, axis=2)
+    vf = ctx.fcollect(vs, axis=2)
+    mono = ops.attention(q, kf[0], vf[0], causal=True)
+    torch.cuda.synchronize()
+    walls["mono"] = time.perf_counter() - t0
+    mono_counts = _counts()                             # mono ends
+    stages = len(coll.fcollect_schedule(n, 0.0, "rd").stages)
+    want = dict({name: 0 for name in mono_counts}, put_copy=2 * stages,
+                dma_copy=2, flash_attention=1)
+    if mono_counts != want or not (torch.equal(kf[0], k)
+                                   and torch.equal(vf[0], v)):
+        raise AssertionError(f"mono: launches {mono_counts} (want {want}) "
+                             f"or fcollect is not the sequence")
+    counts.append(mono_counts)
+    got = _unshard_seq(outs[False])
+    over_mono = bf16_over(torch, got, mono)
+    plain, states = states_over()
+    over_plain = bf16_over(torch, got, plain)
+    log(f"  ring over {n} PEs ({topo.shape} mesh, {waves} NoC waves per "
+        f"rotation) of {cfg.name} layer {run['layer']}'s q {tuple(q.shape)}"
+        f" k {tuple(k.shape)} bf16, causal: err/limit vs kernel 4 on the "
+        f"gathered sequence {over_mono:.3f}, vs the ring through the plain "
+        f"partials {over_plain:.3f} (limit max(2e-5, 1 bf16 step)); merged "
+        f"f32 states vs the plain-partials ring under 8a's limits: "
+        + " ".join(f"{c} {x:.3f}" for c, x in states.items())
+        + f"; NoC ring == plain-SIM ring bit for bit; launches {counts[0]} "
+        f"(plain SIM), {counts[1]} (NoC), mono {mono_counts}")
+    if not (over_mono <= 1.0 and over_plain <= 1.0
+            and max(states.values()) <= 1.0):
+        raise AssertionError(f"ring output: err/limit {over_mono} vs mono, "
+                             f"{over_plain} vs plain partials, merged "
+                             f"states {states}")
+    # gemma2-9b's local window and attention softcap on qwen2's geometry
+    kw = dict(window=4096, softcap=50.0)
+    out, walls["ring window+softcap"] = ring(False, **kw)
+    got = _unshard_seq(out)
+    mono_ws = ops.attention(q, k, v, causal=True, **kw)
+    plain, states = states_over(**kw)
+    over_ws = (bf16_over(torch, got, mono_ws), bf16_over(torch, got, plain))
+    log(f"  ring with window 4096 and softcap 50: err/limit vs kernel 4 "
+        f"{over_ws[0]:.3f}, vs the plain partials {over_ws[1]:.3f}; merged "
+        f"f32 states under 8a's limits: "
+        + " ".join(f"{c} {x:.3f}" for c, x in states.items())
+        + f"; launches {counts[-1]}")
+    if not (max(over_ws) <= 1.0 and max(states.values()) <= 1.0):
+        raise AssertionError(f"ring window+softcap: err/limit {over_ws}, "
+                             f"merged states {states}")
+    # kernel 4 alone at the gathered shape (row 4's long reading)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    lib = fa._library()
+    b, hq, _, d = q.shape
+    args = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), mono.data_ptr(), 1,
+            b, hq, k.shape[1], seq, seq, d, seq, 1, 0, 0.0,
+            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+    k4_ms = time_ms(lambda: lib.repro_flash_attention_fwd(*args), iters=3,
+                    warmup=1)
+    pairs = seq * (seq + 1) // 2
+    k4_bytes = (2 * qc.numel() + kc.numel() + vc.numel()) * 2
+    k4_ops = 4 * d * pairs * b * hq
+    k4_bound = max(k4_bytes / HBM_BYTES_PER_S, k4_ops /
+                   PEAK_OPS_PER_S["torch.bfloat16"]) * 1e3
+    # choose_attention at the measured per-block time, t_mono / n, as
+    # benchmarks/bench_fused.py reckons it
+    kv_bytes = (ks[0].numel() + vs[0].numel()) * ks.element_size() \
+        + pos[0].numel() * pos.element_size()
+    picks = {"default link": fusion.choose_attention(
+        n, kv_bytes, walls["mono"] / n),
+        "epiphany16 board": fusion.choose_attention(
+            n, kv_bytes, walls["mono"] / n, topo=topo,
+            link=abmodel.EPIPHANY_NOC)}
+    log(f"  walls (host clock, ending in synchronize): "
+        + ", ".join(f"{name} {w * 1e3:.3f} ms" for name, w in walls.items())
+        + f"; peak device memory of the two rings {peak / 2**30:.3f} GiB")
+    log(f"  kernel 4 at B{b} Hq{hq} Hkv{k.shape[1]} L{seq} D{d} bf16 causal "
+        f"(the gathered sequence): {k4_ms:.5f} ms; bound {k4_bound:.6f} ms "
+        f"({k4_bytes} B, {k4_ops} ops of the {pairs} kept pairs at the "
+        f"bf16 rate; {k4_ops / PEAK_OPS_PER_S['torch.float32'] * 1e3:.6f} "
+        f"ms at the f32 rate)")
+    log(f"  choose_attention(n={n}, kv_block_bytes={kv_bytes}, "
+        f"block_compute_s=t_mono/{n}={walls['mono'] / n:.6f}): "
+        + "; ".join(f"{where}: pick {pick}, modeled ring "
+                    f"{times['ring'] * 1e3:.6f} ms, mono "
+                    f"{times['mono'] * 1e3:.6f} ms"
+                    for where, (pick, times) in picks.items()))
+    del q, k, v, qs, ks, vs, kf, vf, mono, mono_ws, plain, outs, qc, kc, vc
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1621,6 +2068,7 @@ def main() -> int:
     from repro_torch.configs import qwen2_0_5b as serving
     from repro_torch.kernels import _build, ref, ops
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ring_attention as ra
     from repro_torch.kernels import ssd_scan as kssd
     from repro_torch.models import layers
     from repro_torch.serve.engine import ServeEngine
@@ -1682,15 +2130,24 @@ def main() -> int:
     mamba_launches = serve_mamba(torch, np, mamba, ops, ref)
     decode_mamba(torch, np, mamba)
 
+    log(f"== phase 8: ring attention over {serving.RING_RUN['n_pes']} PEs "
+        f"at {serving.CONFIG.name}'s width")
+    check_ring_partials(torch, ra, ref, gen)
+    ring_timing = time_ring_partials(torch, ra, ref, gen)
+    ring_launches = ring_path(torch, np, serving, ra, ref, ops, fa)
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
-        + [mamba_launches]
+        + [mamba_launches] + ring_launches
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
-                          "reduce_combine", "fused_update", "ssd_scan")}
+                          "reduce_combine", "fused_update", "ssd_scan",
+                          "ring_attention")}
     log(f"  launches on the main paths: serve {launches}, runtime "
         f"{rt_launches}, fused bucket {bucket_launches}, train "
-        f"{trained_counts}, mamba2 prefill {mamba_launches}")
+        f"{trained_counts}, mamba2 prefill {mamba_launches}, ring "
+        f"attention (plain SIM, NoC SIM, mono, window+softcap) "
+        f"{ring_launches}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]
@@ -1701,6 +2158,9 @@ def main() -> int:
                  dict(fu_timing["full"], max_abs_err=max(
                      fu_timing["full"]["max_abs_err"],
                      fu_timing["bucket16"]["max_abs_err"]))))
+    rows.append(("ring_attention", "src/repro_torch/kernels/csrc/"
+                 "ring_attention.cu", "src/repro/kernels/ring_attention.py:84",
+                 ring_timing))
     rows.append(("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:86", ssd_timing))
     kernels = [dict(name=name, route="cuda", source=source,

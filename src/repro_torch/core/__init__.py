@@ -1,8 +1,10 @@
 """The paper's OpenSHMEM runtime on the SIM backend (port of
 `repro/core`): topology and alpha-beta model, compiled patterns and
 schedules, teams, the symmetric heap, the SIM network, the §3.6
-collectives and the ShmemContext API.  The SPMD backend, the profiler,
-tracer, tuner, fault injector and elastic recovery are not ported yet."""
+collectives, the ShmemContext API, and the fusion layer (`core.fusion`:
+ring attention and the fused reduce-scatter -> AdamW, with their
+pricing).  The SPMD backend, the profiler, tracer, tuner, fault injector
+and elastic recovery are not ported yet."""
 from . import (abmodel, collectives, fault, heap, netops, pattern, shmem,
                team, topology)
 from .fault import DeadlineExceeded, LinkFailure, PEFailure

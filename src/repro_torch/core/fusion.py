@@ -1,5 +1,18 @@
 """The fusion layer: schedule stages interleaved with kernel execution
-(port of the fused reduce-scatter -> AdamW half of `repro/core/fusion.py`).
+(port of `repro/core/fusion.py`, DESIGN.md §14), on the SIM backend.
+
+ring_attention
+    Sequence-sharded attention.  Each ring step's KV-block rotation is a
+    CommPattern issued via `put_nbi` on a DEDICATED context (its own
+    pending-op queue, so unrelated traffic cannot drain it) before the
+    flash partials of the block that arrived in the previous step are
+    computed (kernel 6, kernels/ring_attention.py: one launch per step
+    for all PEs).  `fence()` orders the puts per ring neighbour;
+    `quiet(fk, fv, fp)` completes exactly this step's rotation before the
+    next step consumes it: the double-buffer slot protocol.  On the card
+    the rotation's put_copy launches and kernel 6 share one stream, so
+    they run in issue order and do not overlap (a side stream is later
+    perf work).
 
 fused_rs_adam
     Ring reduce-scatter whose FINAL combine lands inside the k-ary
@@ -10,21 +23,87 @@ fused_rs_adam
     reduce-scatter + f32 allgather the wire bytes drop from 2B to
     B * (1 + itemsize/4).
 
-choose_grad_rs prices the fused variant against the bucketed one.
-
-Ring attention (kernel 6) and `choose_attention` come with slice 4; the
-tuner and the profiler with slice 5 (their parameters raise).
+choose_attention / choose_grad_rs price the fused variants against the
+monolithic ones (abmodel.modeled_overlapped_time, the schedules' alpha-beta
+times).  The SPMD backend, the tuner and the profiler come with slice 5
+(their parameters raise).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import abmodel
 from . import collectives as coll
 from . import netops
 from .collectives import allgather_schedule, reduce_scatter_schedule
 from .netops import NetOps, SimNetOps, device_table
+from .pattern import ring_pattern
 from ..kernels import ops
+from ..kernels import ring_attention as _ra
+
+_SLICE5 = "only the SIM backend is ported (the SPMD backend comes with " \
+    "slice 5)"
+
+
+# ---------------------------------------------------------------------------
+# ring attention
+# ---------------------------------------------------------------------------
+
+def ring_attention(ctx, q, k, v, q_pos, k_pos, *, causal: bool = True,
+                   window: int | None = None, softcap: float | None = None,
+                   sm_scale: float | None = None, out_dtype=None):
+    """Sequence-sharded attention over `ctx`'s PEs (a SIM context).
+
+    Each PE holds its query shard q (n, B, Hq, Lq_shard, D) with global
+    positions q_pos (n, Lq_shard), and its KV shard k/v (n, B, Hkv,
+    Lk_shard, D) with global positions k_pos (n, Lk_shard; -1 marks a
+    padded slot), all stacked on the leading PE axis.  The KV shard walks
+    the ring: at each step the NEXT block is issued with put_nbi on a
+    private context, then the partials of the CURRENT block are computed,
+    then quiet() completes the rotation.  The output (n, B, Hq, Lq_shard,
+    D) in `out_dtype` (default q's) matches monolithic flash attention
+    over the gathered sequence to f32 allclose: identical per-block
+    arithmetic, with a per-PE merge order that the online softmax absorbs
+    up to rounding."""
+    net = ctx.net
+    if not isinstance(net, SimNetOps):
+        raise NotImplementedError(_SLICE5)
+    n = net.n_pes
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              sm_scale=sm_scale)
+
+    def partials(k_, v_, kp_):
+        return _ra.attn_block_partials(q, k_, v_, q_pos, kp_, **kw)
+
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if n == 1:
+        return _ra.finalize(partials(k, v, k_pos), out_dtype)
+
+    c = ctx.ctx_create()                 # private queue: DESIGN.md §14
+    ring = ring_pattern(n)               # PE i -> (i+1) % n, every step
+    cur_k, cur_v, cur_kp = k, v, k_pos
+    state = None
+    for s in range(n):
+        last = s == n - 1
+        if not last:
+            # issue the rotation BEFORE computing on the current block
+            fk = c.put_nbi(cur_k, ring)
+            fv = c.put_nbi(cur_v, ring)
+            fp = c.put_nbi(cur_kp, ring)
+            c.fence()                    # per-neighbour ordering of k/v/pos
+        part = partials(cur_k, cur_v, cur_kp)
+        state = part if state is None else _ra.merge_partials(state, part)
+        if not last:
+            # double-buffer swap: completion of THIS step's rotation is
+            # the next step's front buffer
+            cur_k, cur_v, cur_kp = c.quiet(fk, fv, fp)
+    return _ra.finalize(state, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# fused reduce-scatter -> AdamW update
+# ---------------------------------------------------------------------------
 
 
 def fused_rs_adam(net: NetOps, g_buf, p_buf, m, v, wd_mask, c1, c2, *,
@@ -47,8 +126,7 @@ def fused_rs_adam(net: NetOps, g_buf, p_buf, m, v, wd_mask, c1, c2, *,
     AdamW on f32 moments."""
     coll._no_service(profile)
     if not isinstance(net, SimNetOps):
-        raise NotImplementedError("only the SIM backend is ported (the "
-                                  "SPMD backend comes with slice 5)")
+        raise NotImplementedError(_SLICE5)
     out_dtype = p_buf.dtype if out_dtype is None else out_dtype
     local, incoming, info, mask = coll._reduce_scatter_parts(
         net, g_buf, coll.OPS["sum"], team=team)
@@ -68,6 +146,32 @@ def fused_rs_adam(net: NetOps, g_buf, p_buf, m, v, wd_mask, c1, c2, *,
         eps=eps, wd_coef=wd_coef, scale=scale, out_dtype=out_dtype)
     new_p = coll._mask_out(net, mask, new_p, keep=p_chunk.to(out_dtype))
     return new_p, new_m, new_v, info
+
+
+# ---------------------------------------------------------------------------
+# pricing: the fused variants as selectable algorithms
+# ---------------------------------------------------------------------------
+
+def choose_attention(n: int, kv_block_bytes: float, block_compute_s: float,
+                     *, topo=None, link=None, tuner=None
+                     ) -> tuple[str, dict]:
+    """"ring" vs "mono" for sequence-sharded attention over n PEs.
+
+    kv_block_bytes: bytes of ONE PE's K+V(+pos) shard, what each ring
+    step moves; block_compute_s: the flash time of q against one block.
+    Mono allgathers the KV sequence first and computes monolithically;
+    ring overlaps each rotation with one block's compute
+    (abmodel.modeled_overlapped_time)."""
+    coll._no_service(tuner=tuner)
+    if n <= 1:
+        return "mono", {"ring": 0.0, "mono": 0.0}
+    sched = allgather_schedule(n, kv_block_bytes * n)
+    t_ring = abmodel.modeled_overlapped_time(
+        sched.cost(topo), block_compute_s,
+        link if link is not None else abmodel.ICI_V5E)
+    t_mono = sched.time(topo, link) + n * block_compute_s
+    times = {"ring": t_ring, "mono": t_mono}
+    return ("ring" if t_ring <= t_mono else "mono"), times
 
 
 def choose_grad_rs(n: int, bucket_bytes: float, param_itemsize: int = 4,

@@ -40,6 +40,50 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
     return out.to(q.dtype)
 
 
+def ring_partials_ref(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+                      softcap=None, sm_scale=None):
+    """Un-normalised flash partials (acc, m, l) of q against ONE KV block,
+    masked by global positions (`repro.kernels.ring_attention.
+    _partials_ref`, with the SIM's leading PE axis).
+
+    q: (P, B, Hq, Lq, D); k, v: (P, B, Hkv, Lk, D); q_pos: (P, Lq) and
+    k_pos: (P, Lk) int32 (-1 marks a padded key slot, always masked).
+    The unstacked shapes (no P axis) are accepted too.  Returns acc
+    (..., Hq, Lq, D), m and l (..., Hq, Lq), all f32.  Masked logits are
+    -1e30, so a row whose keys are all masked gets m = -1e30, l = Lk and
+    acc = the sum of v over the block; `merge_partials` wipes such a
+    partial with a weight exp(-1e30 - m) = 0."""
+    if q.dim() == 4:
+        acc, m, l = ring_partials_ref(
+            q[None], k[None], v[None], q_pos[None], k_pos[None],
+            causal=causal, window=window, softcap=softcap, sm_scale=sm_scale)
+        return acc[0], m[0], l[0]
+    group = q.shape[2] // k.shape[2]
+    sm_scale = sm_scale if sm_scale is not None \
+        else 1.0 / math.sqrt(q.shape[-1])
+    if group > 1:
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+    logits = torch.einsum("pbhqd,pbhkd->pbhqk", q.float() * sm_scale,
+                          k.float())
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    qp = q_pos[:, :, None]
+    kp = k_pos[:, None, :]
+    mask = kp >= 0
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    m = logits.amax(-1)
+    p = torch.exp(logits - m[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("pbhqk,pbhkd->pbhqd", p, v.float())
+    return acc, m, l
+
+
 def put_copy_ref(src, rows=None):
     """Output row i = ``src[rows[i]]``, zeros where ``rows[i]`` is -1;
     ``rows=None`` is the identity copy (`repro.kernels.ref.put_copy_ref`)."""

@@ -158,20 +158,27 @@ def attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions):
     if tp != 1:
         raise NotImplementedError("tensor parallelism is not ported yet "
                                   "(slice 5)")
-    B, L, d = x.shape
+    B, L, _ = x.shape
+    q, k, v = attention_qkv(cfg, p, x, positions)
+    o = kops.attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                       softcap=cfg.softcap).transpose(1, 2)
+    o = o.reshape(B, L, -1).to(cfg.dtype)
+    return comm.allreduce(_dense(o, p["wo"]), comm.axes.model)
+
+
+def attention_qkv(cfg: ModelConfig, p: Params, x, positions):
+    """The heads `attention` attends over, on one device: x (B, L, d) ->
+    q (B, Hq, L, hd), k and v (B, Hkv, L, hd) (head-major views), after
+    the projections and RoPE."""
+    B, L, _ = x.shape
     hd = cfg.hd
-    nq_local, nkv_store, _ = _gqa_dims(cfg, tp)
+    nq_local, nkv_store, _ = _gqa_dims(cfg, 1)
     q = _dense(x, p["wq"], p.get("bq")).reshape(B, L, nq_local, hd)
     k = _dense(x, p["wk"], p.get("bk")).reshape(B, L, nkv_store, hd)
     v = _dense(x, p["wv"], p.get("bv")).reshape(B, L, nkv_store, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = kops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2), causal=cfg.causal,
-                       window=cfg.window, softcap=cfg.softcap
-                       ).transpose(1, 2)
-    o = o.reshape(B, L, nq_local * hd).to(cfg.dtype)
-    return comm.allreduce(_dense(o, p["wo"]), comm.axes.model)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
 def init_attn_cache(cfg: ModelConfig, tp: int, batch_local: int,

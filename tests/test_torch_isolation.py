@@ -30,7 +30,7 @@ def _imported_roots(path: Path):
 def test_port_files_exist():
     assert len(FILES) > 15
     for name in ("flash_attention", "put_copy", "reduce_combine",
-                 "fused_update"):
+                 "fused_update", "ring_attention", "ssd_scan"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / f"{name}.cu").is_file()
 
