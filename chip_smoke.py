@@ -24,9 +24,14 @@ Phases; any failure exits non-zero before the result line is printed:
   4. runtime kernels — put_copy, dma_copy (kernels 1-2, csrc/put_copy.cu)
      and reduce_combine (kernel 3) against their plain versions, bit for
      bit, over the CPU tests' shapes, ragged edges (1 row, 1 column, odd
-     byte widths, unaligned rows), f32/i32/bf16/f64 (and more for the
-     combine), NaN for max/min, and 64 MiB buffers; then timed at the
-     runtime's real size beside the plain version and one PyTorch call;
+     byte widths, unaligned rows), f32/i32/bf16/f64 and 64 MiB buffers;
+     the combine over both of its paths (16-byte vectors with a scalar
+     tail; scalar for a base or row stride off 16 bytes): contiguous,
+     ragged columns, the ring's strided blocks, a base one element off, an
+     odd row stride, x f32/bf16/f16/i32/i8/f64/i64 x sum/prod/max/min
+     (NaN in the floats) x k 2, 3, 4, 17, 33; then timed at the
+     runtime's real size beside the plain version and one PyTorch call
+     (the combine in alternating pairs with torch.add);
   5. runtime — the OpenSHMEM SIM runtime on 16 PEs of the paper's 4x4
      mesh (sim_ctx, plain and with NoC waves): the paper's message-size
      sweep (8 B .. 16 KB per PE) of put, get, put_nbi + quiet, fence,
@@ -53,9 +58,12 @@ Phases; any failure exits non-zero before the result line is printed:
      csrc/ssd_scan.cu) through ops.ssd against the plain chunked version
      over tests/test_kernels.py's shapes, h0, ragged L, and the model's
      head shape (H 80, P 64, N 128, chunk 128) contiguous and strided,
-     f32 and bf16, and the sequential-scan oracle against the chunked
-     version; (b) kernel 7 timed at the prefill's shape beside its plain
-     version; (c) build_prefill on mamba2-2.7b at full width (64 layers,
+     f32 and bf16, each of its three phases (the cumsums, the chunk
+     states, the entering and final states, y) against its plain form on
+     the kernel's own inputs to it, and the sequential-scan oracle
+     against the chunked version; (b) kernel 7 timed at the prefill's
+     shape beside its plain version, its three CUDA kernels by the
+     profiler; (c) build_prefill on mamba2-2.7b at full width (64 layers,
      d 2560, vocab 50280, seeded random weights, bf16 compute) over one
      32768-token prompt: exactly 64 kernel-7 launches (counts set to 0
      just before, read just after) and finite logits; the same prefill
@@ -81,8 +89,10 @@ Phases; any failure exits non-zero before the result line is printed:
      (counts set to 0 just before, read just after), the output within
      max(2e-5, 1 bf16 step) of kernel 4 over the gathered sequence and of
      the ring through the plain partials, then with a window of 4096 and
-     a softcap of 50; the ring and mono walls, the peak memory, and
-     choose_attention's pick at the measured per-block time.
+     a softcap of 50; the ring and mono walls, the peak memory, kernel 4
+     at the gathered shape beside scaled_dot_product_attention (a
+     yardstick), and choose_attention's pick at the measured per-block
+     time.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi gives them, and
@@ -94,6 +104,7 @@ import dataclasses
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -133,6 +144,39 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def kernel_label(mangled: str) -> str:
+    """A short name for a kernel's mangled symbol in nvcc's report: the
+    function's name and the start of its template arguments."""
+    m = re.search(r"[a-z_]*(?:kernel|partials|fwd)(?=[IE])\w{0,24}",
+                  mangled)
+    return m.group(0) if m else mangled[-48:]
+
+
+def report_builds(libs: dict) -> None:
+    """Per library, nvcc's resource report (`-Xptxas -v`, kept beside it):
+    kernels, registers, spill, and which kernels spill; per kernel of the
+    SSD scan, its registers."""
+    for name, path in libs.items():
+        report = path.with_suffix(".log").read_text()
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", report)]
+        spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", report))
+        log(f"    {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+            f"registers, {spills} bytes of spill (nvcc -Xptxas -v)")
+        entries = re.findall(r"Compiling entry function '([^']+)'.*?(\d+)"
+                             r" bytes spill stores", report, re.S)
+        spilling = [e for e, sp in entries if int(sp)]
+        if spilling:
+            log(f"      {len(spilling)} of them spill: "
+                + ", ".join(kernel_label(e) for e in spilling[:6]))
+        if name == "ssd_scan":
+            dtypes = {"If": " f32", "I13__nv_bfloat16": " bf16"}
+            log("      registers: " + ", ".join(
+                f"{k}{dtypes.get(t, '')} {r}" for k, t, r in re.findall(
+                    r"Compiling entry function '[^']*?(chunk_state|"
+                    r"state_pass|chunk_output)_kernel(If|I13__nv_bfloat16)?"
+                    r"[^']*'.*?Used (\d+) registers", report, re.S)))
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -492,20 +536,43 @@ def check_runtime_kernels(torch, gen) -> None:
                     ref.dma_copy_ref(src, dst.clone(), plan.descs),
                     f"dma_copy {descs[0]} x{len(descs)} {dt}")
             cases["dma_copy"] += 1
-    # reduce_combine: k in {2, 3, 5} x 4 ops x 6 dtypes, rows at a
-    # stride, more buffers than one launch takes, NaN for max/min
-    for dt in (f32, f64, bf16, torch.float16, i32, torch.int64):
+    # reduce_combine over both of its paths: the 16-byte vector path
+    # (aligned bases and row strides) with its scalar tail, and the scalar
+    # path (a base or a row stride off 16 bytes); k = 2, 3 and 4 (template
+    # k), 17 and 33 (run-time k; 33 folds in two launches); NaN in the
+    # float buffers for max/min
+    def layouts(make):
+        """(label, k views of one shape): contiguous; a ragged column count
+        on aligned rows; the ring reduce-scatter's blocks of PE-stacked
+        rows; a base one element off; a row stride off 16 bytes."""
+        yield "contiguous", lambda: make((40, 256))
+        yield "ragged cols", lambda: make((40, 256))[:, :203]
+        yield "ring blocks", lambda: make((16, 1024))[:, 192:448]
+        yield "base +1", lambda: make((40 * 256 + 1,))[1:].view(40, 256)
+        yield "odd stride", lambda: make((40, 257))[:, :250]
+
+    def buf(dt, op):
+        def make(shape):
+            b = rand(torch, gen, shape, dt)
+            if dt.is_floating_point:
+                b = b / 100
+                if op in ("max", "min"):
+                    b.view(-1)[::7] = float("nan")
+            elif op == "prod":
+                b = b % 5 - 2
+            return b
+        return make
+
+    for dt in (f32, bf16, torch.float16, i32, torch.int8, f64,
+               torch.int64):
         for op in ("sum", "prod", "max", "min"):
-            for k in (2, 3, 5):
-                bufs = [torch.randn((40, 200), generator=gen,
-                                    device="cuda").to(dt)
-                        if dt.is_floating_point
-                        else rand(torch, gen, (40, 200), dt)
-                        for _ in range(k)]
-                bitwise(torch, rc.reduce_combine(bufs, op),
-                        ref.reduce_combine_ref(bufs, op),
-                        f"reduce_combine {dt} {op} k{k}")
-                cases["reduce_combine"] += 1
+            for k in (2, 3, 4, 17, 33):
+                for label, view in layouts(buf(dt, op)):
+                    bufs = [view() for _ in range(k)]
+                    bitwise(torch, rc.reduce_combine(bufs, op),
+                            ref.reduce_combine_ref(bufs, op),
+                            f"reduce_combine {dt} {op} k{k} {label}")
+                    cases["reduce_combine"] += 1
     wide = rand(torch, gen, (16, 1000), f32)
     blocks = [wide[:, 25 * t:25 * (t + 1)] for t in range(40)]
     bitwise(torch, rc.reduce_combine(blocks, "sum"),
@@ -622,14 +689,35 @@ def time_runtime_kernels(torch, gen) -> dict:
     del got
     ptrs = (ctypes.c_void_p * 2)(x.data_ptr(), b.data_ptr())
     lds = (ctypes.c_int64 * 2)(L, L)
-    row("reduce_combine",
-        err, time_ms(lambda: clib.repro_reduce_combine(
-            ptrs, lds, 2, y.data_ptr(), n, L, 0, 0, stream), iters=20,
-            warmup=3),
+    # kernel and torch.add in alternating pairs (either first in turn),
+    # after a warm-up of both; the medians of six readings each
+    def kern():
+        clib.repro_reduce_combine(ptrs, lds, 2, y.data_ptr(), n, L, 0, 0,
+                                  stream)
+
+    def add():
+        torch.add(x, b, out=y)
+
+    for _ in range(20):
+        kern()
+        add()
+    pairs = []
+    for i in range(6):
+        t = {fn: time_ms(fn, iters=30, warmup=5)
+             for fn in ((kern, add) if i % 2 else (add, kern))}
+        pairs.append((t[kern], t[add]))
+    k_ms = statistics.median(k for k, _ in pairs)
+    add_ms = statistics.median(a for _, a in pairs)
+    row("reduce_combine", err, k_ms,
         time_ms(lambda: ref.reduce_combine_ref([x, b], "sum"), iters=10,
                 warmup=2),
-        time_ms(lambda: torch.add(x, b, out=y), iters=20, warmup=3),
-        3 * nbytes, "two 16 x 64 MiB f32 buffers, sum")
+        add_ms, 3 * nbytes, "two 16 x 64 MiB f32 buffers, sum")
+    ratios = [k / a for k, a in pairs]
+    log(f"  reduce_combine in 6 alternating pairs with torch.add: kernel / "
+        f"torch.add median {statistics.median(ratios):.4f} (min "
+        f"{min(ratios):.4f}, max {max(ratios):.4f}), the kernel faster in "
+        f"{sum(r < 1 for r in ratios)} of 6; "
+        f"{out['reduce_combine']['bound_ms'] / k_ms:.1%} of the byte bound")
     del x, y, b
     torch.cuda.empty_cache()
     return out
@@ -1367,9 +1455,10 @@ def ssd_over(torch, y, h, want_y, want_h):
 
 def check_ssd(torch, ops, ref, gen) -> float:
     """Kernel 7 through ops.ssd against the plain chunked version on the
-    same inputs, each case within its limit; returns the worst err/limit.
+    same inputs, each case within its limit, and each of its phases held
+    to its plain form (`ssd_phases_over`); returns the worst err/limit.
     Then the sequential-scan oracle against the plain chunked version."""
-    worst = 0.0
+    worst = worst_phase = 0.0
     for label, b, seq, h, p, n, g, q, dtype, opt in ssd_cases():
         dt_ = getattr(torch, dtype)
         opt = dict(opt)
@@ -1396,11 +1485,18 @@ def check_ssd(torch, ops, ref, gen) -> float:
             raise AssertionError(f"ssd {label} {dtype}: non-finite output")
         over, err_y, err_h, min_lim = ssd_over(torch, y, hf, want_y, want_h)
         typical = want_y.float().abs().mean().item()
+        phases = ssd_phases_over(torch, ops, ref, x, dt, a, bm, cm, h0, q)
         log(f"  ssd {label:16s} {dtype:8s} B{b} L{seq} H{h} P{p} N{n} G{g} "
             f"Q{q}: max|err| y {err_y:.3e}, state {err_h:.3e} (worst "
-            f"err/limit {over:.3f}, mean|y| {typical:.4f})")
+            f"err/limit {over:.3f}, mean|y| {typical:.4f}); phases "
+            + " ".join(f"{k} {v:.3f}" for k, v in phases.items()))
         if not over <= 1.0:
             raise AssertionError(f"ssd {label} {dtype}: err/limit {over}")
+        for phase, v in phases.items():
+            if not v <= 1.0:
+                raise AssertionError(f"ssd {label} {dtype}: phase {phase} "
+                                     f"err/limit {v}")
+        worst_phase = max(worst_phase, max(phases.values()))
         if not typical > 10 * min_lim:
             raise AssertionError(f"ssd {label} {dtype}: mean|y| {typical} "
                                  f"is not far above the tolerance")
@@ -1411,10 +1507,40 @@ def check_ssd(torch, ops, ref, gen) -> float:
     yc, hc = ref.ssd_chunked_ref(x, dt, a, bm, cm, h0, chunk=16)
     err = max((ys - yc).abs().max().item(), (hs - hc).abs().max().item())
     log(f"  ssd_ref (sequential scan) vs ssd_chunked_ref, L64 Q16 G2 with "
-        f"h0: max|err| {err:.3e} (atol {SSD_ATOL})")
+        f"h0: max|err| {err:.3e} (atol {SSD_ATOL}); worst err/limit of the "
+        f"kernel's y and state {worst:.3f}, of its phases {worst_phase:.3f}")
     if not err <= SSD_ATOL:
         raise AssertionError(f"ssd_ref vs ssd_chunked_ref: {err}")
     return worst
+
+
+def ssd_phases_over(torch, ops, ref, x, dt, a, bm, cm, h0, q) -> dict:
+    """Kernel 7's phases, each held to its plain form on the kernel's own
+    inputs to that phase, so that a fault names its phase: the cumsums s
+    to `ref.ssd_chunk_states_ref`'s; the chunk states to the same
+    function given the kernel's s; the entering and final states to
+    `ref.ssd_state_passing_ref` on the kernel's chunk states and s; y to
+    `ref.ssd_chunk_outputs_ref` on the kernel's s and entering states.  f32
+    intermediates within SSD_ATOL x max(1, |want|), y within ssd_over's
+    limit.  Returns {phase: worst err/limit}."""
+    x, dt, bm, cm = ops._ssd_pad(x, dt, bm, cm, q)
+    got = ops._ssd.ssd_scan_phases(x, dt, a, bm, cm, h0, chunk=q)
+    s_want, _ = ref.ssd_chunk_states_ref(x, dt, a, bm, q)
+    _, local = ref.ssd_chunk_states_ref(x, dt, a, bm, q, s=got["s"])
+    entering, final = ref.ssd_state_passing_ref(got["chunk_states"],
+                                                got["s"], h0)
+    y = ref.ssd_chunk_outputs_ref(x, dt, bm, cm, got["s"], got["entering"],
+                                  q)
+
+    def f32_over(g_, w_):
+        return ((g_ - w_).abs() / (SSD_ATOL * w_.abs().clamp_min(1.0))
+                ).max().item()
+
+    return {"s": f32_over(got["s"], s_want),
+            "chunk states": f32_over(got["chunk_states"], local),
+            "entering": f32_over(got["entering"], entering),
+            "final": f32_over(got["final"], final),
+            "y": ssd_over(torch, got["y"], final, y, final)[0]}
 
 
 def ssd_counts(b, seq, h, p, n, g, q, itemsize) -> tuple[int, int]:
@@ -1431,7 +1557,11 @@ def ssd_counts(b, seq, h, p, n, g, q, itemsize) -> tuple[int, int]:
 
 def time_ssd(torch, kssd, ref, gen) -> dict:
     """Kernel 7 at the mamba2-2.7b prefill's shapes (one layer's scan):
-    its C entry back to back, the wrapper, and the plain version."""
+    its C entry back to back (three CUDA kernels, timed alone by the
+    profiler too), the wrapper (which allocates the scratch), and the
+    plain version.  The bound is that of the arithmetic the kernel uses:
+    the bf16 path's products on the tensor cores (the f32 CUDA-core
+    figure beside it)."""
     b, seq, h, p, n, g, q = 1, 32768, 80, 64, 128, 1, 128
     x, dt, a, bm, cm, _ = ssd_inputs(torch, gen, b, seq, h, p, n, g,
                                      torch.bfloat16, scale=1.0, model=True)
@@ -1440,9 +1570,12 @@ def time_ssd(torch, kssd, ref, gen) -> dict:
     err = (y.float() - want_y.float()).abs().max().item()
     lib = kssd._library()
     stream = torch.cuda.current_stream().cuda_stream
+    states = torch.empty((b, seq // q, h, p, n), device="cuda")
+    s_buf = torch.empty((b, seq // q, h, q), device="cuda")
     args = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
-            cm.data_ptr(), None, y.data_ptr(), hf.data_ptr(), 1, b, seq, h,
-            g, p, n, q, x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
+            cm.data_ptr(), None, y.data_ptr(), hf.data_ptr(),
+            states.data_ptr(), s_buf.data_ptr(), 1, b, seq, h, g, p, n, q, 3,
+            x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
             cm.stride(0), cm.stride(1), stream)
     kernel_ms = time_ms(lambda: lib.repro_ssd_scan(*args), iters=20,
                         warmup=2)
@@ -1451,23 +1584,42 @@ def time_ssd(torch, kssd, ref, gen) -> dict:
     plain_ms = time_ms(lambda: ref.ssd_chunked_ref(x, dt, a, bm, cm,
                                                    chunk=q),
                        iters=3, warmup=1)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(5):
+            lib.repro_ssd_scan(*args)
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for e in prof.key_averages():
+        name = re.search(r"(chunk_state|state_pass|chunk_output)_kernel",
+                         e.key)
+        if name and e.device_time_total > 0:
+            per_kernel[name.group(0)] = e.device_time_total / 1e3 / 5
     nbytes, ops_count = ssd_counts(b, seq, h, p, n, g, q, 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_count / PEAK_OPS_PER_S["torch.float32"] * 1e3
+    t_ops = ops_count / PEAK_OPS_PER_S["torch.bfloat16"] * 1e3
+    t_f32 = ops_count / PEAK_OPS_PER_S["torch.float32"] * 1e3
     full_q = b * (seq // q) * h * (2 * q * q * (n + p) + 4 * q * n * p)
+    smem = {ph: lib.repro_ssd_scan_smem_bytes(p, n, q, 1, ph)
+            for ph in (1, 3)}
     log(f"  times at B{b} L{seq} H{h} P{p} N{n} G{g} Q{q} bf16: kernel "
-        f"{kernel_ms:.5f} ms, wrapper {wrapper_ms:.5f} ms, plain "
-        f"{plain_ms:.5f} ms; max|err| vs plain {err:.3e}; bound "
-        f"{max(t_bytes, t_ops):.6f} ms ({nbytes} B = {t_bytes:.6f} ms; "
-        f"{ops_count} f32 products-ops = {t_ops:.6f} ms at 67 TFLOP/s; the "
-        f"full Q x Q per head, as the TPU kernel computes it, is {full_q} "
-        f"= {full_q / PEAK_OPS_PER_S['torch.float32'] * 1e3:.6f} ms, and "
-        f"{ops_count / PEAK_OPS_PER_S['torch.bfloat16'] * 1e3:.6f} ms at "
-        f"the bf16 tensor-core rate)")
+        f"{kernel_ms:.5f} ms (three CUDA kernels, by the profiler: "
+        + ", ".join(f"{k} {v:.5f} ms" for k, v in per_kernel.items())
+        + f"), wrapper {wrapper_ms:.5f} ms, plain {plain_ms:.5f} ms; "
+        f"max|err| vs plain {err:.3e}; dynamic shared memory a block: "
+        f"phase 1 {smem[1]} B, phase 3 {smem[3]} B")
+    log(f"  bound {max(t_bytes, t_ops):.6f} ms ({nbytes} B = {t_bytes:.6f} "
+        f"ms; {ops_count} products-ops = {t_ops:.6f} ms at the bf16 "
+        f"tensor-core rate, {t_f32:.6f} ms at the f32 CUDA-core rate; the "
+        f"full Q x Q per head is {full_q} = "
+        f"{full_q / PEAK_OPS_PER_S['torch.float32'] * 1e3:.6f} ms at f32); "
+        f"kernel at {max(t_bytes, t_ops) / kernel_ms:.2%} of it; scratch "
+        f"{(states.numel() + s_buf.numel()) * 4} B of states and cumsums")
     log("  ssd_scan library_ms: none; no PyTorch call computes the SSD "
         "chunked scan (the plain version is a dozen einsum/cumsum/exp "
         "calls and a loop over the chunks)")
-    del x, dt, bm, cm, y, hf, want_y, want_h
+    del x, dt, bm, cm, y, hf, want_y, want_h, states, s_buf
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=kernel_ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, library_ms=None,
@@ -2018,6 +2170,19 @@ def ring_path(torch, np, serving, ra, ref, ops, fa) -> list:
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
     k4_ms = time_ms(lambda: lib.repro_flash_attention_fwd(*args), iters=3,
                     warmup=1)
+    # SDPA at the same shape: a yardstick the port never calls, on a fused
+    # backend only (the math backend would form 60 GB of logits)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True, enable_gqa=True)
+
+    with sdpa_kernel(fused):
+        sdpa_diff = (sdpa().float() - mono.float()).abs().max().item()
+        sdpa_ms = time_ms(sdpa, iters=3, warmup=1)
     pairs = seq * (seq + 1) // 2
     k4_bytes = (2 * qc.numel() + kc.numel() + vc.numel()) * 2
     k4_ops = 4 * d * pairs * b * hq
@@ -2039,7 +2204,9 @@ def ring_path(torch, np, serving, ra, ref, ops, fa) -> list:
         f"(the gathered sequence): {k4_ms:.5f} ms; bound {k4_bound:.6f} ms "
         f"({k4_bytes} B, {k4_ops} ops of the {pairs} kept pairs at the "
         f"bf16 rate; {k4_ops / PEAK_OPS_PER_S['torch.float32'] * 1e3:.6f} "
-        f"ms at the f32 rate)")
+        f"ms at the f32 rate); scaled_dot_product_attention (causal, "
+        f"enable_gqa, fused backends) {sdpa_ms:.5f} ms, max|diff| vs "
+        f"kernel 4 {sdpa_diff:.3e}")
     log(f"  choose_attention(n={n}, kv_block_bytes={kv_bytes}, "
         f"block_compute_s=t_mono/{n}={walls['mono'] / n:.6f}): "
         + "; ".join(f"{where}: pick {pick}, modeled ring "
@@ -2089,12 +2256,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
         libs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     log(f"  built {KERNELS} in {time.perf_counter() - t:.1f} s")
-    for name, path in libs.items():
-        report = path.with_suffix(".log").read_text()
-        regs = [int(w) for w in re.findall(r"Used (\d+) registers", report)]
-        spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", report))
-        log(f"    {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-            f"registers, {spills} bytes of spill (nvcc -Xptxas -v)")
+    report_builds(libs)
 
     log("== phase 2: kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -88,13 +88,20 @@ def ssd(x, dt, a_log, b_mat, c_mat, h0=None, *,
     return _Ssd.apply(x, dt, a_log, b_mat, c_mat, h0, chunk)
 
 
-def _ssd_padded(x, dt, a_log, b_mat, c_mat, h0, chunk, scan):
-    length = x.shape[1]
-    pad = (-length) % chunk
+def _ssd_pad(x, dt, b_mat, c_mat, chunk):
+    """x, dt, b_mat, c_mat zero-padded along L to a multiple of `chunk`
+    (a padded step has dt = 0: it leaves the state alone)."""
+    pad = (-x.shape[1]) % chunk
     if pad:
         x, b_mat, c_mat = (F.pad(t, (0, 0, 0, 0, 0, pad))
                            for t in (x, b_mat, c_mat))
         dt = F.pad(dt, (0, 0, 0, pad))
+    return x, dt, b_mat, c_mat
+
+
+def _ssd_padded(x, dt, a_log, b_mat, c_mat, h0, chunk, scan):
+    length = x.shape[1]
+    x, dt, b_mat, c_mat = _ssd_pad(x, dt, b_mat, c_mat, chunk)
     y, h = scan(x, dt, a_log, b_mat, c_mat, h0, chunk=chunk)
     return y[:, :length], h
 

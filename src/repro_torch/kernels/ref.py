@@ -229,3 +229,72 @@ def ssd_chunked_ref(x, dt, a_log, b_mat, c_mat, h0=None, chunk: int = 128):
     y_inter = torch.stack(y_inter, 1).transpose(2, 3)        # (B,nc,Q,H,P)
     y = (y_intra + y_inter).reshape(bsz, length, h, p).to(x.dtype)
     return y, state
+
+
+# The chunk-parallel decomposition of the same function, phase by phase
+# as csrc/ssd_scan.cu computes it: only the state is carried from chunk
+# to chunk.  s is (B, nc, H, Q), states (B, nc, H, P, N), all f32.
+
+def ssd_chunk_states_ref(x, dt, a_log, b_mat, chunk: int = 128, s=None):
+    """Phase 1, parallel over (batch, chunk, head): s = cumsum(A dt)
+    within each chunk, and the chunk's local state sum_u (w_u x_u) (x)
+    B_u with w_u = dt_u exp(s_Q - s_u) (s_Q the very value s[Q-1]).
+    Given `s` (B, nc, H, Q), the local states are formed from it instead
+    (a kernel's product held on its own cumsums).  Returns (s, local)."""
+    bsz, length, h, p = x.shape
+    n = b_mat.shape[3]
+    group = h // b_mat.shape[2]
+    nc = length // chunk
+    xc = x.reshape(bsz, nc, chunk, h, p).float()
+    dtc = dt.reshape(bsz, nc, chunk, h).float()
+    bc = b_mat.repeat_interleave(group, dim=2).reshape(
+        bsz, nc, chunk, h, n).float()
+    if s is None:
+        s = torch.cumsum(a_log.float()[None, None, None, :] * dtc, dim=2)
+    else:
+        s = s.transpose(2, 3)
+    w = xc * (dtc * torch.exp(s[:, :, -1:, :] - s))[..., None]
+    local = torch.einsum("bcuhp,bcuhn->bchpn", w, bc)
+    return s.transpose(2, 3).contiguous(), local
+
+
+def ssd_state_passing_ref(local, s, h0=None):
+    """Phase 2, sequential over the chunks: the state entering chunk c,
+    S_in[c] = exp(s_Q[c-1]) S_in[c-1] + local[c-1], from h0 (or 0).
+    Returns (entering, the final state)."""
+    bsz, nc, h, p, n = local.shape
+    state = (torch.zeros(bsz, h, p, n, device=local.device) if h0 is None
+             else h0.float())
+    decay = torch.exp(s[..., -1])                            # (B,nc,H)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = decay[:, c, :, None, None] * state + local[:, c]
+    return torch.stack(entering, 1), state
+
+
+def ssd_chunk_outputs_ref(x, dt, b_mat, c_mat, s, entering,
+                          chunk: int = 128):
+    """Phase 3, parallel over (batch, chunk, head): y = ((C B^T) *
+    exp(s_t - s_u) * dt_u, u <= t) @ x + exp(s_t) (C @ S_in^T), in x's
+    dtype; the mask in the exponent, as `ssd_chunked_ref` has it."""
+    bsz, length, h, p = x.shape
+    n = b_mat.shape[3]
+    group = h // b_mat.shape[2]
+    nc = length // chunk
+    xc = x.reshape(bsz, nc, chunk, h, p).float()
+    dtc = dt.reshape(bsz, nc, chunk, h).float().transpose(2, 3)
+    bc = b_mat.repeat_interleave(group, dim=2).reshape(
+        bsz, nc, chunk, h, n).float()
+    cc = c_mat.repeat_interleave(group, dim=2).reshape(
+        bsz, nc, chunk, h, n).float()
+    idx = torch.arange(chunk, device=x.device)
+    tri = idx[:, None] >= idx[None, :]
+    delta = s[..., :, None] - s[..., None, :]                # (B,nc,H,Q,Q)
+    m = (torch.exp(torch.where(tri, delta, NEG_INF))
+         * torch.einsum("bcthn,bcuhn->bchtu", cc, bc) * dtc[..., None, :])
+    y = (torch.einsum("bchtu,bcuhp->bcthp", m, xc)
+         + torch.exp(s).transpose(2, 3)[..., None]
+         * torch.einsum("bcthn,bchpn->bcthp", cc, entering))
+    return y.reshape(bsz, length, h, p).to(x.dtype)
+

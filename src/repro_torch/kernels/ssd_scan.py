@@ -5,18 +5,24 @@ Replaces the TPU kernel `repro/kernels/ssd_scan.py::ssd_scan` (body
 per (batch, head), over chunks of `chunk` steps, the decay cumsum, the
 masked decay-weighted C B^T applied to x, the inter-chunk term from the
 carried (P, N) f32 state, and the state update.  The CUDA source
-describes the design.
+describes the design: one entry launches three CUDA kernels (the chunk
+states, the state passing, the chunk outputs), the products on the
+tensor cores.
 
 Bound on the H100: at the mamba2-2.7b prefill's shapes (Bt 1, L 32768,
 H 80, P 64, G 1, N 128, chunk 128, bf16) the function moves ~0.70 GB
-(0.21 ms at 3.35 TB/s) and does 214.7 GFLOP of f32 products (3.20 ms at
-67 TFLOP/s): it is bound by operations.
+(0.21 ms at 3.35 TB/s) and its products, the kept u <= t pairs and C B^T
+once per group, are 108 GFLOP (0.11 ms at the bf16 tensor-core rate): it
+is bound by bytes.
 
 A CPU tensor goes to the plain version (`ref.ssd_chunked_ref`); a CUDA
 tensor launches the kernel or raises.  x, B and C may be views with any
 batch and step strides whose head (group) rows are contiguous, as the
 slices of `mamba2`'s fused projection are; other layouts are copied to
-contiguous first.  `launches` counts the launches.
+contiguous first.  The wrapper allocates the kernel's scratch: the
+chunks' states (Bt, L/chunk, H, P, N) f32 (671 MB at the prefill) and
+their cumsums (Bt, L/chunk, H, chunk) f32, freed after the call.
+`launches` counts the entries (one per call, whatever it launches).
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ from . import _build, ref
 
 DEFAULT_CHUNK = 128
 MAX_CHUNK = 128            # the kernel's warp scan holds 4 steps a lane
-MAX_SMEM_BYTES = 232448    # dynamic shared memory one block may have
+MAX_P = 64                 # the kernel's register tiles (kMaxP, kMaxN)
+MAX_N = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -61,8 +68,9 @@ def _check(x, dt, a_log, b_mat, c_mat, h0, chunk):
         raise ValueError(f"chunk={chunk}: a multiple of 4 in (0, "
                          f"{MAX_CHUNK}] that divides L={length} (ops.ssd "
                          f"pads L)")
-    if p % 4 or n % 4:
-        raise ValueError(f"P={p} and N={n} must be multiples of 4")
+    if p % 4 or n % 4 or not 0 < p <= MAX_P or not 0 < n <= MAX_N:
+        raise ValueError(f"P={p} and N={n} must be multiples of 4, P <= "
+                         f"{MAX_P}, N <= {MAX_N}")
     devices = {t.device for t in (x, dt, a_log, b_mat, c_mat, h0)
                if t is not None}
     if len(devices) != 1:
@@ -73,10 +81,10 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
     fn = lib.repro_ssd_scan
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                        + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.repro_ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.repro_ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.repro_ssd_scan_smem_bytes.restype = ctypes.c_longlong
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -91,6 +99,45 @@ def _rows(t):
     return t.contiguous()
 
 
+def _aligned(t):
+    """`t` contiguous with a 16-byte aligned start (the kernel's float4
+    reads of h0)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x, dt, a_log, b_mat, c_mat, h0, chunk, phases):
+    """One entry of the kernel on CUDA tensors: (y, final state, states,
+    s), with `states` and `s` the scratch after `phases` phases."""
+    bsz, length, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    nc = length // chunk
+    lib = _library()
+    x, b_mat, c_mat = _rows(x), _rows(b_mat), _rows(c_mat)
+    dt, a_log = dt.contiguous(), a_log.contiguous()
+    h0 = None if h0 is None else _aligned(h0)
+    dev = x.device
+    y = torch.empty((bsz, length, h, p), dtype=x.dtype, device=dev)
+    hout = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
+    states = torch.empty((bsz, nc, h, p, n), dtype=torch.float32, device=dev)
+    s = torch.empty((bsz, nc, h, chunk), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_ssd_scan(
+            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(),
+            c_mat.data_ptr(), None if h0 is None else h0.data_ptr(),
+            y.data_ptr(), hout.data_ptr(), states.data_ptr(), s.data_ptr(),
+            _DTYPES[x.dtype], bsz, length, h, g, p, n, chunk, phases,
+            x.stride(0), x.stride(1), b_mat.stride(0), b_mat.stride(1),
+            c_mat.stride(0), c_mat.stride(1), stream)
+    if err:
+        raise RuntimeError("ssd_scan launch failed: "
+                           + lib.repro_cuda_error_string(err).decode())
+    global launches
+    launches += 1
+    return y, hout, states, s
+
+
 def ssd_scan(x, dt, a_log, b_mat, c_mat, h0=None, *,
              chunk: int = DEFAULT_CHUNK):
     """x: (B, L, H, P); dt: (B, L, H) f32; a_log: (H,) f32 (negative: A
@@ -103,29 +150,29 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, h0=None, *,
                                    chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    bsz, length, h, p = x.shape
-    g, n = b_mat.shape[2], b_mat.shape[3]
-    lib = _library()
-    smem = lib.repro_ssd_scan_smem_bytes(p, n, chunk)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"P={p}, N={n}, chunk={chunk} need {smem} bytes of "
-                         f"shared memory, over {MAX_SMEM_BYTES}")
-    x, b_mat, c_mat = _rows(x), _rows(b_mat), _rows(c_mat)
-    dt, a_log = dt.contiguous(), a_log.contiguous()
-    h0 = None if h0 is None else h0.contiguous()
-    y = torch.empty((bsz, length, h, p), dtype=x.dtype, device=x.device)
-    hout = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_ssd_scan(
-            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(),
-            c_mat.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), hout.data_ptr(), _DTYPES[x.dtype], bsz, length, h,
-            g, p, n, chunk, x.stride(0), x.stride(1), b_mat.stride(0),
-            b_mat.stride(1), c_mat.stride(0), c_mat.stride(1), stream)
-    if err:
-        raise RuntimeError("ssd_scan launch failed: "
-                           + lib.repro_cuda_error_string(err).decode())
-    global launches
-    launches += 1
+    y, hout, _, _ = _launch(x, dt, a_log, b_mat, c_mat, h0, chunk, 3)
     return y, hout
+
+
+def ssd_scan_phases(x, dt, a_log, b_mat, c_mat, h0=None, *,
+                    chunk: int = DEFAULT_CHUNK) -> dict:
+    """The kernel's intermediates, for holding each phase to its plain
+    form (`ref.ssd_chunk_states_ref`, `ssd_state_passing_ref`,
+    `ssd_chunk_outputs_ref`): {"s": (B, nc, H, chunk) cumsums,
+    "chunk_states": (B, nc, H, P, N) each chunk's local state,
+    "entering": the states entering each chunk, "y", "final"}.  Two
+    entries on CUDA (one stopped after phase 1); the plain forms on the
+    CPU."""
+    _check(x, dt, a_log, b_mat, c_mat, h0, chunk)
+    if x.device.type == "cpu":
+        s, local = ref.ssd_chunk_states_ref(x, dt, a_log, b_mat, chunk)
+        entering, final = ref.ssd_state_passing_ref(local, s, h0)
+        y = ref.ssd_chunk_outputs_ref(x, dt, b_mat, c_mat, s, entering,
+                                      chunk)
+        return dict(s=s, chunk_states=local, entering=entering, y=y,
+                    final=final)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _, _, local, s = _launch(x, dt, a_log, b_mat, c_mat, h0, chunk, 1)
+    y, final, entering, _ = _launch(x, dt, a_log, b_mat, c_mat, h0, chunk, 3)
+    return dict(s=s, chunk_states=local, entering=entering, y=y, final=final)

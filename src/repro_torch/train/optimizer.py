@@ -11,9 +11,14 @@
     layout is at least 2 (`decay_flags`): the port keeps one dict per
     layer, where a norm or a bias is 1-D, but the reference stacks every
     per-layer leaf to [n_layers, ...] and decays all of them.
+  * int8 moments are blocked in that stacked layout too (`moment_groups`):
+    a per-layer leaf is quantised over the concatenation of its layers,
+    so a 128-element block may span two layers, as the reference's block
+    of the stacked leaf does.
 
-The state is {"mv": one {"m", "v"} per leaf in `heap.tree_flatten`
-order, "step": int32 0-d tensor}, on the parameters' device.
+The state is {"mv": one {"m", "v"} per moment group (`moment_groups`:
+one per leaf in `heap.tree_flatten` order for f32 and bf16 moments),
+"step": int32 0-d tensor}, on the parameters' device.
 """
 from __future__ import annotations
 
@@ -82,6 +87,30 @@ def decay_flags(params) -> list[bool]:
     return flags
 
 
+def moment_groups(params, moment_dtype: str) -> list[list[int]]:
+    """The leaves (indices in `tree_flatten` order) that share one moment
+    encoding.  f32 and bf16 moments are elementwise: one group per leaf.
+    int8 blocks follow the reference's stacked layout: each leaf of
+    ``params["layers"]`` is grouped with the same leaf of every other
+    layer (in layer order), each other leaf stands alone."""
+    n = len(tree_flatten(params)[0])
+    if moment_dtype != "int8" or not isinstance(params, dict) \
+            or not params.get("layers"):
+        return [[i] for i in range(n)]
+    groups, start = [], 0
+    for key in sorted(params):
+        sub = tree_flatten(params[key])[0]
+        if key == "layers":
+            per = len(tree_flatten(params[key][0])[0])
+            n_layers = len(params[key])
+            groups += [[start + layer * per + j for layer in range(n_layers)]
+                       for j in range(per)]
+        else:
+            groups += [[start + j] for j in range(len(sub))]
+        start += len(sub)
+    return sorted(groups)
+
+
 def bias_corrections(cfg: AdamWConfig, step):
     """(c1, c2) = (1 - b1**t, 1 - b2**t) for the int32 step tensor `step`,
     as f32 0-d tensors on its device (no host read)."""
@@ -92,12 +121,15 @@ def bias_corrections(cfg: AdamWConfig, step):
 def init_state(params, cfg: AdamWConfig):
     leaves, _ = tree_flatten(params)
 
-    def one(p):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def one(group):
+        z = torch.zeros(sum(leaves[i].numel() for i in group),
+                        dtype=torch.float32, device=leaves[group[0]].device)
+        if len(group) == 1:
+            z = z.reshape(leaves[group[0]].shape)
         return {"m": _q_encode(z, cfg.moment_dtype),
                 "v": _q_encode(z, cfg.moment_dtype, nonneg=True)}
 
-    return {"mv": [one(p) for p in leaves],
+    return {"mv": [one(g) for g in moment_groups(params, cfg.moment_dtype)],
             "step": torch.zeros((), dtype=torch.int32,
                                 device=leaves[0].device)}
 
@@ -108,22 +140,42 @@ def apply_updates(params, grads, state, cfg: AdamWConfig):
     step = state["step"] + 1
     c1, c2 = bias_corrections(cfg, step)
 
-    def one(p, g, mv, decay):
+    def one(p, g, m, v, decay):
         g32 = g.float()
-        m = _q_decode(mv["m"], cfg.moment_dtype, p.shape)
-        v = _q_decode(mv["v"], cfg.moment_dtype, p.shape, nonneg=True)
         m = cfg.b1 * m + (1 - cfg.b1) * g32
         v = cfg.b2 * v + (1 - cfg.b2) * g32 * g32
         upd = (m / c1) / (sqrt_rn(v / c2) + cfg.eps)
         if decay:
             upd = upd + cfg.weight_decay * p.float()
-        new_p = (p.float() - cfg.lr * upd).to(p.dtype)
-        return new_p, {"m": _q_encode(m, cfg.moment_dtype),
-                       "v": _q_encode(v, cfg.moment_dtype, nonneg=True)}
+        return (p.float() - cfg.lr * upd).to(p.dtype), m, v
 
     flat_p, treedef = tree_flatten(params)
     flat_g, _ = tree_flatten(grads)
-    out = [one(p, g, mv, d) for p, g, mv, d in
-           zip(flat_p, flat_g, state["mv"], decay_flags(params))]
-    return (tree_unflatten(treedef, [o[0] for o in out]),
-            {"mv": [o[1] for o in out], "step": step})
+    decays = decay_flags(params)
+    new_p, new_mv = [None] * len(flat_p), []
+    for group, mv in zip(moment_groups(params, cfg.moment_dtype),
+                         state["mv"]):
+        # the group's moments as one flat f32 run (its layers in order),
+        # then each leaf's slice of it
+        size = sum(flat_p[i].numel() for i in group)
+        shape = flat_p[group[0]].shape if len(group) == 1 else (size,)
+        m = _q_decode(mv["m"], cfg.moment_dtype, shape).reshape(-1)
+        v = _q_decode(mv["v"], cfg.moment_dtype, shape,
+                      nonneg=True).reshape(-1)
+        ms, vs, off = [], [], 0
+        for i in group:
+            k = flat_p[i].numel()
+            shp = flat_p[i].shape
+            new_p[i], mi, vi = one(flat_p[i], flat_g[i],
+                                   m[off:off + k].reshape(shp),
+                                   v[off:off + k].reshape(shp), decays[i])
+            ms.append(mi.reshape(-1))
+            vs.append(vi.reshape(-1))
+            off += k
+        m = ms[0] if len(group) == 1 else torch.cat(ms)
+        v = vs[0] if len(group) == 1 else torch.cat(vs)
+        new_mv.append({"m": _q_encode(m.reshape(shape), cfg.moment_dtype),
+                       "v": _q_encode(v.reshape(shape), cfg.moment_dtype,
+                                      nonneg=True)})
+    return (tree_unflatten(treedef, new_p),
+            {"mv": new_mv, "step": step})

@@ -4,7 +4,9 @@ package's SSD references, on the same numpy inputs.
 The port is held to `repro.kernels.ref.ssd_ref` (the sequential scan) at
 `tests/test_kernels.py`'s atol 2e-4, and to `ref.ssd_chunked_ref` /
 `ops.ssd(use_pallas=False)` (the same chunked math) at rtol 1e-4, atol
-1e-5.  The reference's Pallas interpret path is not used: it is red under
+1e-5.  So is the chunk-parallel decomposition of the kernel (chunk
+states, state passing, chunk outputs), whose entering states are held
+to the reference's final state over each prefix of chunks.  The reference's Pallas interpret path is not used: it is red under
 this JAX (no `pl.load`)."""
 import jax
 import jax.numpy as jnp
@@ -206,6 +208,11 @@ BAD = {
     "h0 shape": (dict(h0=torch.zeros(1, 4, 8, 5)), ValueError),
     "P % 4": (dict(x=torch.zeros(1, 16, 4, 6),
                    h0=torch.zeros(1, 4, 6, 4)), ValueError),
+    "P > 64": (dict(x=torch.zeros(1, 16, 4, 68),
+                    h0=torch.zeros(1, 4, 68, 4)), ValueError),
+    "N > 128": (dict(b=torch.zeros(1, 16, 2, 132),
+                     c=torch.zeros(1, 16, 2, 132),
+                     h0=torch.zeros(1, 4, 8, 132)), ValueError),
 }
 
 
@@ -220,3 +227,100 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 def test_wrapper_rejects_chunks_the_kernel_does_not_take(chunk):
     with pytest.raises(ValueError, match="chunk"):
         kssd.ssd_scan(*_args(), chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# the chunk-parallel decomposition (csrc/ssd_scan.cu's three phases)
+# ---------------------------------------------------------------------------
+
+def _phases(t, chunk):
+    """The three plain phases on torch inputs (x, dt, a, b, c, h0)."""
+    s, local = ref.ssd_chunk_states_ref(t[0], t[1], t[2], t[3], chunk)
+    entering, final = ref.ssd_state_passing_ref(local, s, t[5])
+    y = ref.ssd_chunk_outputs_ref(t[0], t[1], t[3], t[4], s, entering,
+                                  chunk)
+    return s, local, entering, final, y
+
+
+def _jax_entering(a, chunk, c):
+    """The state entering chunk c: h0 (or 0), else the reference's final
+    state over the first c chunks."""
+    if c == 0:
+        return (np.zeros((a[0].shape[0], a[0].shape[2], a[0].shape[3],
+                          a[3].shape[3]), np.float32) if a[5] is None
+                else a[5])
+    cut = c * chunk
+    pre = [v[:, :cut] for v in (a[0], a[1])] + [a[2]] \
+        + [v[:, :cut] for v in (a[3], a[4])] + [a[5]]
+    return jref.ssd_chunked_ref(*map(_j, pre), chunk=chunk)[1]
+
+
+@pytest.mark.parametrize("L,chunk", SHAPES)
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_chunk_parallel_phases_match_jax(L, chunk, groups, with_h0):
+    """y and the final state of the three phases against the reference's
+    chunked and sequential scans, and the state entering every chunk
+    against the reference's final state over the chunks before it."""
+    a = _inputs(13, 2, L, 4, 16, 8, groups, h0=with_h0)
+    s, local, entering, final, y = _phases(list(map(_t, a)), chunk)
+    nc = L // chunk
+    assert s.shape == (2, nc, 4, chunk) and local.shape == (2, nc, 4, 16, 8)
+    assert entering.shape == local.shape and y.shape == (2, L, 4, 16)
+    jy, jh = jref.ssd_chunked_ref(*map(_j, a), chunk=chunk)
+    close(y, jy, **CHUNK_TOL)
+    close(final, jh, **CHUNK_TOL)
+    sy, sh = jref.ssd_ref(*map(_j, a))
+    close(y, sy, **SCAN_TOL)
+    close(final, sh, **SCAN_TOL)
+    for c in range(nc):
+        close(entering[:, c], _jax_entering(a, chunk, c), **CHUNK_TOL)
+
+
+@pytest.mark.parametrize("L,chunk", [(50, 16), (7, 8), (130, 128)])
+def test_chunk_parallel_phases_ragged_lengths(L, chunk):
+    """Padded to the chunk as ops.ssd pads (dt = 0 leaves the state
+    alone): y[:L] and the final state against the reference's ops.ssd."""
+    a = _inputs(14, 1, L, 2, 8, 4, 1, h0=True)
+    t = list(map(_t, a))
+    t[0], t[1], t[3], t[4] = ops._ssd_pad(t[0], t[1], t[3], t[4], chunk)
+    _, _, _, final, y = _phases(t, chunk)
+    jy, jh = jops.ssd(*map(_j, a), chunk=chunk, use_pallas=False)
+    close(y[:, :L], jy, **CHUNK_TOL)
+    close(final, jh, **CHUNK_TOL)
+    sy, sh = jref.ssd_ref(*map(_j, a))
+    close(y[:, :L], sy, **SCAN_TOL)
+    close(final, sh, **SCAN_TOL)
+
+
+def test_ssd_scan_phases_cpu_path_is_the_plain_decomposition():
+    """On the CPU the wrapper's intermediates are the plain phases; its y
+    and final state agree with the reference's chunked scan and with the
+    port's plain chunked version."""
+    a = _inputs(15, 2, 64, 4, 16, 8, 2, h0=True)
+    t = list(map(_t, a))
+    got = kssd.ssd_scan_phases(*t, chunk=16)
+    s, local, entering, final, y = _phases(t, 16)
+    for key, want in (("s", s), ("chunk_states", local),
+                      ("entering", entering), ("final", final), ("y", y)):
+        torch.testing.assert_close(got[key], want, rtol=0, atol=0)
+    jy, jh = jref.ssd_chunked_ref(*map(_j, a), chunk=16)
+    close(got["y"], jy, **CHUNK_TOL)
+    close(got["final"], jh, **CHUNK_TOL)
+    wy, wh = ref.ssd_chunked_ref(*t, chunk=16)
+    close(got["y"], wy.numpy(), **CHUNK_TOL)
+    close(got["final"], wh.numpy(), **CHUNK_TOL)
+
+
+def test_chunk_states_take_a_given_cumsum():
+    """Phase 1 given its own cumsums gives its own local states, and given
+    other cumsums other ones (the hook that holds a kernel's product on
+    the kernel's s)."""
+    t = list(map(_t, _inputs(16, 1, 32, 2, 8, 4, 1)))
+    s, local = ref.ssd_chunk_states_ref(t[0], t[1], t[2], t[3], 8)
+    s2, local2 = ref.ssd_chunk_states_ref(t[0], t[1], t[2], t[3], 8, s=s)
+    torch.testing.assert_close(s2, s, rtol=0, atol=0)
+    torch.testing.assert_close(local2, local, rtol=0, atol=0)
+    _, other = ref.ssd_chunk_states_ref(t[0], t[1], t[2], t[3], 8,
+                                        s=s * 0.5)
+    assert not torch.allclose(other, local)

@@ -190,6 +190,79 @@ def test_apply_updates_int8_matches_reference():
                     np.asarray(jst["mv"][k][mk][part]))
 
 
+def _int8_codes_by_reference_leaf(params, st):
+    """The port's int8 moment groups keyed by the reference's leaf path
+    ("layers/attn/wq" for the group of every layer's wq)."""
+    names = [n for n, _ in ckpt._leaf_paths(params)]
+    out = {}
+    for group, mv in zip(opt.moment_groups(params, "int8"), st["mv"]):
+        parts = names[group[0]].split("/")
+        key = "/".join(parts[:1] + parts[2:]) if parts[0] == "layers" \
+            else names[group[0]]
+        out[key] = mv
+    return out
+
+
+def _reference_codes(jst):
+    flat = jax.tree_util.tree_flatten_with_path(
+        jst["mv"], is_leaf=lambda d: isinstance(d, dict) and "m" in d)[0]
+    return {"/".join(str(getattr(k, "key", k)) for k in path): mv
+            for path, mv in flat}
+
+
+def test_apply_updates_int8_matches_reference_on_the_stacked_layout():
+    """Fault C2: int8 moments quantise a per-layer leaf over the
+    concatenation of its layers, the reference's stacked [n_layers, ...]
+    leaf, in 128-element blocks.  On the smoke model (d 48, where a
+    per-layer leaf is no multiple of 128) three steps through both
+    packages give equal int8 codes and scales and params within rtol
+    1e-6 (`test_apply_updates_matches_reference`'s tolerance)."""
+    params, st, jparams, jst = _adamw_both("int8")
+    assert_trees_close(params_to_jax(params, CFG), jparams, rtol=1e-6,
+                       atol=0)
+    got, want = _int8_codes_by_reference_leaf(params, st), \
+        _reference_codes(jst)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        for mk in ("m", "v"):
+            for part in ("q", "scale"):
+                np.testing.assert_array_equal(
+                    got[key][mk][part].numpy(),
+                    np.asarray(want[key][mk][part]), err_msg=key)
+
+
+def test_per_layer_int8_blocks_would_differ_from_the_reference(monkeypatch):
+    """Fault C2 as it was: quantising each layer's leaf on its own (one
+    moment group per leaf) puts the 128-element blocks elsewhere than the
+    reference's stacked leaf, so codes, scales and params differ."""
+    layer0 = params_from_jax(jparams_np(0), CFG)["layers"][0]
+    assert any(l.numel() % 128 for l in tree_flatten(layer0)[0])
+    monkeypatch.setattr(
+        opt, "moment_groups",
+        lambda p, dtype: [[i] for i in range(len(tree_flatten(p)[0]))])
+    params, st, jparams, jst = _adamw_both("int8")
+    want = _reference_codes(jst)
+    names = [n for n, _ in ckpt._leaf_paths(params)]
+    differ = 0
+    for key, mv in want.items():
+        if not key.startswith("layers/"):
+            continue
+        parts = key.split("/")
+        idx = [i for i, n in enumerate(names)
+               if n.split("/")[0] == "layers"
+               and "/".join(n.split("/")[2:]) == "/".join(parts[1:])]
+        scales = np.concatenate([st["mv"][i]["m"]["scale"].numpy().ravel()
+                                 for i in idx])
+        ref_scales = np.asarray(mv["m"]["scale"]).ravel()
+        differ += scales.shape != ref_scales.shape \
+            or not np.array_equal(scales, ref_scales)
+    assert differ > 0
+    got = params_to_jax(params, CFG)["layers"]
+    assert any(not np.allclose(a, np.asarray(b), rtol=1e-6, atol=0)
+               for a, b in zip(jax.tree.leaves(got),
+                               jax.tree.leaves(jparams["layers"])))
+
+
 def test_plain_ndim_rule_would_miss_the_stacked_decay(monkeypatch):
     """Fault 2: deciding decay by the port's own leaf rank skips ln1,
     ln2 and the qkv biases, which the reference decays (2-D once
