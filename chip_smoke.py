@@ -6,12 +6,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases; any failure exits non-zero before the result line is printed:
   1. setup — torch, CUDA and nvcc versions, the card's name and power
      limit, and the build of every kernel from the sources in this
-     checkout (one nvcc per source, all started together);
-  2. kernels — each kernel against its plain PyTorch version on the card,
-     at the serving and training paths' shapes and over a grid of edge
-     cases, with the
-     tolerance stated per dtype; then timed beside its plain version and
-     one PyTorch library call (a yardstick the port never calls);
+     checkout (one nvcc per source, all started together); per kernel
+     of kernels 4 and 6 its registers and spill, and their SASS must
+     hold HGMMA (wgmma) and UTMALDG (TMA loads);
+  2. kernels — kernel 4 against its plain PyTorch version on the card,
+     at the serving and training paths' shapes, over a grid of edge
+     cases, at the zoo's head dims with their heads (hubert 80, phi-3-
+     vision 96, danube 120, gemma2 256 with softcap 50, MLA 192 against
+     a v head dim of 128) at 200 and 4096 tokens, and on rows that keep
+     no key (lk_valid), with the tolerance stated per dtype (f32 cases
+     against the plain version evaluated in f64); bf16 at head dims that
+     are multiples of 8 must take the tensor cores; then timed at the
+     serving and training shapes beside its plain version and one
+     PyTorch library call (a yardstick the port never calls);
   3. serve — qwen2-0.5b at full width (24 layers, vocab 151936) with
      seeded random weights: 8 requests of 100 prompt tokens (bucket 128),
      32 new tokens each, 4 slots, page size 16, max_seq 256 (the run
@@ -75,14 +82,16 @@ Phases; any failure exits non-zero before the result line is printed:
      the loop's logits at the last prompt position against
      build_prefill's on the same prompts;
   8. ring attention — (a) the ring-partials kernel (kernel 6,
-     csrc/ring_attention.cu) against its plain version over D 16-128, f32
+     csrc/ring_attention.cu) against its plain version over D 16-256, f32
      and bf16, causal or not, window, softcap, GQA groups 1 and 7, ragged
-     Lq/Lk, -1 key slots, wholly and partly masked blocks, 1, 4 and 16
+     Lq/Lk, -1 key slots, wholly and partly masked blocks, rows that keep
+     their first key after masked tiles, padded shards, 1, 4 and 16
      PEs (m, l within 1e-5 x sqrt(D/16), acc within 2e-5 x max(1,
      l |v|max), finalize within 2e-5 x sqrt(D/16), wholly masked rows at
      m = -1e30 and the plain l exactly); (b) kernel 6 timed at the ring
-     step's shape (16 PEs, Hq 14, Hkv 2, 2048 x 2048, D 64, bf16) beside
-     its plain version and SDPA with the block mask; (c) qwen2-0.5b's
+     step's shape (16 PEs, Hq 14, Hkv 2, 2048 x 2048, D 64, bf16) on a
+     diagonal, a wholly kept and a wholly masked block, each beside its
+     plain version, SDPA with the block mask and its own bound; (c) qwen2-0.5b's
      layer-0 q, k, v over a 32768-token prompt, sharded over 16 PEs of
      the 4x4 mesh, through fusion.ring_attention on the plain and the NoC
      SIM: exactly 16 kernel-6 launches and the puts the code implies
@@ -148,16 +157,45 @@ def card_line() -> str:
 
 def kernel_label(mangled: str) -> str:
     """A short name for a kernel's mangled symbol in nvcc's report: the
-    function's name and the start of its template arguments."""
-    m = re.search(r"[a-z_]*(?:kernel|partials|fwd)(?=[IE])\w{0,24}",
-                  mangled)
-    return m.group(0) if m else mangled[-48:]
+    function's name and its template arguments (dtype, int parameters)."""
+    m = re.search(r"(flash_fwd_tc|flash_fwd_cc|ring_partials_tc|"
+                  r"ring_partials_cc|ring_prep|[a-z_]*(?:kernel|partials|fwd))"
+                  r"(?=[IE])(I(?:13__nv_bfloat16|f|Li\d+E)+E)?", mangled)
+    if not m:
+        return mangled[-48:]
+    args = [{"f": "f32"}.get(a.group(0), a.group(1) or "bf16")
+            for a in re.finditer(r"13__nv_bfloat16|Li(\d+)E|f",
+                                 m.group(2) or "")]
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+# the opcodes that show kernels 4 and 6 on Hopper's tensor cores (HGMMA:
+# wgmma) fed by TMA (UTMALDG), and HMMA (mma.sync) for contrast
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_counts(path: Path) -> dict | None:
+    """{opcode: count} in a library's SASS by cuobjdump, or None when the
+    toolkit has no cuobjdump or it shows no SASS for the library."""
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc_path()).with_name("cuobjdump"))
+    if not Path(tool).is_file():
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300).stdout
+    if "Function :" not in sass:
+        return None
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
 
 
 def report_builds(libs: dict) -> None:
     """Per library, nvcc's resource report (`-Xptxas -v`, kept beside it):
     kernels, registers, spill, and which kernels spill; per kernel of the
-    SSD scan, its registers."""
+    SSD scan, its registers; per kernel of kernels 4 and 6, registers and
+    spill, and their SASS's tensor-core and TMA opcodes (a kernel 4 or 6
+    without HGMMA fails the run)."""
     for name, path in libs.items():
         report = path.with_suffix(".log").read_text()
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", report)]
@@ -170,6 +208,18 @@ def report_builds(libs: dict) -> None:
         if spilling:
             log(f"      {len(spilling)} of them spill: "
                 + ", ".join(kernel_label(e) for e in spilling[:6]))
+        if name in ("flash_attention", "ring_attention"):
+            log("      " + ", ".join(
+                f"{kernel_label(e)} {r} regs" + (f" {sp} B spill"
+                                                 if int(sp) else "")
+                for e, sp, r in re.findall(
+                    r"Compiling entry function '([^']+)'.*?(\d+) bytes "
+                    r"spill stores.*?Used (\d+) registers", report, re.S)))
+            ops = sass_counts(path)
+            log(f"      SASS: {ops if ops else 'not readable (no cuobjdump)'}")
+            if ops is not None and not (ops["HGMMA"] and ops["UTMALDG"]):
+                raise AssertionError(f"{name}: no HGMMA or UTMALDG in its "
+                                     f"SASS ({ops})")
         if name == "ssd_scan":
             dtypes = {"If": " f32", "I13__nv_bfloat16": " bf16"}
             log("      registers: " + ", ".join(
@@ -204,16 +254,29 @@ ATTN_CASES = [dict(causal=True), dict(causal=False),
               dict(causal=True, window=33, softcap=50.0)]
 
 
-def attention_inputs(torch, gen, b, hq, hkv, lq, lk, d, dt):
+def attention_inputs(torch, gen, b, hq, hkv, lq, lk, d, dt, dv=None):
     def rnd(scale, *shape):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
                 ).to(dt)
     return (rnd(QK_SCALE, b, hq, lq, d), rnd(QK_SCALE, b, hkv, lk, d),
-            rnd(1.0, b, hkv, lk, d))
+            rnd(1.0, b, hkv, lk, dv or d))
+
+
+# fault C1: the zoo's full-width head dims with their heads
+# (src/repro/configs/): (label, Hkv, group, D, Dv, kwargs).  Their windows
+# are 4096 wide; a window is cut to 33 at the short length and to 1024 at
+# 4096 tokens, so that it bites at both.
+C1_MODELS = [
+    ("hubert", 16, 1, 80, 80, dict(causal=False)),
+    ("phi3v", 32, 1, 96, 96, dict(causal=True)),
+    ("danube", 8, 4, 120, 120, dict(causal=True, window=4096)),
+    ("gemma2", 8, 2, 256, 256, dict(causal=True, window=4096, softcap=50.0)),
+    ("mla", 128, 1, 192, 128, dict(causal=True)),
+]
 
 
 def attention_cases():
-    """(label, B, Hkv, group, Lq, Lk, D, dtype name, kwargs)."""
+    """(label, B, Hkv, group, Lq, Lk, D, dtype name, kwargs, Dv)."""
     cases = [("slice", 1, 2, 7, 128, 256, 64, "bfloat16", dict(causal=True)),
              ("slice_ragged", 1, 2, 7, 100, 100, 64, "bfloat16",
               dict(causal=True)),
@@ -236,6 +299,13 @@ def attention_cases():
         for dtype in ("float32", "bfloat16"):
             cases.append((f"hd{d}", 1, 2, 2, 96, 160, d, dtype,
                           dict(causal=True, window=40)))
+    cases = [c + (c[6],) for c in cases]
+    for label, hkv, group, d, dv, kw in C1_MODELS:
+        for length, window in ((200, 33), (4096, 1024)):
+            opts = dict(kw, window=window) if "window" in kw else kw
+            for dtype in ("float32", "bfloat16"):
+                cases.append((f"{label}{length}", 1, hkv, group, length,
+                              length, d, dtype, opts, dv))
     return cases
 
 
@@ -260,34 +330,72 @@ def ulp(torch, x):
                                        dtype=torch.float32), e - 1)
 
 
-def check_attention(torch, ops, ref, gen) -> dict:
+def plain_attention(torch, ref, q, k, v, exact=True, **kw):
+    """The plain version on these inputs, a few KV heads at a time (its
+    logits at 128 heads x 4096^2 would not fit at once).  For f32 inputs
+    (unless exact=False) it runs in f64 and is rounded to f32 at the end:
+    its own f32 evaluation errs by 3.0e-5 to 3.4e-5 at D 192 and 256 over
+    4096 tokens (cuBLAS's f32 GEMM over D terms: check_attention prints
+    it), at and above the 3e-5 tolerance, while kernel 4 stays within
+    ~1e-5 of the f64 value.  So an f32 case holds the kernel to the
+    function's exact value; the limit is unchanged."""
+    hkv = k.shape[1]
+    group = q.shape[1] // hkv
+    step = max(1, 16 // group)
+    up = (lambda x: x.double()) if exact and q.dtype == torch.float32 \
+        else (lambda x: x)
+    parts = [ref.attention_ref(up(q[:, h * group:(h + step) * group]),
+                               up(k[:, h:h + step]), up(v[:, h:h + step]),
+                               **kw)
+             for h in range(0, hkv, step)]
+    return torch.cat(parts, dim=1).to(q.dtype)
+
+
+def attention_over(torch, out, want, dt) -> tuple[float, float]:
+    """(max|err|, worst err/limit) of an output against its plain version:
+    an output rounded to its dtype cannot be held closer than one step of
+    that dtype at its own magnitude, so the limit of an element is the
+    larger of the dtype's tolerance and that step (for bf16 they differ
+    only where |want| >= 4, where the step is 2^-5 = 0.03125)."""
+    diff = (out.float() - want.float()).abs()
+    limit = torch.maximum(torch.full_like(diff, TOL[str(dt)]),
+                          ulp(torch, want))
+    return diff.max().item(), (diff / limit).max().item()
+
+
+def check_attention(torch, ops, ref, fa, gen) -> dict:
     worst = {}
-    for label, b, hkv, group, lq, lk, d, dtype, kw in attention_cases():
+    for label, b, hkv, group, lq, lk, d, dtype, kw, dv in attention_cases():
         dt = getattr(torch, dtype)
         q, k, v = attention_inputs(torch, gen, b, hkv * group, hkv, lq, lk,
-                                   d, dt)
+                                   d, dt, dv)
         out = ops.attention(q, k, v, **kw)
-        want = ref.attention_ref(q, k, v, **kw)
+        want = plain_attention(torch, ref, q, k, v, **kw)
         torch.cuda.synchronize()
         if out.shape != want.shape or out.dtype != want.dtype:
             raise AssertionError(f"{label}: {out.shape}/{out.dtype} vs "
                                  f"{want.shape}/{want.dtype}")
         if not torch.isfinite(out).all():
             raise AssertionError(f"{label} {kw}: non-finite output")
-        diff = (out.float() - want.float()).abs()
-        err = diff.max().item()
+        err, over = attention_over(torch, out, want, dt)
         tol = TOL[str(dt)]
-        # an output rounded to its dtype cannot be held closer than one
-        # step of that dtype at its own magnitude: the limit of an element
-        # is the larger of `tol` and that step (for bf16 they differ only
-        # where |want| >= 4, where the step is 2^-5 = 0.03125)
-        limit = torch.maximum(torch.full_like(diff, tol), ulp(torch, want))
-        over = (diff / limit).max().item()
         typical = want.float().abs().mean().item()
+        route = "tensor cores" if fa.tensor_core_route(q, k, v) \
+            else "CUDA cores"
+        oracle = ""
+        if dtype == "float32":
+            plain32 = plain_attention(torch, ref, q, k, v, exact=False, **kw)
+            oracle = (f"; the plain version's own f32 max|err| "
+                      f"{(plain32 - want).abs().max().item():.3e}")
+            del plain32
         log(f"  attention {label:16s} {dtype:8s} B{b} Hq{hkv * group} "
-            f"Hkv{hkv} Lq{lq} Lk{lk} D{d} {kw}: max|err| {err:.3e} "
-            f"(tol {tol:g} or 1 ulp, worst err/limit {over:.3f}, mean|out| "
-            f"{typical:.3f})")
+            f"Hkv{hkv} Lq{lq} Lk{lk} D{d} Dv{dv} {kw} ({route}): max|err| "
+            f"{err:.3e} (tol {tol:g} or 1 ulp, worst err/limit {over:.3f}, "
+            f"mean|out| {typical:.3f}{oracle})")
+        if dtype == "bfloat16" and d % 8 == 0 and dv % 8 == 0 \
+                and route != "tensor cores":
+            raise AssertionError(f"{label}: bf16 at D{d}/Dv{dv} did not "
+                                 f"take the tensor cores")
         if not over <= 1.0:
             raise AssertionError(f"{label} {dtype} {kw}: max|err| {err}, "
                                  f"err/limit {over} > 1")
@@ -295,7 +403,8 @@ def check_attention(torch, ops, ref, gen) -> dict:
             raise AssertionError(f"{label} {dtype}: mean|out| {typical} is "
                                  f"not far above the tolerance {tol}")
         if "softcap" in kw:
-            blind = ref.attention_ref(q, k, v, **{**kw, "softcap": None})
+            blind = plain_attention(torch, ref, q, k, v,
+                                    **{**kw, "softcap": None})
             gap = (blind.float() - want.float()).abs().max().item()
             if not gap > 2 * tol:
                 raise AssertionError(f"{label} {dtype} {kw}: dropping the "
@@ -305,12 +414,73 @@ def check_attention(torch, ops, ref, gen) -> dict:
     return worst
 
 
-def time_attention(torch, fa, ref, gen) -> dict:
-    """Times at the serving prefill's shapes: the kernel alone (its C
-    entry called back to back), the wrapper, the plain version, and
-    scaled_dot_product_attention as the library yardstick."""
+def check_attention_edges(torch, fa, ref, gen) -> None:
+    """Kernel 4's wrapper with lk_valid against the plain version: rows
+    that keep no key (non-causal with lk_valid 0; a window above a short
+    lk_valid), lk_valid below one key tile, and a window that skips the
+    leading key tiles of later query tiles, at the C1 head dims, f32 and
+    bf16.  The limits are check_attention's; a row that keeps nothing is
+    the mean of v over the Lk slots, so these outputs are small and no
+    mean|out| floor applies."""
+    cases = [("none_noncausal", 80, 80, 128, 128, 0, dict(causal=False)),
+             ("none_window", 120, 120, 128, 256, 3,
+              dict(causal=True, window=8)),
+             ("below_tile", 256, 256, 128, 256, 40, dict(causal=False)),
+             ("window_skips", 96, 96, 512, 512, 512,
+              dict(causal=True, window=100)),
+             ("mla_window", 192, 128, 256, 256, 200,
+              dict(causal=True, window=70, softcap=50.0))]
+    dead_rows = 0
+    for label, d, dv, lq, lk, lk_valid, kw in cases:
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q, k, v = attention_inputs(torch, gen, 1, 4, 2, lq, lk, d, dt,
+                                       dv)
+            out = fa.flash_attention(q, k, v, lk_valid=lk_valid, **kw)
+            want = plain_attention(torch, ref, q, k, v, lk_valid=lk_valid,
+                                   **kw)
+            torch.cuda.synchronize()
+            err, over = attention_over(torch, out, want, dt)
+            qp = torch.arange(lq, device="cuda")[:, None]
+            kp = torch.arange(lk, device="cuda")[None, :]
+            keep = (kp < lk_valid).expand(lq, lk)
+            if kw.get("causal"):
+                keep = keep & (kp <= qp)
+            if kw.get("window"):
+                keep = keep & (kp > qp - kw["window"])
+            dead = int((~keep.any(1)).sum())
+            dead_rows += dead
+            log(f"  attention edge {label:14s} {dtype:8s} Lq{lq} Lk{lk} "
+                f"lk_valid {lk_valid} D{d} Dv{dv} {kw}: rows keeping no key "
+                f"{dead} of {lq}; max|err| {err:.3e}, worst err/limit "
+                f"{over:.3f}")
+            if not (over <= 1.0 and torch.isfinite(out).all()):
+                raise AssertionError(f"attention edge {label} {dtype}: "
+                                     f"err/limit {over}")
+    if not dead_rows:
+        raise AssertionError("attention edges: no row kept nothing")
+
+
+ATTN_TIMED = {"serving": (1, 14, 2, 128, 256, 64),   # the qwen2 prefill
+              "training": (2, 14, 2, 128, 128, 64)}  # a TRAIN_RUN microbatch
+
+
+def time_attention(torch, fa, ref, gen, card) -> dict:
+    """Times at the serving prefill's and the training step's shapes
+    (ATTN_TIMED): the kernel alone (its C entry called back to back), the
+    wrapper, the plain version, and scaled_dot_product_attention as the
+    library yardstick.  Returns the serving shape's, with the training
+    shape's under "training"."""
     import torch.nn.functional as F
-    b, hq, hkv, lq, lk, d = 1, 14, 2, 128, 256, 64
+    got = {}
+    for shape, (b, hq, hkv, lq, lk, d) in ATTN_TIMED.items():
+        got[shape] = time_attention_at(torch, F, fa, ref, gen, card, b, hq,
+                                       hkv, lq, lk, d)
+    return dict(got["serving"], training=got["training"])
+
+
+def time_attention_at(torch, F, fa, ref, gen, card, b, hq, hkv, lq, lk,
+                      d) -> dict:
     dt = torch.bfloat16
     q, k, v = attention_inputs(torch, gen, b, hq, hkv, lq, lk, d, dt)
     scale = 1.0 / math.sqrt(d)
@@ -321,7 +491,7 @@ def time_attention(torch, fa, ref, gen) -> dict:
     lib = fa._library()
     stream = torch.cuda.current_stream().cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b,
-            hq, hkv, lq, lk, d, lk, 1, 0, 0.0, scale, stream)
+            hq, hkv, lq, lk, d, d, lk, 1, 0, 0.0, scale, stream)
     kernel_ms = time_ms(lambda: lib.repro_flash_attention_fwd(*args))
     wrapper_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
                                                     sm_scale=scale))
@@ -340,11 +510,12 @@ def time_attention(torch, fa, ref, gen) -> dict:
     ops_count = 4 * d * pairs * b * hq
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_count / PEAK_OPS_PER_S[str(dt)] * 1e3
-    log(f"  times at B{b} Hq{hq} Hkv{hkv} Lq{lq} Lk{lk} D{d} bf16 causal: "
-        f"kernel {kernel_ms:.5f} ms, wrapper {wrapper_ms:.5f} ms, plain "
-        f"{plain_ms:.5f} ms, sdpa {library_ms:.5f} ms (sdpa max|err| vs "
-        f"plain {sdpa_err:.3e}); bound {max(t_bytes, t_ops):.6f} ms "
-        f"({nbytes} B, {ops_count} products-ops, {keys} of {lk} keys)")
+    log(f"  times at B{b} Hq{hq} Hkv{hkv} Lq{lq} Lk{lk} D{d} bf16 causal "
+        f"({card}): kernel {kernel_ms:.5f} ms, wrapper {wrapper_ms:.5f} ms, "
+        f"plain {plain_ms:.5f} ms, sdpa {library_ms:.5f} ms (sdpa max|err| "
+        f"vs plain {sdpa_err:.3e}); bound {max(t_bytes, t_ops):.6f} ms "
+        f"({nbytes} B, {ops_count} products-ops, {keys} of {lk} keys); "
+        f"kernel / sdpa {kernel_ms / library_ms:.3f}")
     return dict(max_abs_err=err, ms=kernel_ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(t_bytes, t_ops),
@@ -1803,26 +1974,41 @@ def ring_positions(torch, gen, layout, p, lq, lk, step=0):
     """(q_pos (P, Lq), k_pos (P, Lk)) int32 on the card.  "ring": PE p's
     queries at p*Lq.., its block from PE (p - step) % P at src*Lk.. (a
     ring step: past, diagonal and future blocks side by side); "future":
-    every key after every query (wholly masked under causal);
-    "partly": keys from the middle of the query rows on; "pad": a ring
-    step with ~15% of the key slots at -1."""
+    every key after every query (wholly masked under causal); "kept":
+    every key before every query (wholly kept under causal); "partly":
+    keys from the middle of the query rows on (the early rows keep
+    nothing); "late": a ring step with each block's keys in falling
+    order, so a row keeps its first key after masked tiles; "pad": a ring
+    step with ~15% of the key slots at -1; "shard": a ring step whose
+    last PE holds a short shard, its last third of query and key slots at
+    -1."""
     pe = torch.arange(p, device="cuda")[:, None]
     q_pos = pe * lq + torch.arange(lq, device="cuda")
     src = (pe - step) % p
     k_pos = src * lk + torch.arange(lk, device="cuda")
     if layout == "future":
         k_pos = k_pos + p * lq + 7
+    elif layout == "kept":
+        q_pos = q_pos + p * lk
     elif layout == "partly":
         k_pos = q_pos[:, :1] + lq // 2 + torch.arange(lk, device="cuda")
+    elif layout == "late":
+        k_pos = k_pos.flip(1)
     elif layout == "pad":
         drop = torch.rand((p, lk), generator=gen, device="cuda") < 0.15
         k_pos = torch.where(drop, torch.full_like(k_pos, -1), k_pos)
+    elif layout == "shard":
+        q_pos[-1, -(lq // 3):] = -1
+        k_pos[src[:, 0] == p - 1, -(lk // 3):] = -1
     return q_pos.to(torch.int32), k_pos.to(torch.int32)
+
+
+RING_DIMS = (16, 32, 64, 80, 120, 128, 256)
 
 
 def ring_cases():
     """(label, P, B, Hkv, group, Lq, Lk, layout, step, kwargs); each runs
-    at D 16, 32, 64, 128 in f32 and bf16."""
+    at RING_DIMS in f32 and bf16."""
     causal = dict(causal=True)
     return [
         ("ring16", 16, 1, 2, 7, 64, 64, "ring", 5, causal),
@@ -1837,6 +2023,9 @@ def ring_cases():
         ("partly1", 1, 2, 2, 7, 64, 64, "partly", 0, causal),
         ("pad4", 4, 2, 2, 7, 40, 45, "pad", 1,
          dict(causal=True, window=30, softcap=50.0)),
+        ("late4", 4, 1, 2, 7, 130, 200, "late", 0, causal),
+        ("shard4", 4, 1, 2, 1, 150, 150, "shard", 1,
+         dict(causal=True, window=100)),
     ]
 
 
@@ -1872,7 +2061,7 @@ def check_ring_partials(torch, ra, ref, gen) -> float:
     failure is raised.  Returns the worst err/limit."""
     worst, bad, rows = 0.0, [], [0, 0]
     for label, p, b, hkv, group, lq, lk, layout, step, kw in ring_cases():
-        for d in (16, 32, 64, 128):
+        for d in RING_DIMS:
             for dtype in ("float32", "bfloat16"):
                 dt = getattr(torch, dtype)
                 q, k, v = attention_inputs(torch, gen, p * b, hkv * group,
@@ -1902,7 +2091,8 @@ def check_ring_partials(torch, ra, ref, gen) -> float:
                     + f"; rows keeping a key {kept}, keeping none {none}")
                 if not over <= 1.0:
                     bad.append(f"{label} D{d} {dtype}: err/limit {over}")
-    log(f"  kernel 6 vs plain: {len(ring_cases()) * 8} cases, worst "
+    log(f"  kernel 6 vs plain: {len(ring_cases()) * len(RING_DIMS) * 2} "
+        f"cases, worst "
         f"err/limit {worst:.3f}; rows keeping a key {rows[0]}, wholly "
         f"masked {rows[1]}")
     if bad or not (rows[0] and rows[1]):
@@ -1919,76 +2109,98 @@ def ring_block_counts(p, b, hq, hkv, lq, lk, d, itemsize, pairs):
     return nbytes, 4 * d * pairs * b * hq
 
 
-def time_ring_partials(torch, ra, ref, gen) -> dict:
+def time_ring_partials(torch, ra, ref, gen, card) -> dict:
     """8b: kernel 6 at the ring step's shape (16 PEs, B 1, Hq 14, Hkv 2,
-    Lq = Lk = 2048, D 64, bf16, causal; the diagonal step, each PE its own
-    block): its C entry back to back, the wrapper, the plain version, and
-    scaled_dot_product_attention over the same 16 PEs with the block's
-    boolean mask (a yardstick of the work: it computes the normalised
-    output, not (acc, m, l))."""
+    Lq = Lk = 2048, D 64, bf16, causal) on three blocks: the diagonal one
+    (each PE its own block, the ring's first step), one wholly kept (every
+    key before every query) and one wholly masked (every key after every
+    query).  Each: its C entry back to back, the wrapper, the plain
+    version, and scaled_dot_product_attention over the same 16 PEs with
+    the block's boolean mask (a yardstick of the work: it computes the
+    normalised output, not (acc, m, l)), beside its own bound.  Returns
+    the diagonal block's, with the others under their names."""
     import torch.nn.functional as F
     p, b, hq, hkv, lq, lk, d = 16, 1, 14, 2, 2048, 2048, 64
     dt = torch.bfloat16
     q, k, v = attention_inputs(torch, gen, p * b, hq, hkv, lq, lk, d, dt)
     q, k, v = (x.reshape((p, b) + tuple(x.shape[1:])) for x in (q, k, v))
-    q_pos, k_pos = ring_positions(torch, gen, "ring", p, lq, lk, 0)
+    if not ra.tensor_core_route(q, k, v):
+        raise AssertionError("kernel 6 at the ring step is not on the "
+                             "tensor cores")
     scale = 1.0 / math.sqrt(d)
-    got = ra.attn_block_partials(q, k, v, q_pos, k_pos, causal=True)
-    want = ref.ring_partials_ref(q, k, v, q_pos, k_pos, causal=True)
-    over = max(ring_over(torch, got, want,
-                         v.float().abs().max().item())[0].values())
-    err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    if not over <= 1.0:
-        raise AssertionError(f"ring partials at the ring step: err/limit "
-                             f"{over}")
-    acc, m, l = got
     lib = ra._library()
     stream = torch.cuda.current_stream().cuda_stream
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            k_pos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), 1,
-            p, b, hq, hkv, lq, lk, d, 1, 0, 0.0, scale, stream)
-    kernel_ms = time_ms(lambda: lib.repro_ring_partials(*args), iters=10,
-                        warmup=2)
-    wrapper_ms = time_ms(lambda: ra.attn_block_partials(
-        q, k, v, q_pos, k_pos, causal=True), iters=10, warmup=2)
-    plain_ms = time_ms(lambda: ref.ring_partials_ref(
-        q, k, v, q_pos, k_pos, causal=True), iters=3, warmup=1)
-    mask = (k_pos[:, None, :] <= q_pos[:, :, None])[:, None]   # (P,1,Lq,Lk)
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q[:, 0], k[:, 0], v[:, 0], attn_mask=mask, scale=scale,
-        enable_gqa=True)
-    sdpa_err = (sdpa().float() - (acc / l[..., None])[:, 0]).abs().max()
-    library_ms = time_ms(sdpa, iters=10, warmup=2)
-
-    pairs = int(mask.sum().item())
-    nbytes, ops_count = ring_block_counts(p, b, hq, hkv, lq, lk, d, 2, pairs)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_count / PEAK_OPS_PER_S[str(dt)] * 1e3
+    vsum = torch.empty((p * b * hkv, d), dtype=torch.float32, device="cuda")
+    bounds = torch.empty((p, -(-lk // ra.BK), 4), dtype=torch.int32,
+                         device="cuda")
     f32 = PEAK_OPS_PER_S["torch.float32"]
-    every = 4 * d * p * b * hq * lq * lk          # every tile, as computed
-    ring_kept = 4 * d * b * hq * (p * (p - 1) // 2 * lq * lk + pairs)
-    log(f"  times at P{p} B{b} Hq{hq} Hkv{hkv} Lq{lq} Lk{lk} D{d} bf16 "
-        f"causal (diagonal step): kernel {kernel_ms:.5f} ms, wrapper "
-        f"{wrapper_ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa with the "
-        f"block mask {library_ms:.5f} ms (sdpa max|err| vs the kernel's "
-        f"acc/l {sdpa_err.item():.3e}); max|err| vs plain {err:.3e}; bound "
-        f"{max(t_bytes, t_ops):.6f} ms ({nbytes} B = {t_bytes:.6f} ms; "
-        f"{ops_count} products-ops of the {pairs} kept pairs = "
-        f"{t_ops:.6f} ms at the bf16 tensor-core rate, "
-        f"{ops_count / f32 * 1e3:.6f} ms at the f32 rate)")
-    log(f"  every tile, as the kernel and the TPU kernel compute it: "
-        f"{every} ops = {every / f32 * 1e3:.6f} ms at the f32 rate, "
-        f"{every / PEAK_OPS_PER_S[str(dt)] * 1e3:.6f} ms at bf16; the "
-        f"causal ring of {p} steps computes {p * every} and keeps "
-        f"{ring_kept} ({ring_kept / f32 * 1e3:.6f} ms at the f32 rate); "
-        f"achieved {every / kernel_ms / 1e9:.3f} TFLOP/s of every-tile "
-        f"products")
-    del q, k, v, acc, m, l, got, want, mask
+    got = {}
+    for block, layout in (("diagonal", "ring"), ("kept", "kept"),
+                          ("masked", "future")):
+        q_pos, k_pos = ring_positions(torch, gen, layout, p, lq, lk, 0)
+        res = ra.attn_block_partials(q, k, v, q_pos, k_pos, causal=True)
+        want = ref.ring_partials_ref(q, k, v, q_pos, k_pos, causal=True)
+        over = max(ring_over(torch, res, want,
+                             v.float().abs().max().item())[0].values())
+        err = max((g - w).abs().max().item() for g, w in zip(res, want))
+        if not over <= 1.0:
+            raise AssertionError(f"ring partials at the ring step, {block} "
+                                 f"block: err/limit {over}")
+        acc, m, l = res
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+                k_pos.data_ptr(), acc.data_ptr(), m.data_ptr(),
+                l.data_ptr(), vsum.data_ptr(), bounds.data_ptr(), 1, p, b,
+                hq, hkv, lq, lk, d, 1, 0, 0.0, scale, stream)
+        kernel_ms = time_ms(lambda: lib.repro_ring_partials(*args),
+                            iters=20, warmup=3)
+        wrapper_ms = time_ms(lambda: ra.attn_block_partials(
+            q, k, v, q_pos, k_pos, causal=True), iters=20, warmup=3)
+        plain_ms = time_ms(lambda: ref.ring_partials_ref(
+            q, k, v, q_pos, k_pos, causal=True), iters=3, warmup=1)
+        mask = (k_pos[:, None, :] <= q_pos[:, :, None])[:, None]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[:, 0], k[:, 0], v[:, 0], attn_mask=mask, scale=scale,
+            enable_gqa=True)
+        library_ms = time_ms(sdpa, iters=10, warmup=2)
+        pairs = int(mask.sum().item())
+        if pairs:
+            nbytes, ops_count = ring_block_counts(p, b, hq, hkv, lq, lk, d,
+                                                  2, pairs)
+            sdpa_err = (sdpa().float() - (acc / l[..., None])[:, 0]
+                        ).abs().max().item()
+        else:
+            # no kept pair: the function needs v (its sum), the positions,
+            # and writes acc, m and l; q and k are never read
+            nbytes = (p * b * hkv * lk * d * 2 + 4 * p * (lq + lk)
+                      + 4 * p * b * hq * lq * (d + 2))
+            ops_count, sdpa_err = 0, float("nan")
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_count / PEAK_OPS_PER_S[str(dt)] * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"  times at P{p} B{b} Hq{hq} Hkv{hkv} Lq{lq} Lk{lk} D{d} bf16 "
+            f"causal, {block} block ({card}): kernel {kernel_ms:.5f} ms, "
+            f"wrapper {wrapper_ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa "
+            f"with the block mask {library_ms:.5f} ms (sdpa max|err| vs the "
+            f"kernel's acc/l {sdpa_err:.3e}); max|err| vs plain {err:.3e}; "
+            f"bound {bound:.6f} ms by {'bytes' if t_bytes >= t_ops else 'operations'} "
+            f"({nbytes} B = {t_bytes:.6f} ms; {ops_count} products-ops of "
+            f"the {pairs} kept pairs = {t_ops:.6f} ms at the bf16 "
+            f"tensor-core rate, {ops_count / f32 * 1e3:.6f} ms at the f32 "
+            f"rate); kernel at {bound / kernel_ms:.1%} of its bound")
+        got[block] = dict(max_abs_err=err, ms=kernel_ms,
+                          wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound,
+                          bound_by="bytes" if t_bytes >= t_ops
+                          else "operations")
+        del acc, m, l, res, want, mask
+    every = 4 * d * p * b * hq * lq * lk
+    log(f"  the causal ring of {p} steps holds {p} diagonal, "
+        f"{p * (p - 1) // 2} kept and {p * (p - 1) // 2} masked PE-blocks; "
+        f"computing every tile of every block, as the TPU kernel does, "
+        f"would be {p * every} ops")
+    del q, k, v
     torch.cuda.empty_cache()
-    return dict(max_abs_err=err, ms=kernel_ms, wrapper_ms=wrapper_ms,
-                plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return dict(got["diagonal"], kept=got["kept"], masked=got["masked"])
 
 
 def _shard_seq(x, n):
@@ -2013,7 +2225,7 @@ def bf16_over(torch, got, want) -> float:
     return (diff / limit).max().item()
 
 
-def ring_path(torch, np, serving, ra, ref, ops, fa) -> list:
+def ring_path(torch, np, serving, ra, ref, ops, fa, card) -> list:
     """8c: qwen2-0.5b's layer-0 q, k, v (seeded weights, bf16, after the
     projections and RoPE) over RING_RUN's 32768-token prompt, sharded over
     16 PEs, through fusion.ring_attention on the plain and the NoC SIM:
@@ -2166,7 +2378,7 @@ def ring_path(torch, np, serving, ra, ref, ops, fa) -> list:
     lib = fa._library()
     b, hq, _, d = q.shape
     args = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), mono.data_ptr(), 1,
-            b, hq, k.shape[1], seq, seq, d, seq, 1, 0, 0.0,
+            b, hq, k.shape[1], seq, seq, d, d, seq, 1, 0, 0.0,
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
     k4_ms = time_ms(lambda: lib.repro_flash_attention_fwd(*args), iters=3,
                     warmup=1)
@@ -2197,11 +2409,12 @@ def ring_path(torch, np, serving, ra, ref, ops, fa) -> list:
         "epiphany16 board": fusion.choose_attention(
             n, kv_bytes, walls["mono"] / n, topo=topo,
             link=abmodel.EPIPHANY_NOC)}
-    log(f"  walls (host clock, ending in synchronize): "
+    log(f"  walls ({card}; host clock, ending in synchronize): "
         + ", ".join(f"{name} {w * 1e3:.3f} ms" for name, w in walls.items())
         + f"; peak device memory of the two rings {peak / 2**30:.3f} GiB")
     log(f"  kernel 4 at B{b} Hq{hq} Hkv{k.shape[1]} L{seq} D{d} bf16 causal "
-        f"(the gathered sequence): {k4_ms:.5f} ms; bound {k4_bound:.6f} ms "
+        f"(the gathered sequence; {card}): {k4_ms:.5f} ms; bound "
+        f"{k4_bound:.6f} ms "
         f"({k4_bytes} B, {k4_ops} ops of the {pairs} kept pairs at the "
         f"bf16 rate; {k4_ops / PEAK_OPS_PER_S['torch.float32'] * 1e3:.6f} "
         f"ms at the f32 rate); scaled_dot_product_attention (causal, "
@@ -2260,8 +2473,10 @@ def main() -> int:
 
     log("== phase 2: kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    check_attention(torch, ops, ref, gen)
-    timing = time_attention(torch, fa, ref, gen)
+    check_attention(torch, ops, ref, fa, gen)
+    check_attention_edges(torch, fa, ref, gen)
+    torch.cuda.empty_cache()
+    timing = time_attention(torch, fa, ref, gen, card)
 
     log(f"== phase 3: serve {serving.CONFIG.name} at full width")
     eng, prompts, launches = serve(torch, np, fa, serving, ServeEngine)
@@ -2295,8 +2510,8 @@ def main() -> int:
     log(f"== phase 8: ring attention over {serving.RING_RUN['n_pes']} PEs "
         f"at {serving.CONFIG.name}'s width")
     check_ring_partials(torch, ra, ref, gen)
-    ring_timing = time_ring_partials(torch, ra, ref, gen)
-    ring_launches = ring_path(torch, np, serving, ra, ref, ops, fa)
+    ring_timing = time_ring_partials(torch, ra, ref, gen, card)
+    ring_launches = ring_path(torch, np, serving, ra, ref, ops, fa, card)
 
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \

@@ -2,9 +2,10 @@
 interface, loaded with ctypes.
 
 `csrc/<name>.cu` becomes `build/repro_torch/<name>-<hash>.so` at the root
-of the checkout (a git-ignored directory).  <hash> covers the source text
-and the compiler flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  nvcc's resource report (`-Xptxas -v`: registers,
+of the checkout (a git-ignored directory).  <hash> covers the source text,
+the text of every header under csrc/ that it includes (`#include "..."`,
+followed transitively), and the compiler flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is.  nvcc's resource report (`-Xptxas -v`: registers,
 shared memory and spills of each kernel) is kept beside the library as
 `<name>-<hash>.log`.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -36,9 +39,24 @@ def nvcc_path() -> str:
                        "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
+def _source_text(name: str) -> bytes:
+    """`csrc/<name>.cu` and the csrc/ headers it includes, each behind its
+    file name, in the order first met."""
+    seen, todo, parts = set(), [f"{name}.cu"], []
+    while todo:
+        file = todo.pop(0)
+        if file in seen:
+            continue
+        seen.add(file)
+        text = (CSRC / file).read_bytes()
+        parts.append(file.encode() + b"\0" + text)
+        todo += [inc.decode() for inc in _INCLUDE.findall(text)]
+    return b"".join(parts)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(_source_text(name)
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -11,20 +11,23 @@ NEG_INF = -1e30
 
 def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
                   sm_scale=None, lk_valid=None):
-    """q: (B,Hq,Lq,D); k,v: (B,Hkv,Lk,D). Dense reference attention.
+    """q: (B,Hq,Lq,D); k: (B,Hkv,Lk,D); v: (B,Hkv,Lk,Dv). Dense reference
+    attention.
 
     Products of the input dtype accumulate in f32 (the inputs are upcast
     before each contraction, which is exact for bf16), the softmax runs in
     f32, and the probabilities are rounded to v's dtype before the second
-    contraction — the arithmetic of `repro.kernels.ref.attention_ref`."""
+    contraction — the arithmetic of `repro.kernels.ref.attention_ref`.
+    f64 inputs run the same steps in f64 (an oracle for the f32 ones)."""
     b, hq, lq, d = q.shape
     _, hkv, lk, _ = k.shape
     group = hq // hkv
     sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     lk_valid = lk if lk_valid is None else lk_valid
+    acc = torch.promote_types(q.dtype, torch.float32)
     kk = k.repeat_interleave(group, dim=1)
     vv = v.repeat_interleave(group, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * sm_scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kk.to(acc)) * sm_scale
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     q_pos = torch.arange(lq, device=q.device)[:, None]
@@ -36,7 +39,7 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
         mask = mask & (k_pos > q_pos - window)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vv.float())
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(acc), vv.to(acc))
     return out.to(q.dtype)
 
 

@@ -19,17 +19,25 @@ sequence sharding.
 On the SIM backend every tensor carries a leading PE axis, and one launch
 covers every PE (the reference vmaps its Pallas call over that axis): q
 (P, B, Hq, Lq, D), k and v (P, B, Hkv, Lk, D), q_pos (P, Lq), k_pos
-(P, Lk).  The unstacked shapes (no P axis) are accepted too.  The kernel
-handles any Lq and Lk itself in its fixed tiles (`BQ` query rows, `BK`
-keys), so nothing is padded and the reference's `bq`/`bk` have no
-counterpart.
+(P, Lk).  The unstacked shapes (no P axis) are accepted too.  Any D in
+1..256 (k and v of one shape: the ring has no head dim of v of its own in
+the reference).  The kernel handles any Lq and Lk itself, so nothing is
+padded and the reference's `bq`/`bk` have no counterpart.
+
+One call is one C entry of two CUDA kernels (`launches` counts entries):
+the first writes the sum of v over the block and each `BK`-key tile's
+min and max key position and count of valid keys into scratch this
+wrapper allocates; the second
+walks, per query tile, only the key tiles some of its rows may keep (a
+wholly masked tile changes nothing for a row that keeps a key elsewhere,
+and a row that keeps none is written from the sum of v), bf16 on the
+tensor cores, f32 on the CUDA cores.  The CUDA source has the design.
 
 Bound on the H100: at the ring step of the port's main path (16 PEs, B 1,
-Hq 14, Hkv 2, Lq = Lk = 2048, D 64, bf16, causal) the function moves
-196.9 MB (0.059 ms at 3.35 TB/s) and, computing every tile, does 240.5
-GFLOP of products (0.243 ms at the bf16 tensor-core rate; 3.59 ms at the
-f32 CUDA-core rate, where the first kernel computes): bound by
-operations.
+Hq 14, Hkv 2, Lq = Lk = 2048, D 64, bf16, causal, the diagonal block) the
+function moves 196.9 MB (0.059 ms at 3.35 TB/s) and its 33.6M kept pairs
+are 120.3 GFLOP of products (0.122 ms at the bf16 tensor-core rate):
+bound by operations; a wholly masked block by bytes alone.
 
 A CPU tensor goes to the plain version (`ref.ring_partials_ref`); a CUDA
 tensor launches the kernel or raises.  `launches` counts the launches.
@@ -43,9 +51,8 @@ import torch
 
 from . import _build, ref
 
-BQ = 32            # query rows per block of the kernel
 BK = 64            # keys per K/V tile of the kernel
-HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 
@@ -75,8 +82,8 @@ def _check(q, k, v, q_pos, k_pos, window, softcap):
     if q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32:
         raise TypeError(f"positions must be int32, not {q_pos.dtype}/"
                         f"{k_pos.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} not in 1..{MAX_HEAD_DIM}")
     if hq > _MAX_GRID_YZ or p * b > _MAX_GRID_YZ:
         raise ValueError(f"Hq={hq} and P*B={p * b} must be at most "
                          f"{_MAX_GRID_YZ}")
@@ -92,9 +99,12 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ring_attention")
     fn = lib.repro_ring_partials
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.repro_ring_partials_tc.argtypes = ([ctypes.c_int] * 2
+                                               + [ctypes.c_void_p] * 3)
+        lib.repro_ring_partials_tc.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -126,23 +136,39 @@ def attn_block_partials(q, k, v, q_pos, k_pos, *, causal: bool = True,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     q_pos, k_pos = q_pos.contiguous(), k_pos.contiguous()
     lib = _library()
+    hkv, lk = k.shape[2], k.shape[3]
     acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    # scratch: the sum of v per (PE, batch row, KV head), and per (PE, key
+    # tile) the min and max valid key position and their count
+    vsum = torch.empty((p * b * hkv, d), dtype=torch.float32,
+                       device=q.device)
+    bounds = torch.empty((p, -(-lk // BK), 4), dtype=torch.int32,
+                         device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_ring_partials(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             k_pos.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            _DTYPES[q.dtype], p, b, hq, k.shape[2], lq, k.shape[3], d,
-            int(causal), window or 0, float(softcap or 0.0), float(sm_scale),
-            stream)
+            vsum.data_ptr(), bounds.data_ptr(), _DTYPES[q.dtype], p, b, hq,
+            hkv, lq, lk, d, int(causal), window or 0, float(softcap or 0.0),
+            float(sm_scale), stream)
     if err:
         raise RuntimeError("ring_attention launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
     global launches
     launches += 1
     return acc, m, l
+
+
+def tensor_core_route(q, k, v) -> bool:
+    """Whether the kernel computes these CUDA tensors on the tensor cores
+    (bf16, D a multiple of 8, 16-byte-aligned q, k, v) or on the CUDA
+    cores, as the C entry decides it."""
+    return bool(_library().repro_ring_partials_tc(
+        _DTYPES[q.dtype], q.shape[-1], q.data_ptr(), k.data_ptr(),
+        v.data_ptr()))
 
 
 def merge_partials(a, b):

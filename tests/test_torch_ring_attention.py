@@ -182,9 +182,8 @@ def test_ring_attention_matches_jax_and_mono(causal, window, hkv, noc):
 
 
 def test_ring_attention_n1_is_mono():
-    """tests/test_fused.py's case at the kernel's smallest head dim (16,
-    not 8)."""
-    b, h, length, d = 1, 2, 16, 16
+    """tests/test_fused.py's case, at its head dim 8."""
+    b, h, length, d = 1, 2, 16, 8
     q = np.random.default_rng(3).standard_normal(
         (b, h, length, d)).astype(np.float32)
     mono = ops.attention(t(q), t(q), t(q), causal=True)
@@ -312,7 +311,8 @@ def test_partials_on_another_device_raise():
 
 @pytest.mark.parametrize("change,exc", [
     (dict(vlen=4), ValueError), (dict(klen=0), ValueError),
-    (dict(d=24), ValueError), (dict(hkv=4), ValueError),
+    (dict(d=0), ValueError), (dict(d=257), ValueError),
+    (dict(hkv=4), ValueError),
     (dict(dtype=torch.float16), TypeError), (dict(kdtype=True), TypeError),
     (dict(pos64=True), TypeError), (dict(window=0), ValueError),
     (dict(softcap=-1.0), ValueError), (dict(qpos_len=5), ValueError)])
@@ -336,6 +336,145 @@ def test_partials_reject_what_the_kernel_does_not_take(change, exc):
           if name in change}
     with pytest.raises(exc):
         ra.attn_block_partials(q, k, v, qp, kp, **kw)
+
+
+# fault C1: the zoo's head dims (gemma2-9b 256, h2o-danube-3-4b 120,
+# phi-3-vision-4.2b 96, hubert-xlarge 80, deepseek-v3's MLA q/k 192 and
+# its smoke 24), on a diagonal block and on a padded, windowed, capped one
+C1_DIMS = [80, 96, 120, 256, 24, 192]
+C1_BLOCKS = [BLOCKS[0], BLOCKS[-1]]
+
+
+@pytest.mark.parametrize("case", C1_BLOCKS, ids=[c[0] for c in C1_BLOCKS])
+@pytest.mark.parametrize("d", C1_DIMS)
+def test_partials_at_any_head_dim_match_jax(d, case):
+    _, hq, hkv, lq, lk, _, q0, k0, pad, kw = case
+    a = _block(17, 1, hq, hkv, lq, lk, d, q0, k0, pad)
+    want = _jax_partials(*a, **kw)
+    got = ra.attn_block_partials(*map(t, a), **kw)
+    assert got[0].shape == (1, hq, lq, d)
+    for g, w in zip(got, want):
+        close(g, w)
+
+
+# ---------------------------------------------------------------------------
+# kernel 6's tile skipping, replayed tile by tile in plain torch
+# ---------------------------------------------------------------------------
+
+def _replay_partials(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+                     softcap=None, bq=64, bk=ra.BK):
+    """Kernel 6's schedule in plain f32 torch (no P axis): for each query
+    tile of `bq` rows, walk the `bk`-slot key tiles in order, skipping each
+    whose valid key positions all lie after the tile's latest query
+    position (causal) or at or before its earliest one's window; the online
+    softmax over the tiles walked; a row that kept nothing written as (the
+    sum of v over the Lk slots, -1e30, Lk).  Returns (acc, m, l, skipped
+    tiles, rows that kept nothing)."""
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kk = k.float().repeat_interleave(group, 1)
+    vv = v.float().repeat_interleave(group, 1)
+    scale = 1.0 / np.sqrt(d)
+    acc = torch.zeros(b, hq, lq, d)
+    m = torch.full((b, hq, lq), NEG_INF)
+    l = torch.zeros(b, hq, lq)
+    skipped = dead_rows = 0
+    for q0 in range(0, lq, bq):
+        rows = slice(q0, min(q0 + bq, lq))
+        qp = q_pos[rows]
+        qmin, qmax = int(qp.min()), int(qp.max())
+        n = qp.shape[0]
+        a_, m_ = torch.zeros(b, hq, n, d), torch.full((b, hq, n), NEG_INF)
+        l_, kept = torch.zeros(b, hq, n), torch.zeros(n, dtype=torch.bool)
+        for k0 in range(0, lk, bk):
+            kp = k_pos[k0:k0 + bk]
+            valid = kp[kp >= 0]
+            if (len(valid) == 0 or (causal and int(valid.min()) > qmax)
+                    or (window and int(valid.max()) <= qmin - window)):
+                skipped += 1
+                continue
+            s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, rows].float(),
+                             kk[:, :, k0:k0 + bk]) * scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            ok = (kp >= 0)[None, :].expand(n, -1)
+            if causal:
+                ok = ok & (kp[None, :] <= qp[:, None])
+            if window:
+                ok = ok & (kp[None, :] > qp[:, None] - window)
+            s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m_, s.amax(-1))
+            p_ = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m_ - m_new)
+            l_ = alpha * l_ + p_.sum(-1)
+            a_ = a_ * alpha[..., None] + p_ @ vv[:, :, k0:k0 + bk]
+            m_ = m_new
+            kept |= ok.any(-1)
+        a_[:, :, ~kept] = vv.sum(2)[:, :, None, :]
+        m_[:, :, ~kept] = NEG_INF
+        l_[:, :, ~kept] = float(lk)
+        dead_rows += int((~kept).sum())
+        acc[:, :, rows], m[:, :, rows], l[:, :, rows] = a_, m_, l_
+    return acc, m, l, skipped, dead_rows
+
+
+def _positions(layout, lq, lk, rng):
+    """(q_pos, k_pos) int32 for the replay: "late" keys in falling order,
+    so a query row keeps its first key only after masked tiles; "none"
+    keys from the middle of the queries on, so the early rows keep
+    nothing; "pad" a shard of unequal length with padded query and key
+    slots (-1), some key tiles wholly padded; "shuffled" key positions in
+    random order, every tile spanning a wide range."""
+    q_pos = np.arange(100, 100 + lq, dtype=np.int32)
+    if layout == "late":
+        k_pos = np.arange(lk + 60, 60, -1, dtype=np.int32)
+    elif layout == "none":
+        k_pos = np.arange(100 + lq // 2, 100 + lq // 2 + lk, dtype=np.int32)
+    elif layout == "pad":
+        k_pos = np.arange(40, 40 + lk, dtype=np.int32)
+        k_pos[rng.random(lk) < 0.3] = -1
+        k_pos[64:128] = -1
+        q_pos[-5:] = -1
+    else:
+        k_pos = rng.permutation(np.arange(30, 30 + lk, dtype=np.int32))
+    return q_pos, k_pos
+
+
+REPLAY = [("late", dict(causal=True)), ("late", dict(causal=True, window=40)),
+          ("none", dict(causal=True)), ("none", dict(causal=True, window=9)),
+          ("pad", dict(causal=True, window=50, softcap=5.0)),
+          ("pad", dict(causal=False, window=30)),
+          ("shuffled", dict(causal=True, window=70)),
+          ("shuffled", dict(causal=False))]
+
+
+@pytest.mark.parametrize("bq", [64, 32])
+@pytest.mark.parametrize("layout,kw", REPLAY,
+                         ids=[f"{lay}-" + "-".join(f"{k}{v}" for k, v in
+                                                   kw.items())
+                              for lay, kw in REPLAY])
+def test_tile_skipping_replay_matches_jax(layout, kw, bq):
+    """The replay of kernel 6's skipping (the tensor-core route's 64-row
+    and the CUDA-core route's 32-row query tiles) equals the reference's
+    partials, which compute every pair, on tables where rows keep nothing,
+    keep their first key late, or sit in padded shards with windows."""
+    rng = np.random.default_rng(18)
+    lq, lk = 150, 300
+    q, k, v, _, _ = _block(19, 1, 4, 2, lq, lk, 16)
+    q_pos, k_pos = _positions(layout, lq, lk, rng)
+    acc, m, l, skipped, dead = _replay_partials(
+        *map(t, (q, k, v, q_pos, k_pos)), bq=bq, **kw)
+    want = _jax_partials(q, k, v, q_pos, k_pos, **kw)
+    for g, w in zip((acc, m, l), want):
+        close(g, w)
+    # the tables exercise the rule: tiles are skipped, and rows keep
+    # nothing (the early rows of "none"; the padded queries under causal)
+    assert skipped or layout == "shuffled"
+    assert dead or not (layout == "none" or layout == "pad"
+                        and kw["causal"])
+    dead_ref = np.asarray(want[1]) == NEG_INF
+    assert np.array_equal(m.numpy() == NEG_INF, dead_ref)
 
 
 def test_bf16_partials_follow_the_reference_on_bf16_inputs():
