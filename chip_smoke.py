@@ -101,7 +101,30 @@ Phases; any failure exits non-zero before the result line is printed:
      a softcap of 50; the ring and mono walls, the peak memory, kernel 4
      at the gathered shape beside scaled_dot_product_attention (a
      yardstick), and choose_attention's pick at the measured per-block
-     time.
+     time;
+  9. serve zamba2-1.2b (the hybrid family: 38 Mamba2 layers at d 2048
+     and one shared attention + MLP block after every 6 of them, 7
+     applications) — (a) kernel 7 at its head shape (H 64, P 64, N 64,
+     chunk 128) contiguous and strided, f32 and bf16, each phase against
+     its plain form as in 7a, and kernel 4 at B 1, Hq = Hkv = 32, D 64,
+     bf16, causal over 4096 tokens against the plain version and against
+     the blockwise plain version 9c uses; (b) kernel 7 and kernel 4 timed
+     at the 32768-token prefill's shapes, kernel 4 beside the blockwise
+     plain version and scaled_dot_product_attention; (c) build_prefill
+     over one 32768-token prompt at full width: exactly 38 kernel-7 and 7
+     kernel-4 launches (counts set to 0 just before, read just after),
+     finite logits, wall, tok/s, peak; the same prefill through the plain
+     versions with kernel 7 held to them in every layer and kernel 4 on
+     every query row of its 7 calls (the plain attention built 1024 rows
+     at a time from ref.ring_partials_ref); the prefill in f32 compute
+     through both, logits within 1e-2 of the largest; (d) `launch.serve
+     --arch zamba2-1.2b` through main(): (4, 16) tokens, the loop's logits
+     at the last prompt position against build_prefill's, and in f32
+     compute the same decode within 1e-2 of the prefill's; (e) one
+     build_decode_step against caches of 32768 slots at batch 4 filled
+     from a seeded generator, at position 32767: finite logits, each
+     shared cache changed only at slot 32767, the wall of a step and the
+     peak memory.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi gives them, and
@@ -1629,8 +1652,27 @@ def check_ssd(torch, ops, ref, gen) -> float:
     same inputs, each case within its limit, and each of its phases held
     to its plain form (`ssd_phases_over`); returns the worst err/limit.
     Then the sequential-scan oracle against the plain chunked version."""
+    worst, worst_phase = check_ssd_cases(torch, ops, ref, gen, ssd_cases())
+    x, dt, a, bm, cm, h0 = ssd_inputs(torch, gen, 2, 64, 4, 16, 8, 2,
+                                      torch.float32, h0=True)
+    ys, hs = ref.ssd_ref(x, dt, a, bm, cm, h0)
+    yc, hc = ref.ssd_chunked_ref(x, dt, a, bm, cm, h0, chunk=16)
+    err = max((ys - yc).abs().max().item(), (hs - hc).abs().max().item())
+    log(f"  ssd_ref (sequential scan) vs ssd_chunked_ref, L64 Q16 G2 with "
+        f"h0: max|err| {err:.3e} (atol {SSD_ATOL}); worst err/limit of the "
+        f"kernel's y and state {worst:.3f}, of its phases {worst_phase:.3f}")
+    if not err <= SSD_ATOL:
+        raise AssertionError(f"ssd_ref vs ssd_chunked_ref: {err}")
+    return worst
+
+
+def check_ssd_cases(torch, ops, ref, gen, cases) -> tuple[float, float]:
+    """Each case of `cases` (ssd_cases' tuples) through ops.ssd against
+    the plain chunked version on its own inputs, and each of the kernel's
+    phases against its plain form; returns the worst err/limit of y and
+    the state, and of the phases."""
     worst = worst_phase = 0.0
-    for label, b, seq, h, p, n, g, q, dtype, opt in ssd_cases():
+    for label, b, seq, h, p, n, g, q, dtype, opt in cases:
         dt_ = getattr(torch, dtype)
         opt = dict(opt)
         strided = opt.pop("strided", False)
@@ -1672,17 +1714,7 @@ def check_ssd(torch, ops, ref, gen) -> float:
             raise AssertionError(f"ssd {label} {dtype}: mean|y| {typical} "
                                  f"is not far above the tolerance")
         worst = max(worst, over)
-    x, dt, a, bm, cm, h0 = ssd_inputs(torch, gen, 2, 64, 4, 16, 8, 2,
-                                      torch.float32, h0=True)
-    ys, hs = ref.ssd_ref(x, dt, a, bm, cm, h0)
-    yc, hc = ref.ssd_chunked_ref(x, dt, a, bm, cm, h0, chunk=16)
-    err = max((ys - yc).abs().max().item(), (hs - hc).abs().max().item())
-    log(f"  ssd_ref (sequential scan) vs ssd_chunked_ref, L64 Q16 G2 with "
-        f"h0: max|err| {err:.3e} (atol {SSD_ATOL}); worst err/limit of the "
-        f"kernel's y and state {worst:.3f}, of its phases {worst_phase:.3f}")
-    if not err <= SSD_ATOL:
-        raise AssertionError(f"ssd_ref vs ssd_chunked_ref: {err}")
-    return worst
+    return worst, worst_phase
 
 
 def ssd_phases_over(torch, ops, ref, x, dt, a, bm, cm, h0, q) -> dict:
@@ -1726,14 +1758,19 @@ def ssd_counts(b, seq, h, p, n, g, q, itemsize) -> tuple[int, int]:
     return nbytes, b * (seq // q) * per_chunk
 
 
-def time_ssd(torch, kssd, ref, gen) -> dict:
-    """Kernel 7 at the mamba2-2.7b prefill's shapes (one layer's scan):
-    its C entry back to back (three CUDA kernels, timed alone by the
-    profiler too), the wrapper (which allocates the scratch), and the
-    plain version.  The bound is that of the arithmetic the kernel uses:
-    the bf16 path's products on the tensor cores (the f32 CUDA-core
-    figure beside it)."""
-    b, seq, h, p, n, g, q = 1, 32768, 80, 64, 128, 1, 128
+# one layer's scan in a 32768-token prefill: (Bt, L, H, P, N, G, chunk)
+MAMBA_SSD_SHAPE = (1, 32768, 80, 64, 128, 1, 128)
+ZAMBA_SSD_SHAPE = (1, 32768, 64, 64, 64, 1, 128)
+
+
+def time_ssd(torch, kssd, ref, gen, shape=MAMBA_SSD_SHAPE) -> dict:
+    """Kernel 7 at a prefill's shapes (one layer's scan; default the
+    mamba2-2.7b prefill's): its C entry back to back (three CUDA kernels,
+    timed alone by the profiler too), the wrapper (which allocates the
+    scratch), and the plain version.  The bound is that of the arithmetic
+    the kernel uses: the bf16 path's products on the tensor cores (the
+    f32 CUDA-core figure beside it)."""
+    b, seq, h, p, n, g, q = shape
     x, dt, a, bm, cm, _ = ssd_inputs(torch, gen, b, seq, h, p, n, g,
                                      torch.bfloat16, scale=1.0, model=True)
     y, hf = kssd.ssd_scan(x, dt, a, bm, cm, chunk=q)
@@ -1893,15 +1930,16 @@ def serve_mamba(torch, np, mamba, ops, ref) -> dict:
     return counts
 
 
-def decode_mamba(torch, np, mamba) -> None:
-    """7d: `python -m repro_torch.launch.serve --arch mamba2-2.7b` through
-    its main() (the dense-cache decode loop at the reference's defaults),
-    then the loop's logits at the last prompt position against
-    build_prefill's on the same prompts and weights."""
+def decode_loop(torch, np, arch) -> None:
+    """7d, 9d: `python -m repro_torch.launch.serve --arch <arch>` through
+    its main() (the dense-cache decode loop at the reference's defaults;
+    `arch` is the config module), then the loop's logits at the last
+    prompt position against build_prefill's on the same prompts and
+    weights."""
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import transformer
     from repro_torch.serve import step as sstep
-    cfg, run = mamba.CONFIG, mamba.SERVE_RUN
+    cfg, run = arch.CONFIG, arch.SERVE_RUN
     seen = {}
     real = transformer.decode_step
 
@@ -1939,8 +1977,8 @@ def decode_mamba(torch, np, mamba) -> None:
     scale = pre.abs().max().item()
     log(f"  decode-loop logits at the last prompt position vs build_prefill"
         f"'s on the same prompts: max|diff| {diff:.4e}, max|logit| "
-        f"{scale:.4f} (the recurrence vs the chunked scan in bf16; the CPU "
-        f"test of the smoke config gates 0.12)")
+        f"{scale:.4f} (the one-step decode vs the full-sequence path in "
+        f"bf16; the CPU test of the smoke config gates 0.12)")
     if not np.isfinite(diff):
         raise AssertionError("decode-loop or prefill logits are not finite")
     seen.clear()
@@ -2431,6 +2469,384 @@ def ring_path(torch, np, serving, ra, ref, ops, fa, card) -> list:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serve zamba2-1.2b at full width — kernels 4 and 7, prefill, decode
+# ---------------------------------------------------------------------------
+
+# the f32 prefill's last-position logits through kernels 4 and 7 against
+# those through their plain versions, relative to the largest logit: the
+# limit of MAMBA_F32_LOGITS_RTOL, for the same reason.  zamba2 stacks 38
+# Mamba2 layers, fewer than the 64 of the probe behind that limit (f32
+# logits moved by 4.8e-4 of the largest at 64 layers), and its 7 shared
+# attention blocks add kernel 4's f32 difference from the plain version,
+# within 3e-5 of the output (phase 2's f32 limit), at each application
+ZAMBA_F32_LOGITS_RTOL = MAMBA_F32_LOGITS_RTOL
+# the plain attention over a 32768-token prompt is built this many query
+# rows at a time: the f32 logits of all rows at once would be 137 GB at
+# zamba2's 32 heads, those of one block of rows at most 4.3 GB
+PLAIN_ROWS = 1024
+# kernel 4 at zamba2's attention shape (B, heads, L, D): 32 q heads over
+# 32 KV heads (a group of 1), bf16, causal; held at 4096 tokens, timed at
+# the prefill's 32768
+ZAMBA_ATTN = (1, 32, 4096, 64)
+
+
+def zamba_ssd_cases():
+    """Kernel 7 at zamba2's head shape (H 64, P 64, N 64, chunk 128; the
+    model's A and dt draws), contiguous and as the strided views `mamba2`
+    hands over, in f32 and bf16 (ssd_cases' tuples)."""
+    cases = []
+    for dtype, scale in (("float32", 0.3), ("bfloat16", 1.0)):
+        cases.append(("zamba_L4096", 1, 4096, 64, 64, 64, 1, 128, dtype,
+                      dict(scale=scale, model=True)))
+        cases.append(("zamba_strided", 1, 1024, 64, 64, 64, 1, 128, dtype,
+                      dict(scale=scale, model=True, strided=True)))
+    return cases
+
+
+def blockwise_attention(torch, ref, ra, q, k, v, *, causal=True,
+                        window=None, softcap=None, sm_scale=None,
+                        lk_valid=None):
+    """The plain attention of q (B, Hq, Lq, D) over k, v (kernel 4's
+    function, query row i at position i and key j at j), built PLAIN_ROWS
+    query rows at a time: `ref.ring_partials_ref` of the block against
+    the keys up to its last row (a causal row keeps none past itself) by
+    global positions, keys at or past `lk_valid` marked -1, then
+    `finalize` in q's dtype.  Its probabilities stay in f32."""
+    lq, lk = q.shape[2], k.shape[2]
+    lk_valid = lk if lk_valid is None else lk_valid
+    pos = torch.arange(max(lq, lk), dtype=torch.int32, device=q.device)
+    k_pos = torch.where(pos[:lk] < lk_valid, pos[:lk], -1)
+    out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                      device=q.device)
+    for r0 in range(0, lq, PLAIN_ROWS):
+        r1 = min(lq, r0 + PLAIN_ROWS)
+        hi = min(lk, r1) if causal else lk
+        state = ref.ring_partials_ref(
+            q[:, :, r0:r1], k[:, :, :hi], v[:, :, :hi], pos[r0:r1],
+            k_pos[:hi], causal=causal, window=window, softcap=softcap,
+            sm_scale=sm_scale)
+        out[:, :, r0:r1] = ra.finalize(state, q.dtype)
+        del state
+    return out
+
+
+def check_zamba_kernels(torch, ops, ref, fa, ra, gen) -> None:
+    """9a: kernel 7 at zamba2's head shape (zamba_ssd_cases, each phase
+    on its own inputs, as 7a), and kernel 4 at ZAMBA_ATTN against
+    `ref.attention_ref` (phase 2's limits) and against
+    `blockwise_attention`, the plain version 9c holds it to at 32768
+    tokens."""
+    worst, worst_phase = check_ssd_cases(torch, ops, ref, gen,
+                                         zamba_ssd_cases())
+    log(f"  ssd at zamba2's H 64, P 64, N 64: worst err/limit of y and the "
+        f"state {worst:.3f}, of the phases {worst_phase:.3f}")
+    b, h, seq, d = ZAMBA_ATTN
+    dt = torch.bfloat16
+    q, k, v = attention_inputs(torch, gen, b, h, h, seq, seq, d, dt)
+    out = ops.attention(q, k, v, causal=True)
+    want = plain_attention(torch, ref, q, k, v, causal=True)
+    blocks = blockwise_attention(torch, ref, ra, q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err, over = attention_over(torch, out, want, dt)
+    err_b, over_b = attention_over(torch, out, blocks, dt)
+    gap = (blocks.float() - want.float()).abs().max().item()
+    route = "tensor cores" if fa.tensor_core_route(q, k, v) \
+        else "CUDA cores"
+    typical = want.float().abs().mean().item()
+    log(f"  attention zamba2 B{b} Hq{h} Hkv{h} L{seq} D{d} bf16 causal "
+        f"({route}): vs attention_ref max|err| {err:.3e} (worst err/limit "
+        f"{over:.3f}), vs the blockwise plain version {err_b:.3e} "
+        f"({over_b:.3f}); blockwise vs attention_ref {gap:.3e} (f32 against "
+        f"bf16 probabilities); mean|out| {typical:.3f}")
+    if route != "tensor cores":
+        raise AssertionError("kernel 4 at zamba2's shape did not take the "
+                             "tensor cores")
+    if not (over <= 1.0 and over_b <= 1.0 and torch.isfinite(out).all()):
+        raise AssertionError(f"kernel 4 at zamba2's shape: err/limit {over}"
+                             f" vs attention_ref, {over_b} vs blockwise")
+    if not typical > 10 * TOL[str(dt)]:
+        raise AssertionError(f"kernel 4 at zamba2's shape: mean|out| "
+                             f"{typical} is not far above the tolerance")
+    del q, k, v, out, want, blocks
+    torch.cuda.empty_cache()
+
+
+def time_zamba_attention(torch, fa, ref, ra, gen, card, seq) -> dict:
+    """9b: kernel 4 at the zamba2 prefill's attention shape (B 1, Hq =
+    Hkv = 32, L `seq`, D 64, bf16, causal): its C entry back to back,
+    the blockwise plain version once, and scaled_dot_product_attention on
+    a fused backend (a yardstick the port never calls)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    b, h, _, d = ZAMBA_ATTN
+    dt = torch.bfloat16
+    q, k, v = attention_inputs(torch, gen, b, h, h, seq, seq, d, dt)
+    scale = 1.0 / math.sqrt(d)
+    out = fa.flash_attention(q, k, v, causal=True, sm_scale=scale)
+    lib = fa._library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b,
+            h, h, seq, seq, d, d, seq, 1, 0, 0.0, scale,
+            torch.cuda.current_stream().cuda_stream)
+    kernel_ms = time_ms(lambda: lib.repro_flash_attention_fwd(*args),
+                        iters=5, warmup=1)
+    plain = blockwise_attention(torch, ref, ra, q, k, v, causal=True,
+                                sm_scale=scale)
+    err, over = attention_over(torch, out, plain, dt)
+    plain_ms = time_ms(lambda: blockwise_attention(
+        torch, ref, ra, q, k, v, causal=True, sm_scale=scale), iters=1,
+        warmup=0)
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale)
+
+    with sdpa_kernel(fused):
+        sdpa_diff = (sdpa().float() - out.float()).abs().max().item()
+        library_ms = time_ms(sdpa, iters=5, warmup=1)
+    pairs = seq * (seq + 1) // 2
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
+        * q.element_size()
+    ops_count = 4 * d * pairs * b * h
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_count / PEAK_OPS_PER_S[str(dt)] * 1e3
+    log(f"  kernel 4 at B{b} Hq{h} Hkv{h} L{seq} D{d} bf16 causal ({card}): "
+        f"{kernel_ms:.5f} ms; blockwise plain {plain_ms:.5f} ms (max|err| vs "
+        f"it {err:.3e}, err/limit {over:.3f}); scaled_dot_product_attention "
+        f"(causal, fused backends) {library_ms:.5f} ms, max|diff| vs kernel 4"
+        f" {sdpa_diff:.3e}; bound {max(t_bytes, t_ops):.6f} ms ({nbytes} B, "
+        f"{ops_count} ops of the {pairs} kept pairs at the bf16 rate); "
+        f"kernel / sdpa {kernel_ms / library_ms:.3f}")
+    if not over <= 1.0:
+        raise AssertionError(f"kernel 4 at L{seq}: err/limit {over}")
+    del q, k, v, out, plain
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def serve_zamba(torch, np, zamba, ops, ref, ra) -> dict:
+    """9c: build_prefill on zamba2-1.2b at full width (seeded random
+    weights, bf16 compute on f32 weights) over SERVE_RUN's prompt: 38
+    ssd_scan and 7 flash_attention launches and finite logits.  Then the
+    same prefill through the plain versions, kernel 7 held to
+    `ref.ssd_chunked_ref` in every layer and kernel 4 to
+    `blockwise_attention` on every query row of each of its 7 calls, each
+    on that call's inputs; then the prefill in f32 compute through the
+    kernels and through the plain versions, its logits within
+    ZAMBA_F32_LOGITS_RTOL of the largest.  Returns the launch counts of
+    the path."""
+    from repro_torch.core.heap import tree_flatten
+    from repro_torch.models import transformer
+    from repro_torch.serve import step as sstep
+    cfg, run = zamba.CONFIG, zamba.SERVE_RUN
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(w.numel() for w in tree_flatten(params)[0])
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(
+        1, cfg.vocab, size=(run["prefill_batch"], run["prefill_len"])),
+        device="cuda")
+    prefill = sstep.build_prefill(cfg)
+    n_shared = transformer.n_shared_blocks(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                                  # path starts
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()                               # path ends
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  prefill {cfg.name} ({n_params} parameters, {cfg.n_layers} "
+        f"Mamba2 layers and {n_shared} applications of the shared attention"
+        f" block, d {cfg.d_model}, vocab {cfg.vocab}), batch "
+        f"{run['prefill_batch']} x L {run['prefill_len']}: wall {wall:.3f} s "
+        f"({run['prefill_batch'] * run['prefill_len'] / wall:.1f} prompt "
+        f"tok/s), peak memory {peak / 2**30:.3f} GiB, launches {counts}")
+    want = dict({name: 0 for name in counts}, ssd_scan=cfg.n_layers,
+                flash_attention=n_shared)
+    if counts != want:
+        raise AssertionError(f"prefill launches {counts}, want {want}")
+    if logits.shape != (run["prefill_batch"], 1, cfg.vocab) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    # the same prefill through the plain versions; each kernel call's
+    # output on that call's inputs held to the plain output
+    kernel_scan, kernel_attn = ops._ssd.ssd_scan, ops._fa.flash_attention
+    ssd_over_, attn_over, attn_rows = [], [], []
+
+    def ssd_both(x, dt, a, bm, cm, h0=None, *, chunk):
+        want = ref.ssd_chunked_ref(x, dt, a, bm, cm, h0, chunk=chunk)
+        got = kernel_scan(x, dt, a, bm, cm, h0, chunk=chunk)
+        ssd_over_.append(ssd_over(torch, *got, *want)[0])
+        return want
+
+    def attn_both(q, k, v, **kw):
+        got = kernel_attn(q, k, v, **kw)
+        want = blockwise_attention(torch, ref, ra, q, k, v, **kw)
+        attn_over.append(attention_over(torch, got, want, q.dtype)[1])
+        attn_rows.append(q.shape[2])
+        return want
+
+    t0 = time.perf_counter()
+    with mock.patch.object(ops._ssd, "ssd_scan", ssd_both), \
+            mock.patch.object(ops._fa, "flash_attention", attn_both):
+        plain = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    both_wall = time.perf_counter() - t0
+    err = (logits - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    log(f"  in the bf16 prefill, on each call's inputs: kernel 7 vs plain "
+        f"in {len(ssd_over_)} layers, worst err/limit {max(ssd_over_):.3f}; "
+        f"kernel 4 vs the blockwise plain version in {len(attn_over)} calls"
+        f" of {attn_rows} query rows, worst err/limit {max(attn_over):.3f} "
+        f"(per call: " + " ".join(f"{x:.3f}" for x in attn_over)
+        + f"); plain + kernel prefill wall {both_wall:.3f} s")
+    log(f"  bf16 prefill logits, kernel path vs plain path (not gated, see "
+        f"ZAMBA_F32_LOGITS_RTOL): max|err| {err:.4e}, max|logit| "
+        f"{scale:.4f}, {err / scale / 2.0 ** -8:.2f} bf16 ulps of the "
+        f"largest; argmax {int(logits.argmax())} vs {int(plain.argmax())}")
+    if len(ssd_over_) != cfg.n_layers or not max(ssd_over_) <= 1.0:
+        raise AssertionError(f"kernel 7 in the prefill's layers: {ssd_over_}")
+    rows = -(-run["prefill_len"] // ops._fa.BQ) * ops._fa.BQ   # padded
+    if attn_rows != [rows] * n_shared \
+            or not max(attn_over) <= 1.0:
+        raise AssertionError(f"kernel 4 in the prefill's shared blocks: "
+                             f"rows {attn_rows}, err/limit {attn_over}")
+    del logits, plain
+    torch.cuda.empty_cache()
+    prefill32 = sstep.build_prefill(dataclasses.replace(cfg,
+                                                        dtype=torch.float32))
+    t0 = time.perf_counter()
+    logits = prefill32(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+
+    def attn_plain(q, k, v, **kw):
+        return blockwise_attention(torch, ref, ra, q, k, v, **kw)
+
+    with mock.patch.object(ops._ssd, "ssd_scan", ref.ssd_chunked_ref), \
+            mock.patch.object(ops._fa, "flash_attention", attn_plain):
+        plain = prefill32(params, {"tokens": tokens})
+    err = (logits - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    log(f"  f32 prefill logits, kernel path vs plain path: max|err| "
+        f"{err:.4e}, max|logit| {scale:.4f}, rel {err / scale:.3e} (tol "
+        f"{ZAMBA_F32_LOGITS_RTOL}); argmax {int(logits.argmax())} vs "
+        f"{int(plain.argmax())}; kernel-path wall {wall32:.3f} s")
+    if not (torch.isfinite(logits).all()
+            and err <= ZAMBA_F32_LOGITS_RTOL * scale):
+        raise AssertionError(f"f32 prefill logits differ by {err} "
+                             f"(max|logit| {scale})")
+    del logits, plain, tokens, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def decode_f32_vs_prefill(torch, np, zamba) -> None:
+    """9d, gated: in bf16 the loop's logits cannot be held to the
+    prefill's (a random-weight stack amplifies each flipped bf16 rounding,
+    see MAMBA_F32_LOGITS_RTOL; 7d and 9d print that difference).  So the
+    decode path is held in f32 compute: SERVE_RUN's prompts fed through
+    build_decode_step against caches of --cache-len slots, the logits at
+    the last prompt position against build_prefill's (kernels 4 and 7)
+    within ZAMBA_F32_LOGITS_RTOL of the largest."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import step as sstep
+    run = zamba.SERVE_RUN
+    cfg = dataclasses.replace(zamba.CONFIG, dtype=torch.float32)
+    B, prompt_len = run["batch"], run["prompt_len"]
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(B, prompt_len)), device="cuda")
+    cache = transformer.init_cache(cfg, 1, B, run["cache_len"],
+                                   device="cuda")
+    decode = sstep.build_decode_step(cfg)
+    for t in range(prompt_len):
+        logits, cache = decode(params, cache, {
+            "tokens": prompts[:, t:t + 1],
+            "positions": torch.full((B,), t, device="cuda")})
+    pre = sstep.build_prefill(cfg)(params, {"tokens": prompts})
+    err = (logits - pre).abs().max().item()
+    scale = pre.abs().max().item()
+    log(f"  f32 decode ({prompt_len} steps, batch {B}, caches of "
+        f"{run['cache_len']} slots) vs the f32 prefill at the last prompt "
+        f"position: max|err| {err:.4e}, max|logit| {scale:.4f}, rel "
+        f"{err / scale:.3e} (tol {ZAMBA_F32_LOGITS_RTOL})")
+    if not (torch.isfinite(logits).all()
+            and err <= ZAMBA_F32_LOGITS_RTOL * scale):
+        raise AssertionError(f"f32 decode logits differ from the prefill's "
+                             f"by {err} (max|logit| {scale})")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def long_decode(torch, np, zamba) -> None:
+    """9e: one build_decode_step of zamba2-1.2b at SERVE_RUN's long
+    decode (batch 4 against caches of 32768 slots, every cache filled
+    from a seeded generator) at position 32767: finite logits, each
+    shared attention cache changed at slot 32767 of every row and nowhere
+    else; then the wall of a few more steps and the peak memory."""
+    from repro_torch.core.heap import tree_flatten
+    from repro_torch.models import transformer
+    from repro_torch.serve import step as sstep
+    cfg, run = zamba.CONFIG, zamba.SERVE_RUN
+    B, S = run["long_batch"], run["long_cache_len"]
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    cache = transformer.init_cache(cfg, 1, B, S, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for leaf in tree_flatten(cache)[0]:
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    before = [{k: c[k].clone() for k in ("k", "v")} for c in cache["shared"]]
+    decode = sstep.build_decode_step(cfg)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (B, 1), generator=gen,
+                                     device="cuda"),
+             "positions": torch.full((B,), S - 1, device="cuda")}
+    nbytes = sum(c[k].numel() * c[k].element_size()
+                 for c in cache["shared"] for k in ("k", "v"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = decode(params, cache, batch)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    changed = []
+    for c, old in zip(cache["shared"], before):
+        moved = torch.zeros((B, S), dtype=torch.bool, device="cuda")
+        for k in ("k", "v"):
+            moved |= (c[k] != old[k]).flatten(2).any(-1)
+        changed.append(moved.nonzero()[:, 1].unique().tolist()
+                       + [int(moved[:, S - 1].sum())])
+    del before
+    steps = 5
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits_n, cache = decode(params, cache, batch)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / steps
+    log(f"  long decode {cfg.name}: batch {B}, {len(cache['shared'])} shared"
+        f" caches of {S} slots ({nbytes / 1e9:.3f} GB), position {S - 1}: "
+        f"first step {first * 1e3:.3f} ms, then {per_step * 1e3:.3f} ms a "
+        f"step over {steps}; peak memory {peak / 2**30:.3f} GiB; launches "
+        f"{counts}; slots changed per shared cache [slots..., rows at "
+        f"{S - 1}] {changed[0]} (each of {len(changed)})")
+    if any(c != [S - 1, B] for c in changed):
+        raise AssertionError(f"the decode step changed slots {changed}, "
+                             f"want only {S - 1} in every row")
+    if logits.shape != (B, 1, cfg.vocab) or not (
+            torch.isfinite(logits).all() and torch.isfinite(logits_n).all()):
+        raise AssertionError(f"long-decode logits {tuple(logits.shape)} are "
+                             f"not finite")
+    del params, cache, logits, logits_n
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -2446,6 +2862,7 @@ def main() -> int:
 
     from repro_torch.configs import mamba2_2_7b as mamba
     from repro_torch.configs import qwen2_0_5b as serving
+    from repro_torch.configs import zamba2_1_2b as zamba
     from repro_torch.kernels import _build, ref, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ring_attention as ra
@@ -2505,7 +2922,7 @@ def main() -> int:
     check_ssd(torch, ops, ref, gen)
     ssd_timing = time_ssd(torch, kssd, ref, gen)
     mamba_launches = serve_mamba(torch, np, mamba, ops, ref)
-    decode_mamba(torch, np, mamba)
+    decode_loop(torch, np, mamba)
 
     log(f"== phase 8: ring attention over {serving.RING_RUN['n_pes']} PEs "
         f"at {serving.CONFIG.name}'s width")
@@ -2513,9 +2930,19 @@ def main() -> int:
     ring_timing = time_ring_partials(torch, ra, ref, gen, card)
     ring_launches = ring_path(torch, np, serving, ra, ref, ops, fa, card)
 
+    log(f"== phase 9: serve {zamba.CONFIG.name} at full width")
+    check_zamba_kernels(torch, ops, ref, fa, ra, gen)
+    time_ssd(torch, kssd, ref, gen, ZAMBA_SSD_SHAPE)
+    time_zamba_attention(torch, fa, ref, ra, gen, card,
+                         zamba.SERVE_RUN["prefill_len"])
+    zamba_launches = serve_zamba(torch, np, zamba, ops, ref, ra)
+    decode_loop(torch, np, zamba)
+    decode_f32_vs_prefill(torch, np, zamba)
+    long_decode(torch, np, zamba)
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
-        + [mamba_launches] + ring_launches
+        + [mamba_launches] + ring_launches + [zamba_launches]
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -2524,7 +2951,7 @@ def main() -> int:
         f"{rt_launches}, fused bucket {bucket_launches}, train "
         f"{trained_counts}, mamba2 prefill {mamba_launches}, ring "
         f"attention (plain SIM, NoC SIM, mono, window+softcap) "
-        f"{ring_launches}")
+        f"{ring_launches}, zamba2 prefill {zamba_launches}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]

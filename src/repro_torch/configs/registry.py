@@ -8,6 +8,7 @@ import importlib
 ARCHS = {
     "qwen2-0.5b": "qwen2_0_5b",
     "mamba2-2.7b": "mamba2_2_7b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 

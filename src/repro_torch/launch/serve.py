@@ -2,14 +2,17 @@
 symmetric-heap KV cache, on the CUDA card (or the CPU with --device cpu).
 
 Submits --batch requests of random prompts up front and drains them.
-Families without attention KV caches (ssm) take the reference's
+Families without a paged path (ssm, hybrid) take the reference's
 dense-cache decode loop instead: the prompt fed teacher-forced through
-`decode_step`, then --tokens greedy tokens.
+`decode_step` against caches of --cache-len slots, then --tokens greedy
+tokens.
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b
   python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke --device cpu
   python -m repro_torch.launch.serve --arch mamba2-2.7b
   python -m repro_torch.launch.serve --arch mamba2-2.7b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch zamba2-1.2b
+  python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -21,9 +24,10 @@ import torch
 
 
 def _decode_loop(cfg, device, args):
-    """The reference's `_legacy_decode_loop`: seeded weights, a dense
-    decode cache, --prompt-len prompt tokens fed one step at a time, then
-    --tokens greedy tokens.  Returns the (batch, tokens) generated ids."""
+    """The reference's `_legacy_decode_loop`: seeded weights, dense decode
+    caches of --cache-len slots, --prompt-len prompt tokens fed one step
+    at a time, then --tokens greedy tokens.  Returns the (batch, tokens)
+    generated ids."""
     from ..models import transformer
     from ..serve import step as sstep
 
@@ -32,8 +36,7 @@ def _decode_loop(cfg, device, args):
     prompt = rng.integers(1, cfg.vocab, size=(B, args.prompt_len),
                           dtype=np.int32)
     params = transformer.init_params(cfg, seed=0, device=device)
-    cache = transformer.init_cache(cfg, 1, B, args.prompt_len + args.tokens,
-                                   device=device)
+    cache = transformer.init_cache(cfg, 1, B, args.cache_len, device=device)
     decode = sstep.build_decode_step(cfg)
     prompt_d = torch.as_tensor(prompt, device=device).long()
     t0 = time.perf_counter()
@@ -68,6 +71,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16,
                     help="new tokens per request")
+    ap.add_argument("--cache-len", type=int, default=128,
+                    help="dense-cache decode loop: attention cache length")
     ap.add_argument("--slots", type=int, default=0,
                     help="engine batch slots (default: --batch, max 8)")
     ap.add_argument("--page-size", type=int, default=16,
@@ -82,6 +87,11 @@ def main(argv=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)
     if cfg.family not in transformer.paged_families():
+        if cfg.family != "ssm" and cfg.window is None \
+                and args.prompt_len + args.tokens - 1 > args.cache_len:
+            ap.error(f"--cache-len {args.cache_len} holds fewer than the "
+                     f"{args.prompt_len + args.tokens - 1} positions the "
+                     f"loop decodes")
         return _decode_loop(cfg, device, args)
     slots = args.slots or min(args.batch, 8)
     max_seq = args.prompt_len + args.tokens

@@ -9,11 +9,13 @@ from .transformer import _check_family, map_params
 
 
 def params_from_jax(tree, cfg: ModelConfig, device="cpu"):
-    """`tree` is the dense- or ssm-family tree of `repro.models.
+    """`tree` is the dense-, ssm- or hybrid-family tree of `repro.models.
     transformer.init_params` (tp = 1) with every leaf already a numpy
     array: per-layer leaves stacked to [n_layers, ...] under "layers"
-    (dense: {"attn", "mlp", "ln1", "ln2"}; ssm: {"mamba": {w_in, conv_w,
-    conv_b, a_log, dt_bias, d_skip, norm_w, w_out}, "ln"}).  Returns the
+    (dense: {"attn", "mlp", "ln1", "ln2"}; ssm and hybrid: {"mamba":
+    {w_in, conv_w, conv_b, a_log, dt_bias, d_skip, norm_w, w_out},
+    "ln"}), and for the hybrid family the one shared block, unstacked,
+    under "shared_attn" ({"attn", "mlp", "ln1", "ln2"}).  Returns the
     port's parameters on `device`: one dict per layer, leaves of two or
     more dims in `cfg.param_dtype`, the rest in f32."""
     _check_family(cfg)
@@ -31,15 +33,19 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu"):
             return a[i]
         return map_params(leaf, map_params(pick, tree["layers"]))
 
-    return {"embed": map_params(leaf, tree["embed"]),
-            "final_norm": leaf(tree["final_norm"]),
-            "layers": [layer(i) for i in range(cfg.n_layers)]}
+    out = {"embed": map_params(leaf, tree["embed"]),
+           "final_norm": leaf(tree["final_norm"]),
+           "layers": [layer(i) for i in range(cfg.n_layers)]}
+    if cfg.family == "hybrid":
+        out["shared_attn"] = map_params(leaf, tree["shared_attn"])
+    return out
 
 
 def params_to_jax(params, cfg: ModelConfig):
     """The inverse of `params_from_jax`: the port's tree (parameters, or
     gradients of the same structure) as numpy arrays in the JAX package's
-    layout, per-layer leaves stacked to [n_layers, ...] under "layers"."""
+    layout, per-layer leaves stacked to [n_layers, ...] under "layers",
+    the hybrid family's shared block unstacked under "shared_attn"."""
     _check_family(cfg)
 
     def leaf(t):
@@ -51,6 +57,9 @@ def params_to_jax(params, cfg: ModelConfig):
             return {k: stack([l[k] for l in layers]) for k in first}
         return np.stack([leaf(t) for t in layers])
 
-    return {"embed": map_params(leaf, params["embed"]),
-            "final_norm": leaf(params["final_norm"]),
-            "layers": stack(params["layers"])}
+    out = {"embed": map_params(leaf, params["embed"]),
+           "final_norm": leaf(params["final_norm"]),
+           "layers": stack(params["layers"])}
+    if cfg.family == "hybrid":
+        out["shared_attn"] = map_params(leaf, params["shared_attn"])
+    return out

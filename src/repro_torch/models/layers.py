@@ -1,12 +1,13 @@
-"""Model layers of the dense family (the full-sequence training path and
-the paged serving path) and of the ssm family (Mamba2: the full-sequence
-prefill through the SSD scan and the one-step decode recurrence).
+"""Model layers of the dense family (the full-sequence training path, the
+paged serving path and the dense-cache decode) and of the ssm family
+(Mamba2: the full-sequence prefill through the SSD scan and the one-step
+decode recurrence); the hybrid family is built of both.
 
 Counterpart of `repro/models/layers.py`.  Each function takes a `Comm`
 and calls its collectives where `repro` does; on one device they are the
 identity.  Weights are plain tensors in dicts, initialised from a
-`torch.Generator`.  The paged KV pool is updated in place (the JAX
-functions return a new pool): one pool per engine, no copy per step.
+`torch.Generator`.  The paged KV pool and the dense KV cache are updated
+in place (the JAX functions return new ones): no copy per step.
 Gradients come from autograd; attention's goes through the
 `kernels/ops.attention` Function, the SSD scan's through `ops.ssd`.
 """
@@ -182,11 +183,69 @@ def attention_qkv(cfg: ModelConfig, p: Params, x, positions):
 
 
 def init_attn_cache(cfg: ModelConfig, tp: int, batch_local: int,
-                    cache_len: int, device):
-    _, nkv_store, _ = _gqa_dims(cfg, tp)
-    shape = (batch_local, cache_len, nkv_store, cfg.hd)
+                    cache_len: int, device, window_bound: int | None = None):
+    """A dense KV cache {"k", "v"} of (B, S, K, hd) in cfg.dtype, S =
+    min(cache_len, window_bound): a sliding window needs no more slots
+    than its width (`attention_decode` then writes it as a ring)."""
+    _, nkv_store, kv_repl = _gqa_dims(cfg, tp)
+    if kv_repl:
+        raise NotImplementedError("the replicated-KV cache plan comes with "
+                                  "tensor parallelism (slice 5)")
+    s = cache_len if window_bound is None else min(cache_len, window_bound)
+    shape = (batch_local, s, nkv_store, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def attention_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache,
+                     position, *, seq_shards: int = 1):
+    """One-token decode against a dense KV cache: x (B, 1, d), position
+    (B,) -> ((B, 1, d), cache).
+
+    The new K/V row is written into `cache` in place (the reference
+    returns a new cache through `dynamic_update_slice`; a copy of a
+    long-context cache per layer per step is not what a server runs) and
+    the cache is returned.  A windowed cache no longer than its window is
+    a ring: position t lands in slot t % S and a slot is valid when the
+    position it holds is at most t.  Attends through `_cache_attend`.  One
+    device only: the sequence-sharded cache and the replicated-KV plan
+    (tp > 1) come with slice 5."""
+    tp = comm.axis_size(comm.axes.model)
+    if tp != 1 or seq_shards != 1:
+        raise NotImplementedError("tensor-parallel and sequence-sharded "
+                                  "decode come with the multi-device "
+                                  "backend (slice 5)")
+    B = x.shape[0]
+    q, k, v = (t.transpose(1, 2)                         # (B, 1, H, hd)
+               for t in attention_qkv(cfg, p, x, position[:, None]))
+    S = cache["k"].shape[1]
+    window = cfg.window
+    ring = window is not None and S <= window
+    # past the last slot the write lands in it, as dynamic_update_slice
+    # clamps its start
+    slot = position % S if ring else position.clamp(max=S - 1)
+    rows = torch.arange(B, device=x.device)
+    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+    pos = position[:, None]
+    pos_idx = torch.arange(S, device=x.device)[None, :]
+    if ring:
+        age = pos - ((pos - pos_idx) % S)
+        valid = (age >= 0) & (age <= pos)
+    else:
+        valid = pos_idx <= pos
+        if window is not None:
+            valid &= pos_idx > (pos - window)
+    out = _cache_attend(cfg, q, cache["k"], cache["v"], valid)
+    out = out.reshape(B, 1, -1).to(cfg.dtype)
+    y = _dense(out, p["wo"])
+    return comm.allreduce(y, comm.axes.model), cache
+
+
+def _cache_attend(cfg, q, ck, cv, valid):
+    """q: (B,1,Hq,hd); ck/cv: (B,S,K,hd); valid: (B,S) -> (B,1,Hq,hd):
+    `repro.models.layers._cache_attend`'s grouped GQA, in f32."""
+    return _attend_mq(cfg, q, ck, cv, valid[:, None, :])
 
 
 # ---------------------------------------------------------------------------

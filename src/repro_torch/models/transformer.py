@@ -1,12 +1,16 @@
 """Model assembly: parameters, the full-sequence entries (`forward`,
-`train_loss`, `prefill`), KV pools and the paged prefill/decode entries
-of the dense family, and the dense-cache `init_cache`/`decode_step` of
-the ssm family.
+`train_loss`, `prefill`) and the dense-cache `init_cache`/`decode_step`
+of the dense, ssm and hybrid families, and the KV pools and paged
+prefill/decode entries of the dense family.
 
-Counterpart of the dense and ssm parts of `repro/models/transformer.py`.
-Parameters hold one dict per layer in `params["layers"]` (the JAX package
-stacks each leaf to [n_layers, ...] for `lax.scan`); the stack is a
-Python loop.  Decode caches likewise hold one dict per layer.
+Counterpart of the dense, ssm and hybrid parts of
+`repro/models/transformer.py`.  Parameters hold one dict per layer in
+`params["layers"]` (the JAX package stacks each leaf to [n_layers, ...]
+for `lax.scan`); the stack is a Python loop.  Decode caches likewise hold
+one dict per layer.  The hybrid family (zamba2) applies one shared
+attention + MLP block, `params["shared_attn"]`, after every segment of
+`hybrid_attn_period` Mamba2 layers, the last, shorter one included; each
+application has its own KV cache in `cache["shared"]`.
 """
 from __future__ import annotations
 
@@ -27,10 +31,10 @@ def paged_families() -> tuple[str, ...]:
 
 
 # the slice of the port that brings each family not ported yet
-_LATER = {"hybrid": "4c", "moe": "4c", "audio": "4c", "vlm": "4c"}
+_LATER = {"moe": "4c", "audio": "4c", "vlm": "4c"}
 
 
-def _check_family(cfg: ModelConfig, families=("dense", "ssm")):
+def _check_family(cfg: ModelConfig, families=("dense", "ssm", "hybrid")):
     """Raise NotImplementedError unless `cfg`'s family is among
     `families`; gemma2's local/global pairs are not ported either."""
     if cfg.family in families and not cfg.local_global_period:
@@ -56,22 +60,41 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     gen = torch.Generator(device=device).manual_seed(seed)
     p: Params = {"embed": L.init_embedding(gen, cfg, tp, device),
                  "final_norm": torch.zeros(cfg.d_model, device=device)}
-    if cfg.family == "ssm":
+    if cfg.family == "dense":
+        p["layers"] = [_init_attn_block(gen, cfg, tp, device)
+                       for _ in range(cfg.n_layers)]
+    else:
         p["layers"] = [
             {"mamba": L.init_mamba2(gen, cfg, tp, device),
              "ln": torch.zeros(cfg.d_model, device=device)}
             for _ in range(cfg.n_layers)]
-    else:
-        p["layers"] = [
-            {"attn": L.init_attention(gen, cfg, tp, device),
-             "mlp": L.init_mlp(gen, cfg, tp, device),
-             "ln1": torch.zeros(cfg.d_model, device=device),
-             "ln2": torch.zeros(cfg.d_model, device=device)}
-            for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        p["shared_attn"] = _init_attn_block(gen, cfg, tp, device)
     if cfg.param_dtype != torch.float32:
         p = map_params(
             lambda w: w.to(cfg.param_dtype) if w.dim() >= 2 else w, p)
     return p
+
+
+def _init_attn_block(gen, cfg, tp, device) -> Params:
+    return {"attn": L.init_attention(gen, cfg, tp, device),
+            "mlp": L.init_mlp(gen, cfg, tp, device),
+            "ln1": torch.zeros(cfg.d_model, device=device),
+            "ln2": torch.zeros(cfg.d_model, device=device)}
+
+
+def _shared_after(cfg: ModelConfig, i: int) -> bool:
+    """Whether the hybrid family's shared block follows layer i: at the
+    end of each segment of `hybrid_attn_period` layers and after the
+    last layer."""
+    return cfg.family == "hybrid" and (
+        (i + 1) % cfg.hybrid_attn_period == 0 or i == cfg.n_layers - 1)
+
+
+def n_shared_blocks(cfg: ModelConfig) -> int:
+    """Applications of the hybrid family's shared block in one pass:
+    ceil(n_layers / hybrid_attn_period)."""
+    return -(-cfg.n_layers // cfg.hybrid_attn_period)
 
 
 def map_params(fn, tree):
@@ -119,20 +142,23 @@ def _maybe_remat(cfg: ModelConfig, fn):
 
 
 def forward(comm: Comm, cfg: ModelConfig, params: Params, tokens):
-    """Full-sequence forward of the dense and ssm families: tokens (B, L)
-    -> (hidden (B, L, d), aux loss 0)."""
+    """Full-sequence forward of the dense, ssm and hybrid families: tokens
+    (B, L) -> (hidden (B, L, d), aux loss 0)."""
     _check_family(cfg)
     x = L.embed(comm, cfg, params["embed"], tokens)
     B, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device).expand(B, seq)
-    for bp in params["layers"]:
-        if cfg.family == "ssm":
-            x = _maybe_remat(
-                cfg, lambda x, bp=bp: _mamba_block(comm, cfg, bp, x))(x)
-        else:
+    for i, bp in enumerate(params["layers"]):
+        if cfg.family == "dense":
             x = _maybe_remat(
                 cfg, lambda x, bp=bp: _attn_block(comm, cfg, bp, x,
                                                   positions))(x)
+        else:
+            x = _maybe_remat(
+                cfg, lambda x, bp=bp: _mamba_block(comm, cfg, bp, x))(x)
+        if _shared_after(cfg, i):
+            x = _maybe_remat(cfg, lambda x: _attn_block(
+                comm, cfg, params["shared_attn"], x, positions))(x)
     x = L.rms_norm(x, params["final_norm"])
     return x, torch.zeros((), device=x.device)
 
@@ -140,43 +166,74 @@ def forward(comm: Comm, cfg: ModelConfig, params: Params, tokens):
 def prefill(comm: Comm, cfg: ModelConfig, params: Params, tokens):
     """Prefill forward: tokens (B, L) -> last-position logits (B, 1,
     vocab_local).  As in the reference, the forward pass is the prefill;
-    the ssm family's decode cache is not filled by it."""
+    it fills no decode cache."""
     h, _ = forward(comm, cfg, params, tokens)
     return L.lm_logits(comm, cfg, params["embed"], h[:, -1:])
 
 
 def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
                seq_shards: int = 1, *, device=None) -> Params:
-    """Decode caches of the ssm family, one dict per layer under "layers":
-    {"conv": (B, conv_width - 1, conv_dim) in cfg.dtype, "ssm": (B, H, P,
-    N) f32}, on `device` (default: the CUDA card, as `init_params`).  A
-    Mamba2 cache has no length: `cache_len` is taken for the reference's
-    signature.  The dense family decodes through the paged KV pool
-    (`init_kv_pool`)."""
-    _check_family(cfg, ("ssm",))
+    """Dense decode caches, one dict per layer under "layers", on `device`
+    (default: the CUDA card, as `init_params`).  dense: an attention
+    cache {"k", "v"} (B, S, K, hd) in cfg.dtype, S = min(cache_len,
+    cfg.window); ssm: a Mamba2 cache {"conv": (B, conv_width - 1,
+    conv_dim) in cfg.dtype, "ssm": (B, H, P, N) f32}, which has no
+    length; hybrid: Mamba2 caches under "layers" and one attention cache
+    per application of the shared block under "shared".  The dense
+    family's serving engine decodes through the paged KV pool
+    (`init_kv_pool`) instead."""
+    _check_family(cfg)
     if seq_shards != 1:
         raise NotImplementedError("sequence-sharded caches come with the "
                                   "multi-device backend (slice 5)")
     device = resolve_device(device)
-    return {"layers": [L.init_mamba_cache(cfg, tp, batch_local, device)
-                       for _ in range(cfg.n_layers)]}
+
+    def attn():
+        return L.init_attn_cache(cfg, tp, batch_local, cache_len, device,
+                                 window_bound=cfg.window)
+
+    if cfg.family == "dense":
+        return {"layers": [attn() for _ in range(cfg.n_layers)]}
+    cache = {"layers": [L.init_mamba_cache(cfg, tp, batch_local, device)
+                        for _ in range(cfg.n_layers)]}
+    if cfg.family == "hybrid":
+        cache["shared"] = [attn() for _ in range(n_shared_blocks(cfg))]
+    return cache
+
+
+def _attn_decode_block(comm, cfg, bp, x, cache, positions):
+    h = L.rms_norm(x, bp["ln1"])
+    a, cache = L.attention_decode(comm, cfg, bp["attn"], h, cache, positions)
+    x = x + a
+    h = L.rms_norm(x, bp["ln2"])
+    return x + L.mlp(comm, cfg, bp["mlp"], h), cache
 
 
 def decode_step(comm: Comm, cfg: ModelConfig, params: Params, cache: Params,
                 tokens, positions):
-    """One decode step of the ssm family: tokens (B, 1), positions (B,)
-    -> (logits (B, 1, vocab_local), new cache).  A Mamba2 layer reads no
-    position."""
-    _check_family(cfg, ("ssm",))
+    """One decode step against `init_cache`'s caches: tokens (B, 1),
+    positions (B,) -> (logits (B, 1, vocab_local), new cache).  Attention
+    caches are written in place and handed back; Mamba2 caches come back
+    as new tensors (a Mamba2 layer reads no position)."""
+    _check_family(cfg)
     x = L.embed(comm, cfg, params["embed"], tokens)
-    new = []
-    for bp, c in zip(params["layers"], cache["layers"]):
-        y, c = L.mamba2_decode(comm, cfg, bp["mamba"],
-                               L.rms_norm(x, bp["ln"]), c)
-        x = x + y
-        new.append(c)
+    new = {"layers": []}
+    for i, (bp, c) in enumerate(zip(params["layers"], cache["layers"])):
+        if cfg.family == "dense":
+            x, c = _attn_decode_block(comm, cfg, bp, x, c, positions)
+        else:
+            y, c = L.mamba2_decode(comm, cfg, bp["mamba"],
+                                   L.rms_norm(x, bp["ln"]), c)
+            x = x + y
+        new["layers"].append(c)
+        if _shared_after(cfg, i):
+            shared = new.setdefault("shared", [])
+            x, c = _attn_decode_block(comm, cfg, params["shared_attn"], x,
+                                      cache["shared"][len(shared)],
+                                      positions)
+            shared.append(c)
     x = L.rms_norm(x, params["final_norm"])
-    return L.lm_logits(comm, cfg, params["embed"], x), {"layers": new}
+    return L.lm_logits(comm, cfg, params["embed"], x), new
 
 
 def train_loss(comm: Comm, cfg: ModelConfig, params: Params, batch: dict):

@@ -238,7 +238,7 @@ def test_full_config_is_the_reference_config():
 # parameter trees
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", [ARCH, "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", [ARCH, "qwen2-0.5b", "zamba2-1.2b"])
 def test_params_round_trip_bit_for_bit(arch):
     jcfg = jax_smoke(arch, dtype=jnp.float32)
     cfg = smoke_config(arch, dtype=torch.float32)
@@ -290,10 +290,10 @@ def test_init_params_without_a_device_needs_the_card():
             "table"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("family", ["hybrid", "moe", "gemma2 pairs"])
+@pytest.mark.parametrize("family", ["moe", "gemma2 pairs"])
 def test_unported_families_name_their_slice(family):
-    """zamba2's hybrid family, moe and gemma2's local/global pairs raise
-    NotImplementedError naming slice 4c."""
+    """moe and gemma2's local/global pairs raise NotImplementedError
+    naming slice 4c."""
     if family == "gemma2 pairs":
         cfg = dataclasses.replace(smoke_config("qwen2-0.5b"),
                                   local_global_period=2, local_window=4)
@@ -308,9 +308,18 @@ def test_unported_families_name_their_slice(family):
 
 
 def test_dense_cache_decode_is_the_ssm_familys():
+    """The dense-cache decode takes the ssm family and, since slice 4c-1,
+    the dense and hybrid ones: qwen2's init_cache gives a KV cache per
+    layer, while gemma2's pairs and moe raise naming slice 4c."""
     cfg = smoke_config("qwen2-0.5b")
-    with pytest.raises(NotImplementedError, match="ssm"):
-        T.init_cache(cfg, 1, 2, 8, device="cpu")
+    cache = T.init_cache(cfg, 1, 2, 8, device="cpu")
+    assert [tuple(c["k"].shape) for c in cache["layers"]] \
+        == [(2, 8, 1, 16)] * cfg.n_layers
+    for other in (dataclasses.replace(cfg, local_global_period=2,
+                                      local_window=4),
+                  dataclasses.replace(cfg, family="moe")):
+        with pytest.raises(NotImplementedError, match="slice 4c"):
+            T.init_cache(other, 1, 2, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         sstep.build_prefill(CFG, tuner=object())
 
