@@ -124,7 +124,36 @@ Phases; any failure exits non-zero before the result line is printed:
      build_decode_step against caches of 32768 slots at batch 4 filled
      from a seeded generator, at position 32767: finite logits, each
      shared cache changed only at slot 32767, the wall of a step and the
-     peak memory.
+     peak memory;
+ 10. serve the rest of the dense family at full width (every earlier
+     phase's models and engines freed first; the memory still allocated
+     is printed) — (a) kernel 4 at each kind of call of the three
+     prefills (gemma2-9b's local and global layers: Hq 16 over Hkv 8, D
+     256, softcap 50, the local ones windowed at 4096; h2o-danube-3-4b:
+     Hq 32 over 8, D 120, window 4096; internlm2-20b: Hq 48 over 8, D
+     128), bf16 and f32 over 4096 tokens (windows cut to 1024 so that
+     they bite) against the plain version and against the blockwise
+     plain version, then timed over 32768 tokens beside that version, its
+     bound and scaled_dot_product_attention (causal without the softcap;
+     windowed through an additive mask over all L^2 pairs); (b)
+     build_prefill of gemma2-9b (42 layers, d 3584, vocab 256000, f32
+     weights) over one 32768-token prompt: exactly 42 kernel-4 launches,
+     21 with window 4096 (counts set to 0 just before, read just after),
+     finite logits, wall, tok/s, peak; the same prefill with kernel 4
+     held to the blockwise plain version on every query row of all 42
+     calls, each checked as it happens; the f32 prefill over its first
+     8192 tokens through both, logits within 1e-2 of the largest;
+     `launch.serve --arch gemma2-9b` through main(): (4, 16) tokens from
+     the paged engine sized max(--cache-len, prompt + tokens), and one
+     request's prefill logits through the kernel against the plain
+     version (phase 3's rule); (c) one gemma2 build_decode_step against
+     caches of 32768 slots at batch 2 (21 global caches, 21 local rings
+     of 4096) filled from seeded generators at position 32767: finite
+     logits, each global cache changed only at slot 32767 and each ring
+     only at 4095, checked against each cache regenerated from its seed
+     one at a time, the wall of a step and the peak; (d) the same
+     prefill and launcher for h2o-danube-3-4b (24 launches, all held)
+     and internlm2-20b (bf16 weights; 48 launches, all held).
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi gives them, and
@@ -133,6 +162,7 @@ the card's name and power limit as nvidia-smi gives them, and
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -2482,8 +2512,9 @@ def ring_path(torch, np, serving, ra, ref, ops, fa, card) -> list:
 # within 3e-5 of the output (phase 2's f32 limit), at each application
 ZAMBA_F32_LOGITS_RTOL = MAMBA_F32_LOGITS_RTOL
 # the plain attention over a 32768-token prompt is built this many query
-# rows at a time: the f32 logits of all rows at once would be 137 GB at
-# zamba2's 32 heads, those of one block of rows at most 4.3 GB
+# rows at a time, for up to 32 heads (proportionally fewer for more): the
+# f32 logits of all rows at once would be 137 GB at zamba2's 32 heads,
+# those of one block of rows at most 4.3 GB
 PLAIN_ROWS = 1024
 # kernel 4 at zamba2's attention shape (B, heads, L, D): 32 q heads over
 # 32 KV heads (a group of 1), bf16, causal; held at 4096 tokens, timed at
@@ -2509,22 +2540,25 @@ def blockwise_attention(torch, ref, ra, q, k, v, *, causal=True,
                         lk_valid=None):
     """The plain attention of q (B, Hq, Lq, D) over k, v (kernel 4's
     function, query row i at position i and key j at j), built PLAIN_ROWS
-    query rows at a time: `ref.ring_partials_ref` of the block against
-    the keys up to its last row (a causal row keeps none past itself) by
-    global positions, keys at or past `lk_valid` marked -1, then
-    `finalize` in q's dtype.  Its probabilities stay in f32."""
+    query rows at a time (fewer above 32 heads): `ref.ring_partials_ref`
+    of the block against the keys up to its last row (a causal row keeps
+    none past itself) and, under a window, from its first row's first
+    kept key on, by global positions, keys at or past `lk_valid` marked
+    -1, then `finalize` in q's dtype.  Its probabilities stay in f32."""
     lq, lk = q.shape[2], k.shape[2]
     lk_valid = lk if lk_valid is None else lk_valid
+    rows = PLAIN_ROWS * 32 // max(32, q.shape[1])
     pos = torch.arange(max(lq, lk), dtype=torch.int32, device=q.device)
     k_pos = torch.where(pos[:lk] < lk_valid, pos[:lk], -1)
     out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
                       device=q.device)
-    for r0 in range(0, lq, PLAIN_ROWS):
-        r1 = min(lq, r0 + PLAIN_ROWS)
+    for r0 in range(0, lq, rows):
+        r1 = min(lq, r0 + rows)
         hi = min(lk, r1) if causal else lk
+        lo = max(0, r0 - window + 1) if window is not None else 0
         state = ref.ring_partials_ref(
-            q[:, :, r0:r1], k[:, :, :hi], v[:, :, :hi], pos[r0:r1],
-            k_pos[:hi], causal=causal, window=window, softcap=softcap,
+            q[:, :, r0:r1], k[:, :, lo:hi], v[:, :, lo:hi], pos[r0:r1],
+            k_pos[lo:hi], causal=causal, window=window, softcap=softcap,
             sm_scale=sm_scale)
         out[:, :, r0:r1] = ra.finalize(state, q.dtype)
         del state
@@ -2847,6 +2881,467 @@ def long_decode(torch, np, zamba) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the dense family at full width — kernel 4 at head
+# dims 256, 120 and 128; gemma2-9b, h2o-danube-3-4b, internlm2-20b
+# ---------------------------------------------------------------------------
+
+# kernel 4 held at its new shapes over this many tokens (10a), where a
+# window of 4096 would keep every causal key: it is cut to 1024 there
+# (phase 2's rule), and held at its real width over 32768 tokens, call by
+# call, in 10b and 10d
+DENSE_CHECK_LEN, DENSE_CHECK_WINDOW = 4096, 1024
+# gemma2's prefill in f32 compute through the kernels and through the
+# plain versions, logits within this share of the largest (the limit of
+# MAMBA_F32_LOGITS_RTOL), over the first GEMMA_F32_LEN tokens of the
+# prompt: at 32768 tokens the f32 projections alone (~600 TFLOP of
+# products at the 67 TFLOP/s f32 rate, no TF32) would take ~10 s a pass,
+# two passes plus f32 attention over a minute of the phase's ~400 s.
+# 8192 tokens still hold two windows of 4096 on every local layer
+DENSE_F32_LOGITS_RTOL = MAMBA_F32_LOGITS_RTOL
+GEMMA_F32_LEN = 8192
+
+
+def reference_windows(cfg) -> list:
+    """Each layer's window by the reference's rule (`repro/models/
+    layers.py:220-222`: the local window on the even layers of a
+    local/global config, else cfg.window), written out apart from the
+    port's own rule so that the launches are held to it."""
+    return [cfg.local_window if cfg.local_global_period and i % 2 == 0
+            else cfg.window for i in range(cfg.n_layers)]
+
+
+def dense_attention_shapes(archs) -> list:
+    """(label, Hq, Hkv, D, window, softcap, launches in one prefill) of
+    each kind of kernel-4 call the three models' prefills make: gemma2's
+    local and global layers, danube's windowed and internlm2's causal
+    ones."""
+    shapes = []
+    for mod in archs:
+        cfg = mod.CONFIG
+        windows = reference_windows(cfg)
+        for window in dict.fromkeys(windows):
+            kind = ("" if not cfg.local_global_period
+                    else " local" if window else " global")
+            shapes.append((cfg.name + kind, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.hd, window, cfg.softcap,
+                           windows.count(window)))
+    return shapes
+
+
+def check_dense_kernels(torch, ops, ref, fa, ra, gen, shapes) -> None:
+    """10a: kernel 4 at each shape of `dense_attention_shapes` (B 1, its
+    heads, causal, its softcap, its window cut to DENSE_CHECK_WINDOW) over
+    DENSE_CHECK_LEN tokens, bf16 and f32, against `plain_attention`
+    (phase 2's limits; f32 against the f64 evaluation) and against
+    `blockwise_attention`, the plain version 10b and 10d hold it to (in
+    bf16; in f32 that version's own f32 products err by ~3e-5 at D 256,
+    see `plain_attention`, so its gap is printed)."""
+    seq = DENSE_CHECK_LEN
+    for label, hq, hkv, d, window, softcap, _ in shapes:
+        kw = dict(causal=True, softcap=softcap,
+                  window=DENSE_CHECK_WINDOW if window else None)
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = attention_inputs(torch, gen, 1, hq, hkv, seq, seq, d,
+                                       dt)
+            out = ops.attention(q, k, v, **kw)
+            want = plain_attention(torch, ref, q, k, v, **kw)
+            blocks = blockwise_attention(torch, ref, ra, q, k, v, **kw)
+            torch.cuda.synchronize()
+            err, over = attention_over(torch, out, want, dt)
+            err_b, over_b = attention_over(torch, out, blocks, dt)
+            route = "tensor cores" if fa.tensor_core_route(q, k, v) \
+                else "CUDA cores"
+            typical = want.float().abs().mean().item()
+            log(f"  attention {label} B1 Hq{hq} Hkv{hkv} L{seq} D{d} {dt} "
+                f"{kw} ({route}): vs attention_ref max|err| {err:.3e} "
+                f"(worst err/limit {over:.3f}), vs the blockwise plain "
+                f"version {err_b:.3e} ({over_b:.3f}); mean|out| "
+                f"{typical:.3f}")
+            if dt == torch.bfloat16 and route != "tensor cores":
+                raise AssertionError(f"kernel 4 at {label}'s shape did not "
+                                     f"take the tensor cores")
+            if not (over <= 1.0 and torch.isfinite(out).all()) \
+                    or (dt == torch.bfloat16 and not over_b <= 1.0):
+                raise AssertionError(f"kernel 4 at {label} {dt}: err/limit "
+                                     f"{over} vs attention_ref, {over_b} "
+                                     f"vs blockwise")
+            if not typical > 10 * TOL[str(dt)]:
+                raise AssertionError(f"kernel 4 at {label}: mean|out| "
+                                     f"{typical} is not far above the "
+                                     f"tolerance")
+            del q, k, v, out, want, blocks
+            torch.cuda.empty_cache()
+
+
+def window_mask(torch, seq, window):
+    """The additive (L, L) bf16 mask of a causal window: 0 where key j
+    is kept by row i (i - window < j <= i), -inf elsewhere."""
+    i = torch.arange(seq, device="cuda")
+    keep = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    mask = torch.zeros((seq, seq), dtype=torch.bfloat16, device="cuda")
+    return mask.masked_fill_(~keep, float("-inf"))
+
+
+def time_dense_attention(torch, fa, ref, ra, gen, card, shape, seq) -> dict:
+    """10a: kernel 4 at one shape of `dense_attention_shapes` over `seq`
+    tokens (bf16, B 1, causal, the real window and softcap): its C entry
+    back to back, the blockwise plain version once, and scaled_dot_
+    product_attention on a fused backend as a yardstick the port never
+    calls, on k and v repeated to Hq heads: causal without a softcap; for
+    a window, with the window as an additive mask, which makes it compute
+    all L^2 pairs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    label, hq, hkv, d, window, softcap, calls = shape
+    dt = torch.bfloat16
+    q, k, v = attention_inputs(torch, gen, 1, hq, hkv, seq, seq, d, dt)
+    scale = 1.0 / math.sqrt(d)
+    kw = dict(causal=True, window=window, softcap=softcap, sm_scale=scale)
+    out = fa.flash_attention(q, k, v, **kw)
+    lib = fa._library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 1,
+            hq, hkv, seq, seq, d, d, seq, 1, window or 0,
+            float(softcap or 0.0), scale,
+            torch.cuda.current_stream().cuda_stream)
+    kernel_ms = time_ms(lambda: lib.repro_flash_attention_fwd(*args),
+                        iters=5, warmup=1)
+    plain = blockwise_attention(torch, ref, ra, q, k, v, **kw)
+    err, over = attention_over(torch, out, plain, dt)
+    plain_ms = time_ms(lambda: blockwise_attention(
+        torch, ref, ra, q, k, v, **kw), iters=1, warmup=0)
+    del plain
+    kr = k.repeat_interleave(hq // hkv, 1)
+    vr = v.repeat_interleave(hq // hkv, 1)
+    if window is None:
+        backends = [SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION]
+        yard = "causal"
+        sdpa_kw = dict(is_causal=True)
+    else:
+        backends = [SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION]
+        yard = f"the window as an additive mask, all {seq}^2 pairs"
+        sdpa_kw = dict(attn_mask=window_mask(torch, seq, window))
+    yard += ", no softcap" if softcap else ""
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, kr, vr, scale=scale, **sdpa_kw)
+
+    with sdpa_kernel(backends):
+        sdpa_diff = (sdpa().float() - out.float()).abs().max().item()
+        library_ms = time_ms(sdpa, iters=3, warmup=1)
+    pairs, _ = mask_counts(seq, seq, True, window)
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
+        * q.element_size()
+    ops_count = 4 * d * pairs * hq
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_count / PEAK_OPS_PER_S[str(dt)] * 1e3
+    log(f"  kernel 4 at {label} B1 Hq{hq} Hkv{hkv} L{seq} D{d} bf16 causal "
+        f"window {window} softcap {softcap} ({card}): {kernel_ms:.5f} ms "
+        f"({ops_count / kernel_ms / 1e9:.1f} TFLOP/s of kept products); "
+        f"blockwise plain {plain_ms:.5f} ms (max|err| vs it {err:.3e}, "
+        f"err/limit {over:.3f}); scaled_dot_product_attention ({yard}): "
+        f"{library_ms:.5f} ms, max|diff| vs kernel 4 {sdpa_diff:.3e}, "
+        f"kernel / sdpa {kernel_ms / library_ms:.3f}; bound "
+        f"{max(t_bytes, t_ops):.6f} ms ({nbytes} B, "
+        f"{ops_count} ops of the {pairs} kept pairs a head at the bf16 "
+        f"rate)")
+    if not over <= 1.0:
+        raise AssertionError(f"kernel 4 at {label} L{seq}: err/limit {over}")
+    del q, k, v, kr, vr, out, sdpa_kw
+    torch.cuda.empty_cache()
+    return dict(shape=f"{label} (B 1, Hq {hq}, Hkv {hkv}, L {seq}, D {d}, "
+                f"bf16, causal, window {window}, softcap {softcap})",
+                calls=calls, max_abs_err=err, ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def prefill_dense(torch, np, mod, ops, ref, ra):
+    """10b, 10d: build_prefill on `mod`'s model at full width (seeded
+    random weights in its param_dtype, bf16 compute) over SERVE_RUN's
+    prompt: exactly one kernel-4 launch a layer, each with the reference's
+    window for that layer, and finite logits; the wall of a second
+    prefill too (the first call in a process carries one-time start-up:
+    `tools/profile_prefill` read 8.8 s for danube's, then 0.75); then
+    the same prefill with
+    kernel 4 held to `blockwise_attention` on every query row of each
+    call, each checked as it happens, the plain output carried on.
+    Returns (params, the launch counts of the path)."""
+    from repro_torch.core.heap import tree_flatten
+    from repro_torch.models import transformer
+    from repro_torch.serve import step as sstep
+    cfg, run = mod.CONFIG, mod.SERVE_RUN
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(w.numel() for w in tree_flatten(params)[0])
+    n_bytes = sum(w.numel() * w.element_size()
+                  for w in tree_flatten(params)[0])
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(run["prefill_batch"], run["prefill_len"])),
+        device="cuda")
+    prefill = sstep.build_prefill(cfg)
+    kernel = ops._fa.flash_attention
+    windows = []
+
+    def spy(q, k, v, **kw):
+        windows.append(kw.get("window"))
+        return kernel(q, k, v, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(ops._fa, "flash_attention", spy):
+        _reset_counts()                              # path starts
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()                           # path ends
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    again = time.perf_counter() - t0
+    want_windows = reference_windows(cfg)
+    log(f"  prefill {cfg.name} ({n_params} parameters, {n_bytes / 2**30:.3f}"
+        f" GiB of {cfg.param_dtype} weights; {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} q heads over {cfg.n_kv_heads} KV "
+        f"heads of {cfg.hd}, vocab {cfg.vocab}), batch "
+        f"{run['prefill_batch']} x L {run['prefill_len']}: wall {wall:.3f} s "
+        f"first, {again:.3f} s again ("
+        f"{run['prefill_batch'] * run['prefill_len'] / again:.1f} prompt "
+        f"tok/s), peak memory {peak / 2**30:.3f} GiB, launches {counts}, "
+        f"windows {dict((w, windows.count(w)) for w in set(windows))}")
+    want = dict({name: 0 for name in counts}, flash_attention=cfg.n_layers)
+    if counts != want or windows != want_windows:
+        raise AssertionError(f"prefill launches {counts} with windows "
+                             f"{windows}, want {want} with {want_windows}")
+    if logits.shape != (run["prefill_batch"], 1, cfg.vocab) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    over = []
+
+    def attn_both(q, k, v, **kw):
+        got = kernel(q, k, v, **kw)
+        want = blockwise_attention(torch, ref, ra, q, k, v, **kw)
+        over.append(attention_over(torch, got, want, q.dtype)[1])
+        return want
+
+    t0 = time.perf_counter()
+    with mock.patch.object(ops._fa, "flash_attention", attn_both):
+        plain = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    both_wall = time.perf_counter() - t0
+    err = (logits - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    log(f"  in the bf16 prefill, on each call's inputs: kernel 4 vs the "
+        f"blockwise plain version on every query row of all {len(over)} "
+        f"calls, worst err/limit {max(over):.3f} (per call: "
+        + " ".join(f"{x:.3f}" for x in over)
+        + f"); plain + kernel prefill wall {both_wall:.3f} s; bf16 logits "
+        f"kernel path vs that path (not gated, see MAMBA_F32_LOGITS_RTOL): "
+        f"max|err| {err:.4e}, max|logit| {scale:.4f}; argmax "
+        f"{int(logits.argmax())} vs {int(plain.argmax())}")
+    if len(over) != cfg.n_layers or not max(over) <= 1.0:
+        raise AssertionError(f"kernel 4 in the prefill's calls: err/limit "
+                             f"{over}")
+    del logits, plain, tokens
+    torch.cuda.empty_cache()
+    return params, counts
+
+
+def gemma_f32(torch, np, mod, ops, ref, ra, params) -> None:
+    """10b: gemma2's prefill in f32 compute over the first GEMMA_F32_LEN
+    tokens of SERVE_RUN's prompt, through kernel 4 and through the
+    blockwise plain version: logits within DENSE_F32_LOGITS_RTOL of the
+    largest."""
+    from repro_torch.serve import step as sstep
+    cfg, run = mod.CONFIG, mod.SERVE_RUN
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(run["prefill_batch"], run["prefill_len"])),
+        device="cuda")[:, :GEMMA_F32_LEN]
+    prefill32 = sstep.build_prefill(dataclasses.replace(
+        cfg, dtype=torch.float32))
+    t0 = time.perf_counter()
+    logits = prefill32(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+
+    def attn_plain(q, k, v, **kw):
+        return blockwise_attention(torch, ref, ra, q, k, v, **kw)
+
+    with mock.patch.object(ops._fa, "flash_attention", attn_plain):
+        plain = prefill32(params, {"tokens": tokens})
+    err = (logits - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    log(f"  f32 prefill over {GEMMA_F32_LEN} tokens, logits kernel path vs "
+        f"plain path: max|err| {err:.4e}, max|logit| {scale:.4f}, rel "
+        f"{err / scale:.3e} (tol {DENSE_F32_LOGITS_RTOL}); argmax "
+        f"{int(logits.argmax())} vs {int(plain.argmax())}; kernel-path wall "
+        f"{wall32:.3f} s")
+    if not (torch.isfinite(logits).all()
+            and err <= DENSE_F32_LOGITS_RTOL * scale):
+        raise AssertionError(f"f32 prefill logits differ by {err} "
+                             f"(max|logit| {scale})")
+    del logits, plain
+    torch.cuda.empty_cache()
+
+
+def long_decode_dense(torch, np, mod, params) -> None:
+    """10c: one build_decode_step of `mod`'s model (gemma2) at
+    SERVE_RUN's long decode, batch `long_batch` against caches of
+    `long_cache_len` slots (the local layers' rings of local_window
+    slots), every cache leaf filled from a generator seeded by its index,
+    at the last position: finite logits; each global cache changed only
+    at that slot and each ring only at that slot modulo its length, in
+    every row, checked against each leaf's contents regenerated from its
+    seed, one leaf at a time (no copy of the caches); then the wall of a
+    few more steps and the peak memory."""
+    from repro_torch.core.heap import tree_flatten
+    from repro_torch.models import transformer
+    from repro_torch.serve import step as sstep
+    cfg, run = mod.CONFIG, mod.SERVE_RUN
+    B, S = run["long_batch"], run["long_cache_len"]
+    cache = transformer.init_cache(cfg, 1, B, S, device="cuda")
+    leaves = tree_flatten(cache)[0]
+
+    def fill(j):
+        gen = torch.Generator(device="cuda").manual_seed(1000 + j)
+        return torch.randn(leaves[j].shape, generator=gen,
+                           device="cuda").to(leaves[j].dtype)
+
+    for j, leaf in enumerate(leaves):
+        leaf.copy_(fill(j))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    decode = sstep.build_decode_step(cfg)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (B, 1), generator=gen,
+                                     device="cuda"),
+             "positions": torch.full((B,), S - 1, device="cuda")}
+    nbytes = sum(leaf.numel() * leaf.element_size() for leaf in leaves)
+    slots = sorted({c["k"].shape[1] for c in cache["layers"]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = decode(params, cache, batch)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    changed = set()
+    for j, leaf in enumerate(tree_flatten(cache)[0]):
+        moved = (leaf != fill(j)).flatten(2).any(-1)       # (B, slots)
+        n = leaf.shape[1]
+        changed.add((n, tuple(moved.nonzero()[:, 1].unique().tolist()),
+                     int(moved[:, (S - 1) % n].sum())))
+    steps = 5
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits_n, cache = decode(params, cache, batch)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / steps
+    log(f"  long decode {cfg.name}: batch {B}, {len(cache['layers'])} "
+        f"caches of {slots} slots ({nbytes / 1e9:.3f} GB), position "
+        f"{S - 1}: first step {first * 1e3:.3f} ms, then {per_step * 1e3:.3f}"
+        f" ms a step over {steps}; peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {counts}; (slots, slots changed, rows changed there) "
+        f"{sorted(changed)}")
+    want = {(n, ((S - 1) % n,), B) for n in slots}
+    if changed != want:
+        raise AssertionError(f"the decode step changed {sorted(changed)}, "
+                             f"want {sorted(want)}")
+    if logits.shape != (B, 1, cfg.vocab) or not (
+            torch.isfinite(logits).all() and torch.isfinite(logits_n).all()):
+        raise AssertionError(f"long-decode logits {tuple(logits.shape)} are "
+                             f"not finite")
+    del cache, leaves, logits, logits_n
+    torch.cuda.empty_cache()
+
+
+def launch_dense(torch, np, mod, ref, layers, logits_check=False) -> dict:
+    """10b, 10d: `python -m repro_torch.launch.serve --arch <arch>` through
+    its main() at the reference's defaults (the paged engine, batch 4,
+    prompt 32, 16 tokens, max_seq max(--cache-len 128, 48)): (4, 16)
+    tokens and one paged prefill of kernel-4 launches per layer per
+    request (counts set to 0 just before, read just after).  With
+    `logits_check`, one request's prefill logits through the kernel
+    against those through the plain version (phase 3's rule,
+    PREFILL_LOGITS_RTOL of the largest) on the engine's weights.  Returns
+    the launch counts."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import engine as serve_engine
+    cfg, run = mod.CONFIG, mod.SERVE_RUN
+    built = []
+
+    class Recording(serve_engine.ServeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(serve_engine, "ServeEngine", Recording):
+        _reset_counts()                              # path starts
+        t0 = time.perf_counter()
+        gen = launch_serve.main(["--arch", cfg.name])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()                           # path ends
+    peak = torch.cuda.max_memory_allocated()
+    (eng,) = built
+    want = (run["batch"], run["new_tokens"])
+    log(f"  launch.serve main ({cfg.name}, paged engine: batch "
+        f"{run['batch']}, prompt {run['prompt_len']}, {run['new_tokens']} "
+        f"tokens, max_seq {eng.max_seq}, {eng.kv.pool.num_pages} pages of "
+        f"{eng.page_size}): tokens {gen.shape}, wall {wall:.3f} s with the "
+        f"weights' init, {gen.size / wall:.1f} tok/s, peak memory "
+        f"{peak / 2**30:.3f} GiB, {eng.steps} engine steps, launches "
+        f"{counts}; first row {gen[0].tolist()}")
+    want_counts = dict({name: 0 for name in counts},
+                       flash_attention=cfg.n_layers * run["batch"])
+    if gen.shape != want or counts != want_counts \
+            or eng.max_seq != max(run["cache_len"],
+                                  run["prompt_len"] + run["new_tokens"]):
+        raise AssertionError(f"launcher gave {gen.shape}, launches {counts}"
+                             f", max_seq {eng.max_seq}; want {want}, "
+                             f"{want_counts}")
+    if logits_check:
+        prompts = np.random.default_rng(0).integers(
+            1, cfg.vocab, size=(run["batch"], run["prompt_len"]),
+            dtype=np.int32)
+
+        def first_logits():
+            e = serve_engine.ServeEngine(
+                cfg, params=eng.params, device="cuda", capture_logits=True,
+                max_slots=eng.max_slots, page_size=eng.page_size,
+                max_seq=eng.max_seq, prompt_bucket=eng.prompt_bucket)
+            r = e.submit(prompts[0], 1)
+            e.run()
+            return e.logits_trace[r][0]
+
+        kernel = first_logits()
+        with mock.patch.object(layers.kops, "attention", ref.attention_ref):
+            plain = first_logits()
+        err = float(np.abs(kernel - plain).max())
+        scale = float(np.abs(plain).max())
+        log(f"  prefill logits of request 0 through the engine, kernel vs "
+            f"plain: max|err| {err:.4e}, max|logit| {scale:.4f}, tol "
+            f"{PREFILL_LOGITS_RTOL * scale:.4e}; argmax "
+            f"{int(kernel.argmax())} vs {int(plain.argmax())}")
+        if kernel.shape != (cfg.vocab,) or not np.isfinite(kernel).all() \
+                or not err <= PREFILL_LOGITS_RTOL * scale:
+            raise AssertionError(f"prefill logits {kernel.shape} differ by "
+                                 f"{err}")
+    built.clear()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2860,6 +3355,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.configs import gemma2_9b as gemma
+    from repro_torch.configs import h2o_danube_3_4b as danube
+    from repro_torch.configs import internlm2_20b as internlm
     from repro_torch.configs import mamba2_2_7b as mamba
     from repro_torch.configs import qwen2_0_5b as serving
     from repro_torch.configs import zamba2_1_2b as zamba
@@ -2899,6 +3397,7 @@ def main() -> int:
     eng, prompts, launches = serve(torch, np, fa, serving, ServeEngine)
     prefill_logits_check(torch, np, ref, layers, eng, prompts, serving,
                          ServeEngine)
+    del eng, prompts
 
     log("== phase 4: runtime kernels against their plain versions")
     check_runtime_kernels(torch, gen)
@@ -2940,9 +3439,42 @@ def main() -> int:
     decode_f32_vs_prefill(torch, np, zamba)
     long_decode(torch, np, zamba)
 
+    log(f"== phase 10: serve {gemma.CONFIG.name}, {danube.CONFIG.name} and "
+        f"{internlm.CONFIG.name} at full width")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  memory allocated as phase 10 starts: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    shapes = dense_attention_shapes((gemma, danube, internlm))
+    check_dense_kernels(torch, ops, ref, fa, ra, gen, shapes)
+    dense_timing = [time_dense_attention(torch, fa, ref, ra, gen, card, s,
+                                         gemma.SERVE_RUN["prefill_len"])
+                    for s in shapes]
+    params, gemma_launches = prefill_dense(torch, np, gemma, ops, ref, ra)
+    gemma_f32(torch, np, gemma, ops, ref, ra, params)
+    long_decode_dense(torch, np, gemma, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_paths = [gemma_launches, launch_dense(torch, np, gemma, ref, layers,
+                                                logits_check=True)]
+    params, danube_launches = prefill_dense(torch, np, danube, ops, ref, ra)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_paths += [danube_launches, launch_dense(torch, np, danube, ref,
+                                                  layers)]
+    params, internlm_launches = prefill_dense(torch, np, internlm, ops, ref,
+                                              ra)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_paths += [internlm_launches, launch_dense(torch, np, internlm, ref,
+                                                    layers)]
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
-        + [mamba_launches] + ring_launches + [zamba_launches]
+        + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -2951,7 +3483,8 @@ def main() -> int:
         f"{rt_launches}, fused bucket {bucket_launches}, train "
         f"{trained_counts}, mamba2 prefill {mamba_launches}, ring "
         f"attention (plain SIM, NoC SIM, mono, window+softcap) "
-        f"{ring_launches}, zamba2 prefill {zamba_launches}")
+        f"{ring_launches}, zamba2 prefill {zamba_launches}, dense family "
+        f"(gemma2 prefill, launcher; danube; internlm2) {dense_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]
@@ -2973,6 +3506,16 @@ def main() -> int:
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                     bound_by=t["bound_by"], library_ms=t["library_ms"])
                for name, source, replaces, t in rows]
+    # kernel 4 at the dense family's prefill shapes, each with the launches
+    # of that shape in its model's prefill
+    kernels += [dict(name="flash_attention", route="cuda",
+                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:79",
+                     shape=t["shape"], launches=t["calls"],
+                     max_abs_err=t["max_abs_err"], ms=t["ms"],
+                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                     bound_by=t["bound_by"], library_ms=t["library_ms"])
+                for t in dense_timing]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")

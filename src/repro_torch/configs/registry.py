@@ -6,6 +6,9 @@ import dataclasses
 import importlib
 
 ARCHS = {
+    "internlm2-20b": "internlm2_20b",
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "gemma2-9b": "gemma2_9b",
     "qwen2-0.5b": "qwen2_0_5b",
     "mamba2-2.7b": "mamba2_2_7b",
     "zamba2-1.2b": "zamba2_1_2b",

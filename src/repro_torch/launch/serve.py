@@ -1,14 +1,19 @@
 """Serving launcher: the continuous-batching engine on the paged
 symmetric-heap KV cache, on the CUDA card (or the CPU with --device cpu).
 
-Submits --batch requests of random prompts up front and drains them.
-Families without a paged path (ssm, hybrid) take the reference's
-dense-cache decode loop instead: the prompt fed teacher-forced through
-`decode_step` against caches of --cache-len slots, then --tokens greedy
-tokens.
+Submits --batch requests of random prompts up front and drains them
+through an engine sized, as the reference's, for sequences of
+max(--cache-len, --prompt-len + --tokens) tokens.  Families without a
+paged path (ssm, hybrid) take the reference's dense-cache decode loop
+instead: the prompt fed teacher-forced through `decode_step` against
+caches of --cache-len slots, then --tokens greedy tokens.
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b
   python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch gemma2-9b
+  python -m repro_torch.launch.serve --arch gemma2-9b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch h2o-danube-3-4b
+  python -m repro_torch.launch.serve --arch internlm2-20b
   python -m repro_torch.launch.serve --arch mamba2-2.7b
   python -m repro_torch.launch.serve --arch mamba2-2.7b --smoke --device cpu
   python -m repro_torch.launch.serve --arch zamba2-1.2b
@@ -72,7 +77,8 @@ def main(argv=None):
     ap.add_argument("--tokens", type=int, default=16,
                     help="new tokens per request")
     ap.add_argument("--cache-len", type=int, default=128,
-                    help="dense-cache decode loop: attention cache length")
+                    help="attention cache length (the paged engine's "
+                         "max_seq is at least this)")
     ap.add_argument("--slots", type=int, default=0,
                     help="engine batch slots (default: --batch, max 8)")
     ap.add_argument("--page-size", type=int, default=16,
@@ -94,7 +100,7 @@ def main(argv=None):
                      f"loop decodes")
         return _decode_loop(cfg, device, args)
     slots = args.slots or min(args.batch, 8)
-    max_seq = args.prompt_len + args.tokens
+    max_seq = max(args.cache_len, args.prompt_len + args.tokens)
     bucket = -(-args.prompt_len // args.page_size) * args.page_size
     eng = ServeEngine(cfg, device=device, max_slots=slots,
                       page_size=args.page_size, max_seq=max_seq,

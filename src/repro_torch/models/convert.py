@@ -15,9 +15,12 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu"):
     (dense: {"attn", "mlp", "ln1", "ln2"}; ssm and hybrid: {"mamba":
     {w_in, conv_w, conv_b, a_log, dt_bias, d_skip, norm_w, w_out},
     "ln"}), and for the hybrid family the one shared block, unstacked,
-    under "shared_attn" ({"attn", "mlp", "ln1", "ln2"}).  Returns the
-    port's parameters on `device`: one dict per layer, leaves of two or
-    more dims in `cfg.param_dtype`, the rest in f32."""
+    under "shared_attn" ({"attn", "mlp", "ln1", "ln2"}).  gemma2's
+    local/global pairs come as {"pairs": {"local", "global"}}, each leaf
+    stacked to [n_layers / 2, ...]: pair i is the port's layer 2i
+    (local), then 2i + 1 (global).  Returns the port's parameters on
+    `device`: one dict per layer, leaves of two or more dims in
+    `cfg.param_dtype`, the rest in f32."""
     _check_family(cfg)
     device = torch.device(device)
 
@@ -26,12 +29,18 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu"):
         return t.to(cfg.param_dtype) if t.dim() >= 2 else t
 
     def layer(i):
+        if cfg.local_global_period is None:
+            stack, j, n = tree["layers"], i, cfg.n_layers
+        else:
+            stack = tree["pairs"]["local" if i % 2 == 0 else "global"]
+            j, n = i // 2, cfg.n_layers // 2
+
         def pick(a):
-            if a.shape[0] != cfg.n_layers:
+            if a.shape[0] != n:
                 raise ValueError(f"stacked leaf of shape {a.shape} has no "
-                                 f"leading n_layers={cfg.n_layers} dim")
-            return a[i]
-        return map_params(leaf, map_params(pick, tree["layers"]))
+                                 f"leading dim of {n} layers")
+            return a[j]
+        return map_params(leaf, map_params(pick, stack))
 
     out = {"embed": map_params(leaf, tree["embed"]),
            "final_norm": leaf(tree["final_norm"]),
@@ -44,8 +53,10 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu"):
 def params_to_jax(params, cfg: ModelConfig):
     """The inverse of `params_from_jax`: the port's tree (parameters, or
     gradients of the same structure) as numpy arrays in the JAX package's
-    layout, per-layer leaves stacked to [n_layers, ...] under "layers",
-    the hybrid family's shared block unstacked under "shared_attn"."""
+    layout, per-layer leaves stacked to [n_layers, ...] under "layers"
+    (gemma2: the even layers stacked under pairs/local, the odd ones
+    under pairs/global), the hybrid family's shared block unstacked under
+    "shared_attn"."""
     _check_family(cfg)
 
     def leaf(t):
@@ -58,8 +69,12 @@ def params_to_jax(params, cfg: ModelConfig):
         return np.stack([leaf(t) for t in layers])
 
     out = {"embed": map_params(leaf, params["embed"]),
-           "final_norm": leaf(params["final_norm"]),
-           "layers": stack(params["layers"])}
+           "final_norm": leaf(params["final_norm"])}
+    if cfg.local_global_period is not None:
+        out["pairs"] = {"local": stack(params["layers"][0::2]),
+                        "global": stack(params["layers"][1::2])}
+    else:
+        out["layers"] = stack(params["layers"])
     if cfg.family == "hybrid":
         out["shared_attn"] = map_params(leaf, params["shared_attn"])
     return out

@@ -59,9 +59,12 @@ def _dense(x, w, b=None):
     return y
 
 
-def _normal(gen, shape, scale: float, device):
-    return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32) * scale
+def _normal(gen, shape, scale: float, device, dtype):
+    """A weight drawn in f32 from `gen`, then cast to `dtype` at once, so
+    that a bf16 tree never holds more than one f32 leaf at a time and
+    draws the same numbers as an f32 one."""
+    return (torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32) * scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -71,9 +74,10 @@ def _normal(gen, shape, scale: float, device):
 def init_embedding(gen, cfg: ModelConfig, tp: int, device) -> Params:
     v_local = -(-cfg.vocab // tp)
     scale = 1.0 / math.sqrt(cfg.d_model)
-    p = {"table": _normal(gen, (v_local, cfg.d_model), scale, device)}
+    dt = cfg.param_dtype
+    p = {"table": _normal(gen, (v_local, cfg.d_model), scale, device, dt)}
     if not cfg.tie_embeddings:
-        p["head"] = _normal(gen, (cfg.d_model, v_local), scale, device)
+        p["head"] = _normal(gen, (cfg.d_model, v_local), scale, device, dt)
     return p
 
 
@@ -136,11 +140,12 @@ def init_attention(gen, cfg: ModelConfig, tp: int, device) -> Params:
     nq_local, nkv_store, _ = _gqa_dims(cfg, tp)
     s_in = 1.0 / math.sqrt(d)
     s_out = 1.0 / math.sqrt(cfg.n_heads * hd)
+    dt = cfg.param_dtype
     p = {
-        "wq": _normal(gen, (d, nq_local * hd), s_in, device),
-        "wk": _normal(gen, (d, nkv_store * hd), s_in, device),
-        "wv": _normal(gen, (d, nkv_store * hd), s_in, device),
-        "wo": _normal(gen, (nq_local * hd, d), s_out, device),
+        "wq": _normal(gen, (d, nq_local * hd), s_in, device, dt),
+        "wk": _normal(gen, (d, nkv_store * hd), s_in, device, dt),
+        "wv": _normal(gen, (d, nkv_store * hd), s_in, device, dt),
+        "wo": _normal(gen, (nq_local * hd, d), s_out, device, dt),
     }
     if cfg.qkv_bias:
         p["bq"] = torch.zeros(nq_local * hd, device=device)
@@ -149,19 +154,31 @@ def init_attention(gen, cfg: ModelConfig, tp: int, device) -> Params:
     return p
 
 
-def attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions):
+def layer_window(cfg: ModelConfig, is_local_layer: bool = False):
+    """The sliding window a layer attends through: `cfg.local_window` on
+    a local layer of a local/global config (gemma2), else `cfg.window`
+    (None: no window)."""
+    if cfg.local_global_period is not None and is_local_layer:
+        return cfg.local_window
+    return cfg.window
+
+
+def attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions, *,
+              is_local_layer: bool = False):
     """Full-sequence attention (training): x (B, L, d) -> (B, L, d), one
     allreduce over `model`.  Attends through `ops.attention` (the flash
-    kernel forward on the card, a reference-recompute backward).  One
-    device means tp = 1, where the reference's replicated-KV gather and
-    ghost-head mask are identities."""
+    kernel forward on the card, a reference-recompute backward) within
+    the layer's window (`layer_window`).  One device means tp = 1, where
+    the reference's replicated-KV gather and ghost-head mask are
+    identities."""
     tp = comm.axis_size(comm.axes.model)
     if tp != 1:
         raise NotImplementedError("tensor parallelism is not ported yet "
                                   "(slice 5)")
     B, L, _ = x.shape
     q, k, v = attention_qkv(cfg, p, x, positions)
-    o = kops.attention(q, k, v, causal=cfg.causal, window=cfg.window,
+    o = kops.attention(q, k, v, causal=cfg.causal,
+                       window=layer_window(cfg, is_local_layer),
                        softcap=cfg.softcap).transpose(1, 2)
     o = o.reshape(B, L, -1).to(cfg.dtype)
     return comm.allreduce(_dense(o, p["wo"]), comm.axes.model)
@@ -198,16 +215,18 @@ def init_attn_cache(cfg: ModelConfig, tp: int, batch_local: int,
 
 
 def attention_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache,
-                     position, *, seq_shards: int = 1):
+                     position, *, is_local_layer: bool = False,
+                     seq_shards: int = 1):
     """One-token decode against a dense KV cache: x (B, 1, d), position
     (B,) -> ((B, 1, d), cache).
 
     The new K/V row is written into `cache` in place (the reference
     returns a new cache through `dynamic_update_slice`; a copy of a
     long-context cache per layer per step is not what a server runs) and
-    the cache is returned.  A windowed cache no longer than its window is
-    a ring: position t lands in slot t % S and a slot is valid when the
-    position it holds is at most t.  Attends through `_cache_attend`.  One
+    the cache is returned.  The layer's window is `layer_window`'s.  A
+    windowed cache no longer than its window is a ring: position t lands
+    in slot t % S and a slot is valid when the position it holds is at
+    most t.  Attends through `_cache_attend`.  One
     device only: the sequence-sharded cache and the replicated-KV plan
     (tp > 1) come with slice 5."""
     tp = comm.axis_size(comm.axes.model)
@@ -219,7 +238,7 @@ def attention_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache,
     q, k, v = (t.transpose(1, 2)                         # (B, 1, H, hd)
                for t in attention_qkv(cfg, p, x, position[:, None]))
     S = cache["k"].shape[1]
-    window = cfg.window
+    window = layer_window(cfg, is_local_layer)
     ring = window is not None and S <= window
     # past the last slot the write lands in it, as dynamic_update_slice
     # clamps its start
@@ -314,6 +333,7 @@ def check_prefill_positions(positions):
 
 def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
                     page_table, positions, *, page_size: int,
+                    is_local_layer: bool = False,
                     positions_checked: bool = False):
     """GQA attention against a paged KV pool, for prefill (x: (B, L, d),
     L = prompt bucket) and decode (L = 1).
@@ -322,11 +342,12 @@ def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
     page_table: (B, max_pages) physical page ids.  K/V rows of every
     position are scattered into the owning page, then each row's pages
     are gathered back sequence-contiguous.  Prefill must come with
-    positions = arange(L) in every row: its causal(+window) mask is then
-    the flash kernel's `k_pos <= q_pos`, and it attends through
-    `ops.attention`.  The positions are checked here unless the caller
-    has checked them (`positions_checked`, as `prefill_paged` does once
-    for the whole stack).  Decode attends through `_attend_mq`."""
+    positions = arange(L) in every row: its causal(+window) mask, the
+    window `layer_window`'s, is then the flash kernel's `k_pos <= q_pos`,
+    and it attends through `ops.attention`.  The positions are checked
+    here unless the caller has checked them (`positions_checked`, as
+    `prefill_paged` does once for the whole stack).  Decode attends
+    through `_attend_mq`."""
     tp = comm.axis_size(comm.axes.model)
     B, L, d = x.shape
     hd = cfg.hd
@@ -342,7 +363,7 @@ def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
     ck = paged_kv_gather(pool["k"], page_table)              # (B,S_max,K,hd)
     cv = paged_kv_gather(pool["v"], page_table)
 
-    window = cfg.window
+    window = layer_window(cfg, is_local_layer)
     if L > 1:
         if not positions_checked:
             check_prefill_positions(positions)
@@ -371,10 +392,13 @@ def init_mlp(gen, cfg: ModelConfig, tp: int, device,
     d = cfg.d_model
     ff = d_ff or cfg.d_ff
     ff_local = ff // tp
+    dt = cfg.param_dtype
     return {
-        "w_gate": _normal(gen, (d, ff_local), 1.0 / math.sqrt(d), device),
-        "w_up": _normal(gen, (d, ff_local), 1.0 / math.sqrt(d), device),
-        "w_down": _normal(gen, (ff_local, d), 1.0 / math.sqrt(ff), device),
+        "w_gate": _normal(gen, (d, ff_local), 1.0 / math.sqrt(d), device,
+                          dt),
+        "w_up": _normal(gen, (d, ff_local), 1.0 / math.sqrt(d), device, dt),
+        "w_down": _normal(gen, (ff_local, d), 1.0 / math.sqrt(ff), device,
+                          dt),
     }
 
 
@@ -394,12 +418,14 @@ def init_mamba2(gen, cfg: ModelConfig, tp: int, device) -> Params:
     d_in_local = d_in // tp
     nheads_local = d_in_local // s.head_dim
     conv_dim = d_in_local + 2 * s.n_groups * s.state
+    dt = cfg.param_dtype
     return {
         # [z, x, B, C, dt] fused in-proj
         "w_in": _normal(gen, (d, 2 * d_in_local + 2 * s.n_groups * s.state
-                              + nheads_local), 1.0 / math.sqrt(d), device),
+                              + nheads_local), 1.0 / math.sqrt(d), device,
+                        dt),
         "conv_w": _normal(gen, (s.conv_width, conv_dim),
-                          1.0 / math.sqrt(s.conv_width), device),
+                          1.0 / math.sqrt(s.conv_width), device, dt),
         "conv_b": torch.zeros(conv_dim, device=device),
         "a_log": torch.log(torch.linspace(1.0, 16.0, nheads_local,
                                           device=device)),
@@ -407,7 +433,7 @@ def init_mamba2(gen, cfg: ModelConfig, tp: int, device) -> Params:
         "d_skip": torch.ones(nheads_local, device=device),
         "norm_w": torch.zeros(d_in_local, device=device),
         "w_out": _normal(gen, (d_in_local, d), 1.0 / math.sqrt(d_in),
-                         device),
+                         device, dt),
     }
 
 

@@ -7,12 +7,18 @@ Counterpart of the dense, ssm and hybrid parts of
 `repro/models/transformer.py`.  Parameters hold one dict per layer in
 `params["layers"]` (the JAX package stacks each leaf to [n_layers, ...]
 for `lax.scan`); the stack is a Python loop.  Decode caches likewise hold
-one dict per layer.  The hybrid family (zamba2) applies one shared
-attention + MLP block, `params["shared_attn"]`, after every segment of
-`hybrid_attn_period` Mamba2 layers, the last, shorter one included; each
-application has its own KV cache in `cache["shared"]`.
+one dict per layer.  gemma2's local/global pairs (`local_global_period`)
+are layers 2i (local: the sliding `local_window`) and 2i + 1 (global) of
+that one list, where the reference scans stacked `pairs` ("local",
+"global"); gemma2 also scales its embedding by sqrt(d).  The hybrid
+family (zamba2) applies one shared attention + MLP block,
+`params["shared_attn"]`, after every segment of `hybrid_attn_period`
+Mamba2 layers, the last, shorter one included; each application has its
+own KV cache in `cache["shared"]`.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.utils.checkpoint
@@ -36,12 +42,10 @@ _LATER = {"moe": "4c", "audio": "4c", "vlm": "4c"}
 
 def _check_family(cfg: ModelConfig, families=("dense", "ssm", "hybrid")):
     """Raise NotImplementedError unless `cfg`'s family is among
-    `families`; gemma2's local/global pairs are not ported either."""
-    if cfg.family in families and not cfg.local_global_period:
+    `families`."""
+    if cfg.family in families:
         return
-    if cfg.local_global_period:
-        why = "local/global layer pairs come with slice 4c of the port"
-    elif cfg.family in _LATER:
+    if cfg.family in _LATER:
         why = (f"the {cfg.family} family comes with slice "
                f"{_LATER[cfg.family]} of the port")
     else:
@@ -49,12 +53,23 @@ def _check_family(cfg: ModelConfig, families=("dense", "ssm", "hybrid")):
     raise NotImplementedError(f"{cfg.name!r} ({cfg.family}): {why}")
 
 
+def _is_local(cfg: ModelConfig, i: int) -> bool:
+    """Whether layer i is a local (sliding-window) layer: the first of
+    each of gemma2's local/global pairs."""
+    return cfg.local_global_period is not None and i % 2 == 0
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     """Random parameters from a `torch.Generator` seeded with `seed`, made
     on `device` (default: the CUDA card; raises without one unless
-    ``device="cpu"``).  Weights are f32, then cast to `cfg.param_dtype`
-    for leaves of two or more dims, as in `repro`."""
+    ``device="cpu"``).  Each weight of two or more dims is drawn in f32
+    and cast to `cfg.param_dtype` as soon as it is made (as `repro` casts
+    its f32 tree), so no f32 copy of the whole tree exists; vectors stay
+    f32.  gemma2's layers are made in the list's order, pair by pair."""
     _check_family(cfg)
+    if cfg.local_global_period is not None and cfg.n_layers % 2:
+        raise ValueError(f"local/global pairs need an even n_layers, not "
+                         f"{cfg.n_layers}")
     device = resolve_device(device)
     tp = 1
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -70,9 +85,6 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
             for _ in range(cfg.n_layers)]
     if cfg.family == "hybrid":
         p["shared_attn"] = _init_attn_block(gen, cfg, tp, device)
-    if cfg.param_dtype != torch.float32:
-        p = map_params(
-            lambda w: w.to(cfg.param_dtype) if w.dim() >= 2 else w, p)
     return p
 
 
@@ -119,9 +131,10 @@ def init_kv_pool(cfg: ModelConfig, tp: int, num_pages: int, page_size: int,
             for name, t in flat.items()}
 
 
-def _attn_block(comm, cfg, bp, x, positions):
+def _attn_block(comm, cfg, bp, x, positions, is_local=False):
     h = L.rms_norm(x, bp["ln1"])
-    x = x + L.attention(comm, cfg, bp["attn"], h, positions)
+    x = x + L.attention(comm, cfg, bp["attn"], h, positions,
+                        is_local_layer=is_local)
     h = L.rms_norm(x, bp["ln2"])
     return x + L.mlp(comm, cfg, bp["mlp"], h)
 
@@ -141,18 +154,29 @@ def _maybe_remat(cfg: ModelConfig, fn):
         fn, *a, use_reentrant=False)
 
 
+def _embed_scaled(comm, cfg, params, tokens):
+    """The token embedding; gemma2 (a local/global config) scales it by
+    sqrt(d) rounded to cfg.dtype first, as `repro` multiplies by
+    ``jnp.asarray(sqrt(d), cfg.dtype)``."""
+    x = L.embed(comm, cfg, params["embed"], tokens)
+    if cfg.local_global_period:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype,
+                             device=x.device)
+    return x
+
+
 def forward(comm: Comm, cfg: ModelConfig, params: Params, tokens):
     """Full-sequence forward of the dense, ssm and hybrid families: tokens
     (B, L) -> (hidden (B, L, d), aux loss 0)."""
     _check_family(cfg)
-    x = L.embed(comm, cfg, params["embed"], tokens)
+    x = _embed_scaled(comm, cfg, params, tokens)
     B, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device).expand(B, seq)
     for i, bp in enumerate(params["layers"]):
         if cfg.family == "dense":
             x = _maybe_remat(
-                cfg, lambda x, bp=bp: _attn_block(comm, cfg, bp, x,
-                                                  positions))(x)
+                cfg, lambda x, bp=bp, i=i: _attn_block(
+                    comm, cfg, bp, x, positions, _is_local(cfg, i)))(x)
         else:
             x = _maybe_remat(
                 cfg, lambda x, bp=bp: _mamba_block(comm, cfg, bp, x))(x)
@@ -175,12 +199,13 @@ def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
                seq_shards: int = 1, *, device=None) -> Params:
     """Dense decode caches, one dict per layer under "layers", on `device`
     (default: the CUDA card, as `init_params`).  dense: an attention
-    cache {"k", "v"} (B, S, K, hd) in cfg.dtype, S = min(cache_len,
-    cfg.window); ssm: a Mamba2 cache {"conv": (B, conv_width - 1,
-    conv_dim) in cfg.dtype, "ssm": (B, H, P, N) f32}, which has no
-    length; hybrid: Mamba2 caches under "layers" and one attention cache
-    per application of the shared block under "shared".  The dense
-    family's serving engine decodes through the paged KV pool
+    cache {"k", "v"} (B, S, K, hd) in cfg.dtype, S = min(cache_len, the
+    layer's window): a local layer of gemma2 holds a ring of
+    min(cache_len, local_window) slots; ssm: a Mamba2 cache {"conv": (B,
+    conv_width - 1, conv_dim) in cfg.dtype, "ssm": (B, H, P, N) f32},
+    which has no length; hybrid: Mamba2 caches under "layers" and one
+    attention cache per application of the shared block under "shared".
+    The dense family's serving engine decodes through the paged KV pool
     (`init_kv_pool`) instead."""
     _check_family(cfg)
     if seq_shards != 1:
@@ -188,12 +213,13 @@ def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
                                   "multi-device backend (slice 5)")
     device = resolve_device(device)
 
-    def attn():
+    def attn(is_local=False):
         return L.init_attn_cache(cfg, tp, batch_local, cache_len, device,
-                                 window_bound=cfg.window)
+                                 window_bound=L.layer_window(cfg, is_local))
 
     if cfg.family == "dense":
-        return {"layers": [attn() for _ in range(cfg.n_layers)]}
+        return {"layers": [attn(_is_local(cfg, i))
+                           for i in range(cfg.n_layers)]}
     cache = {"layers": [L.init_mamba_cache(cfg, tp, batch_local, device)
                         for _ in range(cfg.n_layers)]}
     if cfg.family == "hybrid":
@@ -201,9 +227,10 @@ def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
     return cache
 
 
-def _attn_decode_block(comm, cfg, bp, x, cache, positions):
+def _attn_decode_block(comm, cfg, bp, x, cache, positions, is_local=False):
     h = L.rms_norm(x, bp["ln1"])
-    a, cache = L.attention_decode(comm, cfg, bp["attn"], h, cache, positions)
+    a, cache = L.attention_decode(comm, cfg, bp["attn"], h, cache, positions,
+                                  is_local_layer=is_local)
     x = x + a
     h = L.rms_norm(x, bp["ln2"])
     return x + L.mlp(comm, cfg, bp["mlp"], h), cache
@@ -216,11 +243,12 @@ def decode_step(comm: Comm, cfg: ModelConfig, params: Params, cache: Params,
     caches are written in place and handed back; Mamba2 caches come back
     as new tensors (a Mamba2 layer reads no position)."""
     _check_family(cfg)
-    x = L.embed(comm, cfg, params["embed"], tokens)
+    x = _embed_scaled(comm, cfg, params, tokens)
     new = {"layers": []}
     for i, (bp, c) in enumerate(zip(params["layers"], cache["layers"])):
         if cfg.family == "dense":
-            x, c = _attn_decode_block(comm, cfg, bp, x, c, positions)
+            x, c = _attn_decode_block(comm, cfg, bp, x, c, positions,
+                                      _is_local(cfg, i))
         else:
             y, c = L.mamba2_decode(comm, cfg, bp["mamba"],
                                    L.rms_norm(x, bp["ln"]), c)
@@ -244,10 +272,11 @@ def train_loss(comm: Comm, cfg: ModelConfig, params: Params, batch: dict):
 
 
 def _attn_block_paged(comm, cfg, bp, x, pool, page_table, positions,
-                      page_size, positions_checked):
+                      page_size, positions_checked, is_local=False):
     h = L.rms_norm(x, bp["ln1"])
     a, _ = L.attention_paged(comm, cfg, bp["attn"], h, pool, page_table,
                              positions, page_size=page_size,
+                             is_local_layer=is_local,
                              positions_checked=positions_checked)
     x = x + a
     h = L.rms_norm(x, bp["ln2"])
@@ -258,11 +287,13 @@ def _paged_stack(comm, cfg, params, pool, page_table, x, positions,
                  page_size, positions_checked=False):
     """Run the layer stack against the paged KV pools, updating them in
     place.  One code path for prefill (L = prompt bucket) and decode
-    (L = 1)."""
+    (L = 1).  A local layer's window is a mask only: every layer's pool
+    keeps the whole sequence, as in the reference."""
     for i, bp in enumerate(params["layers"]):
         layer_pool = {"k": pool["k"][i], "v": pool["v"][i]}
         x = _attn_block_paged(comm, cfg, bp, x, layer_pool, page_table,
-                              positions, page_size, positions_checked)
+                              positions, page_size, positions_checked,
+                              _is_local(cfg, i))
     return x, pool
 
 
@@ -276,7 +307,7 @@ def prefill_paged(comm: Comm, cfg: ModelConfig, params: Params, pool: Params,
     expose it.  positions must be arange(L) in every row; that is checked
     once here, not in every layer."""
     L.check_prefill_positions(positions)
-    x = L.embed(comm, cfg, params["embed"], tokens)
+    x = _embed_scaled(comm, cfg, params, tokens)
     x, pool = _paged_stack(comm, cfg, params, pool, page_table, x,
                            positions, page_size, positions_checked=True)
     x = L.rms_norm(x, params["final_norm"])
@@ -288,7 +319,7 @@ def decode_step_paged(comm: Comm, cfg: ModelConfig, params: Params,
                       page_size: int):
     """One paged decode step: tokens (B,1), positions (B,) -> (logits
     (B,1,vocab_local), pool)."""
-    x = L.embed(comm, cfg, params["embed"], tokens)
+    x = _embed_scaled(comm, cfg, params, tokens)
     x, pool = _paged_stack(comm, cfg, params, pool, page_table, x,
                            positions[:, None], page_size)
     x = L.rms_norm(x, params["final_norm"])

@@ -1,0 +1,86 @@
+"""Where a full-width prefill's and long decode step's time goes on the card.
+
+For an architecture whose config module has a `SERVE_RUN` (the run
+`chip_smoke.py` checks), builds the model at full width with seeded
+random weights, then prints the host wall of three `build_prefill` calls
+over SERVE_RUN's prompt (the first carries one-time start-up) and, from
+torch.profiler over one more, the device busy time, the idle share
+against the last wall, the device operations and the kernels that take
+the most device time.  Where SERVE_RUN has a long decode (`long_batch`
+rows against `long_cache_len` slots), the same for one
+`build_decode_step` at the last position.  Writes the report as JSON to
+--out.
+
+  python -m repro_torch.tools.profile_prefill --arch gemma2-9b --out p.json
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+from .profile_serve import trace_steps, wall_ms
+
+
+def _phase(fn, label: str) -> dict:
+    walls = [wall_ms(fn, 1) for _ in range(3)]
+    r = {"wall_ms": walls, **trace_steps(fn, 1)}
+    r["device_idle_share"] = 1 - r["device_busy_ms_per_step"] / walls[-1]
+    print(f"[profile] {label}: wall {', '.join(f'{w:.3f}' for w in walls)} "
+          f"ms, device busy {r['device_busy_ms_per_step']:.3f} ms (idle "
+          f"share {r['device_idle_share']:.3f}), "
+          f"{r['device_ops_per_step']:.0f} device ops")
+    for name, ms in r["top_kernels_ms_per_step"]:
+        print(f"    {ms:9.4f} ms  {name}")
+    return r
+
+
+def main(argv=None):
+    from ..configs import ARCHS
+    from ..models import transformer
+    from ..serve import step as sstep
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list(ARCHS))
+    ap.add_argument("--out", default="", help="write the report as JSON")
+    args = ap.parse_args(argv)
+    mod = importlib.import_module(f"repro_torch.configs.{ARCHS[args.arch]}")
+    if not hasattr(mod, "SERVE_RUN"):
+        ap.error(f"{args.arch}'s config has no SERVE_RUN")
+    cfg, run = mod.CONFIG, mod.SERVE_RUN
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"[profile] {cfg.name} on {card}")
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(run["prefill_batch"], run["prefill_len"])),
+        device="cuda")
+    prefill = sstep.build_prefill(cfg)
+    report = {"arch": cfg.name, "card": card, "prefill": _phase(
+        lambda: prefill(params, {"tokens": tokens}),
+        f"prefill, batch {run['prefill_batch']} x L {run['prefill_len']}")}
+    del tokens
+    if "long_cache_len" in run:
+        B, S = run["long_batch"], run["long_cache_len"]
+        cache = transformer.init_cache(cfg, 1, B, S, device="cuda")
+        decode = sstep.build_decode_step(cfg)
+        batch = {"tokens": torch.ones((B, 1), dtype=torch.long,
+                                      device="cuda"),
+                 "positions": torch.full((B,), S - 1, device="cuda")}
+        report["decode_step"] = _phase(
+            lambda: decode(params, cache, batch),
+            f"decode step, batch {B} against {S} slots")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    return report
+
+
+if __name__ == "__main__":
+    main()

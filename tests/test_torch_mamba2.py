@@ -292,13 +292,20 @@ def test_init_params_without_a_device_needs_the_card():
 
 @pytest.mark.parametrize("family", ["moe", "gemma2 pairs"])
 def test_unported_families_name_their_slice(family):
-    """moe and gemma2's local/global pairs raise NotImplementedError
-    naming slice 4c."""
+    """moe raises NotImplementedError naming slice 4c; gemma2's
+    local/global pairs, ported in slice 4c-2, no longer raise."""
     if family == "gemma2 pairs":
         cfg = dataclasses.replace(smoke_config("qwen2-0.5b"),
                                   local_global_period=2, local_window=4)
-    else:
-        cfg = dataclasses.replace(CFG, family=family)
+        params = T.init_params(cfg, seed=0, device="cpu")
+        tokens = torch.ones(1, 4, dtype=torch.long)
+        assert T.forward(Comm(), cfg, params, tokens)[0].shape \
+            == (1, 4, cfg.d_model)
+        cache = T.init_cache(cfg, 1, 1, 8, device="cpu")
+        T.decode_step(Comm(), cfg, params, cache, tokens[:, :1],
+                      torch.zeros(1, dtype=torch.long))
+        return
+    cfg = dataclasses.replace(CFG, family=family)
     with pytest.raises(NotImplementedError, match="slice 4c"):
         T.init_params(cfg, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 4c"):
@@ -310,16 +317,19 @@ def test_unported_families_name_their_slice(family):
 def test_dense_cache_decode_is_the_ssm_familys():
     """The dense-cache decode takes the ssm family and, since slice 4c-1,
     the dense and hybrid ones: qwen2's init_cache gives a KV cache per
-    layer, while gemma2's pairs and moe raise naming slice 4c."""
+    layer, and since slice 4c-2 gemma2's pairs a ring of their local
+    window on each local layer, while moe raises naming slice 4c."""
     cfg = smoke_config("qwen2-0.5b")
     cache = T.init_cache(cfg, 1, 2, 8, device="cpu")
     assert [tuple(c["k"].shape) for c in cache["layers"]] \
         == [(2, 8, 1, 16)] * cfg.n_layers
-    for other in (dataclasses.replace(cfg, local_global_period=2,
-                                      local_window=4),
-                  dataclasses.replace(cfg, family="moe")):
-        with pytest.raises(NotImplementedError, match="slice 4c"):
-            T.init_cache(other, 1, 2, 8, device="cpu")
+    pairs = T.init_cache(dataclasses.replace(cfg, local_global_period=2,
+                                             local_window=4),
+                         1, 2, 8, device="cpu")
+    assert [c["k"].shape[1] for c in pairs["layers"]] == [4, 8]
+    with pytest.raises(NotImplementedError, match="slice 4c"):
+        T.init_cache(dataclasses.replace(cfg, family="moe"), 1, 2, 8,
+                     device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         sstep.build_prefill(CFG, tuner=object())
 
