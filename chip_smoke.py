@@ -153,7 +153,33 @@ Phases; any failure exits non-zero before the result line is printed:
      only at 4095, checked against each cache regenerated from its seed
      one at a time, the wall of a step and the peak; (d) the same
      prefill and launcher for h2o-danube-3-4b (24 launches, all held)
-     and internlm2-20b (bf16 weights; 48 launches, all held).
+     and internlm2-20b (bf16 weights; 48 launches, all held);
+ 11. serve the moe family at full width (phase 10's models freed first)
+     — (a) kernel 4 at granite-moe-3b-a800m's calls (Hq 24 over Hkv 8, D
+     64) and deepseek-v3's MLA (Hq = Hkv = 128, D 192 against a v head
+     dim of 128, scale 1/sqrt(192)), bf16 and f32 over 4096 tokens
+     against the plain and the blockwise plain versions, then timed over
+     32768 tokens beside that version, its bound and scaled_dot_product_
+     attention (for MLA the first fused backend that takes Dv apart from
+     D, named); (b) build_prefill of granite (32 layers of GQA attention
+     and 40 routed experts, top-8, f32 weights) over one 32768-token
+     prompt: exactly 32 kernel-4 launches (counts set to 0 just before,
+     read just after), finite logits, walls, tok/s, peak; the same
+     prefill with every call held to the blockwise plain version; the
+     f32 prefill over its first 8192 tokens through kernel 4 and through
+     that version with each layer's routes (top-k experts, kept flags)
+     recorded: where every layer's routes agree, logits within 1e-2 of
+     the largest, else each layer's differing picks printed, the layer
+     outputs before the first differing layer within 1e-2 of their
+     largest and that layer's differing picks under 0.1%; `launch.serve
+     --arch granite-moe-3b-a800m` through main(): the dense-cache decode
+     loop to (4, 16) tokens; (c) the same for deepseek-v3 cut to
+     SERVE_RUN's 4 layers (3 dense MLA layers, 1 MoE layer of 256
+     routed experts and a shared one; bf16 weights; exactly 4
+     launches), its decode loop through launch.serve's `_decode_loop`,
+     and one decode step against 32768-slot MLA caches at batch 4 that
+     must change every layer's c_kv and k_rope at slot 32767 in every row
+     and nothing else.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi gives them, and
@@ -1960,16 +1986,19 @@ def serve_mamba(torch, np, mamba, ops, ref) -> dict:
     return counts
 
 
-def decode_loop(torch, np, arch) -> None:
-    """7d, 9d: `python -m repro_torch.launch.serve --arch <arch>` through
-    its main() (the dense-cache decode loop at the reference's defaults;
-    `arch` is the config module), then the loop's logits at the last
-    prompt position against build_prefill's on the same prompts and
-    weights."""
+def decode_loop(torch, np, arch, cfg=None) -> None:
+    """7d, 9d, 11b, 11c: `python -m repro_torch.launch.serve --arch
+    <arch>` through its main() (the dense-cache decode loop at the
+    reference's defaults; `arch` is the config module), or with `cfg` (a
+    cut of arch's CONFIG, which no launcher flag names) the launcher's
+    `_decode_loop` on it at those defaults; then the loop's logits at
+    the last prompt position against build_prefill's on the same prompts
+    and weights."""
+    import argparse
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import transformer
     from repro_torch.serve import step as sstep
-    cfg, run = arch.CONFIG, arch.SERVE_RUN
+    run = arch.SERVE_RUN
     seen = {}
     real = transformer.decode_step
 
@@ -1985,12 +2014,21 @@ def decode_loop(torch, np, arch) -> None:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with mock.patch.object(transformer, "decode_step", spy):
-        gen = launch_serve.main(["--arch", cfg.name])
+        if cfg is None:
+            cfg = arch.CONFIG
+            gen = launch_serve.main(["--arch", cfg.name])
+        else:
+            gen = launch_serve._decode_loop(cfg, torch.device("cuda"),
+                                            argparse.Namespace(
+                batch=run["batch"], prompt_len=run["prompt_len"],
+                tokens=run["new_tokens"], cache_len=run["cache_len"]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     want = (run["batch"], run["new_tokens"])
-    log(f"  decode loop (launch.serve main, batch {run['batch']}, prompt "
+    entry = ("main" if cfg is arch.CONFIG
+             else f"_decode_loop, {cfg.n_layers} layers")
+    log(f"  decode loop (launch.serve {entry}, batch {run['batch']}, prompt "
         f"{run['prompt_len']}, {run['new_tokens']} tokens): tokens "
         f"{gen.shape}, wall {wall:.3f} s with the weights' init, "
         f"{gen.size / wall:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB, "
@@ -2008,7 +2046,8 @@ def decode_loop(torch, np, arch) -> None:
     log(f"  decode-loop logits at the last prompt position vs build_prefill"
         f"'s on the same prompts: max|diff| {diff:.4e}, max|logit| "
         f"{scale:.4f} (the one-step decode vs the full-sequence path in "
-        f"bf16; the CPU test of the smoke config gates 0.12)")
+        f"bf16; the CPU test of the smoke config gates 0.12; in the moe "
+        f"family a step routes at its own capacity, so they differ more)")
     if not np.isfinite(diff):
         raise AssertionError("decode-loop or prefill logits are not finite")
     seen.clear()
@@ -2912,10 +2951,10 @@ def reference_windows(cfg) -> list:
 
 
 def dense_attention_shapes(archs) -> list:
-    """(label, Hq, Hkv, D, window, softcap, launches in one prefill) of
-    each kind of kernel-4 call the three models' prefills make: gemma2's
-    local and global layers, danube's windowed and internlm2's causal
-    ones."""
+    """(label, Hq, Hkv, D, Dv, window, softcap, launches in one prefill)
+    of each kind of kernel-4 call the three models' prefills make:
+    gemma2's local and global layers, danube's windowed and internlm2's
+    causal ones."""
     shapes = []
     for mod in archs:
         cfg = mod.CONFIG
@@ -2924,26 +2963,27 @@ def dense_attention_shapes(archs) -> list:
             kind = ("" if not cfg.local_global_period
                     else " local" if window else " global")
             shapes.append((cfg.name + kind, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.hd, window, cfg.softcap,
+                           cfg.hd, cfg.hd, window, cfg.softcap,
                            windows.count(window)))
     return shapes
 
 
 def check_dense_kernels(torch, ops, ref, fa, ra, gen, shapes) -> None:
-    """10a: kernel 4 at each shape of `dense_attention_shapes` (B 1, its
-    heads, causal, its softcap, its window cut to DENSE_CHECK_WINDOW) over
+    """10a, 11a: kernel 4 at each shape of `dense_attention_shapes` or
+    `moe_attention_shapes` (B 1, its heads and head dims, causal, its
+    softcap, its window cut to DENSE_CHECK_WINDOW) over
     DENSE_CHECK_LEN tokens, bf16 and f32, against `plain_attention`
     (phase 2's limits; f32 against the f64 evaluation) and against
     `blockwise_attention`, the plain version 10b and 10d hold it to (in
     bf16; in f32 that version's own f32 products err by ~3e-5 at D 256,
     see `plain_attention`, so its gap is printed)."""
     seq = DENSE_CHECK_LEN
-    for label, hq, hkv, d, window, softcap, _ in shapes:
+    for label, hq, hkv, d, dv, window, softcap, _ in shapes:
         kw = dict(causal=True, softcap=softcap,
                   window=DENSE_CHECK_WINDOW if window else None)
         for dt in (torch.bfloat16, torch.float32):
             q, k, v = attention_inputs(torch, gen, 1, hq, hkv, seq, seq, d,
-                                       dt)
+                                       dt, dv)
             out = ops.attention(q, k, v, **kw)
             want = plain_attention(torch, ref, q, k, v, **kw)
             blocks = blockwise_attention(torch, ref, ra, q, k, v, **kw)
@@ -2953,8 +2993,8 @@ def check_dense_kernels(torch, ops, ref, fa, ra, gen, shapes) -> None:
             route = "tensor cores" if fa.tensor_core_route(q, k, v) \
                 else "CUDA cores"
             typical = want.float().abs().mean().item()
-            log(f"  attention {label} B1 Hq{hq} Hkv{hkv} L{seq} D{d} {dt} "
-                f"{kw} ({route}): vs attention_ref max|err| {err:.3e} "
+            log(f"  attention {label} B1 Hq{hq} Hkv{hkv} L{seq} D{d} Dv{dv} "
+                f"{dt} {kw} ({route}): vs attention_ref max|err| {err:.3e} "
                 f"(worst err/limit {over:.3f}), vs the blockwise plain "
                 f"version {err_b:.3e} ({over_b:.3f}); mean|out| "
                 f"{typical:.3f}")
@@ -2983,24 +3023,41 @@ def window_mask(torch, seq, window):
     return mask.masked_fill_(~keep, float("-inf"))
 
 
+def first_sdpa_backend(torch, candidates, sdpa):
+    """The first of `candidates` (SDPBackend members) that runs `sdpa`
+    on its own: the yardstick's backend where the dispatcher's choice
+    would not say which."""
+    from torch.nn.attention import sdpa_kernel
+    for backend in candidates:
+        try:
+            with sdpa_kernel([backend]):
+                sdpa()
+            return backend
+        except RuntimeError:
+            continue
+    raise AssertionError(f"none of {candidates} runs this shape")
+
+
 def time_dense_attention(torch, fa, ref, ra, gen, card, shape, seq) -> dict:
-    """10a: kernel 4 at one shape of `dense_attention_shapes` over `seq`
-    tokens (bf16, B 1, causal, the real window and softcap): its C entry
-    back to back, the blockwise plain version once, and scaled_dot_
-    product_attention on a fused backend as a yardstick the port never
-    calls, on k and v repeated to Hq heads: causal without a softcap; for
-    a window, with the window as an additive mask, which makes it compute
-    all L^2 pairs."""
+    """10a, 11a: kernel 4 at one shape of `dense_attention_shapes` or
+    `moe_attention_shapes` over `seq` tokens (bf16, B 1, causal, the real
+    window and softcap): its C entry back to back, the blockwise plain
+    version once, and scaled_dot_product_attention on a fused backend as
+    a yardstick the port never calls, on k and v repeated to Hq heads:
+    causal without a softcap; for a window, with the window as an
+    additive mask, which makes it compute all L^2 pairs; for a head dim
+    of v apart from q's (MLA), causal on the first fused backend that
+    takes it, named."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    label, hq, hkv, d, window, softcap, calls = shape
+    label, hq, hkv, d, dv, window, softcap, calls = shape
     dt = torch.bfloat16
-    q, k, v = attention_inputs(torch, gen, 1, hq, hkv, seq, seq, d, dt)
+    q, k, v = attention_inputs(torch, gen, 1, hq, hkv, seq, seq, d, dt, dv)
     scale = 1.0 / math.sqrt(d)
     kw = dict(causal=True, window=window, softcap=softcap, sm_scale=scale)
     out = fa.flash_attention(q, k, v, **kw)
     lib = fa._library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 1,
-            hq, hkv, seq, seq, d, d, seq, 1, window or 0,
+            hq, hkv, seq, seq, d, dv, seq, 1, window or 0,
             float(softcap or 0.0), scale,
             torch.cuda.current_stream().cuda_stream)
     kernel_ms = time_ms(lambda: lib.repro_flash_attention_fwd(*args),
@@ -3029,19 +3086,22 @@ def time_dense_attention(torch, fa, ref, ra, gen, card, shape, seq) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             q, kr, vr, scale=scale, **sdpa_kw)
 
+    if dv != d:
+        backends = [first_sdpa_backend(torch, backends, sdpa)]
+        yard += f", Dv {dv} against D {d} on {backends[0].name}"
     with sdpa_kernel(backends):
         sdpa_diff = (sdpa().float() - out.float()).abs().max().item()
         library_ms = time_ms(sdpa, iters=3, warmup=1)
     pairs, _ = mask_counts(seq, seq, True, window)
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
         * q.element_size()
-    ops_count = 4 * d * pairs * hq
+    ops_count = 2 * (d + dv) * pairs * hq
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_count / PEAK_OPS_PER_S[str(dt)] * 1e3
-    log(f"  kernel 4 at {label} B1 Hq{hq} Hkv{hkv} L{seq} D{d} bf16 causal "
-        f"window {window} softcap {softcap} ({card}): {kernel_ms:.5f} ms "
-        f"({ops_count / kernel_ms / 1e9:.1f} TFLOP/s of kept products); "
-        f"blockwise plain {plain_ms:.5f} ms (max|err| vs it {err:.3e}, "
+    log(f"  kernel 4 at {label} B1 Hq{hq} Hkv{hkv} L{seq} D{d} Dv{dv} bf16 "
+        f"causal window {window} softcap {softcap} ({card}): {kernel_ms:.5f}"
+        f" ms ({ops_count / kernel_ms / 1e9:.1f} TFLOP/s of kept products);"
+        f" blockwise plain {plain_ms:.5f} ms (max|err| vs it {err:.3e}, "
         f"err/limit {over:.3f}); scaled_dot_product_attention ({yard}): "
         f"{library_ms:.5f} ms, max|diff| vs kernel 4 {sdpa_diff:.3e}, "
         f"kernel / sdpa {kernel_ms / library_ms:.3f}; bound "
@@ -3052,7 +3112,8 @@ def time_dense_attention(torch, fa, ref, ra, gen, card, shape, seq) -> dict:
         raise AssertionError(f"kernel 4 at {label} L{seq}: err/limit {over}")
     del q, k, v, kr, vr, out, sdpa_kw
     torch.cuda.empty_cache()
-    return dict(shape=f"{label} (B 1, Hq {hq}, Hkv {hkv}, L {seq}, D {d}, "
+    dims = f"D {d}" if dv == d else f"D {d}, Dv {dv}"
+    return dict(shape=f"{label} (B 1, Hq {hq}, Hkv {hkv}, L {seq}, {dims}, "
                 f"bf16, causal, window {window}, softcap {softcap})",
                 calls=calls, max_abs_err=err, ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
@@ -3060,21 +3121,21 @@ def time_dense_attention(torch, fa, ref, ra, gen, card, shape, seq) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def prefill_dense(torch, np, mod, ops, ref, ra):
-    """10b, 10d: build_prefill on `mod`'s model at full width (seeded
-    random weights in its param_dtype, bf16 compute) over SERVE_RUN's
-    prompt: exactly one kernel-4 launch a layer, each with the reference's
-    window for that layer, and finite logits; the wall of a second
-    prefill too (the first call in a process carries one-time start-up:
-    `tools/profile_prefill` read 8.8 s for danube's, then 0.75); then
-    the same prefill with
-    kernel 4 held to `blockwise_attention` on every query row of each
-    call, each checked as it happens, the plain output carried on.
+def prefill_dense(torch, np, mod, ops, ref, ra, cfg=None):
+    """10b, 10d, 11b, 11c: build_prefill on `mod`'s model at full width
+    (`cfg`, default its CONFIG; seeded random weights in its param_dtype,
+    bf16 compute) over SERVE_RUN's prompt: exactly one kernel-4 launch a
+    layer, each with the reference's window for that layer, and finite
+    logits; the wall of a second prefill too (the first call in a
+    process carries one-time start-up: `tools/profile_prefill` read 8.8
+    s for danube's, then 0.75); then the same prefill with kernel 4 held
+    to `blockwise_attention` on every query row of each call, each
+    checked as it happens, the plain output carried on.
     Returns (params, the launch counts of the path)."""
     from repro_torch.core.heap import tree_flatten
     from repro_torch.models import transformer
     from repro_torch.serve import step as sstep
-    cfg, run = mod.CONFIG, mod.SERVE_RUN
+    cfg, run = cfg or mod.CONFIG, mod.SERVE_RUN
     params = transformer.init_params(cfg, seed=0, device="cuda")
     n_params = sum(w.numel() for w in tree_flatten(params)[0])
     n_bytes = sum(w.numel() * w.element_size()
@@ -3190,20 +3251,22 @@ def gemma_f32(torch, np, mod, ops, ref, ra, params) -> None:
     torch.cuda.empty_cache()
 
 
-def long_decode_dense(torch, np, mod, params) -> None:
-    """10c: one build_decode_step of `mod`'s model (gemma2) at
-    SERVE_RUN's long decode, batch `long_batch` against caches of
-    `long_cache_len` slots (the local layers' rings of local_window
-    slots), every cache leaf filled from a generator seeded by its index,
-    at the last position: finite logits; each global cache changed only
-    at that slot and each ring only at that slot modulo its length, in
-    every row, checked against each leaf's contents regenerated from its
-    seed, one leaf at a time (no copy of the caches); then the wall of a
-    few more steps and the peak memory."""
+def long_decode_dense(torch, np, mod, params, cfg=None) -> None:
+    """10c, 11c: one build_decode_step of `mod`'s model (`cfg`, default
+    its CONFIG: gemma2; deepseek-v3 cut to 4 layers) at SERVE_RUN's long
+    decode, batch `long_batch` against caches of `long_cache_len` slots
+    (gemma2's local layers: rings of local_window slots; MLA: the latent
+    c_kv and k_rope), every cache leaf filled from a generator seeded by
+    its index, at the last position: finite logits; each full-length
+    cache changed only at that slot and each ring only at that slot
+    modulo its length, in every row, checked against each leaf's
+    contents regenerated from its seed, one leaf at a time (no copy of
+    the caches); then the wall of a few more steps and the peak
+    memory."""
     from repro_torch.core.heap import tree_flatten
     from repro_torch.models import transformer
     from repro_torch.serve import step as sstep
-    cfg, run = mod.CONFIG, mod.SERVE_RUN
+    cfg, run = cfg or mod.CONFIG, mod.SERVE_RUN
     B, S = run["long_batch"], run["long_cache_len"]
     cache = transformer.init_cache(cfg, 1, B, S, device="cuda")
     leaves = tree_flatten(cache)[0]
@@ -3221,7 +3284,7 @@ def long_decode_dense(torch, np, mod, params) -> None:
                                      device="cuda"),
              "positions": torch.full((B,), S - 1, device="cuda")}
     nbytes = sum(leaf.numel() * leaf.element_size() for leaf in leaves)
-    slots = sorted({c["k"].shape[1] for c in cache["layers"]})
+    slots = sorted({leaf.shape[1] for leaf in leaves})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -3243,8 +3306,8 @@ def long_decode_dense(torch, np, mod, params) -> None:
         logits_n, cache = decode(params, cache, batch)
     torch.cuda.synchronize()
     per_step = (time.perf_counter() - t0) / steps
-    log(f"  long decode {cfg.name}: batch {B}, {len(cache['layers'])} "
-        f"caches of {slots} slots ({nbytes / 1e9:.3f} GB), position "
+    log(f"  long decode {cfg.name}: batch {B}, {len(leaves)} cache leaves"
+        f" of {slots} slots ({nbytes / 1e9:.3f} GB), position "
         f"{S - 1}: first step {first * 1e3:.3f} ms, then {per_step * 1e3:.3f}"
         f" ms a step over {steps}; peak memory {peak / 2**30:.3f} GiB; "
         f"launches {counts}; (slots, slots changed, rows changed there) "
@@ -3342,6 +3405,126 @@ def launch_dense(torch, np, mod, ref, layers, logits_check=False) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the moe family at full width — kernel 4 at granite's and MLA's
+# shapes; granite-moe-3b-a800m, deepseek-v3 over 4 of its 61 layers
+# ---------------------------------------------------------------------------
+
+# each model's prefill in f32 compute through kernel 4 and through the
+# blockwise plain version over the first MOE_F32_LEN tokens of the prompt
+# (gemma2's GEMMA_F32_LEN, for the same reason).  The router turns any
+# change of summation order into a different expert where two gates are
+# near-tied or a token sits at an expert's capacity, and a changed pick
+# moves the drops of later tokens in that expert: so each layer's routes
+# (top-k experts, kept flags) are recorded on both paths.  Where all
+# agree, the logits are held within MOE_F32_RTOL of the largest; where
+# some differ, the layer outputs before the first layer that differs are
+# held within MOE_F32_RTOL of their largest and that layer's differing
+# picks must be fewer than MOE_ROUTE_SHARE of its T x K
+MOE_F32_LEN = 8192
+MOE_F32_RTOL = DENSE_F32_LOGITS_RTOL
+MOE_ROUTE_SHARE = 1e-3
+
+
+def moe_attention_shapes(granite_cfg, deepseek_cfg) -> list:
+    """`dense_attention_shapes`' tuples of the two kinds of kernel-4
+    call of the moe prefills: granite's GQA layers, and deepseek-v3's
+    MLA (q and k at nope + rope, v at v_dim, one KV head a q head)."""
+    g, ds = granite_cfg, deepseek_cfg
+    m = ds.mla
+    return [(g.name, g.n_heads, g.n_kv_heads, g.hd, g.hd, None, None,
+             g.n_layers),
+            (ds.name + " MLA", ds.n_heads, ds.n_heads,
+             m.qk_nope_dim + m.qk_rope_dim, m.v_dim, None, None,
+             ds.n_layers)]
+
+
+def moe_f32_gate(torch, np, cfg, run, ops, ref, ra, params) -> None:
+    """11b, 11c: `cfg`'s prefill in f32 compute over the first
+    MOE_F32_LEN tokens of SERVE_RUN's prompt through kernel 4 and through
+    the blockwise plain version, each layer's routes and block outputs
+    recorded, gated by the rule at MOE_F32_LEN."""
+    from repro_torch.models import layers, transformer
+    from repro_torch.serve import step as sstep
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(run["prefill_batch"], run["prefill_len"])),
+        device="cuda")[:, :MOE_F32_LEN]
+    prefill32 = sstep.build_prefill(dataclasses.replace(
+        cfg, dtype=torch.float32))
+    real_route, real_block = layers.moe_route, transformer._attn_block
+    kernel = ops._fa.flash_attention
+
+    def run_path(attn):
+        routes, outs = [], []
+
+        def route(*a):
+            r = real_route(*a)
+            routes.append((r[2], r[4]))               # tope, keep
+            return r
+
+        def block(*a, **kw):
+            x, aux = real_block(*a, **kw)
+            outs.append(x)
+            return x, aux
+
+        t0 = time.perf_counter()
+        with mock.patch.object(layers, "moe_route", route), \
+                mock.patch.object(transformer, "_attn_block", block), \
+                mock.patch.object(ops._fa, "flash_attention", attn):
+            logits = prefill32(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return logits, routes, outs, time.perf_counter() - t0
+
+    def attn_plain(q, k, v, **kw):
+        return blockwise_attention(torch, ref, ra, q, k, v, **kw)
+
+    logits, routes, outs, wall = run_path(kernel)
+    plain, p_routes, p_outs, plain_wall = run_path(attn_plain)
+    nd = cfg.moe.first_dense_layers
+    picks = tokens.numel() * cfg.moe.top_k
+    differ = [int(((te != pe).reshape(-1) | (kp != pk)).sum())
+              for (te, kp), (pe, pk) in zip(routes, p_routes)]
+    out_rel = [(a - b).abs().max().item() / b.abs().max().item()
+               for a, b in zip(outs, p_outs)]
+    err = (logits - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    log(f"  f32 prefill {cfg.name} over {tokens.shape[1]} tokens, kernel 4 "
+        f"vs the blockwise plain version: {len(routes)} MoE layers of "
+        f"{picks} (token, k) picks, picks that differ per layer {differ}; "
+        f"block outputs max|err| / max|out| per block "
+        + " ".join(f"{x:.2e}" for x in out_rel)
+        + f"; logits max|err| {err:.4e}, max|logit| {scale:.4f}, rel "
+        f"{err / scale:.3e} (tol {MOE_F32_RTOL}); argmax "
+        f"{int(logits.argmax())} vs {int(plain.argmax())}; walls "
+        f"{wall:.3f} s (kernel) and {plain_wall:.3f} s (plain)")
+    if len(routes) != cfg.n_layers - nd or len(outs) != cfg.n_layers \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"f32 prefill: {len(routes)} routes, "
+                             f"{len(outs)} blocks, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    if not any(differ):
+        if not err <= MOE_F32_RTOL * scale:
+            raise AssertionError(f"f32 prefill logits differ by {err} "
+                                 f"(max|logit| {scale}) with every route "
+                                 f"equal")
+    else:
+        first = next(i for i, n in enumerate(differ) if n)
+        log(f"  routes differ first in MoE layer {first} (block "
+            f"{nd + first}): {differ[first]} of {picks} picks "
+            f"({differ[first] / picks:.2e}, limit {MOE_ROUTE_SHARE}); the "
+            f"{nd + first} blocks before it within "
+            f"{max(out_rel[:nd + first], default=0.0):.3e} (tol "
+            f"{MOE_F32_RTOL})")
+        if not (differ[first] < MOE_ROUTE_SHARE * picks
+                and all(x <= MOE_F32_RTOL for x in out_rel[:nd + first])):
+            raise AssertionError(f"f32 prefill: routes differ in layer "
+                                 f"{first} at {differ[first]} of {picks} "
+                                 f"picks; block outputs {out_rel}")
+    del logits, plain, routes, p_routes, outs, p_outs, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -3355,7 +3538,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.configs import deepseek_v3_671b as deepseek
     from repro_torch.configs import gemma2_9b as gemma
+    from repro_torch.configs import granite_moe_3b_a800m as granite
     from repro_torch.configs import h2o_danube_3_4b as danube
     from repro_torch.configs import internlm2_20b as internlm
     from repro_torch.configs import mamba2_2_7b as mamba
@@ -3472,9 +3657,42 @@ def main() -> int:
     dense_paths += [internlm_launches, launch_dense(torch, np, internlm, ref,
                                                     layers)]
 
+    ds_cfg = dataclasses.replace(deepseek.CONFIG,
+                                 n_layers=deepseek.SERVE_RUN["n_layers"])
+    log(f"== phase 11: serve {granite.CONFIG.name} and {ds_cfg.name} "
+        f"(cut to {ds_cfg.n_layers} of its {deepseek.CONFIG.n_layers} "
+        f"layers) at full width")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  memory allocated as phase 11 starts: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    shapes = moe_attention_shapes(granite.CONFIG, ds_cfg)
+    check_dense_kernels(torch, ops, ref, fa, ra, gen, shapes)
+    moe_timing = [time_dense_attention(torch, fa, ref, ra, gen, card, s,
+                                       granite.SERVE_RUN["prefill_len"])
+                  for s in shapes]
+    params, granite_launches = prefill_dense(torch, np, granite, ops, ref,
+                                             ra)
+    moe_f32_gate(torch, np, granite.CONFIG, granite.SERVE_RUN, ops, ref, ra,
+                 params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_loop(torch, np, granite)
+    params, ds_launches = prefill_dense(torch, np, deepseek, ops, ref, ra,
+                                        ds_cfg)
+    moe_f32_gate(torch, np, ds_cfg, deepseek.SERVE_RUN, ops, ref, ra, params)
+    long_decode_dense(torch, np, deepseek, params, ds_cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_loop(torch, np, deepseek, ds_cfg)
+    moe_paths = [granite_launches, ds_launches]
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
-        + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths
+        + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths \
+        + moe_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -3484,7 +3702,8 @@ def main() -> int:
         f"{trained_counts}, mamba2 prefill {mamba_launches}, ring "
         f"attention (plain SIM, NoC SIM, mono, window+softcap) "
         f"{ring_launches}, zamba2 prefill {zamba_launches}, dense family "
-        f"(gemma2 prefill, launcher; danube; internlm2) {dense_paths}")
+        f"(gemma2 prefill, launcher; danube; internlm2) {dense_paths}, moe "
+        f"family (granite prefill, deepseek prefill) {moe_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]
@@ -3506,8 +3725,8 @@ def main() -> int:
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                     bound_by=t["bound_by"], library_ms=t["library_ms"])
                for name, source, replaces, t in rows]
-    # kernel 4 at the dense family's prefill shapes, each with the launches
-    # of that shape in its model's prefill
+    # kernel 4 at the dense and moe families' prefill shapes, each with the
+    # launches of that shape in its model's prefill
     kernels += [dict(name="flash_attention", route="cuda",
                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
                      replaces="src/repro/kernels/flash_attention.py:79",
@@ -3515,7 +3734,7 @@ def main() -> int:
                      max_abs_err=t["max_abs_err"], ms=t["ms"],
                      plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                      bound_by=t["bound_by"], library_ms=t["library_ms"])
-                for t in dense_timing]
+                for t in dense_timing + moe_timing]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")

@@ -12,6 +12,8 @@ ARCHS = {
     "qwen2-0.5b": "qwen2_0_5b",
     "mamba2-2.7b": "mamba2_2_7b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 

@@ -4,7 +4,7 @@ symmetric-heap KV cache, on the CUDA card (or the CPU with --device cpu).
 Submits --batch requests of random prompts up front and drains them
 through an engine sized, as the reference's, for sequences of
 max(--cache-len, --prompt-len + --tokens) tokens.  Families without a
-paged path (ssm, hybrid) take the reference's dense-cache decode loop
+paged path (ssm, hybrid, moe) take the reference's dense-cache decode loop
 instead: the prompt fed teacher-forced through `decode_step` against
 caches of --cache-len slots, then --tokens greedy tokens.
 
@@ -18,6 +18,13 @@ caches of --cache-len slots, then --tokens greedy tokens.
   python -m repro_torch.launch.serve --arch mamba2-2.7b --smoke --device cpu
   python -m repro_torch.launch.serve --arch zamba2-1.2b
   python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
+  python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --smoke --device cpu
+  python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
+
+deepseek-v3-671b at full size (671 B parameters) does not fit one card;
+`chip_smoke.py` serves it cut to its `SERVE_RUN["n_layers"]` layers
+through `_decode_loop`.
 """
 from __future__ import annotations
 

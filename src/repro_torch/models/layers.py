@@ -1,13 +1,16 @@
 """Model layers of the dense family (the full-sequence training path, the
 paged serving path and the dense-cache decode) and of the ssm family
 (Mamba2: the full-sequence prefill through the SSD scan and the one-step
-decode recurrence); the hybrid family is built of both.
+decode recurrence); the hybrid family is built of both; the moe family
+adds MLA (deepseek-v3's latent attention: the full-sequence form through
+the flash kernel, the absorbed decode in f32) and the routed MoE layer.
 
 Counterpart of `repro/models/layers.py`.  Each function takes a `Comm`
 and calls its collectives where `repro` does; on one device they are the
 identity.  Weights are plain tensors in dicts, initialised from a
 `torch.Generator`.  The paged KV pool and the dense KV cache are updated
-in place (the JAX functions return new ones): no copy per step.
+in place (the JAX functions return new ones), MLA's latent cache too: no
+copy per step.
 Gradients come from autograd; attention's goes through the
 `kernels/ops.attention` Function, the SSD scan's through `ops.ssd`.
 """
@@ -62,9 +65,11 @@ def _dense(x, w, b=None):
 def _normal(gen, shape, scale: float, device, dtype):
     """A weight drawn in f32 from `gen`, then cast to `dtype` at once, so
     that a bf16 tree never holds more than one f32 leaf at a time and
-    draws the same numbers as an f32 one."""
-    return (torch.randn(shape, generator=gen, device=device,
-                        dtype=torch.float32) * scale).to(dtype)
+    draws the same numbers as an f32 one.  The draw is scaled in place:
+    deepseek-v3's (256, 7168, 2048) expert leaves are 15 GiB each in
+    f32."""
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32).mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +273,136 @@ def _cache_attend(cfg, q, ck, cv, valid):
 
 
 # ---------------------------------------------------------------------------
+# MLA (deepseek-v3): latent KV, cache = compressed c_kv (+ rope key)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg: ModelConfig, tp: int, device) -> Params:
+    m = cfg.mla
+    d = cfg.d_model
+    nq_local = cfg.n_heads // tp
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    dt = cfg.param_dtype
+
+    def nrm(shape, fan_in):
+        return _normal(gen, shape, 1.0 / math.sqrt(fan_in), device, dt)
+
+    return {
+        "wq_a": nrm((d, m.q_lora_rank), d),
+        "wq_b": nrm((m.q_lora_rank, nq_local * qk_dim), m.q_lora_rank),
+        "wkv_a": nrm((d, m.kv_lora_rank + m.qk_rope_dim), d),
+        "wkv_b": nrm((m.kv_lora_rank, nq_local * (m.qk_nope_dim + m.v_dim)),
+                     m.kv_lora_rank),
+        "wo": nrm((nq_local * m.v_dim, d), cfg.n_heads * m.v_dim),
+        "q_norm": torch.zeros(m.q_lora_rank, device=device),
+        "kv_norm": torch.zeros(m.kv_lora_rank, device=device),
+    }
+
+
+def _mla_q(cfg: ModelConfig, p: Params, x, positions):
+    """MLA's query heads: x (B, L, d), positions (B, L) -> q_nope (B, L,
+    H, nope) and q_rope (B, L, H, rope), RoPE applied."""
+    m = cfg.mla
+    B, L, _ = x.shape
+    cq = rms_norm(_dense(x, p["wq_a"]), p["q_norm"])
+    q = _dense(cq, p["wq_b"]).reshape(B, L, -1,
+                                      m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(cfg: ModelConfig, p: Params, x, positions):
+    """MLA's compressed KV: x (B, L, d) -> c_kv (B, L, kv_lora_rank),
+    normed, and k_rope (B, L, 1, rope), the one RoPE key all heads
+    share."""
+    m = cfg.mla
+    kv_a = _dense(x, p["wkv_a"])
+    c_kv = rms_norm(kv_a[..., :m.kv_lora_rank], p["kv_norm"])
+    k_rope = rope(kv_a[..., None, m.kv_lora_rank:], positions,
+                  cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions):
+    """Full-sequence MLA (prefill, training): x (B, L, d) -> (B, L, d).
+    The latent KV is expanded to every head's k (k_nope, then the shared
+    k_rope) and v, and attends through `ops.attention` at head dim nope +
+    rope against a v head dim of its own, scaled by 1/sqrt(nope + rope).
+    One device (tp = 1)."""
+    m = cfg.mla
+    if comm.axis_size(comm.axes.model) != 1:
+        raise NotImplementedError("tensor parallelism is not ported yet "
+                                  "(slice 5)")
+    B, L, _ = x.shape
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_rope = _mla_latent(cfg, p, x, positions)
+    kv = _dense(c_kv, p["wkv_b"]).reshape(B, L, -1,
+                                          m.qk_nope_dim + m.v_dim)
+    k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+    H = k_nope.shape[2]
+    k = torch.cat([k_nope, k_rope.expand(B, L, H, m.qk_rope_dim)], -1)
+    qf = torch.cat([q_nope, q_rope], -1)
+    o = kops.attention(
+        qf.transpose(1, 2), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2), causal=True,
+        sm_scale=1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim))
+    o = o.transpose(1, 2).reshape(B, L, H * m.v_dim)
+    return comm.allreduce(_dense(o.to(cfg.dtype), p["wo"]), comm.axes.model)
+
+
+def init_mla_cache(cfg: ModelConfig, batch_local: int, cache_len: int,
+                   device):
+    """MLA's decode cache: {"c_kv": (B, S, kv_lora_rank), "k_rope": (B,
+    S, rope)} in cfg.dtype."""
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch_local, cache_len, m.kv_lora_rank),
+                                dtype=cfg.dtype, device=device),
+            "k_rope": torch.zeros((batch_local, cache_len, m.qk_rope_dim),
+                                  dtype=cfg.dtype, device=device)}
+
+
+def mla_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache, position):
+    """One-token MLA decode: x (B, 1, d), position (B,) -> ((B, 1, d),
+    cache).  The new latent row is written into `cache` in place at
+    position.clamp(max=S - 1) (where dynamic_update_slice clamps its
+    start), then the reference's absorbed attention runs in f32: the
+    score is q_nope . (W_kb^T c_kv) + q_rope . k_rope, the context is
+    read from c_kv and expanded through W_vb."""
+    m = cfg.mla
+    if comm.axis_size(comm.axes.model) != 1:
+        raise NotImplementedError("tensor parallelism is not ported yet "
+                                  "(slice 5)")
+    B = x.shape[0]
+    pos = position[:, None]
+    q_nope, q_rope = _mla_q(cfg, p, x, pos)
+    c_kv, k_rope = _mla_latent(cfg, p, x, pos)
+    ckv, ckr = cache["c_kv"], cache["k_rope"]
+    S = ckv.shape[1]
+    rows = torch.arange(B, device=x.device)
+    slot = position.clamp(max=S - 1)
+    ckv[rows, slot] = c_kv[:, 0].to(ckv.dtype)
+    ckr[rows, slot] = k_rope[:, 0, 0].to(ckr.dtype)
+
+    H = q_nope.shape[2]
+    wkv = p["wkv_b"].reshape(m.kv_lora_rank, H, m.qk_nope_dim + m.v_dim)
+    w_k = wkv[..., :m.qk_nope_dim].float()             # (r, h, nope)
+    w_v = wkv[..., m.qk_nope_dim:].float()             # (r, h, v)
+    ckv32 = ckv.float()
+    q_abs = torch.einsum("bohn,rhn->bohr", q_nope.float(), w_k)
+    sc = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    logits = (torch.einsum("bohr,bsr->bhs", q_abs, ckv32)
+              + torch.einsum("bohn,bsn->bhs", q_rope.float(),
+                             ckr.float())) * sc
+    valid = torch.arange(S, device=x.device)[None, :] <= pos
+    logits = torch.where(valid[:, None, :], logits, NEG_INF)
+    pr = torch.softmax(logits, -1)
+    ctx = torch.einsum("bhs,bsr->bhr", pr, ckv32)
+    o = torch.einsum("bhr,rhv->bhv", ctx, w_v)
+    o = o.reshape(B, 1, H * m.v_dim).to(cfg.dtype)
+    y = comm.allreduce(_dense(o, p["wo"]), comm.axes.model)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
 # Paged KV attention (serving engine)
 # ---------------------------------------------------------------------------
 
@@ -405,6 +540,149 @@ def init_mlp(gen, cfg: ModelConfig, tp: int, device,
 def mlp(comm: Comm, cfg: ModelConfig, p: Params, x):
     h = F.silu(_dense(x, p["w_gate"])) * _dense(x, p["w_up"])
     return comm.allreduce(_dense(h, p["w_down"]), comm.axes.model)
+
+
+# ---------------------------------------------------------------------------
+# MoE (expert parallel over `model`, alltoall dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_ep_size(cfg: ModelConfig, tp: int, dp: int) -> int:
+    return tp * dp if cfg.moe.ep_over_data else tp
+
+
+def init_moe(gen, cfg: ModelConfig, tp: int, device, dp: int = 1) -> Params:
+    """The router (d, E), the routed experts' SwiGLU weights w_gate,
+    w_up (E_local, d, f) and w_down (E_local, f, d), and with n_shared
+    the shared experts as one MLP of n_shared * f."""
+    mo = cfg.moe
+    d = cfg.d_model
+    e_local = -(-mo.n_experts // moe_ep_size(cfg, tp, dp))
+    dt = cfg.param_dtype
+
+    def nrm(shape, fan):
+        return _normal(gen, shape, 1.0 / math.sqrt(fan), device, dt)
+
+    p = {
+        "router": nrm((d, mo.n_experts), d),
+        "w_gate": nrm((e_local, d, mo.d_ff), d),
+        "w_up": nrm((e_local, d, mo.d_ff), d),
+        "w_down": nrm((e_local, mo.d_ff, d), mo.d_ff),
+    }
+    if mo.n_shared:
+        p["shared"] = init_mlp(gen, cfg, tp, device,
+                               d_ff=mo.n_shared * mo.d_ff)
+    return p
+
+
+def moe_route(cfg: ModelConfig, p: Params, xs):
+    """Top-k routing with capacity dropping over the tokens xs (T, d):
+    (gates (T, E) f32, topv (T, K) renormalised, tope (T, K), slot (T*K,)
+    each pick's rank among its expert's picks in token-major order, keep
+    (T*K,) whether that rank is under the capacity, cap)."""
+    mo = cfg.moe
+    t_local = xs.shape[0]
+    gates = torch.softmax(_dense(xs, p["router"]).float(), -1)   # (T, E)
+    topv, tope = torch.topk(gates, mo.top_k, dim=-1, sorted=True)
+    topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = max(1, int(mo.capacity_factor * t_local * mo.top_k
+                     / mo.n_experts))
+    e_flat = tope.reshape(-1)                                   # (T*K,)
+    # the one-hot held expert-major, (E, T*K), so that the cumulative sum
+    # runs along its contiguous dim: over the outer dim of a (T*K, E)
+    # one-hot the same sum took 2.84 s of granite-moe's 3.79 s prefill of
+    # 32768 tokens on an H100 (tools/profile_prefill)
+    onehot = torch.zeros((mo.n_experts, e_flat.shape[0]), dtype=torch.int32,
+                         device=xs.device).scatter_(0, e_flat[None], 1)
+    ranks = onehot.cumsum(1, dtype=torch.int32) - 1
+    del onehot
+    slot = ranks.gather(0, e_flat[None])[0].long()
+    return gates, topv, tope, slot, slot < cap, cap
+
+
+def moe(comm: Comm, cfg: ModelConfig, p: Params, x):
+    """x: (B, L, d) -> (out (B, L, d), aux), `repro.models.layers.moe`
+    step by step.
+
+    Capacity is per call: cap = max(1, int(capacity_factor * T * top_k /
+    n_experts)) over this call's T tokens, so a decode step of B tokens
+    routes at capacity max(1, ...) and drops most picks, as the reference
+    does.  The kept picks are assigned into the (E, C, d) dispatch buffer
+    (each kept (expert, slot) holds exactly one token, so the assignment
+    is deterministic and equals the reference's scatter-add), exchanged
+    by `Comm.alltoall` (the identity on one device), run through the
+    experts as batched products in the activation dtype, and combined in
+    f32 as an in-order sum over k of each pick's rows times its weight;
+    the shared experts are added after.  aux is the load-balance loss E *
+    sum(mean(gates) * mean(picks per expert))."""
+    mo = cfg.moe
+    tp = comm.axis_size(comm.axes.model)
+    ep_axes = ((comm.axes.data, comm.axes.model) if mo.ep_over_data
+               else comm.axes.model)
+    ep = (math.prod(comm.axis_size(a) for a in ep_axes)
+          if isinstance(ep_axes, tuple) else comm.axis_size(ep_axes))
+    B, L, d = x.shape
+    e_local = -(-mo.n_experts // ep)
+    e_pad = e_local * ep
+
+    # 1. this device's token slice of the model group
+    flat = x.reshape(B * L, d)
+    t_total = B * L
+    t_pad = -(-t_total // tp) * tp
+    if t_pad != t_total:
+        flat = F.pad(flat, (0, 0, 0, t_pad - t_total))
+    t_local = t_pad // tp
+    my = comm.axis_index(comm.axes.model)
+    xs = flat[my * t_local:(my + 1) * t_local]
+
+    # 2-3. route, capacity, dispatch of the kept picks into (E_pad, C, d)
+    gates, topv, tope, slot, keep, cap = moe_route(cfg, p, xs)
+    e_flat = tope.reshape(-1)
+    tok_idx = torch.arange(t_local, device=x.device).repeat_interleave(
+        mo.top_k)
+    disp = x.new_zeros((e_pad, cap, d))
+    disp[e_flat[keep], slot[keep]] = xs[tok_idx[keep]]
+
+    # 4. alltoall over the EP group: (E_pad, C, d) -> (e_local, ep*C, d)
+    a2a = comm.alltoall(disp.reshape(ep, e_local * cap, d), ep_axes,
+                        split_axis=0, concat_axis=0)
+    del disp
+    exp_in = a2a.reshape(ep, e_local, cap, d).transpose(0, 1) \
+        .reshape(e_local, ep * cap, d)
+
+    # 5. expert FFN
+    h = F.silu(torch.bmm(exp_in, p["w_gate"].to(x.dtype))) \
+        * torch.bmm(exp_in, p["w_up"].to(x.dtype))
+    del exp_in, a2a
+    y = torch.bmm(h, p["w_down"].to(x.dtype))
+    del h
+
+    # 6. alltoall back, then the weighted combine in f32, pick by pick
+    y = y.reshape(e_local, ep, cap, d).transpose(0, 1) \
+        .reshape(ep, e_local * cap, d)
+    buf = comm.alltoall(y, ep_axes, split_axis=0,
+                        concat_axis=0).reshape(e_pad, cap, d)
+    del y
+    keep2 = keep.reshape(t_local, mo.top_k)
+    e_idx = torch.where(keep, e_flat, 0).reshape(t_local, mo.top_k)
+    s_idx = torch.where(keep, slot, 0).reshape(t_local, mo.top_k)
+    w = (topv * keep2).float()
+    ys = torch.zeros((t_local, d), dtype=torch.float32, device=x.device)
+    for k in range(mo.top_k):
+        got = torch.where(keep2[:, k, None], buf[e_idx[:, k], s_idx[:, k]],
+                          0.0)
+        ys = ys + got.float() * w[:, k, None]
+    del buf
+
+    # 7. allgather the token slices back to the model-replicated layout
+    full = comm.allgather(ys.to(x.dtype), comm.axes.model, concat_axis=0)
+    out = full[:t_total].reshape(B, L, d)
+    if mo.n_shared:
+        out = out + mlp(comm, cfg, p["shared"], x)
+    # load-balance aux loss (training)
+    me = gates.mean(0)
+    ce = torch.bincount(e_flat, minlength=mo.n_experts).float() / t_local
+    aux = mo.n_experts * (me * ce).sum()
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Model assembly: parameters, the full-sequence entries (`forward`,
 `train_loss`, `prefill`) and the dense-cache `init_cache`/`decode_step`
-of the dense, ssm and hybrid families, and the KV pools and paged
+of the dense, ssm, hybrid and moe families, and the KV pools and paged
 prefill/decode entries of the dense family.
 
-Counterpart of the dense, ssm and hybrid parts of
+Counterpart of the dense, ssm, hybrid and moe parts of
 `repro/models/transformer.py`.  Parameters hold one dict per layer in
 `params["layers"]` (the JAX package stacks each leaf to [n_layers, ...]
 for `lax.scan`); the stack is a Python loop.  Decode caches likewise hold
@@ -14,7 +14,12 @@ that one list, where the reference scans stacked `pairs` ("local",
 family (zamba2) applies one shared attention + MLP block,
 `params["shared_attn"]`, after every segment of `hybrid_attn_period`
 Mamba2 layers, the last, shorter one included; each application has its
-own KV cache in `cache["shared"]`.
+own KV cache in `cache["shared"]`.  The moe family (granite-moe,
+deepseek-v3) runs its first `moe.first_dense_layers` blocks (attention +
+MLP) from `params["dense_layers"]`, then attention + MoE blocks from
+`params["layers"]`, each attention GQA or MLA (`cfg.attn`); with
+`cfg.mtp`, `params["mtp"]` holds the depth-1 multi-token-prediction head
+`train_loss` adds.  Its decode caches follow the same two lists.
 """
 from __future__ import annotations
 
@@ -37,10 +42,11 @@ def paged_families() -> tuple[str, ...]:
 
 
 # the slice of the port that brings each family not ported yet
-_LATER = {"moe": "4c", "audio": "4c", "vlm": "4c"}
+_LATER = {"audio": "4c", "vlm": "4c"}
 
 
-def _check_family(cfg: ModelConfig, families=("dense", "ssm", "hybrid")):
+def _check_family(cfg: ModelConfig,
+                  families=("dense", "ssm", "hybrid", "moe")):
     """Raise NotImplementedError unless `cfg`'s family is among
     `families`."""
     if cfg.family in families:
@@ -65,7 +71,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     ``device="cpu"``).  Each weight of two or more dims is drawn in f32
     and cast to `cfg.param_dtype` as soon as it is made (as `repro` casts
     its f32 tree), so no f32 copy of the whole tree exists; vectors stay
-    f32.  gemma2's layers are made in the list's order, pair by pair."""
+    f32.  gemma2's layers are made in the list's order, pair by pair; the
+    moe family's dense layers, then its MoE layers, then the MTP head.
+    deepseek-v3's expert leaves are drawn whole: (256, 7168, 2048) in f32
+    is 15 GiB for an instant, beside the bf16 leaves made before it."""
     _check_family(cfg)
     if cfg.local_global_period is not None and cfg.n_layers % 2:
         raise ValueError(f"local/global pairs need an even n_layers, not "
@@ -78,6 +87,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     if cfg.family == "dense":
         p["layers"] = [_init_attn_block(gen, cfg, tp, device)
                        for _ in range(cfg.n_layers)]
+    elif cfg.family == "moe":
+        nd = cfg.moe.first_dense_layers
+        if nd:
+            p["dense_layers"] = [_init_attn_block(gen, cfg, tp, device)
+                                 for _ in range(nd)]
+        p["layers"] = [_init_attn_block(gen, cfg, tp, device, moe=True)
+                       for _ in range(cfg.n_layers - nd)]
+        if cfg.mtp:
+            d = cfg.d_model
+            p["mtp"] = {"proj": L._normal(gen, (2 * d, d),
+                                          1.0 / math.sqrt(2 * d), device,
+                                          cfg.param_dtype),
+                        "block": _init_attn_block(gen, cfg, tp, device),
+                        "ln": torch.zeros(d, device=device)}
     else:
         p["layers"] = [
             {"mamba": L.init_mamba2(gen, cfg, tp, device),
@@ -88,9 +111,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     return p
 
 
-def _init_attn_block(gen, cfg, tp, device) -> Params:
-    return {"attn": L.init_attention(gen, cfg, tp, device),
-            "mlp": L.init_mlp(gen, cfg, tp, device),
+def _init_attn_block(gen, cfg, tp, device, moe: bool = False) -> Params:
+    """An attention (GQA, or MLA when ``cfg.attn == "mla"``) block with
+    an MLP, or with an MoE layer under "moe"."""
+    attn = (L.init_mla(gen, cfg, tp, device) if cfg.attn == "mla"
+            else L.init_attention(gen, cfg, tp, device))
+    ffn = ({"moe": L.init_moe(gen, cfg, tp, device)} if moe
+           else {"mlp": L.init_mlp(gen, cfg, tp, device)})
+    return {"attn": attn, **ffn,
             "ln1": torch.zeros(cfg.d_model, device=device),
             "ln2": torch.zeros(cfg.d_model, device=device)}
 
@@ -132,11 +160,19 @@ def init_kv_pool(cfg: ModelConfig, tp: int, num_pages: int, page_size: int,
 
 
 def _attn_block(comm, cfg, bp, x, positions, is_local=False):
+    """-> (x, aux): aux is an MoE block's load-balance loss, None after
+    an MLP."""
     h = L.rms_norm(x, bp["ln1"])
-    x = x + L.attention(comm, cfg, bp["attn"], h, positions,
-                        is_local_layer=is_local)
+    if cfg.attn == "mla":
+        x = x + L.mla_attention(comm, cfg, bp["attn"], h, positions)
+    else:
+        x = x + L.attention(comm, cfg, bp["attn"], h, positions,
+                            is_local_layer=is_local)
     h = L.rms_norm(x, bp["ln2"])
-    return x + L.mlp(comm, cfg, bp["mlp"], h)
+    if "moe" in bp:
+        m, aux = L.moe(comm, cfg, bp["moe"], h)
+        return x + m, aux
+    return x + L.mlp(comm, cfg, bp["mlp"], h), None
 
 
 def _mamba_block(comm, cfg, bp, x):
@@ -166,25 +202,36 @@ def _embed_scaled(comm, cfg, params, tokens):
 
 
 def forward(comm: Comm, cfg: ModelConfig, params: Params, tokens):
-    """Full-sequence forward of the dense, ssm and hybrid families: tokens
-    (B, L) -> (hidden (B, L, d), aux loss 0)."""
+    """Full-sequence forward: tokens (B, L) -> (hidden (B, L, d), aux
+    loss), aux the sum of the MoE layers' load-balance losses (0 without
+    MoE layers)."""
     _check_family(cfg)
     x = _embed_scaled(comm, cfg, params, tokens)
     B, seq = tokens.shape
     positions = torch.arange(seq, device=tokens.device).expand(B, seq)
-    for i, bp in enumerate(params["layers"]):
-        if cfg.family == "dense":
-            x = _maybe_remat(
-                cfg, lambda x, bp=bp, i=i: _attn_block(
-                    comm, cfg, bp, x, positions, _is_local(cfg, i)))(x)
-        else:
-            x = _maybe_remat(
-                cfg, lambda x, bp=bp: _mamba_block(comm, cfg, bp, x))(x)
-        if _shared_after(cfg, i):
-            x = _maybe_remat(cfg, lambda x: _attn_block(
-                comm, cfg, params["shared_attn"], x, positions))(x)
+    aux_total = torch.zeros((), device=x.device)
+    if cfg.family == "moe":
+        for bp in params.get("dense_layers", []):
+            x, _ = _maybe_remat(cfg, lambda x, bp=bp: _attn_block(
+                comm, cfg, bp, x, positions))(x)
+        for bp in params["layers"]:
+            x, aux = _maybe_remat(cfg, lambda x, bp=bp: _attn_block(
+                comm, cfg, bp, x, positions))(x)
+            aux_total = aux_total + aux
+    else:
+        for i, bp in enumerate(params["layers"]):
+            if cfg.family == "dense":
+                x, _ = _maybe_remat(
+                    cfg, lambda x, bp=bp, i=i: _attn_block(
+                        comm, cfg, bp, x, positions, _is_local(cfg, i)))(x)
+            else:
+                x = _maybe_remat(
+                    cfg, lambda x, bp=bp: _mamba_block(comm, cfg, bp, x))(x)
+            if _shared_after(cfg, i):
+                x, _ = _maybe_remat(cfg, lambda x: _attn_block(
+                    comm, cfg, params["shared_attn"], x, positions))(x)
     x = L.rms_norm(x, params["final_norm"])
-    return x, torch.zeros((), device=x.device)
+    return x, aux_total
 
 
 def prefill(comm: Comm, cfg: ModelConfig, params: Params, tokens):
@@ -204,7 +251,9 @@ def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
     min(cache_len, local_window) slots; ssm: a Mamba2 cache {"conv": (B,
     conv_width - 1, conv_dim) in cfg.dtype, "ssm": (B, H, P, N) f32},
     which has no length; hybrid: Mamba2 caches under "layers" and one
-    attention cache per application of the shared block under "shared".
+    attention cache per application of the shared block under "shared";
+    moe: an attention cache (GQA, or MLA's latent {"c_kv", "k_rope"}) per
+    layer under "dense_layers" and "layers", as its parameters.
     The dense family's serving engine decodes through the paged KV pool
     (`init_kv_pool`) instead."""
     _check_family(cfg)
@@ -220,6 +269,16 @@ def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
     if cfg.family == "dense":
         return {"layers": [attn(_is_local(cfg, i))
                            for i in range(cfg.n_layers)]}
+    if cfg.family == "moe":
+        def one():
+            if cfg.attn == "mla":
+                return L.init_mla_cache(cfg, batch_local, cache_len, device)
+            return attn()
+        nd = cfg.moe.first_dense_layers
+        out = {"layers": [one() for _ in range(cfg.n_layers - nd)]}
+        if nd:
+            out["dense_layers"] = [one() for _ in range(nd)]
+        return out
     cache = {"layers": [L.init_mamba_cache(cfg, tp, batch_local, device)
                         for _ in range(cfg.n_layers)]}
     if cfg.family == "hybrid":
@@ -229,10 +288,15 @@ def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
 
 def _attn_decode_block(comm, cfg, bp, x, cache, positions, is_local=False):
     h = L.rms_norm(x, bp["ln1"])
-    a, cache = L.attention_decode(comm, cfg, bp["attn"], h, cache, positions,
-                                  is_local_layer=is_local)
+    if cfg.attn == "mla":
+        a, cache = L.mla_decode(comm, cfg, bp["attn"], h, cache, positions)
+    else:
+        a, cache = L.attention_decode(comm, cfg, bp["attn"], h, cache,
+                                      positions, is_local_layer=is_local)
     x = x + a
     h = L.rms_norm(x, bp["ln2"])
+    if "moe" in bp:
+        return x + L.moe(comm, cfg, bp["moe"], h)[0], cache
     return x + L.mlp(comm, cfg, bp["mlp"], h), cache
 
 
@@ -244,31 +308,56 @@ def decode_step(comm: Comm, cfg: ModelConfig, params: Params, cache: Params,
     as new tensors (a Mamba2 layer reads no position)."""
     _check_family(cfg)
     x = _embed_scaled(comm, cfg, params, tokens)
-    new = {"layers": []}
-    for i, (bp, c) in enumerate(zip(params["layers"], cache["layers"])):
-        if cfg.family == "dense":
-            x, c = _attn_decode_block(comm, cfg, bp, x, c, positions,
-                                      _is_local(cfg, i))
-        else:
-            y, c = L.mamba2_decode(comm, cfg, bp["mamba"],
-                                   L.rms_norm(x, bp["ln"]), c)
-            x = x + y
-        new["layers"].append(c)
-        if _shared_after(cfg, i):
-            shared = new.setdefault("shared", [])
-            x, c = _attn_decode_block(comm, cfg, params["shared_attn"], x,
-                                      cache["shared"][len(shared)],
-                                      positions)
-            shared.append(c)
+    if cfg.family == "moe":
+        new = {}
+        for group in ("dense_layers", "layers"):
+            for bp, c in zip(params.get(group, []), cache.get(group, [])):
+                x, c = _attn_decode_block(comm, cfg, bp, x, c, positions)
+                new.setdefault(group, []).append(c)
+    else:
+        new = {"layers": []}
+        for i, (bp, c) in enumerate(zip(params["layers"], cache["layers"])):
+            if cfg.family == "dense":
+                x, c = _attn_decode_block(comm, cfg, bp, x, c, positions,
+                                          _is_local(cfg, i))
+            else:
+                y, c = L.mamba2_decode(comm, cfg, bp["mamba"],
+                                       L.rms_norm(x, bp["ln"]), c)
+                x = x + y
+            new["layers"].append(c)
+            if _shared_after(cfg, i):
+                shared = new.setdefault("shared", [])
+                x, c = _attn_decode_block(comm, cfg, params["shared_attn"],
+                                          x, cache["shared"][len(shared)],
+                                          positions)
+                shared.append(c)
     x = L.rms_norm(x, params["final_norm"])
     return L.lm_logits(comm, cfg, params["embed"], x), new
 
 
 def train_loss(comm: Comm, cfg: ModelConfig, params: Params, batch: dict):
-    """Token-mean cross-entropy of batch {"tokens", "targets"} (B, L)."""
-    h, _ = forward(comm, cfg, params, batch["tokens"])
+    """Token-mean cross-entropy of batch {"tokens", "targets"} (B, L);
+    with `cfg.mtp`, plus 0.1 x the depth-1 MTP head's loss (h_t combined
+    with the embedding of target t predicts target t + 1); with MoE
+    layers, plus 0.01 x aux / n_layers."""
+    h, aux = forward(comm, cfg, params, batch["tokens"])
     logits = L.lm_logits(comm, cfg, params["embed"], h)
-    return L.sharded_xent(comm, cfg, logits, batch["targets"]).mean()
+    targets = batch["targets"]
+    loss = L.sharded_xent(comm, cfg, logits, targets).mean()
+    if cfg.mtp and "mtp" in params:
+        mtp = params["mtp"]
+        emb_next = L.embed(comm, cfg, params["embed"], targets)
+        hm = L._dense(torch.cat([L.rms_norm(h, mtp["ln"]), emb_next], -1),
+                      mtp["proj"])
+        B, seq = targets.shape
+        positions = torch.arange(seq, device=h.device).expand(B, seq)
+        hm, _ = _attn_block(comm, cfg, mtp["block"], hm, positions)
+        lg2 = L.lm_logits(comm, cfg, params["embed"], hm[:, :-1])
+        mtp_loss = L.sharded_xent(comm, cfg, lg2, targets[:, 1:]).mean()
+        loss = loss + 0.1 * mtp_loss
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux / max(cfg.n_layers, 1)
+    return loss
 
 
 def _attn_block_paged(comm, cfg, bp, x, pool, page_table, positions,

@@ -4,7 +4,8 @@ one device.
 Counterpart of `repro/parallel/comm.py`.  The model functions take a Comm
 and call its collectives at the same places as in `repro`.  With one
 device every axis has size 1: `axis_index` is 0 and the model-axis
-collectives are the identity.  The gradient syncs run the SIM runtime's
+collectives (allreduce, allgather, and the expert-parallel alltoall) are
+the identity.  The gradient syncs run the SIM runtime's
 collectives (`core/collectives.py`, `core/fusion.py`) on `SimNetOps(1)`,
 each flat bucket viewed with a leading PE axis of one, so a one-device
 train step goes through the same reduce-scatter / allgather / fused
@@ -73,6 +74,20 @@ class Comm:
         return x
 
     def allgather(self, x, axis, *, concat_axis: int = 0):
+        return x
+
+    def alltoall(self, x, axis, *, split_axis: int = 0,
+                 concat_axis: int = 0):
+        """The MoE dispatch's exchange over `axis` (the expert-parallel
+        group).  The shmem backend's alltoall is in place, so it splits
+        and concatenates along one axis.  Every axis has size 1 here, so
+        it is the identity; a SIM-backed expert-parallel dispatch over
+        several PEs comes with the multi-device backend (slice 5)."""
+        if axis is None or axis == ():
+            return x
+        if split_axis != concat_axis:
+            raise ValueError("shmem alltoall is in-place ragged: "
+                             "split_axis must equal concat_axis")
         return x
 
     def _scale(self) -> int:

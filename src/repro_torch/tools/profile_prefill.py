@@ -2,7 +2,8 @@
 
 For an architecture whose config module has a `SERVE_RUN` (the run
 `chip_smoke.py` checks), builds the model at full width with seeded
-random weights, then prints the host wall of three `build_prefill` calls
+random weights (at SERVE_RUN's `n_layers` where it cuts the depth, as
+deepseek-v3's does to 4 of its 61 layers), then prints the host wall of three `build_prefill` calls
 over SERVE_RUN's prompt (the first carries one-time start-up) and, from
 torch.profiler over one more, the device busy time, the idle share
 against the last wall, the device operations and the kernels that take
@@ -12,10 +13,12 @@ rows against `long_cache_len` slots), the same for one
 --out.
 
   python -m repro_torch.tools.profile_prefill --arch gemma2-9b --out p.json
+  python -m repro_torch.tools.profile_prefill --arch deepseek-v3-671b
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import subprocess
@@ -52,11 +55,13 @@ def main(argv=None):
     if not hasattr(mod, "SERVE_RUN"):
         ap.error(f"{args.arch}'s config has no SERVE_RUN")
     cfg, run = mod.CONFIG, mod.SERVE_RUN
+    if "n_layers" in run:
+        cfg = dataclasses.replace(cfg, n_layers=run["n_layers"])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"[profile] {cfg.name} on {card}")
+    print(f"[profile] {cfg.name} ({cfg.n_layers} layers) on {card}")
     params = transformer.init_params(cfg, seed=0, device="cuda")
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
         1, cfg.vocab, size=(run["prefill_batch"], run["prefill_len"])),

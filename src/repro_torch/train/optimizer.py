@@ -10,7 +10,9 @@
   * Weight decay applies to a leaf whose rank in the reference's STACKED
     layout is at least 2 (`decay_flags`): the port keeps one dict per
     layer, where a norm or a bias is 1-D, but the reference stacks every
-    per-layer leaf to [n_layers, ...] and decays all of them.
+    per-layer leaf to [n_layers, ...] and decays all of them.  Every list
+    of per-layer dicts at the top of the tree is such a stack ("layers",
+    and the moe family's "dense_layers").
   * int8 moments are blocked in that stacked layout too (`moment_groups`):
     a per-layer leaf is quantised over the concatenation of its layers,
     so a 128-element block may span two layers, as the reference's block
@@ -74,15 +76,21 @@ def _q_decode(s, dtype: str, shape=None, nonneg: bool = False):
     return flat.reshape(-1)[:math.prod(shape)].reshape(shape)
 
 
+def _stacked(params, key) -> bool:
+    """Whether `params[key]` is a list of per-layer dicts, which the
+    reference stacks to one leaf per name."""
+    return isinstance(params[key], list) and bool(params[key])
+
+
 def decay_flags(params) -> list[bool]:
     """Per leaf, in `tree_flatten` order: whether AdamW decays it, i.e.
     whether its rank is at least 2 in the reference's stacked layout
-    (every leaf under "layers" has one more dim there)."""
+    (every leaf of a `_stacked` list has one more dim there)."""
     if not isinstance(params, dict):
         return [l.dim() >= 2 for l in tree_flatten(params)[0]]
     flags = []
     for key in sorted(params):
-        extra = 1 if key == "layers" else 0
+        extra = 1 if _stacked(params, key) else 0
         flags += [l.dim() + extra >= 2 for l in tree_flatten(params[key])[0]]
     return flags
 
@@ -90,17 +98,17 @@ def decay_flags(params) -> list[bool]:
 def moment_groups(params, moment_dtype: str) -> list[list[int]]:
     """The leaves (indices in `tree_flatten` order) that share one moment
     encoding.  f32 and bf16 moments are elementwise: one group per leaf.
-    int8 blocks follow the reference's stacked layout: each leaf of
-    ``params["layers"]`` is grouped with the same leaf of every other
-    layer (in layer order), each other leaf stands alone."""
+    int8 blocks follow the reference's stacked layout: each leaf of a
+    `_stacked` list (``params["layers"]``, ``params["dense_layers"]``) is
+    grouped with the same leaf of every other layer of that list (in
+    layer order), each other leaf stands alone."""
     n = len(tree_flatten(params)[0])
-    if moment_dtype != "int8" or not isinstance(params, dict) \
-            or not params.get("layers"):
+    if moment_dtype != "int8" or not isinstance(params, dict):
         return [[i] for i in range(n)]
     groups, start = [], 0
     for key in sorted(params):
         sub = tree_flatten(params[key])[0]
-        if key == "layers":
+        if _stacked(params, key):
             per = len(tree_flatten(params[key][0])[0])
             n_layers = len(params[key])
             groups += [[start + layer * per + j for layer in range(n_layers)]

@@ -290,10 +290,11 @@ def test_init_params_without_a_device_needs_the_card():
             "table"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("family", ["moe", "gemma2 pairs"])
+@pytest.mark.parametrize("family", ["vlm", "gemma2 pairs"])
 def test_unported_families_name_their_slice(family):
-    """moe raises NotImplementedError naming slice 4c; gemma2's
-    local/global pairs, ported in slice 4c-2, no longer raise."""
+    """vlm raises NotImplementedError naming slice 4c; gemma2's
+    local/global pairs, ported in slice 4c-2, no longer raise (nor does
+    moe since slice 4c-3, tests/test_torch_moe.py)."""
     if family == "gemma2 pairs":
         cfg = dataclasses.replace(smoke_config("qwen2-0.5b"),
                                   local_global_period=2, local_window=4)
@@ -318,7 +319,7 @@ def test_dense_cache_decode_is_the_ssm_familys():
     """The dense-cache decode takes the ssm family and, since slice 4c-1,
     the dense and hybrid ones: qwen2's init_cache gives a KV cache per
     layer, and since slice 4c-2 gemma2's pairs a ring of their local
-    window on each local layer, while moe raises naming slice 4c."""
+    window on each local layer, while vlm raises naming slice 4c."""
     cfg = smoke_config("qwen2-0.5b")
     cache = T.init_cache(cfg, 1, 2, 8, device="cpu")
     assert [tuple(c["k"].shape) for c in cache["layers"]] \
@@ -328,7 +329,7 @@ def test_dense_cache_decode_is_the_ssm_familys():
                          1, 2, 8, device="cpu")
     assert [c["k"].shape[1] for c in pairs["layers"]] == [4, 8]
     with pytest.raises(NotImplementedError, match="slice 4c"):
-        T.init_cache(dataclasses.replace(cfg, family="moe"), 1, 2, 8,
+        T.init_cache(dataclasses.replace(cfg, family="vlm"), 1, 2, 8,
                      device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         sstep.build_prefill(CFG, tuner=object())

@@ -451,16 +451,17 @@ def test_decode_loop_serves_the_dense_family():
 
 
 def test_unported_dense_cache_families_name_their_slice():
-    """moe keeps raising, naming 4c; gemma2's local/global pairs are
-    served since slice 4c-2 (tests/test_torch_dense_family.py)."""
+    """vlm keeps raising, naming 4c; gemma2's local/global pairs are
+    served since slice 4c-2 (tests/test_torch_dense_family.py), the moe
+    family since slice 4c-3 (tests/test_torch_moe.py)."""
     pairs = dataclasses.replace(smoke_config(DENSE), local_global_period=2,
                                 local_window=4)
     assert len(T.init_cache(pairs, 1, 2, 8, device="cpu")["layers"]) == 2
-    moe = dataclasses.replace(smoke_config(DENSE), family="moe")
+    vlm = dataclasses.replace(smoke_config(DENSE), family="vlm")
     with pytest.raises(NotImplementedError, match="slice 4c"):
-        T.init_cache(moe, 1, 2, 8, device="cpu")
+        T.init_cache(vlm, 1, 2, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 4c"):
-        T.decode_step(Comm(), moe, {}, {}, torch.zeros(1, 1), None)
+        T.decode_step(Comm(), vlm, {}, {}, torch.zeros(1, 1), None)
 
 
 ZAMBA_BLOCKED = textwrap.dedent("""
