@@ -179,9 +179,37 @@ Phases; any failure exits non-zero before the result line is printed:
      launches), its decode loop through launch.serve's `_decode_loop`,
      and one decode step against 32768-slot MLA caches at batch 4 that
      must change every layer's c_kv and k_rope at slot 32767 in every row
-     and nothing else.
+     and nothing else;
+ 12. serve hubert-xlarge, the encoder, at full width (phase 11's models
+     freed first) — (a) kernel 4 at its calls (Hq = Hkv = 16, D 80,
+     non-causal: no tile is skipped) bf16 and f32 over 4096 tokens
+     against the plain and the blockwise plain versions; (b) timed over
+     32768 tokens beside that version, its bound and scaled_dot_product_
+     attention without a mask; (c) build_prefill (48 layers, d 1280, f32
+     weights) over SERVE_RUN's frames (1, 32768, 1280) from input_specs:
+     exactly 48 non-causal kernel-4 launches (counts set to 0 just
+     before, read just after), finite logits, walls, frames/s, peak;
+     every call held to the blockwise plain version; forward in f32
+     compute over the first 8192 frames through kernel 4 and that
+     version: the hidden state at every position and the logits within
+     1e-2 of their largest; (d) `launch.serve --arch hubert-xlarge`
+     raises the reference's SystemExit with no launch and no memory;
+ 13. serve phi-3-vision-4.2b at full width — (a), (b) kernel 4 at its
+     calls (Hq = Hkv = 32, D 96, causal) as 12a-b, SDPA causal; (c)
+     build_prefill (32 layers, d 3072, f32 weights) over a 32768-token
+     prompt with frontend embeds (1, 576, 3072) from input_specs: exactly
+     32 launches, each held; the f32 gate over 8192 tokens with the
+     embeds (logits within 1e-2), whose logits without the embeds must
+     differ by more than that; (d) `launch.serve --arch phi-3-vision-
+     4.2b` through the paged engine at the reference's defaults, one
+     request's prefill logits against the plain version; (e) one decode
+     step against 32768-slot dense caches at batch 2 (32 layers of k
+     and v, 24 GiB) that must change slot 32767 of every row of every
+     cache leaf and nothing else.
 
-The last lines are one JSON object per kernel run ({"kernels": [...]}),
+The last lines are one JSON object per kernel run ({"kernels": [...]}:
+the seven kernels, then one flash_attention row per prefill shape of
+phases 10-13, with a "shape" key),
 the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.
 """
@@ -2951,10 +2979,10 @@ def reference_windows(cfg) -> list:
 
 
 def dense_attention_shapes(archs) -> list:
-    """(label, Hq, Hkv, D, Dv, window, softcap, launches in one prefill)
-    of each kind of kernel-4 call the three models' prefills make:
-    gemma2's local and global layers, danube's windowed and internlm2's
-    causal ones."""
+    """(label, Hq, Hkv, D, Dv, window, softcap, launches in one prefill,
+    causal) of each kind of kernel-4 call the three models' prefills
+    make: gemma2's local and global layers, danube's windowed and
+    internlm2's causal ones."""
     shapes = []
     for mod in archs:
         cfg = mod.CONFIG
@@ -2964,22 +2992,23 @@ def dense_attention_shapes(archs) -> list:
                     else " local" if window else " global")
             shapes.append((cfg.name + kind, cfg.n_heads, cfg.n_kv_heads,
                            cfg.hd, cfg.hd, window, cfg.softcap,
-                           windows.count(window)))
+                           windows.count(window), cfg.causal))
     return shapes
 
 
 def check_dense_kernels(torch, ops, ref, fa, ra, gen, shapes) -> None:
-    """10a, 11a: kernel 4 at each shape of `dense_attention_shapes` or
-    `moe_attention_shapes` (B 1, its heads and head dims, causal, its
-    softcap, its window cut to DENSE_CHECK_WINDOW) over
+    """10a, 11a, 12a, 13a: kernel 4 at each shape of
+    `dense_attention_shapes`, `moe_attention_shapes` or
+    `frontend_attention_shapes` (B 1, its heads and head dims, causal or
+    not, its softcap, its window cut to DENSE_CHECK_WINDOW) over
     DENSE_CHECK_LEN tokens, bf16 and f32, against `plain_attention`
     (phase 2's limits; f32 against the f64 evaluation) and against
     `blockwise_attention`, the plain version 10b and 10d hold it to (in
     bf16; in f32 that version's own f32 products err by ~3e-5 at D 256,
     see `plain_attention`, so its gap is printed)."""
     seq = DENSE_CHECK_LEN
-    for label, hq, hkv, d, dv, window, softcap, _ in shapes:
-        kw = dict(causal=True, softcap=softcap,
+    for label, hq, hkv, d, dv, window, softcap, _, causal in shapes:
+        kw = dict(causal=causal, softcap=softcap,
                   window=DENSE_CHECK_WINDOW if window else None)
         for dt in (torch.bfloat16, torch.float32):
             q, k, v = attention_inputs(torch, gen, 1, hq, hkv, seq, seq, d,
@@ -3039,25 +3068,27 @@ def first_sdpa_backend(torch, candidates, sdpa):
 
 
 def time_dense_attention(torch, fa, ref, ra, gen, card, shape, seq) -> dict:
-    """10a, 11a: kernel 4 at one shape of `dense_attention_shapes` or
-    `moe_attention_shapes` over `seq` tokens (bf16, B 1, causal, the real
-    window and softcap): its C entry back to back, the blockwise plain
-    version once, and scaled_dot_product_attention on a fused backend as
-    a yardstick the port never calls, on k and v repeated to Hq heads:
-    causal without a softcap; for a window, with the window as an
-    additive mask, which makes it compute all L^2 pairs; for a head dim
-    of v apart from q's (MLA), causal on the first fused backend that
-    takes it, named."""
+    """10a, 11a, 12b, 13b: kernel 4 at one shape of
+    `dense_attention_shapes`, `moe_attention_shapes` or
+    `frontend_attention_shapes` over `seq` tokens (bf16, B 1, causal or
+    not, the real window and softcap): its C entry back to back, the
+    blockwise plain version once, and scaled_dot_product_attention on a
+    fused backend as a yardstick the port never calls, on k and v
+    repeated to Hq heads: causal (or, for an encoder, without a mask)
+    and without a softcap; for a window, with the window as an additive
+    mask, which makes it compute all L^2 pairs; for a head dim of v
+    apart from q's (MLA), on the first fused backend that takes it,
+    named."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    label, hq, hkv, d, dv, window, softcap, calls = shape
+    label, hq, hkv, d, dv, window, softcap, calls, causal = shape
     dt = torch.bfloat16
     q, k, v = attention_inputs(torch, gen, 1, hq, hkv, seq, seq, d, dt, dv)
     scale = 1.0 / math.sqrt(d)
-    kw = dict(causal=True, window=window, softcap=softcap, sm_scale=scale)
+    kw = dict(causal=causal, window=window, softcap=softcap, sm_scale=scale)
     out = fa.flash_attention(q, k, v, **kw)
     lib = fa._library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 1,
-            hq, hkv, seq, seq, d, dv, seq, 1, window or 0,
+            hq, hkv, seq, seq, d, dv, seq, int(causal), window or 0,
             float(softcap or 0.0), scale,
             torch.cuda.current_stream().cuda_stream)
     kernel_ms = time_ms(lambda: lib.repro_flash_attention_fwd(*args),
@@ -3073,8 +3104,8 @@ def time_dense_attention(torch, fa, ref, ra, gen, card, shape, seq) -> dict:
         backends = [SDPBackend.FLASH_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION,
                     SDPBackend.CUDNN_ATTENTION]
-        yard = "causal"
-        sdpa_kw = dict(is_causal=True)
+        yard = "causal" if causal else "no mask"
+        sdpa_kw = dict(is_causal=causal)
     else:
         backends = [SDPBackend.EFFICIENT_ATTENTION,
                     SDPBackend.CUDNN_ATTENTION]
@@ -3092,14 +3123,15 @@ def time_dense_attention(torch, fa, ref, ra, gen, card, shape, seq) -> dict:
     with sdpa_kernel(backends):
         sdpa_diff = (sdpa().float() - out.float()).abs().max().item()
         library_ms = time_ms(sdpa, iters=3, warmup=1)
-    pairs, _ = mask_counts(seq, seq, True, window)
+    pairs, _ = mask_counts(seq, seq, causal, window)
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
         * q.element_size()
     ops_count = 2 * (d + dv) * pairs * hq
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_count / PEAK_OPS_PER_S[str(dt)] * 1e3
+    mask = "causal" if causal else "non-causal"
     log(f"  kernel 4 at {label} B1 Hq{hq} Hkv{hkv} L{seq} D{d} Dv{dv} bf16 "
-        f"causal window {window} softcap {softcap} ({card}): {kernel_ms:.5f}"
+        f"{mask} window {window} softcap {softcap} ({card}): {kernel_ms:.5f}"
         f" ms ({ops_count / kernel_ms / 1e9:.1f} TFLOP/s of kept products);"
         f" blockwise plain {plain_ms:.5f} ms (max|err| vs it {err:.3e}, "
         f"err/limit {over:.3f}); scaled_dot_product_attention ({yard}): "
@@ -3114,7 +3146,7 @@ def time_dense_attention(torch, fa, ref, ra, gen, card, shape, seq) -> dict:
     torch.cuda.empty_cache()
     dims = f"D {d}" if dv == d else f"D {d}, Dv {dv}"
     return dict(shape=f"{label} (B 1, Hq {hq}, Hkv {hkv}, L {seq}, {dims}, "
-                f"bf16, causal, window {window}, softcap {softcap})",
+                f"bf16, {mask}, window {window}, softcap {softcap})",
                 calls=calls, max_abs_err=err, ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(t_bytes, t_ops),
@@ -3122,11 +3154,13 @@ def time_dense_attention(torch, fa, ref, ra, gen, card, shape, seq) -> dict:
 
 
 def prefill_dense(torch, np, mod, ops, ref, ra, cfg=None):
-    """10b, 10d, 11b, 11c: build_prefill on `mod`'s model at full width
-    (`cfg`, default its CONFIG; seeded random weights in its param_dtype,
-    bf16 compute) over SERVE_RUN's prompt: exactly one kernel-4 launch a
-    layer, each with the reference's window for that layer, and finite
-    logits; the wall of a second prefill too (the first call in a
+    """10b, 10d, 11b, 11c, 12c, 13c: build_prefill on `mod`'s model at
+    full width (`cfg`, default its CONFIG; seeded random weights in its
+    param_dtype, bf16 compute) over SERVE_RUN's prompt (`prefill_inputs`:
+    hubert's frames, phi-3-vision's tokens and frontend embeds): exactly
+    one kernel-4 launch a layer, each with the reference's window for
+    that layer and the config's causal flag, and finite logits; the wall
+    of a second prefill too (the first call in a
     process carries one-time start-up: `tools/profile_prefill` read 8.8
     s for danube's, then 0.75); then the same prefill with kernel 4 held
     to `blockwise_attention` on every query row of each call, each
@@ -3135,20 +3169,20 @@ def prefill_dense(torch, np, mod, ops, ref, ra, cfg=None):
     from repro_torch.core.heap import tree_flatten
     from repro_torch.models import transformer
     from repro_torch.serve import step as sstep
+    from repro_torch.tools.profile_prefill import prefill_inputs
     cfg, run = cfg or mod.CONFIG, mod.SERVE_RUN
     params = transformer.init_params(cfg, seed=0, device="cuda")
     n_params = sum(w.numel() for w in tree_flatten(params)[0])
     n_bytes = sum(w.numel() * w.element_size()
                   for w in tree_flatten(params)[0])
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        1, cfg.vocab, size=(run["prefill_batch"], run["prefill_len"])),
-        device="cuda")
+    batch = prefill_inputs(cfg, run, "cuda")
     prefill = sstep.build_prefill(cfg)
     kernel = ops._fa.flash_attention
-    windows = []
+    windows, causal = [], []
 
     def spy(q, k, v, **kw):
         windows.append(kw.get("window"))
+        causal.append(kw.get("causal"))
         return kernel(q, k, v, **kw)
 
     torch.cuda.synchronize()
@@ -3156,13 +3190,13 @@ def prefill_dense(torch, np, mod, ops, ref, ra, cfg=None):
     with mock.patch.object(ops._fa, "flash_attention", spy):
         _reset_counts()                              # path starts
         t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": tokens})
+        logits = prefill(params, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _counts()                           # path ends
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
-    prefill(params, {"tokens": tokens})
+    prefill(params, batch)
     torch.cuda.synchronize()
     again = time.perf_counter() - t0
     want_windows = reference_windows(cfg)
@@ -3170,15 +3204,20 @@ def prefill_dense(torch, np, mod, ops, ref, ra, cfg=None):
         f" GiB of {cfg.param_dtype} weights; {cfg.n_layers} layers, d "
         f"{cfg.d_model}, {cfg.n_heads} q heads over {cfg.n_kv_heads} KV "
         f"heads of {cfg.hd}, vocab {cfg.vocab}), batch "
-        f"{run['prefill_batch']} x L {run['prefill_len']}: wall {wall:.3f} s "
-        f"first, {again:.3f} s again ("
-        f"{run['prefill_batch'] * run['prefill_len'] / again:.1f} prompt "
-        f"tok/s), peak memory {peak / 2**30:.3f} GiB, launches {counts}, "
-        f"windows {dict((w, windows.count(w)) for w in set(windows))}")
+        f"{run['prefill_batch']} x L {run['prefill_len']} ("
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+        + f"): wall {wall:.3f} s first, {again:.3f} s again ("
+        f"{run['prefill_batch'] * run['prefill_len'] / again:.1f} "
+        f"{'frames' if cfg.frontend == 'audio' else 'prompt tok'}/s), peak "
+        f"memory {peak / 2**30:.3f} GiB, launches {counts}, "
+        f"windows {dict((w, windows.count(w)) for w in set(windows))}, "
+        f"causal {dict((c, causal.count(c)) for c in set(causal))}")
     want = dict({name: 0 for name in counts}, flash_attention=cfg.n_layers)
-    if counts != want or windows != want_windows:
+    if counts != want or windows != want_windows \
+            or causal != [cfg.causal] * cfg.n_layers:
         raise AssertionError(f"prefill launches {counts} with windows "
-                             f"{windows}, want {want} with {want_windows}")
+                             f"{windows}, causal {causal}, want {want} with "
+                             f"{want_windows}, causal {cfg.causal}")
     if logits.shape != (run["prefill_batch"], 1, cfg.vocab) \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
@@ -3193,7 +3232,7 @@ def prefill_dense(torch, np, mod, ops, ref, ra, cfg=None):
 
     t0 = time.perf_counter()
     with mock.patch.object(ops._fa, "flash_attention", attn_both):
-        plain = prefill(params, {"tokens": tokens})
+        plain = prefill(params, batch)
     torch.cuda.synchronize()
     both_wall = time.perf_counter() - t0
     err = (logits - plain).abs().max().item()
@@ -3209,51 +3248,87 @@ def prefill_dense(torch, np, mod, ops, ref, ra, cfg=None):
     if len(over) != cfg.n_layers or not max(over) <= 1.0:
         raise AssertionError(f"kernel 4 in the prefill's calls: err/limit "
                              f"{over}")
-    del logits, plain, tokens
+    del logits, plain, batch
     torch.cuda.empty_cache()
     return params, counts
 
 
-def gemma_f32(torch, np, mod, ops, ref, ra, params) -> None:
-    """10b: gemma2's prefill in f32 compute over the first GEMMA_F32_LEN
-    tokens of SERVE_RUN's prompt, through kernel 4 and through the
-    blockwise plain version: logits within DENSE_F32_LOGITS_RTOL of the
-    largest."""
-    from repro_torch.serve import step as sstep
-    cfg, run = mod.CONFIG, mod.SERVE_RUN
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        1, cfg.vocab, size=(run["prefill_batch"], run["prefill_len"])),
-        device="cuda")[:, :GEMMA_F32_LEN]
-    prefill32 = sstep.build_prefill(dataclasses.replace(
-        cfg, dtype=torch.float32))
-    t0 = time.perf_counter()
-    logits = prefill32(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    wall32 = time.perf_counter() - t0
+def f32_gate(torch, mod, ops, ref, ra, params, length) -> None:
+    """10b, 12c, 13c: `mod`'s model in f32 compute over the first `length`
+    positions of SERVE_RUN's prompt (`prefill_inputs`; frontend embeds
+    whole), `forward` through kernel 4 and through the blockwise plain
+    version: the last position's logits (the prefill's) within
+    DENSE_F32_LOGITS_RTOL of the largest.  An encoder's hidden state is
+    held at every position too, each within that share of the
+    position's largest |h|: a bidirectional layer mixes every position
+    into every other, so a fault at any row shows anywhere.  With
+    frontend embeds, the kernel path's logits without them must differ
+    from those with them by more than the tolerance: the embeds reach
+    the output."""
+    from repro_torch.models import layers, transformer
+    from repro_torch.parallel.comm import Comm
+    from repro_torch.tools.profile_prefill import prefill_inputs
+    cfg = dataclasses.replace(mod.CONFIG, dtype=torch.float32)
+    batch = {k: v if k == "frontend_embeds" else v[:, :length]
+             for k, v in prefill_inputs(mod.CONFIG, mod.SERVE_RUN,
+                                        "cuda").items()}
+    comm = Comm()
+
+    @torch.no_grad()
+    def run(attn, inputs):
+        t0 = time.perf_counter()
+        with mock.patch.object(ops._fa, "flash_attention", attn):
+            h, _ = transformer.forward(
+                comm, cfg, params, inputs.get("tokens"),
+                frames=inputs.get("frames"),
+                frontend_embeds=inputs.get("frontend_embeds"))
+            logits = layers.lm_logits(comm, cfg, params["embed"], h[:, -1:])
+        torch.cuda.synchronize()
+        return h, logits, time.perf_counter() - t0
 
     def attn_plain(q, k, v, **kw):
         return blockwise_attention(torch, ref, ra, q, k, v, **kw)
 
-    with mock.patch.object(ops._fa, "flash_attention", attn_plain):
-        plain = prefill32(params, {"tokens": tokens})
+    h, logits, wall32 = run(ops._fa.flash_attention, batch)
+    h_plain, plain, _ = run(attn_plain, batch)
     err = (logits - plain).abs().max().item()
     scale = plain.abs().max().item()
-    log(f"  f32 prefill over {GEMMA_F32_LEN} tokens, logits kernel path vs "
-        f"plain path: max|err| {err:.4e}, max|logit| {scale:.4f}, rel "
-        f"{err / scale:.3e} (tol {DENSE_F32_LOGITS_RTOL}); argmax "
-        f"{int(logits.argmax())} vs {int(plain.argmax())}; kernel-path wall "
-        f"{wall32:.3f} s")
-    if not (torch.isfinite(logits).all()
-            and err <= DENSE_F32_LOGITS_RTOL * scale):
-        raise AssertionError(f"f32 prefill logits differ by {err} "
-                             f"(max|logit| {scale})")
-    del logits, plain
+    tol = DENSE_F32_LOGITS_RTOL
+    over = [not torch.isfinite(logits).all(), err > tol * scale]
+    msg = (f"  f32 {cfg.name} over {length} positions ("
+           + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+           + f"), logits kernel path vs plain path: max|err| {err:.4e}, "
+           f"max|logit| {scale:.4f}, rel {err / scale:.3e} (tol {tol}); "
+           f"argmax {int(logits.argmax())} vs {int(plain.argmax())}; "
+           f"kernel-path wall {wall32:.3f} s")
+    if cfg.is_encoder:
+        rel = ((h - h_plain).abs().amax(-1)
+               / h_plain.abs().amax(-1)).max().item()
+        msg += (f"; hidden state at all {h.shape[1]} positions, worst "
+                f"max|err| / max|h| of a position {rel:.3e} (tol {tol})")
+        over.append(not rel <= tol)
+    if "frontend_embeds" in batch:
+        _, bare, _ = run(ops._fa.flash_attention,
+                         {k: v for k, v in batch.items()
+                          if k != "frontend_embeds"})
+        moved = (logits - bare).abs().max().item()
+        msg += (f"; without the frontend embeds the logits move by "
+                f"{moved:.4e} ({moved / scale:.3e} of the largest, must "
+                f"exceed {tol})")
+        over.append(not moved > tol * scale)
+    log(msg)
+    if any(over):
+        raise AssertionError(f"f32 gate of {cfg.name}: failed checks "
+                             f"{over} (non-finite, logits, then hidden "
+                             f"state or embeds)")
+    del h, h_plain, logits, plain, batch
     torch.cuda.empty_cache()
 
 
 def long_decode_dense(torch, np, mod, params, cfg=None) -> None:
-    """10c, 11c: one build_decode_step of `mod`'s model (`cfg`, default
-    its CONFIG: gemma2; deepseek-v3 cut to 4 layers) at SERVE_RUN's long
+    """10c, 11c, 13e: one build_decode_step of `mod`'s model (`cfg`,
+    default its CONFIG: gemma2, phi-3-vision; deepseek-v3 cut to 4
+    layers) at SERVE_RUN's long
     decode, batch `long_batch` against caches of `long_cache_len` slots
     (gemma2's local layers: rings of local_window slots; MLA: the latent
     c_kv and k_rope), every cache leaf filled from a generator seeded by
@@ -3325,8 +3400,8 @@ def long_decode_dense(torch, np, mod, params, cfg=None) -> None:
 
 
 def launch_dense(torch, np, mod, ref, layers, logits_check=False) -> dict:
-    """10b, 10d: `python -m repro_torch.launch.serve --arch <arch>` through
-    its main() at the reference's defaults (the paged engine, batch 4,
+    """10b, 10d, 13d: `python -m repro_torch.launch.serve --arch <arch>`
+    through its main() at the reference's defaults (the paged engine, batch 4,
     prompt 32, 16 tokens, max_seq max(--cache-len 128, 48)): (4, 16)
     tokens and one paged prefill of kernel-4 launches per layer per
     request (counts set to 0 just before, read just after).  With
@@ -3433,10 +3508,10 @@ def moe_attention_shapes(granite_cfg, deepseek_cfg) -> list:
     g, ds = granite_cfg, deepseek_cfg
     m = ds.mla
     return [(g.name, g.n_heads, g.n_kv_heads, g.hd, g.hd, None, None,
-             g.n_layers),
+             g.n_layers, True),
             (ds.name + " MLA", ds.n_heads, ds.n_heads,
              m.qk_nope_dim + m.qk_rope_dim, m.v_dim, None, None,
-             ds.n_layers)]
+             ds.n_layers, True)]
 
 
 def moe_f32_gate(torch, np, cfg, run, ops, ref, ra, params) -> None:
@@ -3525,6 +3600,48 @@ def moe_f32_gate(torch, np, cfg, run, ops, ref, ra, params) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 12-13: the audio and vlm families at full width — kernel 4 at
+# hubert-xlarge's non-causal D 80 and phi-3-vision-4.2b's D 96
+# ---------------------------------------------------------------------------
+
+# hubert's f32 gate over this many frames (gemma2's GEMMA_F32_LEN, for
+# the same reason); phi-3-vision's takes GEMMA_F32_LEN tokens
+AUDIO_F32_LEN = GEMMA_F32_LEN
+
+
+def frontend_attention_shapes(hubert_cfg, phi_cfg) -> list:
+    """`dense_attention_shapes`' tuples of the two frontends' kernel-4
+    calls: hubert's non-causal 16 heads of 80 (a KV head a q head) and
+    phi-3-vision's causal 32 heads of 96."""
+    return [(c.name, c.n_heads, c.n_kv_heads, c.hd, c.hd, c.window,
+             c.softcap, c.n_layers, c.causal) for c in (hubert_cfg, phi_cfg)]
+
+
+def encoder_launcher(torch, mod) -> None:
+    """12d: `python -m repro_torch.launch.serve --arch <encoder>` through
+    its main() raises the reference's SystemExit("encoder-only arch has no
+    decode loop") before any work on the card: no launch, no memory."""
+    from repro_torch.launch import serve as launch_serve
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    _reset_counts()                                  # path starts
+    try:
+        launch_serve.main(["--arch", mod.CONFIG.name])
+        said = None
+    except SystemExit as e:
+        said = str(e)
+    torch.cuda.synchronize()
+    counts = _counts()                               # path ends
+    grew = torch.cuda.memory_allocated() - before
+    log(f"  launch.serve main ({mod.CONFIG.name}): SystemExit {said!r}, "
+        f"launches {counts}, memory allocated meanwhile {grew} B")
+    if said != "encoder-only arch has no decode loop" or any(
+            counts.values()) or grew:
+        raise AssertionError(f"the encoder's launcher said {said!r}, "
+                             f"launched {counts}, allocated {grew} B")
+
+
 def main() -> int:
     try:
         import torch
@@ -3542,8 +3659,10 @@ def main() -> int:
     from repro_torch.configs import gemma2_9b as gemma
     from repro_torch.configs import granite_moe_3b_a800m as granite
     from repro_torch.configs import h2o_danube_3_4b as danube
+    from repro_torch.configs import hubert_xlarge as hubert
     from repro_torch.configs import internlm2_20b as internlm
     from repro_torch.configs import mamba2_2_7b as mamba
+    from repro_torch.configs import phi_3_vision_4_2b as phi3v
     from repro_torch.configs import qwen2_0_5b as serving
     from repro_torch.configs import zamba2_1_2b as zamba
     from repro_torch.kernels import _build, ref, ops
@@ -3636,7 +3755,7 @@ def main() -> int:
                                          gemma.SERVE_RUN["prefill_len"])
                     for s in shapes]
     params, gemma_launches = prefill_dense(torch, np, gemma, ops, ref, ra)
-    gemma_f32(torch, np, gemma, ops, ref, ra, params)
+    f32_gate(torch, gemma, ops, ref, ra, params, GEMMA_F32_LEN)
     long_decode_dense(torch, np, gemma, params)
     del params
     gc.collect()
@@ -3689,10 +3808,45 @@ def main() -> int:
     decode_loop(torch, np, deepseek, ds_cfg)
     moe_paths = [granite_launches, ds_launches]
 
+    log(f"== phase 12: serve {hubert.CONFIG.name} (an encoder) at full "
+        f"width")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  memory allocated as phase 12 starts: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    hubert_shape, phi_shape = frontend_attention_shapes(hubert.CONFIG,
+                                                        phi3v.CONFIG)
+    check_dense_kernels(torch, ops, ref, fa, ra, gen, [hubert_shape])
+    frontend_timing = [time_dense_attention(
+        torch, fa, ref, ra, gen, card, hubert_shape,
+        hubert.SERVE_RUN["prefill_len"])]
+    params, hubert_launches = prefill_dense(torch, np, hubert, ops, ref, ra)
+    f32_gate(torch, hubert, ops, ref, ra, params, AUDIO_F32_LEN)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    encoder_launcher(torch, hubert)
+
+    log(f"== phase 13: serve {phi3v.CONFIG.name} with its frontend embeds "
+        f"at full width")
+    check_dense_kernels(torch, ops, ref, fa, ra, gen, [phi_shape])
+    frontend_timing.append(time_dense_attention(
+        torch, fa, ref, ra, gen, card, phi_shape,
+        phi3v.SERVE_RUN["prefill_len"]))
+    params, phi_launches = prefill_dense(torch, np, phi3v, ops, ref, ra)
+    f32_gate(torch, phi3v, ops, ref, ra, params, GEMMA_F32_LEN)
+    long_decode_dense(torch, np, phi3v, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    frontend_paths = [hubert_launches, phi_launches,
+                      launch_dense(torch, np, phi3v, ref, layers,
+                                   logits_check=True)]
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
         + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths \
-        + moe_paths
+        + moe_paths + frontend_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -3703,7 +3857,9 @@ def main() -> int:
         f"attention (plain SIM, NoC SIM, mono, window+softcap) "
         f"{ring_launches}, zamba2 prefill {zamba_launches}, dense family "
         f"(gemma2 prefill, launcher; danube; internlm2) {dense_paths}, moe "
-        f"family (granite prefill, deepseek prefill) {moe_paths}")
+        f"family (granite prefill, deepseek prefill) {moe_paths}, audio "
+        f"and vlm (hubert prefill, phi-3-vision prefill, launcher) "
+        f"{frontend_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]
@@ -3725,8 +3881,8 @@ def main() -> int:
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                     bound_by=t["bound_by"], library_ms=t["library_ms"])
                for name, source, replaces, t in rows]
-    # kernel 4 at the dense and moe families' prefill shapes, each with the
-    # launches of that shape in its model's prefill
+    # kernel 4 at the dense, moe, audio and vlm families' prefill shapes,
+    # each with the launches of that shape in its model's prefill
     kernels += [dict(name="flash_attention", route="cuda",
                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
                      replaces="src/repro/kernels/flash_attention.py:79",
@@ -3734,7 +3890,7 @@ def main() -> int:
                      max_abs_err=t["max_abs_err"], ms=t["ms"],
                      plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                      bound_by=t["bound_by"], library_ms=t["library_ms"])
-                for t in dense_timing + moe_timing]
+                for t in dense_timing + moe_timing + frontend_timing]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")

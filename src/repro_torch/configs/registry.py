@@ -1,5 +1,4 @@
-"""--arch <id> registry.  Only the architectures the port serves are
-registered."""
+"""--arch <id> registry: the reference's ten architectures."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +13,8 @@ ARCHS = {
     "zamba2-1.2b": "zamba2_1_2b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "hubert-xlarge": "hubert_xlarge",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 

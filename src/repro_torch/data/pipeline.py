@@ -5,6 +5,14 @@ Deterministic per (seed, step): any batch can be made again after a
 restart without coordination.  Batches are numpy arrays; the train step
 moves them to its device.  `iterate` keeps a bounded prefetch queue
 filled by a background thread ahead of the training loop.
+
+One departure from the reference: its `SyntheticLM` draws a vision
+config's frontend embeds at width 1 (it has no argument for their
+width), which its model cannot take (`forward` concatenates them with
+(B, L - nf, d_model) embeddings).  The port's takes `frontend_dim`, whose
+default keeps that rule, and `make_pipeline` and the train launcher pass
+d_model (`frontend_kwargs`), the width `input_specs` gives.  The embeds
+are the batch's last draw, so tokens and targets stay the reference's.
 """
 from __future__ import annotations
 
@@ -21,13 +29,14 @@ class SyntheticLM:
 
     def __init__(self, vocab: int, seq_len: int, global_batch: int,
                  seed: int = 0, frames_dim: int | None = None,
-                 frontend_tokens: int = 0):
+                 frontend_tokens: int = 0, frontend_dim: int | None = None):
         self.vocab = vocab
         self.seq_len = seq_len
         self.global_batch = global_batch
         self.seed = seed
         self.frames_dim = frames_dim
         self.frontend_tokens = frontend_tokens
+        self.frontend_dim = frontend_dim
 
     def batch(self, step: int) -> dict:
         rng = np.random.default_rng((self.seed, step))
@@ -44,10 +53,10 @@ class SyntheticLM:
         out["tokens"] = toks[:, :self.seq_len].astype(np.int32)
         out["targets"] = toks[:, 1:].astype(np.int32)
         if self.frontend_tokens:
+            # the reference's width is 1 (frames_dim is None here)
+            width = 1 if self.frontend_dim is None else self.frontend_dim
             out["frontend_embeds"] = rng.standard_normal(
-                (self.global_batch, self.frontend_tokens, self.frames_dim
-                 or 0) if self.frames_dim else
-                (self.global_batch, self.frontend_tokens, 1),
+                (self.global_batch, self.frontend_tokens, width),
                 dtype=np.float32)
         return out
 
@@ -78,3 +87,24 @@ class SyntheticLM:
         finally:
             stop.set()
             t.join(timeout=5)
+
+
+def frontend_kwargs(cfg) -> dict:
+    """`SyntheticLM`'s frontend arguments for `cfg`: frames of d_model for
+    the audio frontend, n_frontend_tokens embeds of d_model for the vision
+    one (the reference passes no width for those, see the module's
+    docstring)."""
+    return dict(
+        frames_dim=cfg.d_model if cfg.frontend == "audio" else None,
+        frontend_tokens=(cfg.n_frontend_tokens
+                         if cfg.frontend == "vision" else 0),
+        frontend_dim=cfg.d_model if cfg.frontend == "vision" else None)
+
+
+def make_pipeline(cfg, shape: str, seed: int = 0) -> SyntheticLM:
+    """The pipeline of a shape cell (`models.config.SHAPES`) for `cfg`."""
+    from ..models.config import SHAPES
+    s = SHAPES[shape]
+    return SyntheticLM(vocab=cfg.vocab, seq_len=s["seq_len"],
+                       global_batch=s["global_batch"], seed=seed,
+                       **frontend_kwargs(cfg))

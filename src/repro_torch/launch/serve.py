@@ -3,10 +3,13 @@ symmetric-heap KV cache, on the CUDA card (or the CPU with --device cpu).
 
 Submits --batch requests of random prompts up front and drains them
 through an engine sized, as the reference's, for sequences of
-max(--cache-len, --prompt-len + --tokens) tokens.  Families without a
-paged path (ssm, hybrid, moe) take the reference's dense-cache decode loop
-instead: the prompt fed teacher-forced through `decode_step` against
-caches of --cache-len slots, then --tokens greedy tokens.
+max(--cache-len, --prompt-len + --tokens) tokens (the dense and vlm
+families; the engine takes prompts of tokens only, as the reference's).
+Families without a paged path (ssm, hybrid, moe) take the reference's
+dense-cache decode loop instead: the prompt fed teacher-forced through
+`decode_step` against caches of --cache-len slots, then --tokens greedy
+tokens.  An encoder-only arch (hubert-xlarge) has no decode loop: the
+launcher exits for it, as the reference's does, before any work.
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b
   python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke --device cpu
@@ -21,6 +24,8 @@ caches of --cache-len slots, then --tokens greedy tokens.
   python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
   python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --smoke --device cpu
   python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch phi-3-vision-4.2b
+  python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --smoke --device cpu
 
 deepseek-v3-671b at full size (671 B parameters) does not fit one card;
 `chip_smoke.py` serves it cut to its `SERVE_RUN["n_layers"]` layers
@@ -98,6 +103,8 @@ def main(argv=None):
     from ..serve.engine import ServeEngine
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encoder:
+        raise SystemExit("encoder-only arch has no decode loop")
     device = resolve_device(args.device)
     if cfg.family not in transformer.paged_families():
         if cfg.family != "ssm" and cfg.window is None \

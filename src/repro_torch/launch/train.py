@@ -4,6 +4,14 @@ with --device cpu), with checkpoint/restart and straggler records.
   python -m repro_torch.launch.train --arch qwen2-0.5b
   python -m repro_torch.launch.train --arch qwen2-0.5b --smoke --device cpu \\
          --steps 12 --ckpt-dir /tmp/ckpt --resume auto
+  python -m repro_torch.launch.train --arch hubert-xlarge --smoke --device cpu
+  python -m repro_torch.launch.train --arch phi-3-vision-4.2b --smoke \\
+         --device cpu
+
+The audio frontend trains on stub frames (B, L, d_model) and the vision
+one on stub frontend embeds (B, n_frontend_tokens, d_model) beside the
+tokens, as the reference's launcher makes them (at d_model where the
+reference's pipeline draws width 1: `data/pipeline.py`).
 
 The flags of the reference launcher whose services are not ported yet
 are accepted and refused with the slice that brings them.
@@ -106,7 +114,7 @@ def run(argv=None) -> TrainRun:
     from .. import resolve_device
     from ..ckpt import manager as ckpt
     from ..configs import get_config, smoke_config
-    from ..data.pipeline import SyntheticLM
+    from ..data.pipeline import SyntheticLM, frontend_kwargs
     from ..models import transformer
     from ..train import optimizer as opt
     from ..train import step as tstep
@@ -115,12 +123,13 @@ def run(argv=None) -> TrainRun:
     if args.remat:
         cfg = dataclasses.replace(cfg, remat=args.remat)
     device = resolve_device(args.device)
-    pipe = SyntheticLM(cfg.vocab, args.seq_len, args.batch)
+    pipe = SyntheticLM(cfg.vocab, args.seq_len, args.batch,
+                       **frontend_kwargs(cfg))
     adamw = opt.AdamWConfig(lr=args.lr, moment_dtype=cfg.moment_dtype)
     grad_rs = {"off": False, "on": True, "auto": "auto"}[args.grad_rs]
     step_fn = tstep.build_train_step(cfg, adamw=adamw, grad_rs=grad_rs)
     params = transformer.init_params(cfg, seed=0, device=device)
-    opt_state = opt.init_state(params, adamw)
+    opt_state = opt.init_state(params, adamw, cfg.local_global_period)
 
     start = 0
     ft = None

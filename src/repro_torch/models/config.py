@@ -1,10 +1,14 @@
-"""ModelConfig — the architecture description shared by every module.
+"""ModelConfig — the architecture description shared by every module,
+and the assigned input shapes (`SHAPES`, `shape_applicable`,
+`input_specs`).
 
 Counterpart of `repro/models/config.py` with torch dtypes.  The fields
 are those the model code, the parameter count and the one-device trainer
 read (remat, microbatches, moment_dtype); the JAX package's sharding
 switches (fsdp, shard_strategy, attention="ring") belong to slices not
-yet ported.
+yet ported.  `input_specs` gives tensors on the "meta" device, which
+hold a shape and a dtype and allocate nothing: the port's stand-in for
+`jax.ShapeDtypeStruct`.
 """
 from __future__ import annotations
 
@@ -91,6 +95,10 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def is_encoder(self) -> bool:
+        return not self.causal
+
     def param_count(self, active_only: bool = False) -> int:
         d, ff, v = self.d_model, self.d_ff, self.vocab
         hd = self.hd if self.attn != "none" else 0
@@ -139,3 +147,63 @@ class ModelConfig:
             total += per_layer + 3 * d * self.d_ff + 2 * d
         total += v * d * (1 if self.tie_embeddings else 2)
         return int(total)
+
+
+# ---------------------------------------------------------------------------
+# input shapes (assigned): each cell is (name, seq_len, global_batch, kind)
+# ---------------------------------------------------------------------------
+
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+# long_500k eligibility: sub-quadratic state only
+LONG_OK_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    """(whether `cfg` runs the shape cell, why not)."""
+    s = SHAPES[shape]
+    if s["kind"] == "decode" and cfg.is_encoder:
+        return False, "encoder-only arch has no decode step"
+    if shape == "long_500k":
+        if cfg.family in LONG_OK_FAMILIES:
+            return True, ""
+        if cfg.window is not None or cfg.local_global_period is not None:
+            return True, ""  # SWA-bounded KV
+        return False, "pure full-attention arch skipped for 500k decode"
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: str, *, batch_override=None):
+    """Every model input of a shape cell as a tensor on the "meta" device
+    (a shape and a dtype, no storage): token ids int32, frames and
+    frontend embeds in cfg.dtype, as the reference's ShapeDtypeStructs."""
+    s = SHAPES[shape]
+    B = batch_override or s["global_batch"]
+    L = s["seq_len"]
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    i32 = torch.int32
+    if s["kind"] == "decode":
+        # one new token against a cache of length L
+        return dict(tokens=spec((B, 1), i32), positions=spec((B,), i32))
+    train = s["kind"] == "train"
+    if cfg.frontend == "audio":
+        # encoder: the stub frontend provides frame embeddings
+        specs = dict(frames=spec((B, L, cfg.d_model), cfg.dtype))
+        if train:
+            specs["targets"] = spec((B, L), i32)
+        return specs
+    specs = dict(tokens=spec((B, L), i32))
+    if train:
+        specs["targets"] = spec((B, L), i32)
+    if cfg.frontend == "vision":
+        specs["frontend_embeds"] = spec(
+            (B, cfg.n_frontend_tokens, cfg.d_model), cfg.dtype)
+    return specs

@@ -9,10 +9,10 @@ from .transformer import _check_family, map_params
 
 
 def params_from_jax(tree, cfg: ModelConfig, device="cpu"):
-    """`tree` is the dense-, ssm-, hybrid- or moe-family tree of
-    `repro.models.transformer.init_params` (tp = 1) with every leaf
-    already a numpy array: per-layer leaves stacked to [n_layers, ...]
-    under "layers" (dense: {"attn", "mlp", "ln1", "ln2"}; ssm and hybrid:
+    """`tree` is the tree of `repro.models.transformer.init_params` (tp =
+    1, any family) with every leaf already a numpy array: per-layer leaves
+    stacked to [n_layers, ...] under "layers" (dense, audio and vlm:
+    {"attn", "mlp", "ln1", "ln2"}; ssm and hybrid:
     {"mamba": {w_in, conv_w, conv_b, a_log, dt_bias, d_skip, norm_w,
     w_out}, "ln"}), and for the hybrid family the one shared block,
     unstacked, under "shared_attn" ({"attn", "mlp", "ln1", "ln2"}).

@@ -1,13 +1,13 @@
 """Model assembly: parameters, the full-sequence entries (`forward`,
-`train_loss`, `prefill`) and the dense-cache `init_cache`/`decode_step`
-of the dense, ssm, hybrid and moe families, and the KV pools and paged
-prefill/decode entries of the dense family.
+`train_loss`, `prefill`) of every family, the dense-cache
+`init_cache`/`decode_step` of every family but the audio encoder, and
+the KV pools and paged prefill/decode entries of the dense and vlm
+families.
 
-Counterpart of the dense, ssm, hybrid and moe parts of
-`repro/models/transformer.py`.  Parameters hold one dict per layer in
-`params["layers"]` (the JAX package stacks each leaf to [n_layers, ...]
-for `lax.scan`); the stack is a Python loop.  Decode caches likewise hold
-one dict per layer.  gemma2's local/global pairs (`local_global_period`)
+Counterpart of `repro/models/transformer.py`.  Parameters hold one
+dict per layer in `params["layers"]` (the JAX package stacks each leaf
+to [n_layers, ...] for `lax.scan`); the stack is a Python loop.  Decode
+caches likewise hold one dict per layer.  gemma2's local/global pairs (`local_global_period`)
 are layers 2i (local: the sliding `local_window`) and 2i + 1 (global) of
 that one list, where the reference scans stacked `pairs` ("local",
 "global"); gemma2 also scales its embedding by sqrt(d).  The hybrid
@@ -19,7 +19,12 @@ deepseek-v3) runs its first `moe.first_dense_layers` blocks (attention +
 MLP) from `params["dense_layers"]`, then attention + MoE blocks from
 `params["layers"]`, each attention GQA or MLA (`cfg.attn`); with
 `cfg.mtp`, `params["mtp"]` holds the depth-1 multi-token-prediction head
-`train_loss` adds.  Its decode caches follow the same two lists.
+`train_loss` adds.  Its decode caches follow the same two lists.  The
+audio (hubert, an encoder: `causal=False`) and vlm (phi-3-vision) families
+run the dense family's attention + MLP layers: audio from stub frame
+embeddings (B, L, d) in place of the token embedding, vlm with stub image
+embeddings over the first `frontend_embeds.shape[1]` positions of the
+embedded tokens.  An encoder has no decode step.
 """
 from __future__ import annotations
 
@@ -36,27 +41,25 @@ from .config import ModelConfig
 Params = dict
 
 
+FAMILIES = ("dense", "ssm", "hybrid", "moe", "audio", "vlm")
+# the families whose layers are attention + MLP blocks, one list of them
+_ATTN_FAMILIES = ("dense", "vlm", "audio")
+# the families with a decode step: all but the audio encoder
+_DECODE_FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm")
+
+
 def paged_families() -> tuple[str, ...]:
-    """Families the port's paged serving path supports."""
-    return ("dense",)
+    """Families the paged serving path supports (attention KV caches;
+    SSM and MLA state is not paged)."""
+    return ("dense", "vlm")
 
 
-# the slice of the port that brings each family not ported yet
-_LATER = {"audio": "4c", "vlm": "4c"}
-
-
-def _check_family(cfg: ModelConfig,
-                  families=("dense", "ssm", "hybrid", "moe")):
-    """Raise NotImplementedError unless `cfg`'s family is among
-    `families`."""
-    if cfg.family in families:
-        return
-    if cfg.family in _LATER:
-        why = (f"the {cfg.family} family comes with slice "
-               f"{_LATER[cfg.family]} of the port")
-    else:
-        why = f"this entry takes the {', '.join(families)} families"
-    raise NotImplementedError(f"{cfg.name!r} ({cfg.family}): {why}")
+def _check_family(cfg: ModelConfig, families=FAMILIES):
+    """Raise ValueError unless `cfg`'s family is among `families` (the
+    reference raises ValueError(family) where a branch is missing)."""
+    if cfg.family not in families:
+        raise ValueError(f"{cfg.name!r} ({cfg.family}): this entry takes "
+                         f"the {', '.join(families)} families")
 
 
 def _is_local(cfg: ModelConfig, i: int) -> bool:
@@ -84,7 +87,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     gen = torch.Generator(device=device).manual_seed(seed)
     p: Params = {"embed": L.init_embedding(gen, cfg, tp, device),
                  "final_norm": torch.zeros(cfg.d_model, device=device)}
-    if cfg.family == "dense":
+    if cfg.family in _ATTN_FAMILIES:
         p["layers"] = [_init_attn_block(gen, cfg, tp, device)
                        for _ in range(cfg.n_layers)]
     elif cfg.family == "moe":
@@ -201,14 +204,24 @@ def _embed_scaled(comm, cfg, params, tokens):
     return x
 
 
-def forward(comm: Comm, cfg: ModelConfig, params: Params, tokens):
+def forward(comm: Comm, cfg: ModelConfig, params: Params, tokens=None, *,
+            frames=None, frontend_embeds=None):
     """Full-sequence forward: tokens (B, L) -> (hidden (B, L, d), aux
     loss), aux the sum of the MoE layers' load-balance losses (0 without
-    MoE layers)."""
+    MoE layers).  The audio frontend starts from `frames` (B, L, d) in
+    place of tokens; the vision frontend's `frontend_embeds` (B, nf, d),
+    when given, replace the first nf positions of the embedded tokens."""
     _check_family(cfg)
-    x = _embed_scaled(comm, cfg, params, tokens)
-    B, seq = tokens.shape
-    positions = torch.arange(seq, device=tokens.device).expand(B, seq)
+    if cfg.frontend == "audio":
+        x = frames.to(cfg.dtype)
+        B, seq = x.shape[0], x.shape[1]
+    else:
+        x = _embed_scaled(comm, cfg, params, tokens)
+        B, seq = tokens.shape
+    if cfg.frontend == "vision" and frontend_embeds is not None:
+        nf = frontend_embeds.shape[1]
+        x = torch.cat([frontend_embeds.to(cfg.dtype), x[:, nf:]], 1)
+    positions = torch.arange(seq, device=x.device).expand(B, seq)
     aux_total = torch.zeros((), device=x.device)
     if cfg.family == "moe":
         for bp in params.get("dense_layers", []):
@@ -220,7 +233,7 @@ def forward(comm: Comm, cfg: ModelConfig, params: Params, tokens):
             aux_total = aux_total + aux
     else:
         for i, bp in enumerate(params["layers"]):
-            if cfg.family == "dense":
+            if cfg.family in _ATTN_FAMILIES:
                 x, _ = _maybe_remat(
                     cfg, lambda x, bp=bp, i=i: _attn_block(
                         comm, cfg, bp, x, positions, _is_local(cfg, i)))(x)
@@ -234,29 +247,33 @@ def forward(comm: Comm, cfg: ModelConfig, params: Params, tokens):
     return x, aux_total
 
 
-def prefill(comm: Comm, cfg: ModelConfig, params: Params, tokens):
-    """Prefill forward: tokens (B, L) -> last-position logits (B, 1,
-    vocab_local).  As in the reference, the forward pass is the prefill;
-    it fills no decode cache."""
-    h, _ = forward(comm, cfg, params, tokens)
+def prefill(comm: Comm, cfg: ModelConfig, params: Params, tokens=None, *,
+            frames=None, frontend_embeds=None):
+    """Prefill forward: tokens (B, L) (or the audio frontend's frames,
+    with the vision frontend's embeds; see `forward`) -> last-position
+    logits (B, 1, vocab_local).  As in the reference, the forward pass is
+    the prefill; it fills no decode cache."""
+    h, _ = forward(comm, cfg, params, tokens, frames=frames,
+                   frontend_embeds=frontend_embeds)
     return L.lm_logits(comm, cfg, params["embed"], h[:, -1:])
 
 
 def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
                seq_shards: int = 1, *, device=None) -> Params:
     """Dense decode caches, one dict per layer under "layers", on `device`
-    (default: the CUDA card, as `init_params`).  dense: an attention
-    cache {"k", "v"} (B, S, K, hd) in cfg.dtype, S = min(cache_len, the
-    layer's window): a local layer of gemma2 holds a ring of
-    min(cache_len, local_window) slots; ssm: a Mamba2 cache {"conv": (B,
-    conv_width - 1, conv_dim) in cfg.dtype, "ssm": (B, H, P, N) f32},
-    which has no length; hybrid: Mamba2 caches under "layers" and one
+    (default: the CUDA card, as `init_params`).  dense and vlm: an
+    attention cache {"k", "v"} (B, S, K, hd) in cfg.dtype, S =
+    min(cache_len, the layer's window): a local layer of gemma2 holds a
+    ring of min(cache_len, local_window) slots; ssm: a Mamba2 cache
+    {"conv": (B, conv_width - 1, conv_dim) in cfg.dtype, "ssm": (B, H, P,
+    N) f32}, which has no length; hybrid: Mamba2 caches under "layers" and one
     attention cache per application of the shared block under "shared";
     moe: an attention cache (GQA, or MLA's latent {"c_kv", "k_rope"}) per
     layer under "dense_layers" and "layers", as its parameters.
-    The dense family's serving engine decodes through the paged KV pool
-    (`init_kv_pool`) instead."""
-    _check_family(cfg)
+    The dense and vlm families' serving engine decodes through the paged
+    KV pool (`init_kv_pool`) instead.  The audio encoder has no decode
+    cache and raises ValueError, as the reference's."""
+    _check_family(cfg, _DECODE_FAMILIES)
     if seq_shards != 1:
         raise NotImplementedError("sequence-sharded caches come with the "
                                   "multi-device backend (slice 5)")
@@ -266,7 +283,7 @@ def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
         return L.init_attn_cache(cfg, tp, batch_local, cache_len, device,
                                  window_bound=L.layer_window(cfg, is_local))
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return {"layers": [attn(_is_local(cfg, i))
                            for i in range(cfg.n_layers)]}
     if cfg.family == "moe":
@@ -306,7 +323,7 @@ def decode_step(comm: Comm, cfg: ModelConfig, params: Params, cache: Params,
     positions (B,) -> (logits (B, 1, vocab_local), new cache).  Attention
     caches are written in place and handed back; Mamba2 caches come back
     as new tensors (a Mamba2 layer reads no position)."""
-    _check_family(cfg)
+    _check_family(cfg, _DECODE_FAMILIES)
     x = _embed_scaled(comm, cfg, params, tokens)
     if cfg.family == "moe":
         new = {}
@@ -317,7 +334,7 @@ def decode_step(comm: Comm, cfg: ModelConfig, params: Params, cache: Params,
     else:
         new = {"layers": []}
         for i, (bp, c) in enumerate(zip(params["layers"], cache["layers"])):
-            if cfg.family == "dense":
+            if cfg.family in ("dense", "vlm"):
                 x, c = _attn_decode_block(comm, cfg, bp, x, c, positions,
                                           _is_local(cfg, i))
             else:
@@ -336,11 +353,14 @@ def decode_step(comm: Comm, cfg: ModelConfig, params: Params, cache: Params,
 
 
 def train_loss(comm: Comm, cfg: ModelConfig, params: Params, batch: dict):
-    """Token-mean cross-entropy of batch {"tokens", "targets"} (B, L);
-    with `cfg.mtp`, plus 0.1 x the depth-1 MTP head's loss (h_t combined
+    """Token-mean cross-entropy of batch {"tokens", "targets"} (B, L)
+    (audio: {"frames", "targets"}; vision: with "frontend_embeds"); with
+    `cfg.mtp`, plus 0.1 x the depth-1 MTP head's loss (h_t combined
     with the embedding of target t predicts target t + 1); with MoE
     layers, plus 0.01 x aux / n_layers."""
-    h, aux = forward(comm, cfg, params, batch["tokens"])
+    h, aux = forward(comm, cfg, params, batch.get("tokens"),
+                     frames=batch.get("frames"),
+                     frontend_embeds=batch.get("frontend_embeds"))
     logits = L.lm_logits(comm, cfg, params["embed"], h)
     targets = batch["targets"]
     loss = L.sharded_xent(comm, cfg, logits, targets).mean()

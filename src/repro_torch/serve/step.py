@@ -25,18 +25,19 @@ def build_prefill(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
                   backend: str = "shmem", *, topo=None, link=None,
                   embedding=None, tuner=None, profile=None):
     """fn(params, batch) -> last-position logits (B, 1, vocab_local) of
-    batch["tokens"] (B, L), under `torch.no_grad()`."""
+    batch["tokens"] (B, L), or of the audio frontend's batch["frames"]
+    (B, L, d); the vision frontend's batch["frontend_embeds"] (B, nf, d)
+    pass through to `transformer.prefill`.  Runs under
+    `torch.no_grad()`."""
     _refuse_unported(topo=topo, link=link, embedding=embedding, tuner=tuner,
                      profile=profile)
 
     @torch.no_grad()
     def fn(params, batch):
-        if batch.get("frames") is not None \
-                or batch.get("frontend_embeds") is not None:
-            raise NotImplementedError("the audio and vlm frontends come "
-                                      "with slice 4c")
-        return transformer.prefill(Comm(axes, backend), cfg, params,
-                                   batch["tokens"])
+        return transformer.prefill(
+            Comm(axes, backend), cfg, params, batch.get("tokens"),
+            frames=batch.get("frames"),
+            frontend_embeds=batch.get("frontend_embeds"))
     return fn
 
 

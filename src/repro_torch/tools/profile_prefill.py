@@ -3,8 +3,11 @@
 For an architecture whose config module has a `SERVE_RUN` (the run
 `chip_smoke.py` checks), builds the model at full width with seeded
 random weights (at SERVE_RUN's `n_layers` where it cuts the depth, as
-deepseek-v3's does to 4 of its 61 layers), then prints the host wall of three `build_prefill` calls
-over SERVE_RUN's prompt (the first carries one-time start-up) and, from
+deepseek-v3's does to 4 of its 61 layers), then prints the host wall of
+three `build_prefill` calls over SERVE_RUN's prompt (`prefill_inputs`:
+the `prefill_32k` cell's inputs at SERVE_RUN's batch, hubert-xlarge's
+frames and phi-3-vision's frontend embeds among them; the first call
+carries one-time start-up) and, from
 torch.profiler over one more, the device busy time, the idle share
 against the last wall, the device operations and the kernels that take
 the most device time.  Where SERVE_RUN has a long decode (`long_batch`
@@ -14,6 +17,7 @@ rows against `long_cache_len` slots), the same for one
 
   python -m repro_torch.tools.profile_prefill --arch gemma2-9b --out p.json
   python -m repro_torch.tools.profile_prefill --arch deepseek-v3-671b
+  python -m repro_torch.tools.profile_prefill --arch hubert-xlarge
 """
 from __future__ import annotations
 
@@ -42,6 +46,28 @@ def _phase(fn, label: str) -> dict:
     return r
 
 
+def prefill_inputs(cfg, run: dict, device) -> dict:
+    """build_prefill's batch for SERVE_RUN `run`: every input of the
+    `prefill_32k` cell (`models.config.input_specs`) at run's batch, token
+    ids from a numpy generator seeded 0, frames and frontend embeds drawn
+    unit-normal from a torch generator seeded 0 on `device`, in their
+    specs' dtype."""
+    from ..models.config import input_specs
+    specs = input_specs(cfg, "prefill_32k",
+                        batch_override=run["prefill_batch"])
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {}
+    for name, spec in specs.items():
+        shape = tuple(spec.shape)
+        if spec.dtype == torch.int32:                # token ids
+            out[name] = torch.as_tensor(np.random.default_rng(0).integers(
+                1, cfg.vocab, size=shape), device=device)
+        else:
+            out[name] = torch.randn(shape, generator=gen,
+                                    device=device).to(spec.dtype)
+    return out
+
+
 def main(argv=None):
     from ..configs import ARCHS
     from ..models import transformer
@@ -63,14 +89,13 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"[profile] {cfg.name} ({cfg.n_layers} layers) on {card}")
     params = transformer.init_params(cfg, seed=0, device="cuda")
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        1, cfg.vocab, size=(run["prefill_batch"], run["prefill_len"])),
-        device="cuda")
+    batch = prefill_inputs(cfg, run, "cuda")
     prefill = sstep.build_prefill(cfg)
     report = {"arch": cfg.name, "card": card, "prefill": _phase(
-        lambda: prefill(params, {"tokens": tokens}),
-        f"prefill, batch {run['prefill_batch']} x L {run['prefill_len']}")}
-    del tokens
+        lambda: prefill(params, batch),
+        f"prefill, batch {run['prefill_batch']} x L {run['prefill_len']} "
+        f"({', '.join(batch)})")}
+    del batch
     if "long_cache_len" in run:
         B, S = run["long_batch"], run["long_cache_len"]
         cache = transformer.init_cache(cfg, 1, B, S, device="cuda")

@@ -16,7 +16,10 @@
   * int8 moments are blocked in that stacked layout too (`moment_groups`):
     a per-layer leaf is quantised over the concatenation of its layers,
     so a 128-element block may span two layers, as the reference's block
-    of the stacked leaf does.
+    of the stacked leaf does.  A local/global config (gemma2,
+    `local_global_period`) keeps its layers as two stacks in the
+    reference, `pairs/local` and `pairs/global`: the port's even
+    "layers" (local) are blocked apart from its odd ones (global).
 
 The state is {"mv": one {"m", "v"} per moment group (`moment_groups`:
 one per leaf in `heap.tree_flatten` order for f32 and bf16 moments),
@@ -95,13 +98,25 @@ def decay_flags(params) -> list[bool]:
     return flags
 
 
-def moment_groups(params, moment_dtype: str) -> list[list[int]]:
+def _stacks(key: str, n_layers: int, local_global_period) -> list:
+    """The layers of a `_stacked` list that the reference stacks together:
+    all of them, or for a local/global config's "layers" the even (local,
+    `pairs/local`) and the odd ones (global, `pairs/global`) apart, as
+    `models/convert.py` maps them."""
+    if key == "layers" and local_global_period is not None:
+        return [range(0, n_layers, 2), range(1, n_layers, 2)]
+    return [range(n_layers)]
+
+
+def moment_groups(params, moment_dtype: str,
+                  local_global_period: int | None = None) -> list[list[int]]:
     """The leaves (indices in `tree_flatten` order) that share one moment
     encoding.  f32 and bf16 moments are elementwise: one group per leaf.
     int8 blocks follow the reference's stacked layout: each leaf of a
     `_stacked` list (``params["layers"]``, ``params["dense_layers"]``) is
-    grouped with the same leaf of every other layer of that list (in
-    layer order), each other leaf stands alone."""
+    grouped with the same leaf of every other layer of its stack (in
+    layer order; `_stacks`: a config with `local_global_period` has two
+    in "layers"), each other leaf stands alone."""
     n = len(tree_flatten(params)[0])
     if moment_dtype != "int8" or not isinstance(params, dict):
         return [[i] for i in range(n)]
@@ -110,9 +125,9 @@ def moment_groups(params, moment_dtype: str) -> list[list[int]]:
         sub = tree_flatten(params[key])[0]
         if _stacked(params, key):
             per = len(tree_flatten(params[key][0])[0])
-            n_layers = len(params[key])
-            groups += [[start + layer * per + j for layer in range(n_layers)]
-                       for j in range(per)]
+            for stack in _stacks(key, len(params[key]), local_global_period):
+                groups += [[start + layer * per + j for layer in stack]
+                           for j in range(per)]
         else:
             groups += [[start + j] for j in range(len(sub))]
         start += len(sub)
@@ -126,7 +141,11 @@ def bias_corrections(cfg: AdamWConfig, step):
     return 1.0 - torch.pow(cfg.b1, t), 1.0 - torch.pow(cfg.b2, t)
 
 
-def init_state(params, cfg: AdamWConfig):
+def init_state(params, cfg: AdamWConfig,
+               local_global_period: int | None = None):
+    """Zero moments in `moment_groups`' groups (`local_global_period`:
+    the model config's, which splits a local/global tree's int8 blocks)
+    and step 0."""
     leaves, _ = tree_flatten(params)
 
     def one(group):
@@ -137,14 +156,17 @@ def init_state(params, cfg: AdamWConfig):
         return {"m": _q_encode(z, cfg.moment_dtype),
                 "v": _q_encode(z, cfg.moment_dtype, nonneg=True)}
 
-    return {"mv": [one(g) for g in moment_groups(params, cfg.moment_dtype)],
+    return {"mv": [one(g) for g in moment_groups(params, cfg.moment_dtype,
+                                                 local_global_period)],
             "step": torch.zeros((), dtype=torch.int32,
                                 device=leaves[0].device)}
 
 
-def apply_updates(params, grads, state, cfg: AdamWConfig):
+def apply_updates(params, grads, state, cfg: AdamWConfig,
+                  local_global_period: int | None = None):
     """One AdamW step: (new params, new state), the reference's
-    arithmetic operation for operation."""
+    arithmetic operation for operation.  `local_global_period` must be
+    the one `init_state` was given."""
     step = state["step"] + 1
     c1, c2 = bias_corrections(cfg, step)
 
@@ -160,9 +182,13 @@ def apply_updates(params, grads, state, cfg: AdamWConfig):
     flat_p, treedef = tree_flatten(params)
     flat_g, _ = tree_flatten(grads)
     decays = decay_flags(params)
+    groups = moment_groups(params, cfg.moment_dtype, local_global_period)
+    if len(groups) != len(state["mv"]):
+        raise ValueError(f"the state holds {len(state['mv'])} moment groups"
+                         f", the parameters make {len(groups)}: init_state "
+                         f"was given another tree or local_global_period")
     new_p, new_mv = [None] * len(flat_p), []
-    for group, mv in zip(moment_groups(params, cfg.moment_dtype),
-                         state["mv"]):
+    for group, mv in zip(groups, state["mv"]):
         # the group's moments as one flat f32 run (its layers in order),
         # then each leaf's slice of it
         size = sum(flat_p[i].numel() for i in group)

@@ -185,7 +185,10 @@ def loss_and_grads(comm: Comm, cfg: ModelConfig, params, batch: dict,
         with torch.enable_grad():
             loss = transformer.train_loss(
                 comm, cfg, tree_unflatten(treedef, req), mbatch)
-            grads = torch.autograd.grad(loss, req)
+            # a leaf the loss does not read (the audio encoder's token
+            # table) gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss, req, allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), list(grads)
 
     if mb == 1:
@@ -252,8 +255,8 @@ def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
                 comm, params, grads, opt_state, adamw, mask)
             return loss, new_params, new_state
         grads = fused_grad_sync(comm, grads, mask, fuse=fuse_grads)
-        new_params, new_state = opt.apply_updates(params, grads, opt_state,
-                                                  adamw)
+        new_params, new_state = opt.apply_updates(
+            params, grads, opt_state, adamw, cfg.local_global_period)
         return loss, new_params, new_state
 
     return step

@@ -36,6 +36,7 @@ from repro.parallel.comm import Comm as JComm
 from repro.serve import engine as jengine
 from repro.serve import step as jstep
 from repro.train import optimizer as jopt
+from repro_torch.ckpt.manager import _leaf_paths as ckpt_leaf_paths
 from repro_torch.configs import gemma2_9b, get_config, smoke_config
 from repro_torch.core.heap import tree_flatten, tree_unflatten
 from repro_torch.launch import serve as launch_serve
@@ -224,6 +225,120 @@ def test_gemma2_adamw_with_bf16_moments_matches_jax(weights):
                             and key in d)
         for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
             np.testing.assert_array_equal(a, np.asarray(b, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# fault C3: int8 moments of the local/global tree, blocked per stack
+# ---------------------------------------------------------------------------
+
+def _gemma2_int8_adamw(weights, steps=3, local_global_period="config"):
+    """`steps` AdamW steps with int8 moments on gemma2's smoke tree
+    through both packages on the same gradients; the port's optimizer is
+    given the config's local_global_period (or the one passed)."""
+    jp, params = weights["gemma2-9b"]
+    _, cfg = configs("gemma2-9b")
+    period = (cfg.local_global_period if local_global_period == "config"
+              else local_global_period)
+    ocfg = opt.AdamWConfig(moment_dtype="int8")
+    jocfg = jopt.AdamWConfig(moment_dtype="int8")
+    jparams = jax.tree.map(jnp.asarray, jp)
+    st = opt.init_state(params, ocfg, period)
+    jst = jopt.init_state(jparams, jocfg)
+    rng = np.random.default_rng(1)
+    for _ in range(steps):
+        g = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * .1)
+                         .astype(np.float32), jp)
+        params, st = opt.apply_updates(params, params_from_jax(g, cfg), st,
+                                       ocfg, period)
+        jparams, jst = jopt.apply_updates(
+            jparams, jax.tree.map(jnp.asarray, g), jst, jocfg)
+    return cfg, params, st, jparams, jst
+
+
+def _reference_int8_codes(jst):
+    """The reference's int8 moments keyed by leaf path."""
+    flat = jax.tree_util.tree_flatten_with_path(
+        jst["mv"], is_leaf=lambda d: isinstance(d, dict) and "m" in d)[0]
+    return {"/".join(str(getattr(k, "key", k)) for k in path): mv
+            for path, mv in flat}
+
+
+def _port_int8_codes(params, st, period):
+    """The port's int8 moment groups keyed by the reference's leaf path: a
+    group of "layers" leaves is pairs/local/<leaf> when it holds the even
+    (local) layers, pairs/global/<leaf> the odd ones."""
+    names = [n for n, _ in ckpt_leaf_paths(params)]
+    out = {}
+    for group, mv in zip(opt.moment_groups(params, "int8", period),
+                         st["mv"]):
+        parts = names[group[0]].split("/")
+        if parts[0] == "layers":
+            stack = "local" if int(parts[1]) % 2 == 0 else "global"
+            key = "/".join(["pairs", stack] + parts[2:])
+        else:
+            key = names[group[0]]
+        out[key] = mv
+    return out
+
+
+def test_apply_updates_int8_matches_reference_on_the_pairs(weights):
+    """Fault C3: three AdamW steps with int8 moments on gemma2's smoke
+    tree, the port's even layers blocked as the reference's pairs/local
+    stack and its odd ones as pairs/global: every int8 code and scale
+    equal to the reference's, parameters within rtol 1e-6 (the C2 test's
+    rule)."""
+    cfg, params, st, jparams, jst = _gemma2_int8_adamw(weights)
+    for a, b in zip(jax.tree.leaves(params_to_jax(params, cfg)),
+                    jax.tree.leaves(jparams)):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=0)
+    got = _port_int8_codes(params, st, cfg.local_global_period)
+    want = _reference_int8_codes(jst)
+    assert sorted(got) == sorted(want)
+    assert "pairs/local/ln1" in want and "pairs/global/attn/wq" in want
+    for key in want:
+        for mk in ("m", "v"):
+            for part in ("q", "scale"):
+                np.testing.assert_array_equal(
+                    got[key][mk][part].numpy(),
+                    np.asarray(want[key][mk][part]), err_msg=key)
+
+
+def test_the_interleaved_rule_would_differ_on_the_pairs(weights):
+    """The rule before C3's repair blocked gemma2's interleaved "layers"
+    as one stack: its d-64 norms then share one 128-element block across
+    local layer 0 and global layer 1, where the reference blocks each
+    stack apart, so the scales differ from the reference's."""
+    _, cfg = configs("gemma2-9b")
+    _, params, st, _, jst = _gemma2_int8_adamw(weights,
+                                               local_global_period=None)
+    groups = opt.moment_groups(params, "int8")
+    assert len(groups) < len(opt.moment_groups(params, "int8",
+                                               cfg.local_global_period))
+    names = [n for n, _ in ckpt_leaf_paths(params)]
+    ln1 = next(mv for g, mv in zip(groups, st["mv"])
+               if names[g[0]] == "layers/0/ln1")
+    want = _reference_int8_codes(jst)
+    ref = np.concatenate([np.asarray(want[f"pairs/{s}/ln1"]["m"]["scale"])
+                          .ravel() for s in ("local", "global")])
+    got = ln1["m"]["scale"].numpy().ravel()
+    assert got.shape != ref.shape or not np.array_equal(got, ref)
+
+
+def test_train_step_threads_the_local_global_period(weights):
+    """build_train_step hands cfg.local_global_period to apply_updates:
+    its int8 step runs on a state made with the period, and refuses one
+    made without it (other groups) rather than misreading it."""
+    _, params = weights["gemma2-9b"]
+    _, cfg = configs("gemma2-9b")
+    adamw = opt.AdamWConfig(moment_dtype="int8")
+    step = tstep.build_train_step(cfg, adamw=adamw)
+    tokens = _tokens(cfg.vocab, 2, 9, seed=2)
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    loss, new, st = step(params, opt.init_state(
+        params, adamw, cfg.local_global_period), batch)
+    assert np.isfinite(float(loss)) and int(st["step"]) == 1
+    with pytest.raises(ValueError, match="moment groups"):
+        step(params, opt.init_state(params, adamw), batch)
 
 
 # ---------------------------------------------------------------------------

@@ -292,34 +292,40 @@ def test_init_params_without_a_device_needs_the_card():
 
 @pytest.mark.parametrize("family", ["vlm", "gemma2 pairs"])
 def test_unported_families_name_their_slice(family):
-    """vlm raises NotImplementedError naming slice 4c; gemma2's
-    local/global pairs, ported in slice 4c-2, no longer raise (nor does
-    moe since slice 4c-3, tests/test_torch_moe.py)."""
+    """No family is left to a later slice: vlm (with audio, the last two)
+    runs since slice 4c-4 (tests/test_torch_audio_vlm.py) and gemma2's
+    local/global pairs since slice 4c-2 (moe since 4c-3,
+    tests/test_torch_moe.py).  A family the zoo does not have raises
+    ValueError naming the families each entry takes, as the reference
+    raises ValueError(family)."""
     if family == "gemma2 pairs":
         cfg = dataclasses.replace(smoke_config("qwen2-0.5b"),
                                   local_global_period=2, local_window=4)
-        params = T.init_params(cfg, seed=0, device="cpu")
-        tokens = torch.ones(1, 4, dtype=torch.long)
-        assert T.forward(Comm(), cfg, params, tokens)[0].shape \
-            == (1, 4, cfg.d_model)
-        cache = T.init_cache(cfg, 1, 1, 8, device="cpu")
-        T.decode_step(Comm(), cfg, params, cache, tokens[:, :1],
-                      torch.zeros(1, dtype=torch.long))
-        return
-    cfg = dataclasses.replace(CFG, family=family)
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        T.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        T.forward(Comm(), cfg, {}, torch.zeros(1, 4, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        T.decode_step(Comm(), cfg, {}, {}, torch.zeros(1, 1), None)
+    else:
+        cfg = smoke_config("phi-3-vision-4.2b")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.ones(1, 4, dtype=torch.long)
+    assert T.forward(Comm(), cfg, params, tokens)[0].shape \
+        == (1, 4, cfg.d_model)
+    cache = T.init_cache(cfg, 1, 1, 8, device="cpu")
+    T.decode_step(Comm(), cfg, params, cache, tokens[:, :1],
+                  torch.zeros(1, dtype=torch.long))
+    other = dataclasses.replace(CFG, family="speech")
+    with pytest.raises(ValueError, match="takes the dense, ssm"):
+        T.init_params(other, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="takes the dense, ssm"):
+        T.forward(Comm(), other, {}, torch.zeros(1, 4, dtype=torch.long))
+    with pytest.raises(ValueError, match="takes the dense, ssm"):
+        T.decode_step(Comm(), other, {}, {}, torch.zeros(1, 1), None)
 
 
 def test_dense_cache_decode_is_the_ssm_familys():
     """The dense-cache decode takes the ssm family and, since slice 4c-1,
     the dense and hybrid ones: qwen2's init_cache gives a KV cache per
-    layer, and since slice 4c-2 gemma2's pairs a ring of their local
-    window on each local layer, while vlm raises naming slice 4c."""
+    layer, since slice 4c-2 gemma2's pairs a ring of their local window
+    on each local layer, and since slice 4c-4 vlm the dense family's
+    caches, while the audio encoder, which has no decode step, raises
+    ValueError as the reference's init_cache does."""
     cfg = smoke_config("qwen2-0.5b")
     cache = T.init_cache(cfg, 1, 2, 8, device="cpu")
     assert [tuple(c["k"].shape) for c in cache["layers"]] \
@@ -328,9 +334,12 @@ def test_dense_cache_decode_is_the_ssm_familys():
                                              local_window=4),
                          1, 2, 8, device="cpu")
     assert [c["k"].shape[1] for c in pairs["layers"]] == [4, 8]
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        T.init_cache(dataclasses.replace(cfg, family="vlm"), 1, 2, 8,
-                     device="cpu")
+    vlm = T.init_cache(dataclasses.replace(cfg, family="vlm"), 1, 2, 8,
+                       device="cpu")
+    assert [tuple(c["k"].shape) for c in vlm["layers"]] \
+        == [(2, 8, 1, 16)] * cfg.n_layers
+    with pytest.raises(ValueError, match="audio"):
+        T.init_cache(smoke_config("hubert-xlarge"), 1, 2, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         sstep.build_prefill(CFG, tuner=object())
 

@@ -596,9 +596,10 @@ def _old_decay_flags(params):
     return flags
 
 
-def _old_moment_groups(params, moment_dtype):
+def _old_moment_groups(params, moment_dtype, local_global_period=None):
     """moment_groups before the moe family: only "layers" was blocked
-    across its layers, every other leaf alone."""
+    across its layers, every other leaf alone (no local/global split:
+    `local_global_period` is taken and ignored)."""
     n = len(tree_flatten(params)[0])
     if moment_dtype != "int8":
         return [[i] for i in range(n)]

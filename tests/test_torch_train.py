@@ -239,7 +239,8 @@ def test_per_layer_int8_blocks_would_differ_from_the_reference(monkeypatch):
     assert any(l.numel() % 128 for l in tree_flatten(layer0)[0])
     monkeypatch.setattr(
         opt, "moment_groups",
-        lambda p, dtype: [[i] for i in range(len(tree_flatten(p)[0]))])
+        lambda p, dtype, local_global_period=None:
+        [[i] for i in range(len(tree_flatten(p)[0]))])
     params, st, jparams, jst = _adamw_both("int8")
     want = _reference_codes(jst)
     names = [n for n, _ in ckpt._leaf_paths(params)]

@@ -451,17 +451,23 @@ def test_decode_loop_serves_the_dense_family():
 
 
 def test_unported_dense_cache_families_name_their_slice():
-    """vlm keeps raising, naming 4c; gemma2's local/global pairs are
-    served since slice 4c-2 (tests/test_torch_dense_family.py), the moe
-    family since slice 4c-3 (tests/test_torch_moe.py)."""
+    """Every family with a decode step has its dense-cache decode: vlm
+    since slice 4c-4 (tests/test_torch_audio_vlm.py), gemma2's
+    local/global pairs since slice 4c-2 (tests/test_torch_dense_family.py)
+    and the moe family since slice 4c-3 (tests/test_torch_moe.py).  The
+    audio encoder has none: init_cache and decode_step raise ValueError,
+    as the reference's do."""
     pairs = dataclasses.replace(smoke_config(DENSE), local_global_period=2,
                                 local_window=4)
     assert len(T.init_cache(pairs, 1, 2, 8, device="cpu")["layers"]) == 2
     vlm = dataclasses.replace(smoke_config(DENSE), family="vlm")
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        T.init_cache(vlm, 1, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        T.decode_step(Comm(), vlm, {}, {}, torch.zeros(1, 1), None)
+    assert len(T.init_cache(vlm, 1, 2, 8, device="cpu")["layers"]) \
+        == vlm.n_layers
+    audio = smoke_config("hubert-xlarge")
+    with pytest.raises(ValueError, match="audio"):
+        T.init_cache(audio, 1, 2, 8, device="cpu")
+    with pytest.raises(ValueError, match="audio"):
+        T.decode_step(Comm(), audio, {}, {}, torch.zeros(1, 1), None)
 
 
 ZAMBA_BLOCKED = textwrap.dedent("""
