@@ -205,7 +205,28 @@ Phases; any failure exits non-zero before the result line is printed:
      request's prefill logits against the plain version; (e) one decode
      step against 32768-slot dense caches at batch 2 (32 layers of k
      and v, 24 GiB) that must change slot 32767 of every row of every
-     cache leaf and nothing else.
+     cache leaf and nothing else;
+ 14. the measurement services on the card — (a) a level-2 Profiler on
+     sim_ctx(16) over the 4x4 mesh: phase 5's collectives at 8 B per PE
+     and the bucket's (to_all rd, ring, reduce_scatter) at 1 GiB, one
+     sample per call whose fields equal those of the same call on the
+     CPU SIM, kernels 1-3's launches equal with no profiler, pcontrol(0)
+     and pcontrol(2), and at 1 GiB each sample's wall_s within 20% of a
+     host-clock wall ended by a device wait; (b) Tuner.tune over the
+     train launcher's autotune grid (allreduce and fcollect x 4 KiB,
+     64 KiB, 1 MiB x chunks 1, 4; iters 3, warmup 1): points and
+     variants as `_variants` gives them, launches (warmup + iters) x each
+     variant's per-call count plus refit_link's, each best the argmin of
+     its means, the tuned allreduce within 1e-4 of the untuned, and the
+     fitted alpha_s, bw_Bps and contention printed as the card's; (c)
+     choose_attention at phase 8's ring shape: untuned, the cost model's
+     pick; with phase 8's measured walls in a TuningDB, the faster one;
+     (d) qwen2-0.5b's engine on phase 3's traffic with a LEVEL_FULL
+     Tracer and ServeMetrics: phase 3's tokens, valid documents, exactly
+     8 submitted, 8 completed, 256 tokens, 0 pages live, TTFT and
+     per-token p50 beside an untraced run's and phase 3's; (e)
+     `launch.serve --arch
+     qwen2-0.5b --trace-out --metrics-out` writes valid documents.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}:
 the seven kernels, then one flash_attention row per prefill shape of
@@ -638,19 +659,13 @@ def pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
 
 
-def serve(torch, np, fa, serving, ServeEngine):
-    cfg, engine_kw = serving.CONFIG, serving.SERVE_ENGINE
-    n_requests, prompt_len, new_tokens = (
-        serving.SERVE_TRAFFIC[k] for k in ("requests", "prompt_len",
-                                           "new_tokens"))
-    eng = ServeEngine(cfg, device="cuda", init_seed=0, **engine_kw)
-    rng = np.random.default_rng(0)
-    prompts = rng.integers(1, cfg.vocab, size=(n_requests, prompt_len),
-                           dtype=np.int32)
+def drive_engine(torch, eng, prompts, new_tokens):
+    """Submit every prompt, step the engine until idle noting the host
+    time each request's tokens arrive, then the final evict pass.
+    Returns (rids, TTFT list (submit to the end of the admitting step),
+    gaps between a request's tokens, wall); waits for the card at both
+    ends."""
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    fa.launches = 0                                  # main path starts
     t0 = time.perf_counter()
     rids = [eng.submit(p, new_tokens) for p in prompts]
     got_at = {rid: [] for rid in rids}               # host times of tokens
@@ -665,6 +680,26 @@ def serve(torch, np, fa, serving, ServeEngine):
     eng.run()                                        # final evict pass
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    ttft = [got_at[r][0] - t0 for r in rids]
+    gaps = [b - a for r in rids for a, b in zip(got_at[r], got_at[r][1:])
+            if b > a]
+    return rids, ttft, gaps, wall
+
+
+def serve(torch, np, fa, serving, ServeEngine):
+    cfg, engine_kw = serving.CONFIG, serving.SERVE_ENGINE
+    n_requests, prompt_len, new_tokens = (
+        serving.SERVE_TRAFFIC[k] for k in ("requests", "prompt_len",
+                                           "new_tokens"))
+    eng = ServeEngine(cfg, device="cuda", init_seed=0, **engine_kw)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, size=(n_requests, prompt_len),
+                           dtype=np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.launches = 0                                  # main path starts
+    rids, ttft, gaps, wall = drive_engine(torch, eng, prompts, new_tokens)
     launches = {"flash_attention": fa.launches}      # main path ends
     peak = torch.cuda.max_memory_allocated()
 
@@ -677,9 +712,6 @@ def serve(torch, np, fa, serving, ServeEngine):
         if len(eng.results[rid]) != new_tokens:
             raise AssertionError(f"request {rid}: {len(eng.results[rid])} "
                                  f"tokens, want {new_tokens}")
-    ttft = [got_at[r][0] - t0 for r in rids]
-    gaps = [b - a for r in rids for a, b in zip(got_at[r], got_at[r][1:])
-            if b > a]
     n_tok = sum(len(eng.results[r]) for r in rids)
     log(f"  served {n_requests} requests x {new_tokens} tokens in "
         f"{wall:.3f} s: {n_tok / wall:.1f} tok/s, TTFT p50 "
@@ -700,7 +732,9 @@ def serve(torch, np, fa, serving, ServeEngine):
                                  f"{eng.results[rid].tolist()}")
     log("  batched == alone, bit for bit, for requests "
         f"{rids[:2]}")
-    return eng, prompts, launches
+    stats = {"tokens": [eng.results[r].copy() for r in rids],
+             "ttft_p50": pct(ttft, 50), "per_token_p50": pct(gaps, 50)}
+    return eng, prompts, launches, stats
 
 
 def prefill_logits_check(torch, np, ref, layers, eng, prompts, serving,
@@ -2563,7 +2597,10 @@ def ring_path(torch, np, serving, ra, ref, ops, fa, card) -> list:
                     for where, (pick, times) in picks.items()))
     del q, k, v, qs, ks, vs, kf, vf, mono, mono_ws, plain, outs, qc, kc, vc
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"n": n, "topo": topo, "kv_bytes": kv_bytes,
+                    "block_s": walls["mono"] / n,
+                    "ring_s": walls["ring noc=False"],
+                    "mono_s": walls["mono"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3642,6 +3679,357 @@ def encoder_launcher(torch, mod) -> None:
                              f"launched {counts}, allocated {grew} B")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the measurement services on the card
+# ---------------------------------------------------------------------------
+
+# the train launcher's autotune grid (`repro/launch/train.py`), over both
+# collectives Tuner.tune sweeps
+TUNE_GRID = {"collectives": ("allreduce", "fcollect"),
+             "sizes": (4096, 65536, 1 << 20), "chunks": (1, 4),
+             "iters": 3, "warmup": 1}
+# the same call's wall through the profiler and on the host clock ended by
+# a device wait, at 1 GiB: within this fraction of each other
+PROFILE_WALL_RTOL = 0.2
+# the fields of a sample fixed by the call alone (not by its timing)
+SAMPLE_TIMES = ("wall_s", "t_start", "issue_s", "stall_s")
+
+
+def _service_calls(ctx, x, xa, full: bool):
+    """Phase 5's collectives through the context's methods, each one op
+    sample under a profiler: to_all rd and ring and reduce_scatter (the
+    bucket's), then (`full`) broadcast, fcollect, collect, alltoall and
+    barrier (the message-size sweep's)."""
+    calls = [("to_all rd", lambda: ctx.to_all(x, "sum", algorithm="rd")),
+             ("to_all ring", lambda: ctx.to_all(x, "sum", algorithm="ring")),
+             ("reduce_scatter", lambda: ctx.reduce_scatter(x))]
+    if full:
+        calls += [("broadcast", lambda: ctx.broadcast(x, 5)),
+                  ("fcollect", lambda: ctx.fcollect(x)),
+                  ("collect", lambda: ctx.collect(x)),
+                  ("alltoall", lambda: ctx.alltoall(xa)),
+                  ("barrier", lambda: ctx.barrier())]
+    return calls
+
+
+def _sample_fields(prof) -> list:
+    return [{k: v for k, v in smp.to_dict().items() if k not in SAMPLE_TIMES}
+            for smp in prof.samples]
+
+
+def services_profiler(torch, np, card) -> dict:
+    """14a: a level-2 Profiler on sim_ctx(16) over the paper's 4x4 mesh on
+    the card; phase 5's collectives at 8 B per PE (the sweep's set) and
+    at 1 GiB PE-stacked (the bucket's set: to_all rd, ring,
+    reduce_scatter).  Each call gives exactly one sample whose fields
+    (algorithm, chunks, embedding, schedule, bytes moved, hottest-link
+    load, predicted_s under the board's link model...) equal those of
+    the same call on sim_ctx(16, device="cpu"); kernels 1-3 launch the
+    same counts with no profiler, with pcontrol(0) and with pcontrol(2);
+    at 1 GiB each sample's wall_s agrees with a host-clock wall of the
+    same call ended by a device wait within PROFILE_WALL_RTOL.  Returns
+    the launches of the profiled 8 B run (counts set to 0 just before,
+    read just after)."""
+    from repro_torch.configs import epiphany16 as paper
+    from repro_torch.core import Profiler, abmodel, sim_ctx
+    n, topo, link = paper.N_PES, paper.TOPOLOGY, abmodel.EPIPHANY_NOC
+    rng = np.random.default_rng(14)
+    small = rng.standard_normal((n, 2), dtype=np.float32)       # 8 B / PE
+    small_a = rng.standard_normal((n, n), dtype=np.float32)
+    prof = Profiler(level=2)
+    ctx = sim_ctx(n, topo, link=link, device="cuda", profile=prof)
+    bare = sim_ctx(n, topo, link=link, device="cuda")
+    cpu_prof = Profiler(level=2)
+    cpu = sim_ctx(n, topo, link=link, device="cpu", profile=cpu_prof)
+
+    def run(c, x, xa, full):
+        for _, fn in _service_calls(c, x, xa, full):
+            fn()
+
+    xs = torch.from_numpy(small).to("cuda")
+    xas = torch.from_numpy(small_a).to("cuda")
+    counts = {}
+    for label, c, level in (("no profiler", bare, None),
+                            ("pcontrol(0)", ctx, 0),
+                            ("pcontrol(2)", ctx, 2)):
+        if level is not None:
+            ctx.pcontrol(level)
+        prof.reset()
+        torch.cuda.synchronize()
+        _reset_counts()                                 # path starts
+        run(c, xs, xas, True)
+        torch.cuda.synchronize()
+        counts[label] = _counts()                       # path ends
+    n_ops = len(_service_calls(ctx, xs, xas, True))
+    if len(prof.samples) != n_ops or prof.counters() == {}:
+        raise AssertionError(f"8 B: {len(prof.samples)} samples for "
+                             f"{n_ops} collectives")
+    if not (counts["no profiler"] == counts["pcontrol(0)"]
+            == counts["pcontrol(2)"]):
+        raise AssertionError(f"the profiler changed the launches: {counts}")
+    run(cpu, torch.from_numpy(small), torch.from_numpy(small_a), True)
+    got, want = _sample_fields(prof), _sample_fields(cpu_prof)
+    if got != want:
+        raise AssertionError(f"8 B samples on the card != the CPU SIM's:\n"
+                             f"{got}\n{want}")
+    log(f"  8 B per PE: {n_ops} collectives, one sample each, fields equal "
+        f"to the CPU SIM's; launches with no profiler, pcontrol(0) and "
+        f"pcontrol(2) all {counts['pcontrol(2)']}")
+
+    # 1 GiB PE-stacked (64 MiB per PE), the bucket's collectives
+    big = torch.zeros((n, BUCKET_ELEMS), device="cuda")
+    big.uniform_(-1.0, 1.0, generator=torch.Generator(
+        device="cuda").manual_seed(14))
+    rows = []
+    for name, fn in _service_calls(bare, big, None, False):
+        fn()                                            # warm the allocator
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t)
+        rows.append([name, min(host)])
+    prof.reset()
+    for _ in range(3):
+        for _, fn in _service_calls(ctx, big, None, False):
+            fn()
+    walls = [smp.wall_s for smp in prof.samples]
+    k = len(rows)
+    if len(walls) != 3 * k:
+        raise AssertionError(f"1 GiB: {len(walls)} samples for {3 * k} "
+                             f"calls")
+    for i, row in enumerate(rows):
+        row.append(min(walls[i::k]))
+    big_fields = _sample_fields(prof)[:k]
+    del big
+    torch.cuda.empty_cache()
+    cpu_prof.reset()
+    big_cpu = torch.zeros((n, BUCKET_ELEMS))
+    run(cpu, big_cpu, None, False)
+    del big_cpu
+    if big_fields != _sample_fields(cpu_prof):
+        raise AssertionError(f"1 GiB samples on the card != the CPU SIM's:"
+                             f"\n{big_fields}\n{_sample_fields(cpu_prof)}")
+    log(f"  1 GiB PE-stacked ({card}; min of 3 each): "
+        + "; ".join(f"{name} sample wall_s {p * 1e3:.3f} ms, host clock "
+                    f"{h * 1e3:.3f} ms (x{p / h:.3f})"
+                    for name, h, p in rows)
+        + "; sample fields equal to the CPU SIM's")
+    for name, h, p in rows:
+        if abs(p / h - 1.0) > PROFILE_WALL_RTOL:
+            raise AssertionError(f"{name} at 1 GiB: the profiler's wall "
+                                 f"{p} s vs the host clock's {h} s")
+    return counts["pcontrol(2)"]
+
+
+def services_tuner(torch, np, card) -> dict:
+    """14b: Tuner.tune on the profiled 16-PE context on the card over
+    TUNE_GRID: `points` and `variants` as `_variants` gives them, kernel
+    launches (warmup + iters) x each variant's per-call count, summed,
+    plus refit_link's (its measure calls at their defaults: 2 warmup + 5
+    timed, one put_copy per ppermute), each best the argmin of its
+    recorded means, the tuned allreduce within the CPU test's tolerance
+    of the untuned one, and the fitted link constants printed as the
+    card's.  Returns the launches of the sweep."""
+    from repro_torch.configs import epiphany16 as paper
+    from repro_torch.core import Profiler, sim_ctx
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import tuner as tuner_mod
+    n, topo = paper.N_PES, paper.TOPOLOGY
+    ctx = sim_ctx(n, topo, device="cuda", profile=Profiler(level=2))
+    tuner = tuner_mod.Tuner()
+    g = TUNE_GRID
+    link = tuner.link_model(topo, n)
+    per_call = {"put_copy": 0, "dma_copy": 0, "reduce_combine": 0}
+    n_var = 0
+    for collective in g["collectives"]:
+        for nbytes in g["sizes"]:
+            x = torch.zeros((n, nbytes // 4), device="cuda")
+            for algo, c, emb in tuner._variants(collective, n, nbytes, topo,
+                                                link, g["chunks"]):
+                fn = coll.allreduce if collective == "allreduce" \
+                    else coll.fcollect
+                _reset_counts()
+                fn(ctx.net, x, algorithm=algo, pipeline_chunks=c,
+                   topo=topo, link=link, embedding=emb)
+                one = _counts()
+                for name in per_call:
+                    per_call[name] += (g["warmup"] + g["iters"]) * one[name]
+                n_var += 1
+    sizes = sorted({max(4, int(sz)) for sz in g["sizes"]})
+    pats = 3 if topo.snake_order() != tuple(range(n)) else 2
+    per_call["put_copy"] += (len(sizes) + pats) * (2 + 5)
+    torch.cuda.synchronize()
+    _reset_counts()                                     # sweep starts
+    t0 = time.perf_counter()
+    summary = tuner.tune(ctx, g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _counts()                                     # sweep ends
+    n_points = len(g["collectives"]) * len(g["sizes"])
+    if (summary["points"], summary["variants"]) != (n_points, n_var):
+        raise AssertionError(f"sweep {summary['points']} points, "
+                             f"{summary['variants']} variants; want "
+                             f"{n_points}, {n_var}")
+    launched = {name: got[name] for name in per_call}
+    if launched != per_call:
+        raise AssertionError(f"sweep launches {launched}, the variants "
+                             f"imply {per_call}")
+    fp = summary["fingerprint"]
+    for collective in g["collectives"]:
+        for nbytes in g["sizes"]:
+            var = tuner.db.variants(fp, collective, f"n{n}", nbytes)
+            best = min(var, key=lambda v: var[v]["mean_s"])
+            key = f"{collective}@{tuner_mod.nbytes_bucket(nbytes)}B"
+            if summary["best"][key] != best:
+                raise AssertionError(f"{key}: best {summary['best'][key]}, "
+                                     f"argmin of the means {best}")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn((n, 65536 // 4), generator=gen, device="cuda")
+    tuned = sim_ctx(n, topo, device="cuda", tuner=tuner)
+    plain = sim_ctx(n, topo, device="cuda")
+    a = tuned.to_all(x, "sum", algorithm="auto", pipeline_chunks="auto")
+    b = plain.to_all(x, "sum", algorithm="auto")
+    if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+        raise AssertionError("the tuned allreduce differs from the untuned "
+                             "one beyond rtol 1e-4, atol 1e-4")
+    lk = tuner.link_model(topo, n)
+    picks = {f"{c}@{nb}": tuner.selector().schedule(c, n, nb, topo)
+             for c in g["collectives"] for nb in g["sizes"]}
+    log(f"  tune {fp}: {summary['points']} points, {summary['variants']} "
+        f"variants in {wall:.2f} s, launches {launched} (= the variants' "
+        f"(warmup + iters) x per-call + refit_link's); best {summary['best']}"
+        f"; tuned picks {picks}; tuned to_all(auto, auto) == untuned within "
+        f"rtol/atol 1e-4")
+    log(f"  fitted link of the 16-PE SIM on {card}: alpha_s "
+        f"{lk.alpha_s:.6e} s, bw_Bps {lk.bw_Bps:.6e} B/s, contention "
+        f"{lk.contention:.4f}, hop_s {lk.hop_s:.3e} s (the prior's: the "
+        f"cost model's default ICI_V5E)")
+    return got
+
+
+def services_attention(ring_walls) -> None:
+    """14c: choose_attention at phase 8's ring shape: without a tuner the
+    cost model's pick (the argmin of its modeled times, the reference's
+    rule); with phase 8's measured ring and mono walls recorded under
+    collective "attention", the variant with the smaller measured
+    wall."""
+    from repro_torch.core import fusion
+    from repro_torch.core import tuner as tuner_mod
+    n, kv, block = ring_walls["n"], ring_walls["kv_bytes"], \
+        ring_walls["block_s"]
+    pick, times = fusion.choose_attention(n, kv, block)
+    model = "ring" if times["ring"] <= times["mono"] else "mono"
+    db = tuner_mod.TuningDB()
+    fp = tuner_mod.fingerprint(None, n)
+    for algo in ("ring", "mono"):
+        db.record(fp, "attention", f"n{n}", kv * n, algo, 1, None,
+                  ring_walls[f"{algo}_s"])
+    tuned, _ = fusion.choose_attention(n, kv, block,
+                                       tuner=tuner_mod.TunedSelector(db))
+    faster = min(("ring", "mono"), key=lambda a: ring_walls[f"{a}_s"])
+    log(f"  choose_attention(n={n}, kv_block_bytes={kv}): untuned pick "
+        f"{pick} (modeled ring {times['ring'] * 1e3:.6f} ms, mono "
+        f"{times['mono'] * 1e3:.6f} ms); measured ring "
+        f"{ring_walls['ring_s'] * 1e3:.3f} ms, mono "
+        f"{ring_walls['mono_s'] * 1e3:.3f} ms; tuned pick {tuned}")
+    if pick != model or tuned != faster:
+        raise AssertionError(f"choose_attention: untuned {pick} (model "
+                             f"{model}), tuned {tuned} (faster {faster})")
+
+
+def services_engine(torch, np, serving, ServeEngine, served) -> dict:
+    """14d: qwen2-0.5b's engine on phase 3's traffic with a LEVEL_FULL
+    Tracer and ServeMetrics: tokens identical to phase 3's, both
+    documents valid, exact request/token/page counts, and the registry's
+    TTFT and per-token p50 beside phase 3's measures of this run, of an
+    untraced run right after and of phase 3's run.  Returns the traced
+    run's launches (counts set to 0 just before, read just after)."""
+    from repro_torch.core.trace import LEVEL_FULL, Tracer
+    from repro_torch.serve.metrics import ServeMetrics
+    from repro_torch.tools.tracereport import (validate_metrics,
+                                               validate_trace)
+    cfg, engine_kw = serving.CONFIG, serving.SERVE_ENGINE
+    n_req, prompt_len, new_tokens = (
+        serving.SERVE_TRAFFIC[k] for k in ("requests", "prompt_len",
+                                           "new_tokens"))
+    tracer, metrics = Tracer(level=LEVEL_FULL), ServeMetrics()
+    metrics.attach(tracer)
+    eng = ServeEngine(cfg, device="cuda", init_seed=0, profile=tracer,
+                      metrics=metrics, **engine_kw)
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(n_req, prompt_len), dtype=np.int32)
+    _reset_counts()                                     # path starts
+    rids, ttft, gaps, _ = drive_engine(torch, eng, prompts, new_tokens)
+    got = _counts()                                     # path ends
+    for rid, want in zip(rids, served["tokens"]):
+        if not np.array_equal(eng.results[rid], want):
+            raise AssertionError(f"traced request {rid}: "
+                                 f"{eng.results[rid].tolist()} != phase "
+                                 f"3's {want.tolist()}")
+    errs = validate_trace(tracer.to_chrome()) \
+        + validate_metrics(metrics.to_json())
+    m = metrics.registry
+    counts = {k: m[f"serve.{k}"].value for k in (
+        "requests_submitted", "requests_completed", "tokens_generated",
+        "kv_pages_live")}
+    want = {"requests_submitted": n_req, "requests_completed": n_req,
+            "tokens_generated": n_req * new_tokens, "kv_pages_live": 0}
+    if errs or counts != want:
+        raise AssertionError(f"traced engine: schema errors {errs}, counts "
+                             f"{counts} (want {want})")
+    if got["flash_attention"] != cfg.n_layers * n_req:
+        raise AssertionError(f"traced engine: {got} launches")
+    n_events = len(tracer._events)
+    # the same traffic untraced, right after: the host-bound engine's
+    # per-token time moves by more between runs than the tracer costs
+    bare = ServeEngine(cfg, params=eng.params, device="cuda", **engine_kw)
+    _, ttft0, gaps0, _ = drive_engine(torch, bare, prompts, new_tokens)
+    del bare
+    log(f"  traced engine: tokens == phase 3's for all {n_req} requests; "
+        f"{n_events} trace events and the metrics document valid; {counts}"
+        f"; the registry's TTFT p50 {metrics.ttft_s.percentile(50) * 1e3:.2f}"
+        f" ms (submit to first token) and per-token p50 "
+        f"{metrics.per_token_s.percentile(50) * 1e3:.3f} ms (a decode "
+        f"step's wall); phase 3's measures on this run: TTFT p50 "
+        f"{pct(ttft, 50) * 1e3:.2f} ms, per-token p50 "
+        f"{pct(gaps, 50) * 1e3:.3f} ms; untraced right after "
+        f"{pct(ttft0, 50) * 1e3:.2f} and {pct(gaps0, 50) * 1e3:.3f} ms "
+        f"(phase 3's untraced run {served['ttft_p50'] * 1e3:.2f} and "
+        f"{served['per_token_p50'] * 1e3:.3f} ms); launches {got}")
+    return got
+
+
+def services_launcher(torch) -> dict:
+    """14e: `launch.serve --arch qwen2-0.5b --trace-out --metrics-out` on
+    the card writes documents that validate.  Returns its launches."""
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.tools.tracereport import (validate_metrics,
+                                               validate_trace)
+    out = ROOT / "build" / "phase14"
+    out.mkdir(parents=True, exist_ok=True)
+    tpath, mpath = out / "trace.json", out / "metrics.json"
+    torch.cuda.synchronize()
+    _reset_counts()                                     # path starts
+    gen = serve_launch.main(["--arch", "qwen2-0.5b", "--trace-out",
+                             str(tpath), "--metrics-out", str(mpath)])
+    torch.cuda.synchronize()
+    got = _counts()                                     # path ends
+    tdoc, mdoc = json.loads(tpath.read_text()), json.loads(mpath.read_text())
+    errs = validate_trace(tdoc) + validate_metrics(mdoc)
+    done = mdoc["metrics"]["serve.requests_completed"]["value"]
+    if errs or done != gen.shape[0] or got["flash_attention"] < 1:
+        raise AssertionError(f"launcher documents: {errs}, completed "
+                             f"{done} of {gen.shape[0]}, launches {got}")
+    log(f"  launch.serve --trace-out --metrics-out: {gen.shape} tokens, "
+        f"{len(tdoc['traceEvents'])} trace events, both documents valid; "
+        f"launches {got}")
+    return got
+
+
 def main() -> int:
     try:
         import torch
@@ -3698,7 +4086,8 @@ def main() -> int:
     timing = time_attention(torch, fa, ref, gen, card)
 
     log(f"== phase 3: serve {serving.CONFIG.name} at full width")
-    eng, prompts, launches = serve(torch, np, fa, serving, ServeEngine)
+    eng, prompts, launches, served = serve(torch, np, fa, serving,
+                                           ServeEngine)
     prefill_logits_check(torch, np, ref, layers, eng, prompts, serving,
                          ServeEngine)
     del eng, prompts
@@ -3731,7 +4120,8 @@ def main() -> int:
         f"at {serving.CONFIG.name}'s width")
     check_ring_partials(torch, ra, ref, gen)
     ring_timing = time_ring_partials(torch, ra, ref, gen, card)
-    ring_launches = ring_path(torch, np, serving, ra, ref, ops, fa, card)
+    ring_launches, ring_walls = ring_path(torch, np, serving, ra, ref, ops,
+                                          fa, card)
 
     log(f"== phase 9: serve {zamba.CONFIG.name} at full width")
     check_zamba_kernels(torch, ops, ref, fa, ra, gen)
@@ -3843,10 +4233,23 @@ def main() -> int:
                       launch_dense(torch, np, phi3v, ref, layers,
                                    logits_check=True)]
 
+    log("== phase 14: the measurement services on the card (profiler, "
+        "tuner, choose_attention, traced engine, launcher)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    service_paths = [services_profiler(torch, np, card),
+                     services_tuner(torch, np, card)]
+    services_attention(ring_walls)
+    service_paths += [services_engine(torch, np, serving, ServeEngine,
+                                      served),
+                      services_launcher(torch)]
+    log(f"  phase 14 wall {time.perf_counter() - t14:.1f} s ({card})")
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
         + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths \
-        + moe_paths + frontend_paths
+        + moe_paths + frontend_paths + service_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -3859,7 +4262,8 @@ def main() -> int:
         f"(gemma2 prefill, launcher; danube; internlm2) {dense_paths}, moe "
         f"family (granite prefill, deepseek prefill) {moe_paths}, audio "
         f"and vlm (hubert prefill, phi-3-vision prefill, launcher) "
-        f"{frontend_paths}")
+        f"{frontend_paths}, services (profiled 8 B collectives, tune sweep, "
+        f"traced engine, launcher) {service_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]

@@ -207,10 +207,17 @@ def choose_chunks(stages: list[tuple],
     modeled pipelined time of a schedule's (bytes, hops[, max_link_load])
     stage costs.
 
-    `tuner`/`key` keep the reference's signature; the measured-first
-    tuner is not ported yet (slice 5), so a tuner raises."""
-    if tuner is not None:
-        raise NotImplementedError("the tuner is not ported yet (slice 5)")
+    With a `tuner` (a ``repro_torch.core.tuner.TunedSelector``) and a
+    `key` ``(collective, algorithm, n, nbytes, topo)``, the MEASURED best
+    chunk count for that point is consulted first (DESIGN.md §13
+    precedence); the analytic pipeline model is the fallback for
+    unmeasured points."""
+    if tuner is not None and key is not None:
+        collective, algorithm, n, nbytes, topo = key
+        c = tuner.chunks(collective, algorithm, n, nbytes, topo,
+                         max_chunks=max_chunks)
+        if c is not None:
+            return max(1, min(int(c), max_chunks))
     candidates = [1 << k for k in range(max(1, max_chunks).bit_length())
                   if (1 << k) <= max_chunks]
     return min(candidates,

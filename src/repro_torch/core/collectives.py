@@ -29,9 +29,11 @@ data (`kernels/`): every ppermute is one put_copy launch, every block
 gather of a ring (`_take_blocks`) one dma_copy launch, and every stage
 combine of a sum/prod/max/min reduction one reduce_combine launch.
 
-The profiler and the tuner are not ported yet (slice 5): the `profile=`
-and `tuner=` parameters keep the reference's signatures and raise
-NotImplementedError when given.
+`profile=` takes a :class:`~repro_torch.core.profile.Profiler`: each
+executor notes the resolved algorithm, chunk count, embedding and schedule
+on the innermost open op (DESIGN.md §13).  `tuner=` takes a
+:class:`~repro_torch.core.tuner.TunedSelector`, consulted before the
+analytic model by every ``choose_*``.
 """
 from __future__ import annotations
 
@@ -50,12 +52,6 @@ from .pattern import (CommPattern, Schedule, Stage, as_pattern,
                       binomial_stage_pattern, intern_get, ring_pattern,
                       xor_pattern)
 from . import team as team_mod
-
-
-def _no_service(profile=None, tuner=None) -> None:
-    if profile is not None or tuner is not None:
-        raise NotImplementedError("the profiler and the tuner are not "
-                                  "ported yet (slice 5): pass None")
 
 
 def _ceil_log2(n: int) -> int:
@@ -180,11 +176,22 @@ def choose_embedding(n: int, topo, link=None, tuner=None):
     under the identity, the snake order, and (small meshes) a greedy
     `optimize_embedding` remap seeded from the snake; return the winning
     order, or None when the logical ring already prices best.  Cached per
-    (topo, n, link).  `tuner` (measured-first selection) is not ported
-    yet and raises."""
-    _no_service(tuner=tuner)
+    (topo, n, link).
+
+    A `tuner` (``repro_torch.core.tuner.TunedSelector``) is consulted
+    FIRST: when the tuning DB holds measurements near the reference
+    payload for this topology, the measured-best embedding (identity /
+    snake / an explicit order) overrides the analytic pricing (DESIGN.md
+    §13)."""
     if topo is None or getattr(topo, "n_pes", None) != n or n <= 2:
         return None
+    if tuner is not None:
+        pick = tuner.embedding(n, EMBED_REF_BYTES, topo)
+        if pick is not None:
+            if pick == "identity":
+                return None
+            order = topo.snake_order() if pick == "snake" else tuple(pick)
+            return None if order == tuple(range(n)) else order
 
     def _build():
         def _sched(order):
@@ -572,8 +579,10 @@ def choose_algorithm(n: int, nbytes: float, topo=None, link=None,
     "ring_emb" joins too (DESIGN.md §12) — one physical hop per stage,
     hot-link load 1 where the mesh admits a Hamiltonian cycle.
 
-    `tuner` (measured-first selection) is not ported yet and raises."""
-    _no_service(tuner=tuner)
+    A `tuner` (``repro_torch.core.tuner.TunedSelector``) is consulted
+    FIRST: the measured-best algorithm among the legal candidates
+    overrides the analytic pricing; unmeasured points fall through to the
+    model (DESIGN.md §13 precedence)."""
     if team is not None:
         n = team.size
     if n <= 1:
@@ -609,6 +618,13 @@ def choose_algorithm(n: int, nbytes: float, topo=None, link=None,
             and partition.covers_world and partition.n_teams > 1
             and partition.size > 1):
         candidates.append("hier")
+    if tuner is not None and team is None:
+        # measured-first, restricted to the legal candidate set so knob
+        # changes degrade to the best measured candidate that still runs
+        pick = tuner.algorithm(collective, n, nbytes, topo,
+                               candidates=candidates)
+        if pick is not None:
+            return pick
     return min(candidates, key=_priced)
 
 
@@ -634,9 +650,8 @@ def choose_schedule(n: int, nbytes: float, topo=None, link=None,
     monolithic, since team-relative execution does not pipeline
     (DESIGN.md §11).  With `embedding` enabled, the mesh-embedded ring
     competes at every chunk count (it pipelines like the logical ring,
-    DESIGN.md §12).  `tuner` is not ported yet and raises."""
+    DESIGN.md §12)."""
     from . import abmodel
-    _no_service(tuner=tuner)
     if n <= 1:
         return "ring", 1
     link = link if link is not None else abmodel.ICI_V5E
@@ -648,6 +663,14 @@ def choose_schedule(n: int, nbytes: float, topo=None, link=None,
     hier_ok = (partition is not None and collective == "allreduce"
                and partition.covers_world and partition.n_teams > 1
                and partition.size > 1)
+    if tuner is not None:
+        # measured-best (algorithm, chunk-count) pair for this point
+        # (DESIGN.md §13); the analytic pricing below is the fallback
+        pick = tuner.schedule(collective, n, nbytes, topo,
+                              algos=algos + (["hier"] if hier_ok else []),
+                              max_chunks=max_chunks)
+        if pick is not None:
+            return ("hier", 1) if pick[0] == "hier" else pick
     for algo in algos:
         cost = build(n, nbytes, algorithm=algo,
                      embedding=emb if algo == "ring_emb" else None
@@ -728,16 +751,19 @@ def _software_pipeline(pieces, n_stages: int, stage_fn):
 
 
 def _resolve_chunks(pipeline_chunks, schedule: Schedule, topo=None,
-                    link=None) -> int:
+                    link=None, tuner=None, key: tuple | None = None) -> int:
     """None/1 -> monolithic; "auto" -> abmodel.choose_chunks on the
-    executing schedule's own cost descriptor; an int passes through."""
+    executing schedule's own cost descriptor (measured-first when a
+    `tuner` and a ``(collective, algorithm, n, nbytes, topo)`` key are
+    threaded); an int passes through."""
     if pipeline_chunks in (None, 0, 1):
         return 1
     if pipeline_chunks == "auto":
         from . import abmodel
         link = link if link is not None else abmodel.ICI_V5E
         return abmodel.choose_chunks(schedule.cost(topo), link,
-                                     max_chunks=PIPELINE_MAX_CHUNKS)
+                                     max_chunks=PIPELINE_MAX_CHUNKS,
+                                     tuner=tuner, key=key)
     return int(pipeline_chunks)
 
 
@@ -864,11 +890,13 @@ def barrier(net: NetOps, token=None, team=None, algorithm: str | None = None,
 
     Returns the per-PE token; thread it into downstream computation to
     order operations ('all cores reached this line')."""
-    _no_service(profile)
     _, n, lift, _ = _team_view(net, team)
     algo = algorithm or "dissem"
     if algo == "auto":
         algo = choose_barrier(n, topo, link, team=team)
+    if profile is not None:
+        profile.note(algorithm=algo, schedule=barrier_schedule(n, algo),
+                     topo=topo, link=link, collective="barrier", n_pes=n)
     tok = torch.zeros((), dtype=torch.int32, device=net.device) \
         if token is None else token
     if tok.dim() == 0:
@@ -895,14 +923,18 @@ def broadcast(net: NetOps, x, root: int = 0, pipeline_chunks=None,
               topo=None, link=None, team=None, profile=None, tuner=None):
     """Farthest-first binomial broadcast; with `team`, `root` is a TEAM
     rank and only members take the root's value (non-members keep x)."""
-    _no_service(profile, tuner)
     _, n, lift, _ = _team_view(net, team)
     if n == 1:
         return x
     nbytes = _payload_bytes(net, x)
     sched = broadcast_schedule(n, nbytes, root)
-    chunks = _resolve_chunks(pipeline_chunks, sched, topo, link) \
+    chunks = _resolve_chunks(pipeline_chunks, sched, topo, link, tuner,
+                             ("broadcast", "binomial_ff", n, nbytes, topo)) \
         if team is None else 1
+    if profile is not None:
+        profile.note(algorithm="binomial_ff", chunks=chunks, schedule=sched,
+                     topo=topo, link=link, collective="broadcast",
+                     nbytes=nbytes, n_pes=n)
     if chunks > 1:
         pieces, _, restore = _flat_pieces(net, x, chunks)
 
@@ -940,11 +972,10 @@ def fcollect(net: NetOps, x, axis: int = 0, algorithm: str | None = None,
     (bit-identical; §10).  With `team`, blocks concatenate in TEAM-rank
     order; non-members return zeros (team collectives run monolithic,
     §11)."""
-    _no_service(profile, tuner)
     _, n, _, _ = _team_view(net, team)
     if n == 1:
         return x
-    emb = _resolve_embedding(embedding, topo, n, link) \
+    emb = _resolve_embedding(embedding, topo, n, link, tuner=tuner) \
         if team is None else None
     nbytes = _payload_bytes(net, x)
     if algorithm == "auto":
@@ -952,7 +983,8 @@ def fcollect(net: NetOps, x, axis: int = 0, algorithm: str | None = None,
         # team view); the flat path passes the resolved order
         algo = choose_algorithm(n, nbytes, topo, link, collective="fcollect",
                                 team=team,
-                                embedding=emb if team is None else embedding)
+                                embedding=emb if team is None else embedding,
+                                tuner=tuner)
     else:
         algo = algorithm or ("rd" if _is_pow2(n) else "ring")
         if algorithm is None and algo == "ring" and (
@@ -961,6 +993,9 @@ def fcollect(net: NetOps, x, axis: int = 0, algorithm: str | None = None,
             algo = "ring_emb"       # default policy + enabled embedding
     if algo == "ring_emb":
         if team is not None:        # embedding in team coordinates (§12)
+            if profile is not None:
+                profile.note(algorithm="ring_emb", collective="fcollect",
+                             nbytes=nbytes, n_pes=n)
             return _collect_ring_team_embedded(net, x, axis, team, topo,
                                                embedding, link)
         if emb is None:
@@ -972,7 +1007,13 @@ def fcollect(net: NetOps, x, axis: int = 0, algorithm: str | None = None,
     sched = fcollect_schedule(n, nbytes, algo,
                               embedding=emb if algo == "ring_emb" else None)
     chunks = 1 if team is not None else _resolve_chunks(
-        pipeline_chunks, sched, topo, link)
+        pipeline_chunks, sched, topo, link, tuner,
+        ("fcollect", algo, n, nbytes, topo))
+    if profile is not None:
+        profile.note(algorithm=algo, chunks=chunks, schedule=sched,
+                     topo=topo, link=link, collective="fcollect",
+                     nbytes=nbytes, n_pes=n,
+                     embedding=emb if algo == "ring_emb" else None)
     if algo == "ring_emb":
         return _collect_ring_embedded(net, x, axis, emb, n_chunks=chunks)
     if algo == "rd":
@@ -985,20 +1026,27 @@ def collect(net: NetOps, x, axis: int = 0, pipeline_chunks=None,
             tuner=None):
     """The paper's linear-scaling ring collect (mesh-embedded when
     `embedding` is enabled — bit-identical output, near-neighbor flows)."""
-    _no_service(profile, tuner)
     _, n, _, _ = _team_view(net, team)
     if n == 1:
         return x
     nbytes = _payload_bytes(net, x)
     if team is not None and embedding is not None:
+        if profile is not None:
+            profile.note(algorithm="ring_emb", collective="collect",
+                         nbytes=nbytes, n_pes=n)
         return _collect_ring_team_embedded(net, x, axis, team, topo,
                                            embedding, link)
-    emb = _resolve_embedding(embedding, topo, n, link) \
+    emb = _resolve_embedding(embedding, topo, n, link, tuner=tuner) \
         if team is None else None
     algo = "ring_emb" if emb is not None else "ring"
     sched = fcollect_schedule(n, nbytes, algo, embedding=emb)
     chunks = 1 if team is not None else _resolve_chunks(
-        pipeline_chunks, sched, topo, link)
+        pipeline_chunks, sched, topo, link, tuner,
+        ("collect", algo, n, nbytes, topo))
+    if profile is not None:
+        profile.note(algorithm=algo, chunks=chunks, schedule=sched,
+                     topo=topo, link=link, collective="collect",
+                     nbytes=nbytes, n_pes=n, embedding=emb)
     if emb is not None:
         return _collect_ring_embedded(net, x, axis, emb, n_chunks=chunks)
     return _collect_ring(net, x, axis, n_chunks=chunks, team=team)
@@ -1167,7 +1215,6 @@ def allreduce(net: NetOps, x, op: str = "sum", combine: Callable | None = None,
     "auto" candidate set as "ring_emb" and re-coordinates default-policy
     rings; results are exact for int dtypes and allclose for floats (the
     ring summation order follows the embedding)."""
-    _no_service(profile, tuner)
     fn = combine or OPS[op]
     nbytes = _payload_bytes(net, x)
     if team is not None:
@@ -1181,13 +1228,16 @@ def allreduce(net: NetOps, x, op: str = "sum", combine: Callable | None = None,
             return x
         if algorithm == "auto":
             algo = choose_algorithm(n, nbytes, topo, link, team=team,
-                                    embedding=embedding)
+                                    embedding=embedding, tuner=tuner)
         elif algorithm in (None, "paper"):
             algo = "rd" if _is_pow2(n) else "ring"
             if algorithm is None and algo == "ring" and embedding is not None:
                 algo = "ring_emb"
         else:
             algo = algorithm
+        if profile is not None:
+            profile.note(algorithm=algo, collective="allreduce",
+                         nbytes=nbytes, n_pes=n)
         if algo == "ring_emb":
             # the embedding in team coordinates: the reordered team IS the
             # embedded ring (same members, snake-adjacent rank order) —
@@ -1201,10 +1251,13 @@ def allreduce(net: NetOps, x, op: str = "sum", combine: Callable | None = None,
     if n == 1:
         return x
     if algorithm == "hier":
+        if profile is not None:
+            profile.note(algorithm="hier", collective="allreduce",
+                         nbytes=nbytes, n_pes=n)
         return allreduce_hier(net, x, op, combine=combine,
                               partition=partition, topo=topo, link=link,
                               embedding=embedding)
-    emb = _resolve_embedding(embedding, topo, n, link)
+    emb = _resolve_embedding(embedding, topo, n, link, tuner=tuner)
     if algorithm == "ring_emb" and emb is None:
         # explicit algorithm= without the knob: default to the snake, and
         # resolve BEFORE chunk selection so choose_chunks prices the
@@ -1212,11 +1265,13 @@ def allreduce(net: NetOps, x, op: str = "sum", combine: Callable | None = None,
         emb = _resolve_embedding("snake", topo, n, link)
     if algorithm == "auto" and pipeline_chunks == "auto":
         algo, chunks = choose_schedule(n, nbytes, topo, link,
-                                       partition=partition, embedding=emb)
+                                       partition=partition, embedding=emb,
+                                       tuner=tuner)
     else:
         if algorithm == "auto":
             algo = choose_algorithm(n, nbytes, topo, link,
-                                    partition=partition, embedding=emb)
+                                    partition=partition, embedding=emb,
+                                    tuner=tuner)
         elif algorithm is None:
             algo = "rd" if _is_pow2(n) else "ring"
             if algo == "ring" and emb is not None:
@@ -1225,7 +1280,16 @@ def allreduce(net: NetOps, x, op: str = "sum", combine: Callable | None = None,
             algo = algorithm
         chunks = 1 if algo == "hier" else _resolve_chunks(
             pipeline_chunks,
-            allreduce_schedule(n, nbytes, algo, embedding=emb), topo, link)
+            allreduce_schedule(n, nbytes, algo, embedding=emb), topo, link,
+            tuner, ("allreduce", algo, n, nbytes, topo))
+    if profile is not None:
+        sched = None if algo == "hier" else allreduce_schedule(
+            n, nbytes, algo,
+            embedding=emb if algo == "ring_emb" else None)
+        profile.note(algorithm=algo, chunks=chunks, schedule=sched,
+                     topo=topo, link=link, collective="allreduce",
+                     nbytes=nbytes, n_pes=n,
+                     embedding=emb if algo == "ring_emb" else None)
     if algo == "hier":
         return allreduce_hier(net, x, op, combine=combine,
                               partition=partition, topo=topo, link=link,
@@ -1352,8 +1416,13 @@ def reduce_scatter(net: NetOps, x, op: str = "sum",
     padded array plus the info needed to allgather/unpad it.  With `team`
     the ring runs in team coordinates (a TeamPartition runs every team's
     ring concurrently); chunk ownership is by team rank."""
-    _no_service(profile)
     fn = combine or OPS[op]
+    if profile is not None:
+        nbytes = _payload_bytes(net, x)
+        profile.note(algorithm="ring",
+                     schedule=reduce_scatter_schedule(net.n_pes, nbytes),
+                     collective="reduce_scatter", nbytes=nbytes,
+                     n_pes=net.n_pes)
     return _reduce_scatter_ring(net, x, fn, team=team)
 
 
@@ -1450,7 +1519,6 @@ def alltoall(net: NetOps, x, axis: int = 0, pipeline_chunks=None,
     `pipeline_chunks` > 1 chunks each block's payload and pipelines the
     pairwise sends (bit-identical; DESIGN.md §10; team execution is
     monolithic, non-members return zeros)."""
-    _no_service(profile, tuner)
     rank, n, lift, mask = _team_view(net, team)
     if n == 1:
         return x
@@ -1471,6 +1539,10 @@ def alltoall(net: NetOps, x, axis: int = 0, pipeline_chunks=None,
         return v.narrow(ax, t * blk + lo, hi - lo)
 
     if team is not None:
+        if profile is not None:
+            profile.note(algorithm="pairwise", schedule=sched, topo=topo,
+                         link=link, collective="alltoall",
+                         nbytes=nbytes, n_pes=n)
         parts = [static_blk(r, 0)]
         for j, st in enumerate(sched.stages, start=1):
             parts.append(net.ppermute(static_blk(r, j), lift(st.pattern)))
@@ -1478,7 +1550,12 @@ def alltoall(net: NetOps, x, axis: int = 0, pipeline_chunks=None,
         return _mask_out(net, mask,
                          _take_blocks(net, stacked, out_idx, n, axis))
 
-    chunks = _resolve_chunks(pipeline_chunks, sched, topo, link)
+    chunks = _resolve_chunks(pipeline_chunks, sched, topo, link, tuner,
+                             ("alltoall", "pairwise", n, nbytes, topo))
+    if profile is not None:
+        profile.note(algorithm="pairwise", chunks=chunks, schedule=sched,
+                     topo=topo, link=link, collective="alltoall",
+                     nbytes=nbytes, n_pes=n)
     if chunks > 1:
         bounds = _chunk_bounds(blk, chunks)
 

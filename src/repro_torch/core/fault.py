@@ -2,8 +2,9 @@
 `repro/core/fault.py` that `core/shmem.py` needs.
 
 The fault injector that raises them (`FaultInjector`, `FaultPlan`) is not
-ported yet: with nothing attached, no transfer fails, `fault_event`
-records nothing, and `quiet()`/`fence()` see no straggler delay.
+ported yet: with nothing attached, no transfer fails and `quiet()`/
+`fence()` see no straggler delay.  `fault_event` records on an attached
+profiler or tracer.
 """
 from __future__ import annotations
 
@@ -43,8 +44,9 @@ class DeadlineExceeded(FaultError):
 
 def fault_event(profile, name: str, n: int = 1, **args) -> None:
     """Record a fault-layer event on an attached profiler: a counter, and
-    an instant event where the profiler keeps a timeline.  Nothing when no
-    profiler is attached (the only case until the profiler is ported)."""
+    an instant event where the profiler keeps a timeline (a
+    :class:`~repro_torch.core.trace.Tracer`).  Nothing when no profiler is
+    attached or it is disabled."""
     if profile is None or not profile.enabled:
         return
     profile.count(name, n)

@@ -25,8 +25,8 @@ fused_rs_adam
 
 choose_attention / choose_grad_rs price the fused variants against the
 monolithic ones (abmodel.modeled_overlapped_time, the schedules' alpha-beta
-times).  The SPMD backend, the tuner and the profiler come with slice 5
-(their parameters raise).
+times); a measured tuner verdict (`tuner=`, core/tuner.py) wins over the
+model.  The SPMD backend is not ported yet.
 """
 from __future__ import annotations
 
@@ -123,14 +123,20 @@ def fused_rs_adam(net: NetOps, g_buf, p_buf, m, v, wd_mask, c1, c2, *,
     for ``coll.allgather_unpad(net, new_p_chunk, info, team=team)``.  The
     update of all PEs' chunks is ONE kernel launch (the reference vmaps
     it), bit for bit equal to reduce-scatter + allgather + the plain
-    AdamW on f32 moments."""
-    coll._no_service(profile)
+    AdamW on f32 moments.  With `profile`, the innermost open op notes
+    the "fused_rs_adam" selection and its reduce-scatter schedule."""
     if not isinstance(net, SimNetOps):
         raise NotImplementedError(_SLICE5)
     out_dtype = p_buf.dtype if out_dtype is None else out_dtype
     local, incoming, info, mask = coll._reduce_scatter_parts(
         net, g_buf, coll.OPS["sum"], team=team)
     _, size, chunk, own_idx = info
+    if profile is not None:
+        nbytes = coll._payload_bytes(net, g_buf)
+        profile.note(algorithm="fused_rs_adam",
+                     schedule=reduce_scatter_schedule(net.n_pes, nbytes),
+                     collective="grad_sync", nbytes=nbytes,
+                     n_pes=net.n_pes)
     n = net.n_pes
     padded = chunk * n
     p_pad = coll._flatpad(p_buf, padded)
@@ -161,16 +167,22 @@ def choose_attention(n: int, kv_block_bytes: float, block_compute_s: float,
     step moves; block_compute_s: the flash time of q against one block.
     Mono allgathers the KV sequence first and computes monolithically;
     ring overlaps each rotation with one block's compute
-    (abmodel.modeled_overlapped_time)."""
-    coll._no_service(tuner=tuner)
+    (abmodel.modeled_overlapped_time).  A measured-best tuner verdict
+    for collective "attention" wins over the analytic model."""
     if n <= 1:
         return "mono", {"ring": 0.0, "mono": 0.0}
-    sched = allgather_schedule(n, kv_block_bytes * n)
+    total = kv_block_bytes * n
+    sched = allgather_schedule(n, total)
     t_ring = abmodel.modeled_overlapped_time(
         sched.cost(topo), block_compute_s,
         link if link is not None else abmodel.ICI_V5E)
     t_mono = sched.time(topo, link) + n * block_compute_s
     times = {"ring": t_ring, "mono": t_mono}
+    if tuner is not None:
+        got = tuner.algorithm("attention", n, total, topo=topo,
+                              candidates=("ring", "mono"))
+        if got in times:
+            return got, times
     return ("ring" if t_ring <= t_mono else "mono"), times
 
 
@@ -182,8 +194,7 @@ def choose_grad_rs(n: int, bucket_bytes: float, param_itemsize: int = 4,
     the updated PARAM chunk at `param_itemsize` instead of the f32
     gradient: strictly fewer wire bytes for sub-f32 params, equal for f32
     (where fusing still saves the separate optimizer pass, so ties go to
-    "fused")."""
-    coll._no_service(tuner=tuner)
+    "fused").  Tuner verdicts for collective "grad_sync" win."""
     if n <= 1:
         return "bucketed", {"fused": 0.0, "bucketed": 0.0}
     t_rs = reduce_scatter_schedule(n, bucket_bytes).time(topo, link)
@@ -191,5 +202,10 @@ def choose_grad_rs(n: int, bucket_bytes: float, param_itemsize: int = 4,
     t_ag_out = allgather_schedule(
         n, bucket_bytes * param_itemsize / 4.0).time(topo, link)
     times = {"fused": t_rs + t_ag_out, "bucketed": t_rs + t_ag_f32}
+    if tuner is not None:
+        got = tuner.algorithm("grad_sync", n, bucket_bytes, topo=topo,
+                              candidates=("fused", "bucketed"))
+        if got in times:
+            return got, times
     return ("fused" if times["fused"] <= times["bucketed"]
             else "bucketed"), times

@@ -67,9 +67,22 @@ class NetOps:
 
     n_pes: int
     device: torch.device
+    # Optional attached repro_torch.core.profile.Profiler (ShmemContext
+    # sets it): ppermute traffic lands in its aggregate counters.  Plain
+    # class attribute, NOT a dataclass field — the hot path pays one
+    # `is None` test when unattached.
+    profile = None
 
     def my_pe(self):
         raise NotImplementedError
+
+    def _count_ppermute(self, p: CommPattern, x) -> None:
+        """Aggregate-counter hook (near-zero when no profiler attached)."""
+        prof = self.profile
+        if prof is not None and prof.enabled:
+            nbytes = float(sum(l.numel() * l.element_size()
+                               for l in tree_flatten(x)[0]))
+            prof.count(f"ppermute[n{p.n_pes},e{len(p.pairs)}]", 1, nbytes)
 
     def ppermute(self, x, perm: PatternLike):
         """Static point-to-point pattern: for each (src, dst) pair, dst
@@ -118,7 +131,10 @@ class SimNetOps(NetOps):
                              f"leading axis of {self.n_pes} PEs")
 
     def ppermute(self, x, perm):
-        table = as_pattern(perm, self.n_pes).gather_table_device(self.device)
+        p = as_pattern(perm, self.n_pes)
+        if self.profile is not None:
+            self._count_ppermute(p, x)
+        table = p.gather_table_device(self.device)
 
         def one(v):
             self.check(v)
@@ -171,6 +187,8 @@ class NocSimNetOps(SimNetOps):
         p = as_pattern(perm, self.n_pes)
         if not p.pairs:                  # empty pattern: zeros, like base
             return super().ppermute(x, p)
+        if self.profile is not None:
+            self._count_ppermute(p, x)
         n_waves, table = self._wave_table(p)
 
         def one(v):

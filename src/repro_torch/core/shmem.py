@@ -26,10 +26,14 @@ other op of the runtime: the stream runs launches in issue order, so an
 op is complete before anything issued after it reads its value, and two
 same-destination puts land in issue order (what `fence` promises) by
 construction.  `quiet` therefore needs no device wait of its own; a host
-that reads a value (``.cpu()``, ``.item()``) waits for it there.
+that reads a value (``.cpu()``, ``.item()``) waits for it there.  With a
+profiler attached and enabled, `quiet` does wait for the device, so that
+its sync sample splits issue time from the stall on the pending ops
+(DESIGN.md §16).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any
@@ -40,13 +44,15 @@ import torch
 from . import collectives as coll
 from . import fault as fault_mod
 from . import team as team_mod
+from . import tuner as tuner_mod
 from .fault import DeadlineExceeded, LinkFailure
 from .heap import tree_flatten
 from .netops import NetOps, NocSimNetOps, SimNetOps
 from .pattern import CommPattern, PatternLike, as_pattern
+from .profile import Profiler, trace_clean, wait_device
 from .topology import MeshTopology
 
-_SLICE5 = "not ported yet (slice 5)"
+_NULL_CM = contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +155,9 @@ class Ctx:
                    seq=self._op_seq)
         self._op_seq += 1
         self._pending.append(f)
+        prof = self.shmem.profile
+        if prof is not None and prof.enabled:
+            prof.record_rma(op, nbytes, pattern, n_pes=self.n_pes)
         return f
 
     @property
@@ -175,8 +184,12 @@ class Ctx:
                 e.op = op
                 if attempt > pol.max_retries:
                     raise
-                fault_mod.fault_event(self.shmem.profile, "fault.retries",
-                                      op=op, attempt=attempt)
+                fault_mod.fault_event(
+                    self.shmem._active_profile(), "fault.retries",
+                    op=op, attempt=attempt, backoff_us=int(backoff * 1e6))
+                prof = self.shmem._active_profile()
+                if prof is not None:
+                    prof.count("fault.backoff_us", int(backoff * 1e6))
                 time.sleep(backoff)
                 backoff *= pol.backoff_mult
 
@@ -200,6 +213,10 @@ class Ctx:
         delay = max((f.delay_s for f in fs), default=0.0)
         if deadline is not None and delay > deadline:
             slow = max(fs, key=lambda f: f.delay_s)
+            fault_mod.fault_event(
+                self.shmem._active_profile(), "fault.deadline_exceeded",
+                op=slow.op, delay_us=int(delay * 1e6),
+                deadline_us=int(deadline * 1e6))
             raise DeadlineExceeded(
                 f"{what} deadline {deadline:g}s exceeded: slowest pending "
                 f"{slow.op} carries a straggler delay of {delay:g}s",
@@ -214,16 +231,27 @@ class Ctx:
         `deadline_s` (default: ``RetryPolicy.deadline_s``) bounds the
         completion wait: an op whose straggler delay exceeds it raises
         :class:`~repro_torch.core.fault.DeadlineExceeded` with the queue
-        UNTOUCHED; within the deadline the delay is slept."""
+        UNTOUCHED; within the deadline the delay is slept.
+
+        With an enabled profiler (and outside CUDA-graph capture), quiet
+        waits for the context's device after retiring the ops and
+        records one "sync" sample: issue time, then the stall on the
+        pending transfers."""
         fs = list(futures) or self._pending
         if not fs:
             return ()
         self._check_deadline(fs, self._deadline(deadline_s), "quiet()")
         delay = max(f.delay_s for f in fs)
         if delay > 0.0:
+            fprof = self.shmem._active_profile()
+            if fprof is not None:
+                fprof.count("fault.straggler_wait_us", int(delay * 1e6))
             time.sleep(delay)
             for f in fs:
                 f.delay_s = 0.0
+        prof = self.shmem.profile
+        timed = prof is not None and prof.enabled and trace_clean()
+        t0 = time.perf_counter() if timed else 0.0
         alien = [f for f in fs if not f._done and f not in self._pending]
         if alien:
             raise ValueError(
@@ -231,9 +259,19 @@ class Ctx:
                 "per-context isolation means each context drains its own "
                 "queue; call that context's quiet()")
         fs = sorted(fs, key=lambda f: f.seq)     # completion in issue order
+        nb = sum(f.nbytes for f in fs)
+        if prof is not None and prof.enabled:
+            prof.count("quiet.drained", len(fs), nb)
         for f in fs:
             f._done = True
         self._pending = [f for f in self._pending if not f._done]
+        if timed:
+            t1 = time.perf_counter()
+            wait_device(self.shmem.device)
+            t2 = time.perf_counter()
+            prof.record_sync("quiet", len(fs), nb, issue_s=t1 - t0,
+                             stall_s=t2 - t1, n_pes=self.n_pes,
+                             t_start=t0 - prof._epoch)
         return tuple(f.value for f in fs)
 
     def fence(self, *, deadline_s: float | None = None):
@@ -244,13 +282,24 @@ class Ctx:
         and moves nothing: it checks the deadline (an op known to carry a
         straggler delay beyond it raises ``DeadlineExceeded`` here, at
         the ordering point) and returns the pending values in issue
-        order; () when the queue is empty."""
+        order; () when the queue is empty.  An enabled profiler records
+        one "sync" sample of issue time only (fence never stalls)."""
         if not self._pending:
             return ()
         self._check_deadline(self._pending, self._deadline(deadline_s),
                              "fence()")
-        return tuple(f.value for f in sorted(self._pending,
+        prof = self.shmem.profile
+        timed = prof is not None and prof.enabled and trace_clean()
+        t0 = time.perf_counter() if timed else 0.0
+        vals = tuple(f.value for f in sorted(self._pending,
                                              key=lambda f: f.seq))
+        if timed:
+            prof.record_sync("fence", len(self._pending),
+                             sum(f.nbytes for f in self._pending),
+                             issue_s=time.perf_counter() - t0,
+                             stall_s=0.0, n_pes=self.n_pes,
+                             t_start=t0 - prof._epoch)
+        return vals
 
 
 class ShmemContext:
@@ -261,10 +310,10 @@ class ShmemContext:
                  use_wand_barrier: bool = False, link=None, embedding=None,
                  profile=None, tuner=None, fault=None, retry=None,
                  fingerprint=None):
-        for name, knob in (("profile", profile), ("tuner", tuner),
-                           ("fault", fault), ("fingerprint", fingerprint)):
-            if knob is not None:
-                raise NotImplementedError(f"{name}= is {_SLICE5}")
+        if fault is not None:
+            raise NotImplementedError(
+                "fault= is not ported yet: the fault injector comes with "
+                "slice 5b")
         self.net = net
         self.topo = topo
         # the hardware WAND barrier needs the SPMD backend; on SIM the
@@ -277,11 +326,84 @@ class ShmemContext:
         # §12): None = logical rings; "auto"/"snake"/an explicit rank
         # order run ring algorithms in mesh-embedded coordinates
         self.embedding = embedding
+        # pcontrol-style profiler (DESIGN.md §13): one op sample per
+        # collective, RMA counters, JSON export.  Propagated to the net so
+        # raw ppermute traffic lands in its counters.  When None (the
+        # default) the hot path pays one `is None` test.
+        self.profile = profile
+        # measured-performance autotuner: a Tuner (whose DB then also
+        # refines ONLINE from this context's profiler samples) or a bare
+        # TunedSelector; the choose_* selectors consult it before the
+        # analytic model.
+        self.tuner = tuner
+        self._sel = tuner.selector() if hasattr(tuner, "selector") else tuner
+        # `fingerprint` overrides the machine identity collectives tune
+        # under (the elastic path's degraded-mesh key, DESIGN.md §17).
+        self._fp = fingerprint if fingerprint is not None \
+            else tuner_mod.fingerprint(topo, net.n_pes)
+        if fingerprint is not None:
+            self.refingerprint(fingerprint)
         self.retry = retry if retry is not None else RetryPolicy()
-        self.profile = None          # the profiler hook (slice 5)
+        if profile is not None:
+            net.profile = profile
+            if hasattr(tuner, "observe"):
+                profile.add_sink(tuner.observe)
         # The default communication context: ShmemContext-level nbi RMA,
         # quiet and fence run on it (DESIGN.md §11).
         self.ctx_default = Ctx(self)
+
+    # -- profiling control (shmem_pcontrol; DESIGN.md §13) -------------------
+    def pcontrol(self, level: int) -> None:
+        """``shmem_pcontrol``: 0 disables collection, 1 enables counters,
+        >= 2 enables the per-op timeline.  Attaches a fresh
+        :class:`~repro_torch.core.profile.Profiler` when none was passed
+        at construction (so ``ctx.pcontrol(2)`` alone turns profiling
+        on)."""
+        if self.profile is None:
+            if level <= 0:
+                return
+            self.profile = Profiler(level=level)
+            self.net.profile = self.profile
+            if hasattr(self.tuner, "observe"):
+                self.profile.add_sink(self.tuner.observe)
+        else:
+            self.profile.pcontrol(level)
+
+    def _active_profile(self):
+        p = self.profile
+        return p if (p is not None and p.enabled) else None
+
+    # -- elastic re-tuning (DESIGN.md §17) -----------------------------------
+    def refingerprint(self, fp: str) -> None:
+        """Re-key this context's tuning identity (after the mesh
+        degrades).  Profiler op samples and the TunedSelector's DB
+        lookups both switch to `fp`, so tuned decisions measured on the
+        full mesh stop applying."""
+        self._fp = str(fp)
+        sel = self._sel
+        if sel is not None and hasattr(sel, "with_fingerprint"):
+            self._sel = sel.with_fingerprint(self._fp)
+
+    def _group_desc(self, group) -> str:
+        if group is None:
+            return f"n{self.n_pes}"
+        if isinstance(group, team_mod.TeamPartition):
+            return f"part{group.n_teams}x{group.size}"
+        return f"team{group.size}of{group.world_n}"
+
+    def _prof_op(self, collective: str, x=None, group=None):
+        """(context manager, active profiler): the timing wrapper every
+        collective method runs under.  One `is None` test when profiling
+        is off — the near-zero disabled path.  On the card the op waits
+        for the net's device as it opens and closes, so the sample's wall
+        time includes the launches it made."""
+        prof = self._active_profile()
+        if prof is None:
+            return _NULL_CM, None
+        nbytes = coll._payload_bytes(self.net, x) if x is not None else 0.0
+        return prof.op(collective, nbytes=nbytes, n_pes=self.n_pes,
+                       team=self._group_desc(group), fingerprint=self._fp,
+                       device=self.net.device), prof
 
     # -- setup / query ------------------------------------------------------
     @property
@@ -426,27 +548,39 @@ class ShmemContext:
         """algorithm: None/"dissem" (the paper's dissemination barrier),
         "tree" (binomial gather + broadcast), or "auto" (congestion-model
         pick between the two)."""
-        return coll.barrier(self.net, token, team=team, algorithm=algorithm,
-                            topo=self.topo, link=self.link)
+        cm, prof = self._prof_op("barrier", group=team)
+        with cm:
+            return coll.barrier(self.net, token, team=team,
+                                algorithm=algorithm, topo=self.topo,
+                                link=self.link, profile=prof)
 
     def broadcast(self, x, root: int = 0, pipeline_chunks=None, team=None):
         """With `team`, `root` is a TEAM rank; non-members keep x."""
-        return coll.broadcast(self.net, x, root,
-                              pipeline_chunks=pipeline_chunks,
-                              topo=self.topo, link=self.link, team=team)
+        cm, prof = self._prof_op("broadcast", x, team)
+        with cm:
+            return coll.broadcast(self.net, x, root,
+                                  pipeline_chunks=pipeline_chunks,
+                                  topo=self.topo, link=self.link, team=team,
+                                  profile=prof, tuner=self._sel)
 
     def collect(self, x, axis: int = 0, pipeline_chunks=None, team=None):
-        return coll.collect(self.net, x, axis,
-                            pipeline_chunks=pipeline_chunks, topo=self.topo,
-                            link=self.link, team=team,
-                            embedding=self.embedding)
+        cm, prof = self._prof_op("collect", x, team)
+        with cm:
+            return coll.collect(self.net, x, axis,
+                                pipeline_chunks=pipeline_chunks,
+                                topo=self.topo, link=self.link, team=team,
+                                embedding=self.embedding,
+                                profile=prof, tuner=self._sel)
 
     def fcollect(self, x, axis: int = 0, algorithm=None,
                  pipeline_chunks=None, team=None):
-        return coll.fcollect(self.net, x, axis, algorithm,
-                             pipeline_chunks=pipeline_chunks, topo=self.topo,
-                             link=self.link, team=team,
-                             embedding=self.embedding)
+        cm, prof = self._prof_op("fcollect", x, team)
+        with cm:
+            return coll.fcollect(self.net, x, axis, algorithm,
+                                 pipeline_chunks=pipeline_chunks,
+                                 topo=self.topo, link=self.link, team=team,
+                                 embedding=self.embedding,
+                                 profile=prof, tuner=self._sel)
 
     def to_all(self, x, op: str = "sum", algorithm=None,
                pipeline_chunks=None, team=None, partition=None,
@@ -464,18 +598,29 @@ class ShmemContext:
         hierarchical two-level schedule to the "auto" candidates
         (algorithm="hier" forces it)."""
         team = self._resolve_team(team, PE_start, logPE_stride, PE_size)
-        return coll.allreduce(self.net, x, op, algorithm=algorithm,
-                              topo=self.topo, link=self.link,
-                              pipeline_chunks=pipeline_chunks, team=team,
-                              partition=partition, embedding=self.embedding)
+        cm, prof = self._prof_op("allreduce", x,
+                                 team if team is not None else partition)
+        with cm:
+            return coll.allreduce(self.net, x, op, algorithm=algorithm,
+                                  topo=self.topo, link=self.link,
+                                  pipeline_chunks=pipeline_chunks,
+                                  team=team, partition=partition,
+                                  embedding=self.embedding,
+                                  profile=prof, tuner=self._sel)
 
     def reduce_scatter(self, x, op: str = "sum", team=None):
-        return coll.reduce_scatter(self.net, x, op, team=team)
+        cm, prof = self._prof_op("reduce_scatter", x, team)
+        with cm:
+            return coll.reduce_scatter(self.net, x, op, team=team,
+                                       profile=prof)
 
     def alltoall(self, x, axis: int = 0, pipeline_chunks=None, team=None):
-        return coll.alltoall(self.net, x, axis,
-                             pipeline_chunks=pipeline_chunks, topo=self.topo,
-                             link=self.link, team=team)
+        cm, prof = self._prof_op("alltoall", x, team)
+        with cm:
+            return coll.alltoall(self.net, x, axis,
+                                 pipeline_chunks=pipeline_chunks,
+                                 topo=self.topo, link=self.link, team=team,
+                                 profile=prof, tuner=self._sel)
 
     # -- atomics (§3.5) ---------------------------------------------------------
     def testset(self, var, value):
@@ -559,7 +704,8 @@ class ShmemContext:
 
 def spmd_ctx(axis, topo=None, **kw) -> ShmemContext:
     """The SPMD backend (one PE per device) is not ported yet."""
-    raise NotImplementedError(f"spmd_ctx is {_SLICE5}; use sim_ctx")
+    raise NotImplementedError("spmd_ctx: the SPMD backend is not ported "
+                              "yet (slice 5's SPMD item); use sim_ctx")
 
 
 def sim_ctx(n_pes: int, topo=None, noc: bool = False, device=None,

@@ -1,10 +1,17 @@
 """Serving launcher: the continuous-batching engine on the paged
 symmetric-heap KV cache, on the CUDA card (or the CPU with --device cpu).
 
-Submits --batch requests of random prompts up front and drains them
-through an engine sized, as the reference's, for sequences of
-max(--cache-len, --prompt-len + --tokens) tokens (the dense and vlm
-families; the engine takes prompts of tokens only, as the reference's).
+Batch mode (default) submits --batch requests of random prompts up front
+and drains them through an engine sized, as the reference's, for
+sequences of max(--cache-len, --prompt-len + --tokens) tokens (the dense
+and vlm families; the engine takes prompts of tokens only, as the
+reference's).  With --continuous a fixed-rate arrival trace streams
+--requests requests in, one every --rate engine steps, while earlier ones
+decode; --kv-heap-bytes caps the KV heap so that admission waits on
+pages (backpressure, counted in the metrics).  --profile-out,
+--trace-out and --metrics-out attach the profiler, the Chrome-trace
+tracer and the serving metrics and write their documents at exit;
+--autotune/--tuning-db hand the engine a measured tuner.
 Families without a paged path (ssm, hybrid, moe) take the reference's
 dense-cache decode loop instead: the prompt fed teacher-forced through
 `decode_step` against caches of --cache-len slots, then --tokens greedy
@@ -13,6 +20,9 @@ launcher exits for it, as the reference's does, before any work.
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b
   python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke --device cpu \\
+      --continuous --requests 16 --rate 2 --tokens 16 \\
+      --trace-out trace.json --metrics-out metrics.json
   python -m repro_torch.launch.serve --arch gemma2-9b
   python -m repro_torch.launch.serve --arch gemma2-9b --smoke --device cpu
   python -m repro_torch.launch.serve --arch h2o-danube-3-4b
@@ -84,7 +94,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     ap.add_argument("--batch", type=int, default=4,
-                    help="number of requests")
+                    help="number of requests (batch mode) / arrival batch")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16,
                     help="new tokens per request")
@@ -95,6 +105,33 @@ def main(argv=None):
                     help="engine batch slots (default: --batch, max 8)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="KV page size in tokens")
+    ap.add_argument("--continuous", action="store_true",
+                    help="stream requests in at --rate per engine step "
+                         "instead of submitting all up front")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="total requests in --continuous mode "
+                         "(default: --batch)")
+    ap.add_argument("--rate", type=int, default=1,
+                    help="engine steps between arrivals (--continuous)")
+    ap.add_argument("--kv-heap-bytes", type=int, default=0,
+                    help="cap the symmetric-heap KV region (0 = size for "
+                         "all slots; smaller values exercise admission "
+                         "backpressure)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="consult the measured-performance tuning DB for "
+                         "the per-step collectives")
+    ap.add_argument("--tuning-db", default="",
+                    help="path of the persistent tuning database (JSON)")
+    ap.add_argument("--profile-out", default="",
+                    help="attach the runtime profiler and dump its "
+                         "counters+timeline JSON here at exit")
+    ap.add_argument("--trace-out", default="",
+                    help="attach the tracer and dump a Chrome trace-event "
+                         "JSON here at exit (open in ui.perfetto.dev)")
+    ap.add_argument("--metrics-out", default="",
+                    help="record serving metrics (TTFT/per-token "
+                         "histograms, queue/KV gauges, wire bytes) and "
+                         "dump the registry JSON here at exit")
     args = ap.parse_args(argv)
 
     from .. import resolve_device
@@ -113,26 +150,78 @@ def main(argv=None):
                      f"{args.prompt_len + args.tokens - 1} positions the "
                      f"loop decodes")
         return _decode_loop(cfg, device, args)
+    profiler = None
+    if args.trace_out:
+        # one object serves both documents: a Tracer is a Profiler
+        from ..core.trace import LEVEL_FULL, Tracer
+        profiler = Tracer(level=LEVEL_FULL)
+    elif args.profile_out:
+        from ..core.profile import Profiler
+        profiler = Profiler(level=2)
+    metrics = None
+    if args.metrics_out:
+        from ..serve.metrics import ServeMetrics
+        metrics = ServeMetrics()
+        if profiler is not None:
+            metrics.attach(profiler)
+    tuner = None
+    if args.autotune or args.tuning_db:
+        from ..core import tuner as tuner_mod
+        tuner = tuner_mod.Tuner(path=args.tuning_db or None)
+
+    n_req = args.requests or args.batch
     slots = args.slots or min(args.batch, 8)
     max_seq = max(args.cache_len, args.prompt_len + args.tokens)
     bucket = -(-args.prompt_len // args.page_size) * args.page_size
     eng = ServeEngine(cfg, device=device, max_slots=slots,
                       page_size=args.page_size, max_seq=max_seq,
-                      prompt_bucket=min(bucket, max_seq))
+                      prompt_bucket=min(bucket, max_seq),
+                      kv_heap_bytes=args.kv_heap_bytes or None,
+                      tuner=(tuner if args.autotune else None),
+                      profile=profiler, metrics=metrics)
     rng = np.random.default_rng(0)
-    prompts = rng.integers(1, cfg.vocab, size=(args.batch, args.prompt_len),
+    prompts = rng.integers(1, cfg.vocab, size=(n_req, args.prompt_len),
                            dtype=np.int32)
     t0 = time.perf_counter()
-    rids = [eng.submit(p, args.tokens) for p in prompts]
-    eng.run()
+    rids = []
+    if args.continuous:
+        nxt = 0
+        while nxt < n_req or not eng.scheduler.idle():
+            if nxt < n_req and eng.steps % max(args.rate, 1) == 0:
+                rids.append(eng.submit(prompts[nxt], args.tokens))
+                nxt += 1
+            eng.step()
+        eng.run()                      # drain stragglers
+    else:
+        rids = [eng.submit(p, args.tokens) for p in prompts]
+        eng.run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     gen = np.stack([eng.results[r] for r in rids])
-    print(f"[serve] (paged, {device}) generated {gen.shape} in {dt:.2f}s "
-          f"({gen.size / dt:.1f} tok/s, {eng.steps} engine steps, "
-          f"page={args.page_size} slots={slots})")
+    mode = "continuous, " if args.continuous else ""
+    print(f"[serve] ({mode}paged, {device}) generated {gen.shape} in "
+          f"{dt:.2f}s ({gen.size / dt:.1f} tok/s, {eng.steps} engine "
+          f"steps, page={args.page_size} slots={slots})")
     print(gen[:, :8])
+
+    if tuner is not None and args.tuning_db:
+        tuner.save(args.tuning_db)
+        print(f"[serve] tuning DB ({len(tuner.db)} points) saved to "
+              f"{args.tuning_db}")
+    if profiler is not None and args.profile_out:
+        profiler.dump(args.profile_out)
+        print(f"[serve] profile dumped to {args.profile_out}")
+    if args.trace_out:
+        profiler.dump_chrome(args.trace_out)
+        print(f"[serve] Chrome trace ({len(profiler._events)} events) "
+              f"written to {args.trace_out} — open in ui.perfetto.dev")
+    if metrics is not None:
+        metrics.dump(args.metrics_out)
+        h = metrics.ttft_s
+        print(f"[serve] metrics written to {args.metrics_out} "
+              f"(ttft p50={h.percentile(50) * 1e3:.1f}ms, per-token "
+              f"p50={metrics.per_token_s.percentile(50) * 1e3:.2f}ms)")
     return gen
 
 

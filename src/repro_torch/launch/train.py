@@ -13,12 +13,20 @@ one on stub frontend embeds (B, n_frontend_tokens, d_model) beside the
 tokens, as the reference's launcher makes them (at d_model where the
 reference's pipeline draws width 1: `data/pipeline.py`).
 
+--profile-out/--trace-out attach the profiler or the Chrome-trace tracer
+(each step is one device-inclusive "train_step" op) and write their
+documents at exit; --metrics-out records the per-step wall-time
+histogram and the loss gauge; --autotune/--tuning-db hand the step a
+measured tuner (on one device no collective consults it, and, as in the
+reference at --data 1, there is no calibration sweep).
+
 The flags of the reference launcher whose services are not ported yet
 are accepted and refused with the slice that brings them.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
@@ -26,22 +34,18 @@ import numpy as np
 
 # reference flags refused here: (flag, value meaning "not asked for",
 # the slice that brings the service)
+_SPMD = "slice 5's SPMD item"
 _UNPORTED = [
-    ("data", 1, "slice 5 (the multi-device backend)"),
-    ("model", 1, "slice 5 (the multi-device backend)"),
-    ("pod", 0, "slice 5 (the multi-device backend)"),
-    ("topo", None, "slice 5 (topology-aware selection on a real mesh)"),
-    ("embedding", "off", "slice 5 (mesh embeddings on a real mesh)"),
-    ("autotune", False, "slice 5 (the tuner)"),
-    ("tuning_db", "", "slice 5 (the tuner)"),
-    ("profile_out", "", "slice 5 (the profiler)"),
-    ("trace_out", "", "slice 5 (the tracer)"),
-    ("metrics_out", "", "slice 5 (the metrics registry)"),
-    ("allreduce_algo", "paper", "slice 5 (cost-model selection on a real "
-                                "mesh)"),
-    ("pipeline_chunks", None, "slice 5 (chunked collectives on a real "
+    ("data", 1, f"{_SPMD} (the multi-device backend)"),
+    ("model", 1, f"{_SPMD} (the multi-device backend)"),
+    ("pod", 0, f"{_SPMD} (the multi-device backend)"),
+    ("topo", None, f"{_SPMD} (topology-aware selection on a real mesh)"),
+    ("embedding", "off", f"{_SPMD} (mesh embeddings on a real mesh)"),
+    ("allreduce_algo", "paper", f"{_SPMD} (cost-model selection on a "
+                                "real mesh)"),
+    ("pipeline_chunks", None, f"{_SPMD} (chunked collectives on a real "
                               "mesh)"),
-    ("shard_strategy", None, "slice 5 (sharding strategies)"),
+    ("shard_strategy", None, f"{_SPMD} (sharding strategies)"),
 ]
 
 
@@ -89,11 +93,22 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--topo", default=None)
     ap.add_argument("--embedding", default="off",
                     choices=["off", "auto", "snake"])
-    ap.add_argument("--autotune", action="store_true")
-    ap.add_argument("--tuning-db", default="")
-    ap.add_argument("--profile-out", default="")
-    ap.add_argument("--trace-out", default="")
-    ap.add_argument("--metrics-out", default="")
+    ap.add_argument("--autotune", action="store_true",
+                    help="measured-performance selection: every 'auto' "
+                         "selection consults the tuning DB first")
+    ap.add_argument("--tuning-db", default="",
+                    help="path of the persistent tuning database (JSON); "
+                         "loaded when it exists, saved after the run")
+    ap.add_argument("--profile-out", default="",
+                    help="attach the pcontrol-style runtime profiler and "
+                         "dump its JSON (counters + per-step timeline) "
+                         "here at exit")
+    ap.add_argument("--trace-out", default="",
+                    help="attach the tracer and dump a Chrome trace-event "
+                         "JSON here at exit (open in ui.perfetto.dev)")
+    ap.add_argument("--metrics-out", default="",
+                    help="record per-step wall-time histogram + loss "
+                         "gauge and dump the registry JSON here at exit")
     ap.add_argument("--allreduce-algo", default="paper",
                     choices=["paper", "auto"])
     ap.add_argument("--pipeline-chunks", default=None)
@@ -127,7 +142,24 @@ def run(argv=None) -> TrainRun:
                        **frontend_kwargs(cfg))
     adamw = opt.AdamWConfig(lr=args.lr, moment_dtype=cfg.moment_dtype)
     grad_rs = {"off": False, "on": True, "auto": "auto"}[args.grad_rs]
-    step_fn = tstep.build_train_step(cfg, adamw=adamw, grad_rs=grad_rs)
+    profiler = None
+    if args.trace_out:
+        from ..core.trace import LEVEL_FULL, Tracer
+        profiler = Tracer(level=LEVEL_FULL)
+    elif args.profile_out:
+        from ..core.profile import Profiler
+        profiler = Profiler(level=2)
+    metrics = None
+    if args.metrics_out:
+        from ..serve.metrics import MetricsRegistry
+        metrics = MetricsRegistry()
+    tuner = None
+    if args.autotune or args.tuning_db:
+        from ..core import tuner as tuner_mod
+        tuner = tuner_mod.Tuner(path=args.tuning_db or None)
+    step_fn = tstep.build_train_step(
+        cfg, adamw=adamw, grad_rs=grad_rs,
+        autotune=tuner if args.autotune else None, profile=profiler)
     params = transformer.init_params(cfg, seed=0, device=device)
     opt_state = opt.init_state(params, adamw, cfg.local_global_period)
 
@@ -147,11 +179,18 @@ def run(argv=None) -> TrainRun:
     losses, step_s = [], []
     for step in range(start, args.steps):
         t0 = time.perf_counter()
-        loss, params, opt_state = step_fn(params, opt_state,
-                                          pipe.batch(step))
-        loss = float(loss)        # waits for the device: the step's end
+        with (profiler.op("train_step", n_pes=1, device=device)
+              if profiler is not None else contextlib.nullcontext()):
+            loss, params, opt_state = step_fn(params, opt_state,
+                                              pipe.batch(step))
+            loss = float(loss)    # waits for the device: the step's end
         step_s.append(time.perf_counter() - t0)
         losses.append(loss)
+        if metrics is not None:
+            metrics.histogram("train.step_s",
+                              "full train step wall time").observe(
+                step_s[-1])
+            metrics.gauge("train.loss", "last step loss").set(loss)
         print(f"[train] step {step:5d} loss {loss:8.4f} "
               f"({step_s[-1]:.2f}s)")
         if ft:
@@ -163,6 +202,26 @@ def run(argv=None) -> TrainRun:
             print(f"[train] {len(ft.stragglers)} step(s) exceeded "
                   f"--step-deadline {args.step_deadline:g}s (worst "
                   f"{max(s['stall_s'] for s in ft.stragglers):.1f}s)")
+        if metrics is not None:
+            metrics.counter(
+                "train.stragglers",
+                "steps exceeding the --step-deadline").inc(
+                len(ft.stragglers))
+    if tuner is not None and args.tuning_db:
+        tuner.save(args.tuning_db)
+        print(f"[train] tuning DB ({len(tuner.db)} points) saved to "
+              f"{args.tuning_db}")
+    if profiler is not None and args.profile_out:
+        profiler.dump(args.profile_out)
+        print(f"[train] profile dumped to {args.profile_out}")
+    if args.trace_out:
+        profiler.dump_chrome(args.trace_out)
+        print(f"[train] Chrome trace ({len(profiler._events)} events) "
+              f"written to {args.trace_out} — open in ui.perfetto.dev")
+    if metrics is not None:
+        metrics.counter("train.steps", "steps executed").inc(len(losses))
+        metrics.dump(args.metrics_out)
+        print(f"[train] metrics written to {args.metrics_out}")
     if not np.isfinite(losses).all():
         raise FloatingPointError(f"non-finite loss: {losses}")
     if len(losses) >= 10:

@@ -45,10 +45,15 @@ class Comm:
     among allreduce algorithms, which on a one-PE data axis are all the
     identity; it comes with the multi-device backend (slice 5).  Until
     then `grad_rs` True and False also compute the same identity: the
-    bucketed form is kept for that multi-PE data axis."""
+    bucketed form is kept for that multi-PE data axis.  `tuner` (a
+    core.tuner.Tuner or TunedSelector) and `profile` (a
+    core.profile.Profiler) are kept for the collectives over axes of
+    more than one PE; on one device no collective runs, so neither is
+    consulted, as the reference's size-1 axes consult neither."""
 
     def __init__(self, axes: AxisSpec = AxisSpec(), backend: str = "shmem",
-                 grad_rs: bool = False, n_devices: int = 1):
+                 grad_rs: bool = False, n_devices: int = 1, tuner=None,
+                 profile=None):
         if n_devices != 1:
             raise NotImplementedError(
                 "the port runs on one device; the multi-device backend is "
@@ -59,6 +64,8 @@ class Comm:
         self.axes = axes
         self.backend = backend
         self.grad_rs = grad_rs
+        self.tuner = tuner
+        self.profile = profile
 
     def _net(self, device) -> SimNetOps:
         """The data axis's one-PE SIM net on `device`."""

@@ -16,17 +16,27 @@ cache.  Counterpart of `repro/serve/engine.py`.
     per-row op is batch-independent and the decode shape never changes,
     so a request's greedy tokens are bit-identical whether it runs alone
     or joins mid-batch.
+
+Observability (DESIGN.md §16): a `ServeMetrics` (`metrics=`) records the
+request lifecycle (submit, admit, first token, decode steps, evict,
+admission backpressure); a `Profiler` or `Tracer` (`profile=`) times
+``serve.step``/``serve.prefill``/``serve.decode`` spans that wait for the
+card, and a tracer also draws each request on its async track (begin,
+``admit``, ``first_token``, end).  Both default to None: zero cost.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..core.heap import SymmetricHeap
+from ..core.trace import Tracer
 from ..models import layers as L
 from ..models import transformer
 from ..parallel.comm import Comm
@@ -132,13 +142,17 @@ class ServeEngine:
     `device="cpu"`).  `params` default to the port's seeded init
     (`init_seed`).  `kv_heap_bytes` caps the symmetric-heap KV region —
     by default sized to hold every slot's worst-case sequence plus the
-    null page; the KV pool on the device holds that many pages."""
+    null page; the KV pool on the device holds that many pages.
+    `profile`/`metrics` attach the observability layer (module
+    docstring); `tuner` rides on the engine's `Comm`, whose axes all
+    have size 1 on one device, so no collective consults it."""
 
     def __init__(self, cfg, *, params=None, device=None, max_slots: int = 4,
                  page_size: int = 8, max_seq: int = 64,
                  prompt_bucket: int = 32, kv_heap_bytes: int | None = None,
                  eos_id: int | None = None, init_seed: int = 0,
-                 capture_logits: bool = False):
+                 capture_logits: bool = False, tuner=None, profile=None,
+                 metrics=None):
         if cfg.family not in transformer.paged_families():
             raise ValueError(
                 f"paged serving supports {transformer.paged_families()}, "
@@ -153,7 +167,10 @@ class ServeEngine:
         self.max_slots = int(max_slots)
         self.eos_id = eos_id
         self.capture_logits = capture_logits
-        self.comm = Comm()
+        self.comm = Comm(tuner=tuner, profile=profile)
+        self.profile = profile
+        self.metrics = metrics
+        self._trace = profile if isinstance(profile, Tracer) else None
 
         max_pages = pages_for(max_seq, page_size)
         _, nkv, _ = L._gqa_dims(cfg, self.comm.axis_size(self.comm.axes.model))
@@ -181,12 +198,40 @@ class ServeEngine:
         self.pool = transformer.init_kv_pool(cfg, 1, pool.num_pages,
                                              page_size, self.device)
 
+    # -- observability helpers ------------------------------------------------
+    def _span(self, name: str, **meta):
+        """Nested tracer span, bare profiler op, or nothing — the whole
+        disabled cost is this attribute test.  Enabled spans wait for the
+        engine's device as they open and close."""
+        if self._trace is not None and self._trace.enabled:
+            return self._trace.span(name, device=self.device, **meta)
+        if self.profile is not None and self.profile.enabled:
+            return self.profile.op(name, kind="span", device=self.device)
+        return contextlib.nullcontext()
+
+    def _req_event(self, kind: str, rid: int, **args) -> None:
+        """Request-lifecycle edge on the tracer's async request track."""
+        t = self._trace
+        if t is None or not t.enabled:
+            return
+        if kind == "enqueue":
+            t.begin_async("request", rid, f"req {rid}", **args)
+        elif kind == "evict":
+            t.end_async("request", rid, f"req {rid}", **args)
+        else:
+            t.instant_async("request", rid, kind, **args)
+
     # -- client API -----------------------------------------------------------
     def submit(self, prompt, max_new: int) -> int:
         if len(np.asarray(prompt).reshape(-1)) > self.prompt_bucket:
             raise ValueError(
                 f"prompt longer than prompt_bucket={self.prompt_bucket}")
-        return self.scheduler.submit(prompt, max_new)
+        rid = self.scheduler.submit(prompt, max_new)
+        if self.metrics is not None:
+            self.metrics.on_submit(rid)
+        self._req_event("enqueue", rid, prompt_len=len(
+            np.asarray(prompt).reshape(-1)), max_new=int(max_new))
+        return rid
 
     def _emit(self, st: SlotState, tok: int, lg=None) -> None:
         st.out.append(int(tok))
@@ -206,45 +251,71 @@ class ServeEngine:
         decode.  Returns {"evicted": [...], "admitted": [...],
         "decoded": n_active}."""
         sched, cfg = self.scheduler, self.cfg
-        evicted = []
-        for slot, st in sched.step_evict():
-            self.results[st.rid] = np.asarray(st.out, np.int32)
-            evicted.append(st.rid)
+        metrics = self.metrics
+        with self._span("serve.step", n_pes=0):
+            evicted = []
+            for slot, st in sched.step_evict():
+                self.results[st.rid] = np.asarray(st.out, np.int32)
+                evicted.append(st.rid)
+                if metrics is not None:
+                    metrics.on_evict(st.rid)
+                self._req_event("evict", st.rid, n_tokens=len(st.out))
 
-        admitted = []
-        for slot, st in sched.step_admit():
-            Lb = self.prompt_bucket
-            toks = np.zeros((1, Lb), np.int64)
-            toks[0, :len(st.prompt)] = st.prompt
-            positions = torch.arange(Lb, device=self.device).expand(1, Lb)
-            logits, self.pool = transformer.prefill_paged(
-                self.comm, cfg, self.params, self.pool,
-                self._tensor(self.kv.table[slot:slot + 1]),
-                self._tensor(toks), positions, page_size=self.page_size)
-            lg = logits[:, len(st.prompt) - 1]                # (1, V)
-            tok = sstep.sample_greedy(self.comm, lg)
-            self._emit(st, int(tok[0]), lg[0])
-            admitted.append(st.rid)
+            admitted = []
+            admits = sched.step_admit()
+            if metrics is not None and sched.queue \
+                    and any(s is None for s in sched.slots):
+                # free slot + waiting head = page backpressure, the only
+                # reason FIFO admission stalls
+                metrics.on_backpressure()
+            for slot, st in admits:
+                if metrics is not None:
+                    metrics.on_admit(st.rid)
+                self._req_event("admit", st.rid, slot=slot)
+                Lb = self.prompt_bucket
+                toks = np.zeros((1, Lb), np.int64)
+                toks[0, :len(st.prompt)] = st.prompt
+                positions = torch.arange(Lb, device=self.device).expand(1, Lb)
+                with self._span("serve.prefill", nbytes=float(Lb * 4)):
+                    logits, self.pool = transformer.prefill_paged(
+                        self.comm, cfg, self.params, self.pool,
+                        self._tensor(self.kv.table[slot:slot + 1]),
+                        self._tensor(toks), positions,
+                        page_size=self.page_size)
+                    lg = logits[:, len(st.prompt) - 1]            # (1, V)
+                    tok = int(sstep.sample_greedy(self.comm, lg)[0])
+                self._emit(st, tok, lg[0])
+                if metrics is not None:
+                    metrics.on_first_token(st.rid)
+                self._req_event("first_token", st.rid)
+                admitted.append(st.rid)
 
-        active = sched.active_slots()
-        if active:
-            toks = np.zeros((self.max_slots, 1), np.int64)
-            poss = np.zeros((self.max_slots,), np.int64)
-            for i in active:
-                st = sched.slots[i]
-                toks[i, 0] = st.out[-1]
-                poss[i] = st.pos
-            logits, self.pool = transformer.decode_step_paged(
-                self.comm, cfg, self.params, self.pool,
-                self._tensor(self.kv.table), self._tensor(toks),
-                self._tensor(poss), page_size=self.page_size)
-            lg = logits[:, 0]
-            tok = sstep.sample_greedy(self.comm, lg).cpu().numpy()
-            for i in active:
-                st = sched.slots[i]
-                st.pos += 1
-                self._emit(st, tok[i], lg[i])
+            active = sched.active_slots()
+            if active:
+                toks = np.zeros((self.max_slots, 1), np.int64)
+                poss = np.zeros((self.max_slots,), np.int64)
+                for i in active:
+                    st = sched.slots[i]
+                    toks[i, 0] = st.out[-1]
+                    poss[i] = st.pos
+                t0 = time.perf_counter()
+                with self._span("serve.decode", n_pes=len(active)):
+                    logits, self.pool = transformer.decode_step_paged(
+                        self.comm, cfg, self.params, self.pool,
+                        self._tensor(self.kv.table), self._tensor(toks),
+                        self._tensor(poss), page_size=self.page_size)
+                    lg = logits[:, 0]
+                    tok = sstep.sample_greedy(self.comm, lg).cpu().numpy()
+                if metrics is not None:
+                    metrics.on_decode_step(len(active),
+                                           time.perf_counter() - t0)
+                for i in active:
+                    st = sched.slots[i]
+                    st.pos += 1
+                    self._emit(st, tok[i], lg[i])
         self.steps += 1
+        if metrics is not None:
+            metrics.sample_engine(self)
         return {"evicted": evicted, "admitted": admitted,
                 "decoded": len(active)}
 
@@ -257,4 +328,7 @@ class ServeEngine:
         # final evict pass so the last finishers land in results
         for slot, st in self.scheduler.step_evict():
             self.results[st.rid] = np.asarray(st.out, np.int32)
+            if self.metrics is not None:
+                self.metrics.on_evict(st.rid)
+            self._req_event("evict", st.rid, n_tokens=len(st.out))
         return self.results

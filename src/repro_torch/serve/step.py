@@ -1,11 +1,11 @@
 """Serve-step builders (batched prefill, single-token decode over the
 dense decode cache) and greedy sampling over (vocab-sharded) logits.
 
-The builders compute no gradient.  The reference threads the tuning
-stack (topology, link model, mesh embedding, tuner, profiler) through
-the `Comm` they build; those knobs come with the multi-device backend
-(slice 5) and raise here.  Its `allreduce_algo` picks among allreduce
-algorithms, all the identity on one device: the port's `Comm` has none."""
+The builders compute no gradient.  The tuner and the profiler ride on
+the `Comm` they build, as the reference's; the topology, link model and
+mesh embedding knobs come with the multi-device backend (slice 5) and
+raise here.  Its `allreduce_algo` picks among allreduce algorithms, all
+the identity on one device: the port's `Comm` has none."""
 from __future__ import annotations
 
 import torch
@@ -29,14 +29,13 @@ def build_prefill(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
     (B, L, d); the vision frontend's batch["frontend_embeds"] (B, nf, d)
     pass through to `transformer.prefill`.  Runs under
     `torch.no_grad()`."""
-    _refuse_unported(topo=topo, link=link, embedding=embedding, tuner=tuner,
-                     profile=profile)
+    _refuse_unported(topo=topo, link=link, embedding=embedding)
 
     @torch.no_grad()
     def fn(params, batch):
         return transformer.prefill(
-            Comm(axes, backend), cfg, params, batch.get("tokens"),
-            frames=batch.get("frames"),
+            Comm(axes, backend, tuner=tuner, profile=profile), cfg, params,
+            batch.get("tokens"), frames=batch.get("frames"),
             frontend_embeds=batch.get("frontend_embeds"))
     return fn
 
@@ -48,15 +47,15 @@ def build_decode_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
     """fn(params, cache, batch) -> (logits (B, 1, vocab_local), new cache)
     for batch {"tokens": (B, 1), "positions": (B,)}, under
     `torch.no_grad()`."""
-    _refuse_unported(topo=topo, link=link, embedding=embedding, tuner=tuner,
-                     profile=profile)
+    _refuse_unported(topo=topo, link=link, embedding=embedding)
     if seq_shards != 1:
         raise NotImplementedError("sequence-sharded decode comes with the "
                                   "multi-device backend (slice 5)")
 
     @torch.no_grad()
     def fn(params, cache, batch):
-        return transformer.decode_step(Comm(axes, backend), cfg, params,
+        return transformer.decode_step(Comm(axes, backend, tuner=tuner,
+                                            profile=profile), cfg, params,
                                        cache, batch["tokens"],
                                        batch["positions"])
     return fn

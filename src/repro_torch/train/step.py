@@ -221,12 +221,13 @@ def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
     GRAD_RS_AUTO_BYTES of synced gradient, and "fused" fuses the sync
     into the optimizer (opt_state from init_fused_opt_state, f32
     moments).  On the one-device data axis every non-fused form is the
-    identity; True and "auto" are kept for slice 5's multi-PE axis.  The
-    chunked pipelining, topology, mesh embedding, tuner and profiler
-    knobs are not ported yet (slice 5) and raise; `allreduce_algo` comes
-    with them."""
+    identity; True and "auto" are kept for slice 5's multi-PE axis.
+    `autotune` (a core.tuner.Tuner or TunedSelector) and `profile` (a
+    core.profile.Profiler) ride on the step's `Comm`, as the reference's.
+    The chunked pipelining, topology and mesh embedding knobs are not
+    ported yet (slice 5) and raise; `allreduce_algo` comes with them."""
     given = dict(pipeline_chunks=pipeline_chunks, topo=topo, link=link,
-                 embedding=embedding, autotune=autotune, profile=profile)
+                 embedding=embedding)
     unported = sorted(k for k, v in given.items() if v is not None)
     if unported:
         raise NotImplementedError(f"{unported}: not ported yet (slice 5)")
@@ -241,7 +242,8 @@ def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
             synced = sum(4 * l.numel() for l, m in
                          zip(leaves, tree_flatten(mask)[0]) if m)
             rs = synced >= GRAD_RS_AUTO_BYTES
-        comm = Comm(axes, backend, grad_rs=rs)
+        comm = Comm(axes, backend, grad_rs=rs, tuner=autotune,
+                    profile=profile)
         # clamp grad accumulation to the local batch
         b_local = next(iter(batch.values())).shape[0]
         mb = max(1, min(cfg.microbatches, b_local))

@@ -17,12 +17,15 @@ import torch
 from repro.core import collectives as jcoll
 from repro.core import fusion as jfusion
 from repro.core.netops import SimNetOps as JSim
+from repro.core.tuner import TunedSelector as JTunedSelector
+from repro.core.tuner import TuningDB as JTuningDB
 from repro.core.topology import epiphany3 as jepiphany3
 from repro.kernels import fused_update as jfu
 from repro_torch.core import collectives as coll
 from repro_torch.core import fusion
 from repro_torch.core.netops import SimNetOps
 from repro_torch.core.topology import epiphany3
+from repro_torch.core.tuner import TunedSelector, TuningDB
 from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import ops, ref
 
@@ -262,8 +265,18 @@ def test_choose_grad_rs_matches_reference(n, nbytes, topo, itemsize):
 
 
 def test_choose_grad_rs_tuner_not_ported():
-    with pytest.raises(NotImplementedError):
-        fusion.choose_grad_rs(8, 1 << 22, 2, tuner=object())
+    """The tuner is ported: a measured "grad_sync" verdict wins over the
+    model, as the reference's, and a miss keeps the model's pick."""
+    db, jdb = TuningDB(), JTuningDB()
+    for d in (db, jdb):
+        d.record("flat:n8", "grad_sync", "n8", 1 << 22, "bucketed", 1,
+                 None, 1e-3)
+    sel, jsel = TunedSelector(db), JTunedSelector(jdb)
+    for args in ((8, 1 << 22, 2), (8, 1 << 22, 4), (8, 4096, 2)):
+        assert fusion.choose_grad_rs(*args, tuner=sel) == \
+            jfusion.choose_grad_rs(*args, tuner=jsel)
+    assert fusion.choose_grad_rs(8, 1 << 22, 2)[0] == "fused"
+    assert fusion.choose_grad_rs(8, 1 << 22, 2, tuner=sel)[0] == "bucketed"
 
 
 def test_cpu_path_does_not_count_launches_and_ops_defaults():

@@ -30,6 +30,7 @@ from repro.parallel.comm import Comm as JComm
 from repro.serve import step as jstep
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs import mamba2_2_7b
+from repro_torch.core import Profiler, Tuner
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import layers as L
@@ -341,7 +342,11 @@ def test_dense_cache_decode_is_the_ssm_familys():
     with pytest.raises(ValueError, match="audio"):
         T.init_cache(smoke_config("hubert-xlarge"), 1, 2, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
-        sstep.build_prefill(CFG, tuner=object())
+        sstep.build_prefill(CFG, topo=object())
+    # the tuner and the profiler ride on the step's Comm, as the
+    # reference's: accepted, and the one-device step is unchanged
+    assert callable(sstep.build_prefill(CFG, tuner=Tuner(),
+                                        profile=Profiler()))
 
 
 MAMBA_BLOCKED = textwrap.dedent("""

@@ -21,6 +21,8 @@ from repro.configs import smoke_config as jax_smoke
 from repro.core import fusion as jfusion
 from repro.core import shmem as jshmem
 from repro.core.topology import epiphany3 as jepiphany3
+from repro.core.tuner import TunedSelector as JTunedSelector
+from repro.core.tuner import TuningDB as JTuningDB
 from repro.kernels import ring_attention as jra
 from repro.models import layers as JL
 from repro.parallel.comm import AxisSpec as JAxisSpec
@@ -29,6 +31,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.core import fusion, sim_ctx
 from repro_torch.core.netops import NetOps
 from repro_torch.core.topology import epiphany3
+from repro_torch.core.tuner import TunedSelector, TuningDB
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import put_copy as pc
 from repro_torch.kernels import ring_attention as ra
@@ -291,8 +294,20 @@ def test_choose_attention_overlap_wins_when_compute_hides_comm():
 
 
 def test_choose_attention_tuner_raises():
-    with pytest.raises(NotImplementedError):
-        fusion.choose_attention(8, 1 << 20, 1.0, tuner=object())
+    """The tuner is ported: a measured "attention" verdict wins over the
+    model, as the reference's (fusion.py:196-200)."""
+    db, jdb = TuningDB(), JTuningDB()
+    for d in (db, jdb):
+        d.record("flat:n8", "attention", "n8", 8 << 20, "mono", 1, None,
+                 9.3e-3)
+        d.record("flat:n8", "attention", "n8", 8 << 20, "ring", 1, None,
+                 15.5e-3)
+    sel, jsel = TunedSelector(db), JTunedSelector(jdb)
+    for args in ((8, 1 << 20, 1.0), (8, 1 << 10, 1.0), (4, 1 << 20, 1.0)):
+        assert fusion.choose_attention(*args, tuner=sel) == \
+            jfusion.choose_attention(*args, tuner=jsel)
+    assert fusion.choose_attention(8, 1 << 20, 1.0)[0] == "ring"
+    assert fusion.choose_attention(8, 1 << 20, 1.0, tuner=sel)[0] == "mono"
 
 
 def test_ring_attention_on_another_net_raises():

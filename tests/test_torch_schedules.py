@@ -24,12 +24,14 @@ from repro.core import collectives as jcoll  # noqa: E402
 from repro.core import pattern as jpat  # noqa: E402
 from repro.core import team as jteam  # noqa: E402
 from repro.core import topology as jtop  # noqa: E402
+from repro.core import tuner as jtuner  # noqa: E402
 from repro_torch.configs import epiphany16 as paper  # noqa: E402
 from repro_torch.core import abmodel as ab  # noqa: E402
 from repro_torch.core import collectives as coll  # noqa: E402
 from repro_torch.core import pattern as pat  # noqa: E402
 from repro_torch.core import team as team_mod  # noqa: E402
 from repro_torch.core import topology as top  # noqa: E402
+from repro_torch.core import tuner as tuner_mod  # noqa: E402
 
 TOPOS = [top.epiphany3(), top.MeshTopology((3, 5), (False, False)),
          top.MeshTopology((2, 7), (False, False)),
@@ -125,8 +127,21 @@ def test_abmodel_matches():
     for bad in (([8], [1.0]), ([8, 8], [1.0, 2.0])):
         with pytest.raises(ValueError):
             ab.fit(*bad)
-    with pytest.raises(NotImplementedError):
-        ab.choose_chunks(stages, tuner=object())
+    # the measured chunk count wins on a hit within the cap; a miss (or
+    # no key, or a measured count above the cap) takes the model's, in
+    # both packages alike
+    db, jdb = tuner_mod.TuningDB(), jtuner.TuningDB()
+    for d in (db, jdb):
+        d.record("flat:n8", "allreduce", "n8", 4096, "ring", 16, None, 1e-6)
+    sel, jsel = tuner_mod.TunedSelector(db), jtuner.TunedSelector(jdb)
+    for key in (("allreduce", "ring", 8, 4096, None),
+                ("allreduce", "rd", 8, 4096, None), None):
+        for mc in (32, 4):
+            assert ab.choose_chunks(stages, max_chunks=mc, tuner=sel,
+                                    key=key) == \
+                jab.choose_chunks(stages, max_chunks=mc, tuner=jsel, key=key)
+    assert ab.choose_chunks(stages, max_chunks=32, tuner=sel, key=(
+        "allreduce", "ring", 8, 4096, None)) == 16
 
 
 # ---------------------------------------------------------------------------
@@ -320,9 +335,19 @@ def test_choose_picks_match(topo):
                 assert coll.choose_schedule(n, nb, topo, link,
                                             partition=part) == \
                     jcoll.choose_schedule(n, nb, jt, jl, partition=jpart)
-    for service in (dict(tuner=object()),):
-        with pytest.raises(NotImplementedError):
-            coll.choose_algorithm(n, 64.0, topo, **service)
+    # a measured verdict wins over the model, in both packages alike
+    fp = tuner_mod.fingerprint(topo, n)
+    db, jdb = tuner_mod.TuningDB(), jtuner.TuningDB()
+    for d in (db, jdb):
+        d.record(fp, "allreduce", f"n{n}", 64.0, "ring", 2, None, 1e-6)
+    sel, jsel = tuner_mod.TunedSelector(db), jtuner.TunedSelector(jdb)
+    for nb in (64.0, 1 << 20):
+        assert coll.choose_algorithm(n, nb, topo, tuner=sel) == \
+            jcoll.choose_algorithm(n, nb, jt, tuner=jsel)
+        assert coll.choose_schedule(n, nb, topo, tuner=sel) == \
+            jcoll.choose_schedule(n, nb, jt, tuner=jsel)
+    assert coll.choose_algorithm(n, 64.0, topo, tuner=sel) == "ring"
+    assert coll.choose_schedule(n, 64.0, topo, tuner=sel) == ("ring", 2)
 
 
 def test_optimize_embedding_matches():

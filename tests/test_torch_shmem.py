@@ -17,7 +17,7 @@ from repro.core import sim_ctx as jsim_ctx
 from repro.core import team as jteam
 from repro.core.netops import SimNetOps as JSim
 from repro.core.topology import epiphany3 as jepiphany3
-from repro_torch.core import sim_ctx, spmd_ctx
+from repro_torch.core import Profiler, Tuner, sim_ctx, spmd_ctx
 from repro_torch.core import collectives as coll
 from repro_torch.core import team as team_mod
 from repro_torch.core.netops import SimNetOps
@@ -221,11 +221,22 @@ def test_entry_points_and_device_rules():
         ctx.put(torch.zeros((4, 3), device="meta"), [(0, 1)])
     with pytest.raises(NotImplementedError):
         spmd_ctx("pe")
-    for knob in ("profile", "tuner", "fault"):
-        with pytest.raises(NotImplementedError):
-            ShmemContext(SimNetOps(4, "cpu"), **{knob: object()})
-    with pytest.raises(NotImplementedError):
-        coll.broadcast(ctx.net, x, profile=object())
+    with pytest.raises(NotImplementedError, match="fault injector"):
+        ShmemContext(SimNetOps(4, "cpu"), fault=object())
+    # the profiler and the tuner are ported: the context takes them and
+    # the executors note their selection on the open op
+    prof, tuner = Profiler(level=2), Tuner()
+    c = ShmemContext(SimNetOps(4, "cpu"), profile=prof, tuner=tuner,
+                     fingerprint="fp:test")
+    assert c.net.profile is prof and c._sel.db is tuner.db
+    c.broadcast(torch.ones((4, 3)))
+    (s,) = prof.samples
+    assert (s.collective, s.algorithm, s.fingerprint) == \
+        ("broadcast", "binomial_ff", "fp:test")
+    prof2 = Profiler(level=2)
+    with prof2.op("broadcast", n_pes=4):
+        coll.broadcast(ctx.net, torch.ones((4, 3)), profile=prof2)
+    assert prof2.samples[0].schedule.startswith("broadcast")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             sim_ctx(4)                         # CUDA by default, no fallback

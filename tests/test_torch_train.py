@@ -31,7 +31,7 @@ from repro.train import optimizer as jopt
 from repro.train import step as jstep
 from repro_torch.ckpt import manager as ckpt
 from repro_torch.configs import smoke_config
-from repro_torch.core import heap
+from repro_torch.core import Profiler, Tuner, heap
 from repro_torch.core.heap import tree_flatten, tree_unflatten
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import train as train_mod
@@ -39,6 +39,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.parallel.comm import Comm
 from repro_torch.train import optimizer as opt
+from repro_torch.tools.tracereport import validate_metrics, validate_trace
 from repro_torch.train import step as tstep
 
 JCFG = jax_smoke("qwen2-0.5b", dtype=jnp.float32)
@@ -494,6 +495,26 @@ def test_plan_fused_buckets_and_wd_mask_match_reference(seed):
 @pytest.mark.parametrize("knob", ["pipeline_chunks", "topo", "link",
                                   "embedding", "autotune", "profile"])
 def test_build_train_step_refuses_unported_knobs(knob):
+    if knob in ("autotune", "profile"):
+        # ported: the tuner and the profiler ride on the step's Comm, as
+        # the reference's; on the one-PE data axis no collective runs,
+        # so the step is bit for bit the plain one and notes nothing
+        service = Tuner() if knob == "autotune" else Profiler(level=2)
+        p0 = params_from_jax(jparams_np(4), CFG)
+        b = batch_np(0, seq=16)
+        outs = []
+        for kw in ({}, {knob: service}):
+            step = tstep.build_train_step(CFG, **kw)
+            outs.append(step(p0, opt.init_state(p0, opt.AdamWConfig()), b))
+        assert float(outs[0][0]) == float(outs[1][0])
+        for x, y in zip(tree_flatten(outs[0][1])[0],
+                        tree_flatten(outs[1][1])[0]):
+            assert torch.equal(x, y)
+        if knob == "profile":
+            assert service.samples == []
+        else:
+            assert len(service.db) == 0
+        return
     with pytest.raises(NotImplementedError, match="slice 5"):
         tstep.build_train_step(CFG, **{knob: object()})
 
@@ -537,7 +558,34 @@ def test_train_launcher_loss_improves():
     ["--profile-out", "p.json"], ["--trace-out", "t.json"],
     ["--metrics-out", "m.json"], ["--allreduce-algo", "auto"],
     ["--pipeline-chunks", "2"], ["--shard-strategy", "dp_only"]])
-def test_train_launcher_refuses_unported_flags(flags, capsys):
+def test_train_launcher_refuses_unported_flags(flags, capsys, tmp_path):
+    ported = {"--autotune", "--tuning-db", "--profile-out", "--trace-out",
+              "--metrics-out"}
+    if flags[0] in ported:
+        # the measurement services are ported: the flag runs the step
+        # and writes its document, as the reference's launcher does
+        flags = flags[:1] + [str(tmp_path / f) for f in flags[1:]]
+        losses = train_mod.main(SMOKE + ["--steps", "1", "--seq-len", "16",
+                                         "--batch", "2"] + flags)
+        assert len(losses) == 1 and np.isfinite(losses).all()
+        if len(flags) == 1:
+            return
+        doc = json.loads((tmp_path / flags[1]).read_text())
+        if flags[0] == "--tuning-db":
+            assert doc == {"schema": 1, "entries": {}, "links": {}}
+        elif flags[0] == "--profile-out":
+            assert doc["schema"] == 1
+            assert [r["collective"] for r in doc["timeline"]] == \
+                ["train_step"]
+        elif flags[0] == "--trace-out":
+            assert validate_trace(doc) == []
+            assert any(e.get("name") == "train_step"
+                       for e in doc["traceEvents"])
+        else:
+            assert validate_metrics(doc) == []
+            assert doc["metrics"]["train.steps"]["value"] == 1
+            assert doc["metrics"]["train.step_s"]["count"] == 1
+        return
     with pytest.raises(SystemExit):
         train_mod.main(SMOKE + ["--steps", "1"] + flags)
     assert "slice 5" in capsys.readouterr().err
