@@ -226,7 +226,29 @@ Phases; any failure exits non-zero before the result line is printed:
      8 submitted, 8 completed, 256 tokens, 0 pages live, TTFT and
      per-token p50 beside an untraced run's and phase 3's; (e)
      `launch.serve --arch
-     qwen2-0.5b --trace-out --metrics-out` writes valid documents.
+     qwen2-0.5b --trace-out --metrics-out` writes valid documents;
+ 15. the elastic runtime on the card — (a) the fault injector on
+     sim_ctx(16) under SIM and NoC-SIM against one 1 GiB stacked f32
+     put: a dead PE raises PEFailure with no launch; a dropped link the
+     YX route avoids reroutes, bit for bit with the unfaulted put; a
+     severed adjacent link with heal_after 1 and 2 lands on attempt 2
+     and 3 bit for bit (retries 1 and 2), and with no heal raises
+     LinkFailure after 4 attempts; a 0.05 s straggler's quiet deadline
+     raises with the queue kept, and quiet() waits it; (b) the PGAS
+     checkpoint stream of the fused sync's state at the bucket (p 1 GiB,
+     m and v 64 MiB each): exactly 45 put_copy launches a begin, the
+     drained checkpoint restored bit for bit into CUDA templates, begin
+     (async issue) under 10% of a synchronous save's wall; (c) 9 fused
+     steps (phase 6b's fused_rs_adam + allgather_unpad) with PE 5 killed
+     at step 5, inline checkpoints every 2 steps and a LEVEL_FULL
+     Tracer: PEFailure, drain, recover to step 4 with a live ring of 15
+     and a re-keyed fingerprint, resumed p, m, v after step 8 equal to
+     the uninterrupted run's bit for bit, the chaos summary naming
+     fault.pe_failure and fault.recovered; (d) qwen2-0.5b's engine on
+     phase 3's traffic with PE 1 lost at the third step's decode: the
+     drain requeues the live rids in slot order, frees every page, and
+     run() regenerates phase 3's tokens exactly with 24 more kernel-4
+     launches per re-prefill.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}:
 the seven kernels, then one flash_attention row per prefill shape of
@@ -659,12 +681,12 @@ def pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
 
 
-def drive_engine(torch, eng, prompts, new_tokens):
+def drive_engine(torch, eng, prompts, new_tokens, on_step=None):
     """Submit every prompt, step the engine until idle noting the host
-    time each request's tokens arrive, then the final evict pass.
-    Returns (rids, TTFT list (submit to the end of the admitting step),
-    gaps between a request's tokens, wall); waits for the card at both
-    ends."""
+    time each request's tokens arrive, then the final evict pass;
+    `on_step` sees each step's result as it returns.  Returns (rids, TTFT
+    list (submit to the end of the admitting step), gaps between a
+    request's tokens, wall); waits for the card at both ends."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rids = [eng.submit(p, new_tokens) for p in prompts]
@@ -672,8 +694,10 @@ def drive_engine(torch, eng, prompts, new_tokens):
     while not eng.scheduler.idle():
         before = {st.rid: len(st.out) for st in eng.scheduler.slots
                   if st is not None}
-        eng.step()
+        res = eng.step()
         now = time.perf_counter()
+        if on_step is not None:
+            on_step(res)
         for st in eng.scheduler.slots:
             if st is not None and len(st.out) > before.get(st.rid, 0):
                 got_at[st.rid].append(now)
@@ -4030,6 +4054,475 @@ def services_launcher(torch) -> dict:
     return got
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the elastic runtime on the card — fault injection, the PGAS
+# checkpoint stream, kill-and-resume, the serving drain
+# ---------------------------------------------------------------------------
+
+# 15c's run: fused steps, the PE that dies and the step it dies at, the
+# checkpoint period (the reference's tests/test_fault.py toy run)
+FAULT_STEPS, KILL_PE, KILL_STEP, CKPT_EVERY = 9, 5, 5, 2
+# 15d: the decode call (1-based) at which a PE is lost: the third step's
+DRAIN_AT_DECODE = 3
+
+
+def same_bits(torch, got, want, what: str) -> None:
+    """`got` holds `want`'s bits exactly (shape, dtype and every bit)."""
+    if got.shape != want.shape or got.dtype != want.dtype or \
+            got.device != want.device:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} "
+                             f"{got.device} vs {tuple(want.shape)} "
+                             f"{want.dtype} {want.device}")
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[got.element_size()]
+    if not torch.equal(got.view(view), want.view(view)):
+        raise AssertionError(f"{what}: bits differ")
+
+
+def _expect_raise(exc_type, fn, what: str):
+    """The error `fn()` raises, which must be an `exc_type`."""
+    try:
+        fn()
+    except exc_type as e:
+        return e
+    raise AssertionError(f"{what}: no {exc_type.__name__} raised")
+
+
+def elastic_injector(torch, np) -> list:
+    """15a: the fault injector against one 1 GiB stacked f32 ppermute (64
+    MiB per PE) on 16 PEs, under SIM and NoC-SIM: a dead PE raises
+    PEFailure with no launch; a link the YX route avoids reroutes with
+    output bit-identical to the unfaulted put; a severed adjacent link
+    with heal_after=k fails k attempts, heals, and lands on attempt k + 1
+    bit for bit; a straggler's delay is felt at quiet() and its deadline
+    raises with the queue untouched.  Returns each sub-phase's launches
+    (counts set to 0 just before the faulted call, read just after)."""
+    from repro_torch.configs import epiphany16 as paper
+    from repro_torch.core import FaultPlan, Profiler, RetryPolicy, sim_ctx
+    from repro_torch.core.fault import (DeadlineExceeded, LinkFailure,
+                                        PEFailure)
+    n, topo = paper.N_PES, paper.TOPOLOGY
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn((n, BUCKET_ELEMS), generator=gen, device="cuda")
+    retry = RetryPolicy(backoff_s=1e-4)
+    one_put = {"put_copy": 1, "dma_copy": 0, "reduce_combine": 0}
+    paths = []
+    for noc in (False, True):
+        kind = "NoC-SIM" if noc else "SIM"
+        clean = sim_ctx(n, topo, noc=noc, device="cuda")
+        want = {pair: clean.put(x, [pair]) for pair in ((0, 6), (0, 1),
+                                                        (3, 2))}
+
+        def ctx_for(plan, **kw):
+            return sim_ctx(n, topo, noc=noc, device="cuda", fault=plan,
+                           retry=retry, **kw)
+
+        def counts():
+            got = _counts()
+            return {k: got[k] for k in one_put}
+
+        # a dead PE: typed error at issue, before any launch
+        ctx = ctx_for(FaultPlan().kill_pe(3, pe=5))
+        ctx.fault_injector.set_step(3)
+        torch.cuda.synchronize()
+        _reset_counts()                                 # path starts
+        e = _expect_raise(PEFailure, lambda: ctx.put_nbi(x, [(5, 6)]),
+                          f"{kind} dead PE")
+        torch.cuda.synchronize()
+        dead = counts()                                 # path ends
+        if (e.pe, e.step) != (5, 3) or any(dead.values()) or \
+                ctx.pending_count:
+            raise AssertionError(f"{kind} dead PE: pe {e.pe}, step "
+                                 f"{e.step}, launches {dead}, pending "
+                                 f"{ctx.pending_count}")
+        _expect_raise(PEFailure, lambda: ctx.to_all(x, "sum"),
+                      f"{kind} to_all over a dead PE")
+
+        # a dropped link the YX route avoids: rerouted, bit for bit
+        ctx = ctx_for(FaultPlan().drop_link(0, 1, 2))
+        _reset_counts()                                 # path starts
+        (out,) = ctx.quiet(ctx.put_nbi(x, [(0, 6)]))
+        torch.cuda.synchronize()
+        reroute = counts()                              # path ends
+        same_bits(torch, out, want[(0, 6)], f"{kind} rerouted put")
+        if ctx.fault_injector.stats != {"fault.reroutes": 1} or \
+                reroute != one_put:
+            raise AssertionError(f"{kind} reroute: stats "
+                                 f"{ctx.fault_injector.stats}, launches "
+                                 f"{reroute}")
+
+        # both routes severed, transient: the k-th failed attempt heals
+        heal = {}
+        for k in (1, 2):
+            prof = Profiler(level=1)
+            ctx = ctx_for(FaultPlan().drop_link(0, 0, 1, heal_after=k),
+                          profile=prof)
+            _reset_counts()                             # path starts
+            (out,) = ctx.quiet(ctx.put_nbi(x, [(0, 1)]))
+            torch.cuda.synchronize()
+            heal[k] = counts()                          # path ends
+            same_bits(torch, out, want[(0, 1)], f"{kind} healed put")
+            retries = prof.counters().get("fault.retries", {}).get("count")
+            if ctx.fault_injector.stats != {"fault.link_hits": k} or \
+                    retries != k or heal[k] != one_put:
+                raise AssertionError(f"{kind} heal_after={k}: stats "
+                                     f"{ctx.fault_injector.stats}, retries "
+                                     f"{retries}, launches {heal[k]}")
+        # with no heal the retries run out: LinkFailure after 1 + 3 tries
+        ctx = ctx_for(FaultPlan().drop_link(0, 0, 1))
+        e = _expect_raise(LinkFailure, lambda: ctx.put_nbi(x, [(0, 1)]),
+                          f"{kind} severed link")
+        if (e.link, e.attempts, e.op) != ((0, 1), 4, "put"):
+            raise AssertionError(f"{kind} severed link: {e.link}, "
+                                 f"{e.attempts} attempts, op {e.op}")
+
+        # a straggler: the deadline raises at quiet(), queue untouched;
+        # within it quiet() waits the delay
+        ctx = ctx_for(FaultPlan().slow_pe(0, pe=3, delay_s=0.05))
+        _reset_counts()                                 # path starts
+        f = ctx.put_nbi(x, [(3, 2)])
+        _expect_raise(DeadlineExceeded, lambda: ctx.quiet(deadline_s=0.01),
+                      f"{kind} straggler deadline")
+        if ctx.pending_count != 1 or f.done:
+            raise AssertionError(f"{kind}: the deadline touched the queue")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        (out,) = ctx.quiet()
+        torch.cuda.synchronize()
+        wait = time.perf_counter() - t
+        slow = counts()                                 # path ends
+        same_bits(torch, out, want[(3, 2)], f"{kind} straggler put")
+        if wait < 0.05 or slow != one_put:
+            raise AssertionError(f"{kind} straggler: quiet took {wait:.4f}"
+                                 f" s, launches {slow}")
+        log(f"  15a {kind}, 1 GiB f32 over 16 PEs: dead PE 5 -> PEFailure"
+            f"(pe 5, step 3) with launches {dead}; link (1,2) dropped -> "
+            f"YX reroute of (0,6), bit for bit, launches {reroute}; link "
+            f"(0,1) severed, heal_after 1 / 2 -> lands on attempt 2 / 3 "
+            f"bit for bit (retries 1 / 2), launches {heal[1]} / {heal[2]};"
+            f" never healed -> LinkFailure after 4 attempts; straggler "
+            f"0.05 s -> quiet(deadline 0.01) raised, queue kept, quiet() "
+            f"{wait:.4f} s")
+        paths += [dead, reroute, heal[1], heal[2], slow]
+        del clean, want, out, ctx
+    del x
+    torch.cuda.empty_cache()
+    return paths
+
+
+def bucket_state(torch, seed: int) -> dict:
+    """The fused sync's state at the 64 MiB-per-PE f32 bucket on 16 PEs:
+    params p (16, 16777216), the same on every PE, and each PE's owned
+    moment chunks m, v (16, 1048576)."""
+    n, L = 16, BUCKET_ELEMS
+    chunk = -(-L // n)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.randn(L, generator=gen, device="cuda").expand(n, L) \
+        .contiguous()
+    m = torch.randn((n, chunk), generator=gen, device="cuda") * 0.1
+    v = torch.rand((n, chunk), generator=gen, device="cuda") * 0.01
+    return {"p": p, "m": m, "v": v}
+
+
+def _gib(nbytes) -> str:
+    return f"{nbytes / 2**30:.3f} GiB"
+
+
+def elastic_pgas(torch, np, card) -> dict:
+    """15b: the PGAS checkpoint stream of the bucket's state (1.125 GiB)
+    on 16 PEs: one begin launches exactly 3 x 15 put_copy rotations;
+    drain writes a checkpoint that restore returns bit for bit into
+    CUDA templates; begin (async issue) against a synchronous save of
+    the same state must stay under 10% of it (the reference's bar,
+    benchmarks/bench_fault.py).  Returns the stream's launches (counts
+    set to 0 just before begin, read after drain)."""
+    import shutil
+
+    from repro_torch.ckpt import manager
+    from repro_torch.ckpt.pgas import PgasCheckpointer
+    from repro_torch.configs import epiphany16 as paper
+    from repro_torch.core import sim_ctx
+    n = paper.N_PES
+    out = ROOT / "build" / "phase15"
+    shutil.rmtree(out, ignore_errors=True)
+    state = bucket_state(torch, 16)
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    manager.save(out / "sync", 0, state)
+    sync_s = time.perf_counter() - t
+    shutil.rmtree(out / "sync")
+    ctx = sim_ctx(n, paper.TOPOLOGY, device="cuda")
+    ck = PgasCheckpointer(ctx, out / "pgas", async_issue=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_counts()                                     # path starts
+    t = time.perf_counter()
+    n_rot = ck.begin(1, state)
+    begin_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ck.drain()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t
+    got = _counts()                                     # path ends
+    peak = torch.cuda.max_memory_allocated()
+    want = {"put_copy": 3 * (n - 1), "dma_copy": 0, "reduce_combine": 0,
+            "fused_update": 0, "flash_attention": 0, "ssd_scan": 0,
+            "ring_attention": 0}
+    if n_rot != 3 * (n - 1) or got != want:
+        raise AssertionError(f"pgas begin: {n_rot} rotations, launches "
+                             f"{got} (want {want})")
+    template = {k: torch.empty_like(v) for k, v in state.items()}
+    step, back = manager.restore(out / "pgas", template)
+    if step != 1:
+        raise AssertionError(f"pgas checkpoint restored step {step}")
+    for k in state:
+        same_bits(torch, back[k], state[k], f"pgas checkpoint {k}")
+    del back, template
+    shutil.rmtree(out / "pgas")
+    log(f"  15b PGAS stream of p, m, v ({_gib(nbytes)}) on 16 PEs: begin "
+        f"(async issue) {begin_s * 1e3:.3f} ms, drain {drain_s * 1e3:.1f} "
+        f"ms, a synchronous manager.save {sync_s * 1e3:.1f} ms (begin "
+        f"{begin_s / sync_s:.2%} of it); peak memory {_gib(peak)} "
+        f"({_gib(peak - base)} over the state); restore == state bit for "
+        f"bit on the card; launches {got} ({card})")
+    if begin_s >= 0.1 * sync_s:
+        raise AssertionError(f"pgas begin {begin_s:.4f} s is not under 10% "
+                             f"of the synchronous save's {sync_s:.4f} s")
+    del state
+    torch.cuda.empty_cache()
+    return got
+
+
+def fused_bucket_step(torch, net, state, step: int, wd) -> dict:
+    """One step of phase 6b's fused sync on the bucket: step `step`'s
+    gradients from Generator(1000 + step), fused_rs_adam at t = step + 1,
+    then allgather_unpad of the new params."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import fusion
+    n, L = state["p"].shape
+    gen = torch.Generator(device="cuda").manual_seed(1000 + step)
+    g = torch.randn((n, L), generator=gen, device="cuda")
+    t = step + 1
+    c1 = torch.tensor(1 - ADAM_HP["b1"] ** t, device="cuda")
+    c2 = torch.tensor(1 - ADAM_HP["b2"] ** t, device="cuda")
+    new_p, new_m, new_v, info = fusion.fused_rs_adam(
+        net, g, state["p"], state["m"], state["v"], wd, c1, c2,
+        scale=float(n), out_dtype=torch.float32, **ADAM_HP)
+    return {"p": coll.allgather_unpad(net, new_p, info), "m": new_m,
+            "v": new_v}
+
+
+def elastic_resume(torch, np, card) -> list:
+    """15c: kill and resume at the bucket's size.  FAULT_STEPS fused steps
+    on a victim context whose PE KILL_PE dies at step KILL_STEP, with
+    inline PGAS checkpoints every CKPT_EVERY steps and a LEVEL_FULL
+    Tracer: PEFailure at the kill; drain; recover returns the last
+    checkpoint's step, the dead set and a live ring of 15, and re-keys
+    the fingerprint; resumed on a healthy context, p, m, v after the last
+    step equal the uninterrupted run's bit for bit; the tracer's chaos
+    summary names fault.pe_failure and fault.recovered.  Returns the
+    launches of the uninterrupted run, the victim's and the resumed one
+    (each: counts set to 0 just before, read just after)."""
+    import shutil
+
+    from repro_torch.ckpt.pgas import PgasCheckpointer
+    from repro_torch.configs import epiphany16 as paper
+    from repro_torch.core import FaultPlan, RetryPolicy, elastic, sim_ctx
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.fault import PEFailure
+    from repro_torch.core.trace import LEVEL_FULL, Tracer
+    from repro_torch.tools import tracereport
+    n, topo = paper.N_PES, paper.TOPOLOGY
+    wd = (torch.arange(BUCKET_ELEMS, device="cuda") % 3 == 0) \
+        .to(torch.int8)
+    out = ROOT / "build" / "phase15" / "kill"
+    shutil.rmtree(out, ignore_errors=True)
+    init = bucket_state(torch, 17)
+
+    # the uninterrupted run, each step's wall on the host clock
+    healthy = sim_ctx(n, topo, device="cuda")
+    st, walls = init, []
+    torch.cuda.synchronize()
+    _reset_counts()                                     # path starts
+    for s in range(FAULT_STEPS):
+        t = time.perf_counter()
+        st = fused_bucket_step(torch, healthy.net, st, s, wd)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    straight = _counts()                                # path ends
+    stages = len(coll.reduce_scatter_schedule(n).stages)
+    per_step = {"put_copy": stages + len(coll.allgather_schedule(n).stages),
+                "dma_copy": 2, "reduce_combine": stages - 1,
+                "fused_update": 1}
+    if any(straight[k] != FAULT_STEPS * v for k, v in per_step.items()):
+        raise AssertionError(f"uninterrupted run: launches {straight}, "
+                             f"{FAULT_STEPS} x {per_step} expected")
+
+    # the victim: PE KILL_PE dies at step KILL_STEP
+    tracer = Tracer(level=LEVEL_FULL)
+    ctx = sim_ctx(n, topo, device="cuda",
+                  fault=FaultPlan().kill_pe(KILL_STEP, pe=KILL_PE),
+                  retry=RetryPolicy(backoff_s=1e-4), profile=tracer)
+    fp_before = ctx._fp
+    inj = ctx.fault_injector
+    ck = PgasCheckpointer(ctx, out, async_issue=False)
+    vst = init
+    torch.cuda.synchronize()
+    _reset_counts()                                     # path starts
+    try:
+        for s in range(FAULT_STEPS):
+            inj.set_step(s)
+            if s % CKPT_EVERY == 0:
+                ck.begin(s, vst)
+            vst = fused_bucket_step(torch, ctx.net, vst, s, wd)
+        raise AssertionError("the victim ran every step: no PEFailure")
+    except PEFailure as e:
+        if (e.pe, e.step) != (KILL_PE, KILL_STEP):
+            raise AssertionError(f"PEFailure at pe {e.pe}, step {e.step}")
+    ck.drain()
+    torch.cuda.synchronize()
+    victim = _counts()                                  # path ends
+    del vst
+    ckpts = KILL_STEP // CKPT_EVERY + 1     # begins at steps 0, 2, 4
+    floor = {k: KILL_STEP * v for k, v in per_step.items()}
+    floor["put_copy"] += ckpts * 3 * (n - 1)
+    if any(not 0 <= victim[k] - floor[k] < max(per_step[k], 1)
+           for k in per_step):
+        raise AssertionError(f"victim: launches {victim}; {KILL_STEP} "
+                             f"steps and {ckpts} checkpoints give {floor} "
+                             f"and the faulted step less than a step")
+    template = {k: torch.empty_like(v) for k, v in init.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step, restored, dm = elastic.recover(ctx, inj.dead_pes, out, template)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t
+    last = (KILL_STEP - 1) // CKPT_EVERY * CKPT_EVERY
+    if step != last or dm.dead != (KILL_PE,) or len(dm.live) != n - 1 \
+            or KILL_PE in dm.live or ctx._fp != dm.fingerprint \
+            or ctx._fp == fp_before:
+        raise AssertionError(f"recover: step {step}, dead {dm.dead}, live "
+                             f"{dm.live}, fingerprint {ctx._fp} (was "
+                             f"{fp_before})")
+    doc = tracer.to_chrome()
+    chaos = tracereport._chaos_report(doc["traceEvents"], doc["repro"])
+    text = "\n".join(chaos)
+    if "fault.pe_failure" not in text or "fault.recovered" not in text:
+        raise AssertionError(f"chaos summary: {chaos}")
+
+    # resume on a healthy context from the restored step
+    spare = sim_ctx(n, topo, device="cuda")      # replacement hardware
+    torch.cuda.synchronize()
+    _reset_counts()                                     # path starts
+    rst = restored
+    for s in range(step, FAULT_STEPS):
+        rst = fused_bucket_step(torch, spare.net, rst, s, wd)
+    torch.cuda.synchronize()
+    resumed = _counts()                                 # path ends
+    for k in ("p", "m", "v"):
+        same_bits(torch, rst[k], st[k], f"resumed {k} after step "
+                  f"{FAULT_STEPS - 1}")
+    if any(resumed[k] != (FAULT_STEPS - step) * v
+           for k, v in per_step.items()):
+        raise AssertionError(f"resumed run: launches {resumed}")
+    shutil.rmtree(out)
+    log(f"  15c kill and resume, fused_rs_adam on the 1 GiB bucket over 16 "
+        f"PEs: PEFailure(pe {KILL_PE}) at step {KILL_STEP}; recover -> "
+        f"step {step}, dead {dm.dead}, live ring of {len(dm.live)} "
+        f"{dm.live}, fingerprint {dm.fingerprint!r}; recovery wall "
+        f"{recovery_s * 1e3:.1f} ms; resumed p, m, v after step "
+        f"{FAULT_STEPS - 1} == uninterrupted, bit for bit; step wall "
+        f"(uninterrupted, ms) " + ", ".join(f"{w * 1e3:.3f}" for w in walls)
+        + f"; chaos summary: {' | '.join(l.strip() for l in chaos)}; "
+        f"launches uninterrupted {straight}, victim {victim}, resumed "
+        f"{resumed} ({card})")
+    del st, rst, restored, init, template
+    torch.cuda.empty_cache()
+    return [straight, victim, resumed]
+
+
+def elastic_serve(torch, np, serving, ServeEngine, served, phase3) -> dict:
+    """15d: qwen2-0.5b's engine on phase 3's traffic with PE 1 lost at the
+    third step's decode: the step drains (faulted, the live rids in slot
+    order requeued at the queue head, no page live, pe_failures 1 and
+    requests_requeued n in the metrics), then run() regenerates phase 3's
+    tokens exactly, through phase 3's kernel-4 launches plus one layer
+    stack per re-prefill.  Returns its launches (counts set to 0 just
+    before, read just after)."""
+    from repro_torch.core.fault import PEFailure
+    from repro_torch.models import transformer
+    from repro_torch.serve.metrics import ServeMetrics
+    cfg, engine_kw = serving.CONFIG, serving.SERVE_ENGINE
+    n_req, prompt_len, new_tokens = (
+        serving.SERVE_TRAFFIC[k] for k in ("requests", "prompt_len",
+                                           "new_tokens"))
+    metrics = ServeMetrics()
+    eng = ServeEngine(cfg, device="cuda", init_seed=0, metrics=metrics,
+                      **engine_kw)
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(n_req, prompt_len), dtype=np.int32)
+    real, seen = transformer.decode_step_paged, {"calls": 0, "live": None}
+
+    def dying(*a, **k):
+        seen["calls"] += 1
+        if seen["calls"] == DRAIN_AT_DECODE:
+            seen["live"] = [st.rid for st in eng.scheduler.slots
+                            if st is not None]
+            raise PEFailure("PE 1 lost in the decode", pe=1,
+                            step=eng.steps)
+        return real(*a, **k)
+
+    faulted = []
+
+    def check_drain(res):
+        if not res.get("faulted"):
+            return
+        queue = [r.rid for r in eng.scheduler.queue]
+        faulted.append(dict(res, queue=queue,
+                            pages=eng.kv.pool.live_pages(),
+                            failures=metrics.pe_failures.value,
+                            requeued_n=metrics.requests_requeued.value))
+
+    with mock.patch.object(transformer, "decode_step_paged", dying):
+        _reset_counts()                                 # path starts
+        rids, ttft, gaps, wall = drive_engine(torch, eng, prompts,
+                                              new_tokens, check_drain)
+        got = _counts()                                 # path ends
+    if len(faulted) != 1:
+        raise AssertionError(f"{len(faulted)} faulted steps, want 1")
+    (f,) = faulted
+    live = seen["live"]
+    if f["pe"] != 1 or f["requeued"] != live or not live \
+            or f["queue"][:len(live)] != live or f["pages"] != 0 \
+            or f["failures"] != 1 or f["requeued_n"] != len(live):
+        raise AssertionError(f"drain: {f}, live before it {live}")
+    for rid, want in zip(rids, served["tokens"]):
+        if not np.array_equal(eng.results[rid], want):
+            diff = int(np.argmax(eng.results[rid] != want))
+            raise AssertionError(f"request {rid} after the drain: first "
+                                 f"divergence at token {diff}: "
+                                 f"{eng.results[rid].tolist()} != phase "
+                                 f"3's {want.tolist()}")
+    want_fa = phase3["flash_attention"] + cfg.n_layers * len(live)
+    if got["flash_attention"] != want_fa:
+        raise AssertionError(f"drained engine: {got['flash_attention']} "
+                             f"kernel-4 launches, want {want_fa}")
+    log(f"  15d {cfg.name} engine, PE 1 lost at the third step's decode: "
+        f"the step drained on PE {f['pe']}, requeued {f['requeued']} (the "
+        f"live rids in slot order) at the queue head {f['queue']}, 0 pages "
+        f"live, "
+        f"pe_failures 1, requests_requeued {len(live)}; tokens == phase "
+        f"3's for all {n_req} requests; TTFT p50 {pct(ttft, 50) * 1e3:.2f} "
+        f"ms, per-token p50 {pct(gaps, 50) * 1e3:.3f} ms (phase 3 "
+        f"{served['ttft_p50'] * 1e3:.2f}, {served['per_token_p50'] * 1e3:.3f}"
+        f" ms); {wall:.3f} s, {eng.steps} engine steps; launches {got} "
+        f"(phase 3's {phase3['flash_attention']} + {cfg.n_layers} x "
+        f"{len(live)} re-prefills)")
+    return got
+
+
 def main() -> int:
     try:
         import torch
@@ -4246,10 +4739,22 @@ def main() -> int:
                       services_launcher(torch)]
     log(f"  phase 14 wall {time.perf_counter() - t14:.1f} s ({card})")
 
+    log("== phase 15: the elastic runtime on 16 PEs (fault injection, the "
+        "PGAS checkpoint stream, kill and resume, the serving drain)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    elastic_paths = elastic_injector(torch, np)
+    elastic_paths.append(elastic_pgas(torch, np, card))
+    elastic_paths += elastic_resume(torch, np, card)
+    elastic_paths.append(elastic_serve(torch, np, serving, ServeEngine,
+                                       served, launches))
+    log(f"  phase 15 wall {time.perf_counter() - t15:.1f} s ({card})")
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
         + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths \
-        + moe_paths + frontend_paths + service_paths
+        + moe_paths + frontend_paths + service_paths + elastic_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -4263,7 +4768,9 @@ def main() -> int:
         f"family (granite prefill, deepseek prefill) {moe_paths}, audio "
         f"and vlm (hubert prefill, phi-3-vision prefill, launcher) "
         f"{frontend_paths}, services (profiled 8 B collectives, tune sweep, "
-        f"traced engine, launcher) {service_paths}")
+        f"traced engine, launcher) {service_paths}, elastic (15a's faulted "
+        f"puts, the PGAS stream, uninterrupted / victim / resumed fused "
+        f"steps, the drained engine) {elastic_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]

@@ -5,9 +5,10 @@ numpy on disk).
     dir, then the dir is renamed into place: a crash mid-save never
     corrupts the latest checkpoint.  A manifest records the step and
     every leaf's name, shape and dtype.
-  * restore(): loads into a template of the same shapes, on the
-    template's devices.  A shape change (the elastic reshard across PE
-    counts) is not ported yet (slice 5) and raises.
+  * restore(): loads into a template, on the template's devices and in
+    its dtypes.  A leaf whose saved shape differs from the template's
+    (an elastic shrink or grow) is resharded on the host from the saved
+    global array: tiled or sliced along each changed dim.
   * A LATEST pointer at a deleted or partial dir falls back to the newest
     COMPLETE ``step-*`` dir; corruption surfaces as `CheckpointError`.
   * FaultToleranceManager: step-deadline straggler records, periodic
@@ -141,13 +142,18 @@ def latest_step(ckpt_dir: str | pathlib.Path) -> int | None:
     return json.loads((d / "manifest.json").read_text())["step"]
 
 
-def restore(ckpt_dir: str | pathlib.Path, template: dict
-            ) -> tuple[int, dict]:
-    """(step, state) restored into `template`, a tree of tensors of the
-    saved shapes: each leaf comes back in the template leaf's dtype, on
-    its device.  Raises CheckpointError when no complete checkpoint
-    exists or it lacks a leaf the template names, NotImplementedError on
-    a shape change (the elastic reshard, slice 5)."""
+def restore(ckpt_dir: str | pathlib.Path, template: dict,
+            shardings=None) -> tuple[int, dict]:
+    """(step, state) restored into `template`, a tree of tensors (GLOBAL
+    shapes): each leaf comes back in the template leaf's dtype, on its
+    device, resharded (`_reshard`) where its saved shape differs.
+    `shardings` places leaves on a multi-device mesh, which comes with
+    the SPMD backend; only None is taken.  Raises CheckpointError when no
+    complete checkpoint exists or it lacks a leaf the template names."""
+    if shardings is not None:
+        raise NotImplementedError(
+            "restore(shardings=) places leaves on a multi-device mesh: "
+            "not ported yet (slice 5's SPMD backend)")
     d = _resolve_dir(ckpt_dir)
     manifest = json.loads((d / "manifest.json").read_text())
     by_name = {l["name"]: l for l in manifest["leaves"]}
@@ -161,16 +167,33 @@ def restore(ckpt_dir: str | pathlib.Path, template: dict
                 f"checkpoint {d.name} has no leaf {name!r} (template and "
                 f"checkpoint disagree on state structure; checkpoint "
                 f"holds: {have}{', ...' if len(by_name) > 8 else ''})")
-        arr = np.load(d / rec["file"])
-        if tuple(arr.shape) != tuple(t.shape):
-            raise NotImplementedError(
-                f"{name}: saved {arr.shape}, template {tuple(t.shape)}; "
-                f"resharding is not ported yet (slice 5)")
-        leaf = torch.from_numpy(arr)
+        leaf = torch.from_numpy(np.load(d / rec["file"]))
         if rec["dtype"] == str(torch.bfloat16):
             leaf = leaf.view(torch.bfloat16)
+        if tuple(leaf.shape) != tuple(t.shape):
+            leaf = _reshard(leaf, tuple(t.shape), name).contiguous()
         out.append(leaf.to(device=t.device, dtype=t.dtype))
     return manifest["step"], tree_unflatten(treedef, out)
+
+
+def _reshard(arr: torch.Tensor, target: tuple[int, ...], name: str
+             ) -> torch.Tensor:
+    """Elastic shape adaptation (same rank): tile or slice along changed
+    dims — used when global shapes legitimately change (e.g. optimizer
+    flat buffers after an mb change); params keep global shapes across
+    mesh changes so this rarely triggers."""
+    if arr.ndim != len(target):
+        raise ValueError(f"{name}: rank change {tuple(arr.shape)} -> "
+                         f"{target}")
+    for ax, (a, b) in enumerate(zip(arr.shape, target)):
+        if a == b:
+            continue
+        if a < b:
+            reps = [1] * arr.ndim
+            reps[ax] = -(-b // a)
+            arr = arr.repeat(*reps)
+        arr = arr.narrow(ax, 0, b)
+    return arr
 
 
 @dataclasses.dataclass

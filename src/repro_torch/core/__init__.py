@@ -3,13 +3,16 @@
 schedules, teams, the symmetric heap, the SIM network, the §3.6
 collectives, the ShmemContext API, and the fusion layer (`core.fusion`:
 ring attention and the fused reduce-scatter -> AdamW, with their
-pricing), and the measurement services: the pcontrol profiler
+pricing), the measurement services: the pcontrol profiler
 (`core.profile`), the Chrome-trace tracer (`core.trace`) and the measured
-tuner (`core.tuner`).  The SPMD backend, the fault injector and elastic
-recovery are not ported yet."""
-from . import (abmodel, collectives, fault, heap, netops, pattern, profile,
-               shmem, team, topology, trace, tuner)
-from .fault import DeadlineExceeded, LinkFailure, PEFailure
+tuner (`core.tuner`), and the fault layer: the fault injector
+(`core.fault`) and elastic recovery (`core.elastic`).  The SPMD backend
+is not ported yet."""
+from . import (abmodel, collectives, elastic, fault, heap, netops, pattern,
+               profile, shmem, team, topology, trace, tuner)
+from .elastic import DegradedMesh, degrade, recover
+from .fault import (DeadlineExceeded, FaultInjector, FaultPlan, LinkFailure,
+                    PEFailure)
 from .netops import NetOps, NocSimNetOps, SimNetOps
 from .pattern import CommPattern, Schedule, Stage, as_pattern, compile_pattern
 from .profile import OpSample, Profiler
@@ -21,12 +24,14 @@ from .trace import Tracer
 from .tuner import TunedSelector, Tuner, TuningDB
 
 __all__ = [
-    "abmodel", "collectives", "fault", "heap", "netops", "pattern", "profile",
-    "shmem", "team", "topology", "trace", "tuner", "OpSample", "Profiler",
-    "Tracer", "TunedSelector", "Tuner", "TuningDB", "DeadlineExceeded", "LinkFailure", "PEFailure",
+    "abmodel", "collectives", "elastic", "fault", "heap", "netops",
+    "pattern", "profile", "shmem", "team", "topology", "trace", "tuner",
+    "DegradedMesh", "degrade", "recover", "DeadlineExceeded",
+    "FaultInjector", "FaultPlan", "LinkFailure", "PEFailure",
     "RetryPolicy", "NetOps", "NocSimNetOps", "SimNetOps", "CommPattern",
     "Schedule", "Stage", "as_pattern", "compile_pattern", "Ctx",
     "ShmemContext", "sim_ctx", "spmd_ctx", "Team", "TeamPartition",
     "from_active_set", "make_team", "split_2d", "split_strided",
     "team_world", "MeshTopology", "epiphany3", "v5e_multipod", "v5e_pod",
+    "OpSample", "Profiler", "Tracer", "TunedSelector", "Tuner", "TuningDB",
 ]

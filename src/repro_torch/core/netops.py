@@ -72,9 +72,20 @@ class NetOps:
     # class attribute, NOT a dataclass field — the hot path pays one
     # `is None` test when unattached.
     profile = None
+    # Optional attached repro_torch.core.fault.FaultInjector
+    # (ShmemContext's fault= knob sets it): every ppermute consults the
+    # fault plan BEFORE it launches anything and raises a typed
+    # PEFailure/LinkFailure instead of moving data a dead mesh could not
+    # (DESIGN.md §17).
+    fault = None
 
     def my_pe(self):
         raise NotImplementedError
+
+    def _check_fault(self, p: CommPattern) -> None:
+        f = self.fault
+        if f is not None:
+            f.check(p, self)
 
     def _count_ppermute(self, p: CommPattern, x) -> None:
         """Aggregate-counter hook (near-zero when no profiler attached)."""
@@ -132,6 +143,8 @@ class SimNetOps(NetOps):
 
     def ppermute(self, x, perm):
         p = as_pattern(perm, self.n_pes)
+        if self.fault is not None:
+            self._check_fault(p)
         if self.profile is not None:
             self._count_ppermute(p, x)
         table = p.gather_table_device(self.device)
@@ -187,6 +200,8 @@ class NocSimNetOps(SimNetOps):
         p = as_pattern(perm, self.n_pes)
         if not p.pairs:                  # empty pattern: zeros, like base
             return super().ppermute(x, p)
+        if self.fault is not None:
+            self._check_fault(p)
         if self.profile is not None:
             self._count_ppermute(p, x)
         n_waves, table = self._wave_table(p)

@@ -63,8 +63,7 @@ class RetryPolicy:
     retried up to `max_retries` times with exponential backoff; a
     :class:`~repro_torch.core.fault.PEFailure` is NEVER retried.
     `deadline_s` is the default quiet()/fence() deadline when the caller
-    passes none.  Without a fault injector (not ported yet) no transfer
-    fails and no op carries a delay, so neither fires."""
+    passes none."""
 
     max_retries: int = 3
     backoff_s: float = 1e-3
@@ -87,8 +86,8 @@ class Future:
     op      : "put" | "get";
     nbytes  : per-PE payload bytes the op moves (cost accounting);
     seq     : issue order within the owning context (monotonic);
-    delay_s : straggler delay charged at quiet() (set by a fault
-              injector, not ported yet: always 0)."""
+    delay_s : straggler delay charged at quiet() (set by the fault
+              injector at issue time)."""
 
     value: Any
     pattern: CommPattern | None = None
@@ -151,8 +150,13 @@ class Ctx:
         leaves, _ = tree_flatten(payload)
         nbytes = float(sum(l.numel() * l.element_size() for l in leaves))
         nbytes /= self.n_pes                # leading PE axis is not payload
+        # Straggler delay charged by the fault injector at issue time
+        # rides on the Future and is FELT at quiet() — a slow PE's DMA
+        # takes longer to land, not longer to enqueue (DESIGN.md §17).
+        inj = self.shmem.net.fault
+        delay = inj.consume_delay() if inj is not None else 0.0
         f = Future(value, pattern=pattern, op=op, nbytes=nbytes,
-                   seq=self._op_seq)
+                   seq=self._op_seq, delay_s=delay)
         self._op_seq += 1
         self._pending.append(f)
         prof = self.shmem.profile
@@ -310,10 +314,6 @@ class ShmemContext:
                  use_wand_barrier: bool = False, link=None, embedding=None,
                  profile=None, tuner=None, fault=None, retry=None,
                  fingerprint=None):
-        if fault is not None:
-            raise NotImplementedError(
-                "fault= is not ported yet: the fault injector comes with "
-                "slice 5b")
         self.net = net
         self.topo = topo
         # the hardware WAND barrier needs the SPMD backend; on SIM the
@@ -343,7 +343,14 @@ class ShmemContext:
             else tuner_mod.fingerprint(topo, net.n_pes)
         if fingerprint is not None:
             self.refingerprint(fingerprint)
+        # retry/backoff policy for nbi RMA + default quiet/fence deadline
+        # (DESIGN.md §17); fault= attaches a FaultPlan/FaultInjector to
+        # the net so every ppermute consults it.
         self.retry = retry if retry is not None else RetryPolicy()
+        self.fault_injector = fault_mod.as_injector(
+            fault, topo=topo, profile=profile)
+        if self.fault_injector is not None:
+            net.fault = self.fault_injector
         if profile is not None:
             net.profile = profile
             if hasattr(tuner, "observe"):

@@ -15,7 +15,9 @@ cache.  Counterpart of `repro/serve/engine.py`.
     (their page-table rows point at the reserved null page).  Every
     per-row op is batch-independent and the decode shape never changes,
     so a request's greedy tokens are bit-identical whether it runs alone
-    or joins mid-batch.
+    or joins mid-batch.  A `PEFailure` in a step drains the engine and
+    re-queues its live requests, which then regenerate the same tokens
+    (`ServeEngine.step`, DESIGN.md §17).
 
 Observability (DESIGN.md §16): a `ServeMetrics` (`metrics=`) records the
 request lifecycle (submit, admit, first token, decode steps, evict,
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.fault import PEFailure, fault_event
 from ..core.heap import SymmetricHeap
 from ..core.trace import Tracer
 from ..models import layers as L
@@ -245,11 +248,57 @@ class ServeEngine:
     def _tensor(self, a):
         return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
 
-    @torch.no_grad()
     def step(self) -> dict:
         """One engine iteration: evict -> admit(+prefill) -> batched
         decode.  Returns {"evicted": [...], "admitted": [...],
-        "decoded": n_active}."""
+        "decoded": n_active}.
+
+        A :class:`~repro_torch.core.fault.PEFailure` surfacing from
+        prefill or decode (DESIGN.md §17) triggers a graceful drain
+        instead of propagating: every live slot's pages are freed and its
+        request re-queued at the queue head in slot order, so FIFO order
+        is preserved and — because greedy decode is bit-identical batched
+        or alone — regenerated results match what the lost step would
+        have produced.  The step then returns ``{"faulted": True,
+        "requeued": [...], ...}``."""
+        try:
+            return self._step_inner()
+        except PEFailure as exc:
+            return self._fault_drain(exc)
+
+    def _fault_drain(self, exc: PEFailure) -> dict:
+        """Graceful drain + re-queue on PE loss (DESIGN.md §17)."""
+        t0 = time.perf_counter()
+        sched = self.scheduler
+        requeued = []
+        # reversed slot order + appendleft => queue head ends up in slot
+        # order, the admission order the lost batch had (FIFO preserved)
+        for i in range(len(sched.slots) - 1, -1, -1):
+            st = sched.slots[i]
+            if st is None:
+                continue
+            self.kv.evict(i)
+            sched.slots[i] = None
+            self.logits_trace.pop(st.rid, None)
+            sched.queue.appendleft(Request(st.rid, st.prompt, st.max_new))
+            requeued.append(st.rid)
+        requeued.reverse()
+        wall = time.perf_counter() - t0
+        if self.metrics is not None:
+            self.metrics.on_pe_failure(len(requeued), wall)
+        prof = self.profile if (self.profile is not None
+                                and self.profile.enabled) else None
+        fault_event(prof, "fault.serve_drain", pe=exc.pe,
+                    n_requeued=len(requeued),
+                    recovery_us=int(wall * 1e6))
+        self.steps += 1
+        if self.metrics is not None:
+            self.metrics.sample_engine(self)
+        return {"evicted": [], "admitted": [], "decoded": 0,
+                "faulted": True, "pe": exc.pe, "requeued": requeued}
+
+    @torch.no_grad()
+    def _step_inner(self) -> dict:
         sched, cfg = self.scheduler, self.cfg
         metrics = self.metrics
         with self._span("serve.step", n_pes=0):

@@ -17,7 +17,8 @@ from repro.core import sim_ctx as jsim_ctx
 from repro.core import team as jteam
 from repro.core.netops import SimNetOps as JSim
 from repro.core.topology import epiphany3 as jepiphany3
-from repro_torch.core import Profiler, Tuner, sim_ctx, spmd_ctx
+from repro_torch.core import (FaultInjector, FaultPlan, Profiler, Tuner,
+                              sim_ctx, spmd_ctx)
 from repro_torch.core import collectives as coll
 from repro_torch.core import team as team_mod
 from repro_torch.core.netops import SimNetOps
@@ -221,7 +222,12 @@ def test_entry_points_and_device_rules():
         ctx.put(torch.zeros((4, 3), device="meta"), [(0, 1)])
     with pytest.raises(NotImplementedError):
         spmd_ctx("pe")
-    with pytest.raises(NotImplementedError, match="fault injector"):
+    # the fault injector is ported: a plan attaches an injector to the
+    # net, and anything else raises as the reference's as_injector does
+    c = ShmemContext(SimNetOps(4, "cpu"), fault=FaultPlan())
+    assert isinstance(c.fault_injector, FaultInjector)
+    assert c.net.fault is c.fault_injector
+    with pytest.raises(TypeError, match="FaultPlan"):
         ShmemContext(SimNetOps(4, "cpu"), fault=object())
     # the profiler and the tuner are ported: the context takes them and
     # the executors note their selection on the open op

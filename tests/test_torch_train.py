@@ -20,6 +20,7 @@ from jax.sharding import PartitionSpec as P
 
 from repro.configs import smoke_config as jax_smoke
 from repro.core import heap as jheap
+from repro.ckpt import manager as jckpt
 from repro.data.pipeline import SyntheticLM as JSyntheticLM
 from repro.launch import build
 from repro.launch.mesh import make_mesh
@@ -657,8 +658,16 @@ def test_restore_names_a_missing_leaf_and_refuses_a_reshard(tmp_path):
     ckpt.save(tmp_path, 1, {"w": torch.ones(8, 4)})
     with pytest.raises(ckpt.CheckpointError, match="'v'"):
         ckpt.restore(tmp_path, {"v": torch.ones(8, 4)})
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ckpt.restore(tmp_path, {"w": torch.ones(4, 4)})
+    # a changed shape is resharded as the reference's _reshard does it:
+    # sliced where the template shrinks a dim, tiled where it grows one
+    saved = np.arange(32, dtype=np.float32).reshape(8, 4)
+    ckpt.save(tmp_path, 2, {"w": torch.from_numpy(saved)})
+    for shape in ((4, 4), (8, 3), (12, 6), (3, 9)):
+        got = ckpt.restore(tmp_path, {"w": torch.zeros(shape)})[1]["w"]
+        np.testing.assert_array_equal(
+            got.numpy(), jckpt._reshard(saved, shape, "w"))
+    with pytest.raises(ValueError, match="rank change"):
+        ckpt.restore(tmp_path, {"w": torch.zeros(8, 4, 1)})
 
 
 @pytest.mark.parametrize("async_save", [False, True])
