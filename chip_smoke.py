@@ -249,6 +249,26 @@ Phases; any failure exits non-zero before the result line is printed:
      drain requeues the live rids in slot order, frees every page, and
      run() regenerates phase 3's tokens exactly with 24 more kernel-4
      launches per re-prefill.
+ 16. the SPMD backend — 4 and 8 rank processes of core.spmd.run on this
+     one card (their kernels time-sliced), every PE's receive slots in
+     one symmetric heap mapped by CUDA IPC, gloo for host barriers
+     only; each ppermute round a dma_copy store into the peer's slot, a
+     stream sync, a barrier and a dma_copy read: (a) test_spmd_equiv's
+     collectives through spmd_ctx (broadcast from 3 and 5, fcollect,
+     collect, alltoall bit for bit; to_all sum, max and ring at rtol
+     1e-5) against sim_ctx(n) on the card, and on a 2x2 mesh Comm's
+     allreduce, allgather and reduce_scatter over model and data
+     against their plain sums and concatenations; the ranks' launches
+     and the wall of one allreduce of a 64 MiB bucket over 4 ranks; (b)
+     qwen2-0.5b at full width on a 2x2 (data x model) mesh of 4 ranks:
+     the port's 1x1 launcher's first step, then 4 steps at seq 512,
+     batch 8 through the launcher's rank loop (default sync) and 4 with
+     the fused sync from the same global parameters and batches; every
+     loss finite and equal on all ranks, the 2x2 first-step loss within
+     the reference's bound (0.05 x max(1, |l1|)) of the 1x1 one,
+     kernel-4 launches per rank 2 x 24 layers x 4 microbatches x steps,
+     kernel 5 once per bucket per fused step; step walls, peak memory
+     per rank and launches per step.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}:
 the seven kernels, then one flash_attention row per prefill shape of
@@ -4523,6 +4543,317 @@ def elastic_serve(torch, np, serving, ServeEngine, served, phase3) -> dict:
     return got
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the SPMD backend — rank processes sharing the card
+# ---------------------------------------------------------------------------
+# Each rank is a process of core.spmd.run on this one card (time-sliced:
+# kernels of different ranks do not overlap); every PE's receive slots
+# live in one symmetric heap the ranks map by CUDA IPC, and a put is a
+# dma_copy launch of the sending rank into its peer's slot.  The rank
+# bodies below are module-level so the spawned ranks can import them.
+
+SPMD_COLLECTIVES = ("broadcast3", "broadcast5", "fcollect", "collect",
+                    "alltoall", "sum", "max", "ring")
+SPMD_MOVES = ("broadcast3", "broadcast5", "fcollect", "collect", "alltoall")
+SPMD_BUCKET_ELEMS = 16 * 1024 * 1024        # 64 MiB of f32: one bucket
+SPMD_TRAIN = dict(steps=4, seq_len=512, batch=8, data=2, model=2)
+
+
+def _spmd_inputs(torch, n):
+    """The collectives' inputs, the same in every rank and in the
+    parent: (n, 4096) f32 and (n, n * 1024) f32 for alltoall."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    return (torch.randn(n, 4096, device="cuda", generator=gen),
+            torch.randn(n, n * 1024, device="cuda", generator=gen))
+
+
+def spmd_collectives_rank(n, comm_2x2):
+    """16a, one rank: test_spmd_equiv's collectives through spmd_ctx over
+    all n ranks; on 4 ranks also Comm over a 2x2 mesh and the wall of the
+    64 MiB allreduce."""
+    import torch
+    from repro_torch.core import spmd, spmd_ctx
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.parallel.comm import AxisSpec, Comm
+    rt = spmd.current()
+    r = rt.rank
+    x, x2 = _spmd_inputs(torch, n)
+    make_rank_mesh((n,), ("pe",))
+    ctx = spmd_ctx("pe")
+    xl, x2l = x[r:r + 1], x2[r:r + 1]
+    _reset_counts()
+    out = {"broadcast3": ctx.broadcast(xl, 3),
+           "broadcast5": ctx.broadcast(xl, 5), "fcollect": ctx.fcollect(xl),
+           "collect": ctx.collect(xl), "alltoall": ctx.alltoall(x2l),
+           "sum": ctx.to_all(xl, "sum"), "max": ctx.to_all(xl, "max"),
+           "ring": ctx.to_all(xl, "sum", algorithm="ring")}
+    torch.cuda.synchronize()
+    out["counts"] = _counts()
+    if comm_2x2:
+        make_rank_mesh((2, 2), ("data", "model"))
+        comm = Comm(AxisSpec())
+        y = x[r:r + 1, :1024].clone()
+        _reset_counts()
+        for ax in ("model", "data"):
+            b = comm.allgather(y, ax, concat_axis=0)
+            out[f"comm/{ax}/allreduce"] = comm.allreduce(y, ax)
+            out[f"comm/{ax}/allgather"] = b
+            out[f"comm/{ax}/reduce_scatter"] = comm.reduce_scatter(
+                b, ax, scatter_axis=0)
+        torch.cuda.synchronize()
+        out["comm_counts"] = _counts()
+        make_rank_mesh((n,), ("pe",))
+        big = torch.randn(1, SPMD_BUCKET_ELEMS, device="cuda")
+        ctx = spmd_ctx("pe")
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            rt.barrier()
+            t0 = time.perf_counter()
+            ctx.to_all(big, "sum")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out["bucket_walls"] = walls
+    return out
+
+
+def spmd_collectives(torch, np, card) -> list:
+    """16a: the collectives on 4 and 8 rank processes against sim_ctx(n)
+    on the card (bit for bit for data movement, rtol 1e-5 for the
+    reductions); Comm's allreduce, allgather and reduce_scatter over
+    `model` and `data` of a 2x2 mesh against their plain sums and
+    concatenations; the ranks' kernel launches; the wall of one
+    allreduce of a 64 MiB bucket over 4 ranks.  Returns the launch
+    counts of the runs, summed over their ranks."""
+    from repro_torch.core import sim_ctx, spmd
+    paths = []
+    for n in (4, 8):
+        t0 = time.perf_counter()
+        res = spmd.run(spmd_collectives_rank, n, n, n == 4, device="cuda")
+        wall = time.perf_counter() - t0
+        x, x2 = _spmd_inputs(torch, n)
+        sim = sim_ctx(n)
+        want = {"broadcast3": sim.broadcast(x, 3),
+                "broadcast5": sim.broadcast(x, 5),
+                "fcollect": sim.fcollect(x), "collect": sim.collect(x),
+                "alltoall": sim.alltoall(x2), "sum": sim.to_all(x, "sum"),
+                "max": sim.to_all(x, "max"),
+                "ring": sim.to_all(x, "sum", algorithm="ring")}
+        for name in SPMD_COLLECTIVES:
+            got = torch.cat([r_[name] for r_ in res]).cuda()
+            if name in SPMD_MOVES:
+                if not torch.equal(got, want[name]):
+                    raise AssertionError(f"16a: {name} on {n} ranks differs "
+                                         f"from sim_ctx({n})")
+            else:
+                err = float(((got - want[name]).abs()
+                             / want[name].abs().clamp_min(1e-30)).max())
+                if not torch.allclose(got, want[name], rtol=1e-5, atol=0):
+                    raise AssertionError(f"16a: {name} on {n} ranks off by "
+                                         f"{err:.3g} relative")
+        counts = [r_["counts"] for r_ in res]
+        log(f"  16a {n} ranks: {len(SPMD_COLLECTIVES)} collectives == "
+            f"sim_ctx({n}) (moves bit for bit, reductions at rtol 1e-5); "
+            f"run wall {wall:.1f} s (spawn included); launches per rank "
+            f"(put_copy, dma_copy, reduce_combine): "
+            + ", ".join(f"({c['put_copy']}, {c['dma_copy']}, "
+                        f"{c['reduce_combine']})" for c in counts))
+        paths.append({k: sum(c[k] for c in counts) for k in counts[0]})
+        if n != 4:
+            continue
+        y = x[:, :1024]
+        for ax in ("model", "data"):
+            # rank r = (d, m) = divmod(r, 2); the group over `ax`
+            groups = [[g * 2 + i for i in range(2)] if ax == "model"
+                      else [i * 2 + g for i in range(2)] for g in range(2)]
+            for g in groups:
+                for pos, r_ in enumerate(g):
+                    ar = y[g[0]:g[0] + 1] + y[g[1]:g[1] + 1]
+                    ag = torch.cat([y[q:q + 1] for q in g])
+                    rs = (ag + ag)[pos:pos + 1]
+                    got = res[r_]
+                    if not torch.allclose(got[f"comm/{ax}/allreduce"].cuda(),
+                                          ar, rtol=1e-5, atol=0) or \
+                            not torch.equal(got[f"comm/{ax}/allgather"].cuda(),
+                                            ag) or \
+                            not torch.allclose(
+                                got[f"comm/{ax}/reduce_scatter"].cuda(), rs,
+                                rtol=1e-5, atol=0):
+                        raise AssertionError(f"16a: Comm over {ax} on rank "
+                                             f"{r_} differs from the plain "
+                                             f"version")
+        cc = [r_["comm_counts"] for r_ in res]
+        paths.append({k: sum(c[k] for c in cc) for k in cc[0]})
+        walls = [min(r_["bucket_walls"][1:]) for r_ in res]
+        log(f"  16a Comm on 2x2: allreduce, allgather, reduce_scatter over "
+            f"model and data == plain (rtol 1e-5; gathers bit for bit); "
+            f"launches per rank " + ", ".join(
+                f"({c['put_copy']}, {c['dma_copy']}, {c['reduce_combine']})"
+                for c in cc))
+        log(f"  16a one allreduce (rd) of a 64 MiB f32 bucket over 4 ranks: "
+            f"{max(walls) * 1e3:.1f} ms wall (best of 3 after one warm-up, "
+            f"slowest rank; {card})")
+    return paths
+
+
+def spmd_train_rank(argv, params_global, fused_steps):
+    """16b, one rank: the launcher's rank loop (`launch.train.train_rank`)
+    on `argv`, then `fused_steps` steps of build.make_train_step with
+    grad_rs="fused" from the same global parameters; the launch counts,
+    walls and peak memory of each."""
+    import torch
+    from repro_torch.core import spmd
+    from repro_torch.core.heap import tree_flatten
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import build
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import convert
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as tstep
+    from repro_torch.configs import qwen2_0_5b as serving
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rt = spmd.current()
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                             # path (i) starts
+    sync0, rounds0 = rt.sync_s, rt.rounds
+    res = train_mod.train_rank(argv, params_global)
+    torch.cuda.synchronize()
+    out["default"] = dict(losses=res["losses"], walls=res["step_s"],
+                          counts=_counts(),
+                          peak=torch.cuda.max_memory_allocated(),
+                          sync_s=rt.sync_s - sync0,
+                          rounds=rt.rounds - rounds0)
+    del res
+    torch.cuda.empty_cache()
+    cfg, mesh = serving.CONFIG, rt.mesh
+    run = SPMD_TRAIN
+    adamw = opt.AdamWConfig(lr=serving.TRAIN_RUN["lr"],
+                            moment_dtype=cfg.moment_dtype)
+    step, _, _ = build.make_train_step(cfg, mesh, grad_rs="fused",
+                                       adamw=adamw)
+    params = convert.local_shards(params_global, cfg, mesh)
+    state = tstep.init_fused_opt_state(params, run["data"])
+    n_buckets = len(tstep.plan_fused_buckets(tree_flatten(params)[0]))
+    pipe = SyntheticLM(cfg.vocab, run["seq_len"], run["batch"])
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                             # path (ii) starts
+    sync0, rounds0 = rt.sync_s, rt.rounds
+    for s in range(fused_steps):
+        t0 = time.perf_counter()
+        loss, params, state = step(params, state, pipe.batch(s))
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out["fused"] = dict(losses=losses, walls=walls, counts=_counts(),
+                        peak=torch.cuda.max_memory_allocated(),
+                        n_buckets=n_buckets, sync_s=rt.sync_s - sync0,
+                        rounds=rt.rounds - rounds0)
+    return out
+
+
+def spmd_train(torch, np, serving, card) -> list:
+    """16b: qwen2-0.5b at full width on a 2x2 (data x model) mesh of 4
+    rank processes on the card: SPMD_TRAIN's steps through the
+    launcher's rank loop (default sync) and as many with the fused sync,
+    from the global parameters of the port's 1x1 launcher, whose
+    first-step loss (same parameters, same batch) bounds the 2x2 one as
+    the reference's test_tp2_matches_single_device does.  Gates: every
+    loss finite, kernel-4 launches per rank = 2 x layers x microbatches x
+    steps, kernel 5 once per bucket per fused step.  Returns the launch
+    counts of both runs, summed over the ranks."""
+    from repro_torch.core import spmd
+    from repro_torch.launch import build
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import convert, transformer
+    cfg, run = serving.CONFIG, SPMD_TRAIN
+    argv = ["--arch", "qwen2-0.5b", "--seq-len", str(run["seq_len"]),
+            "--batch", str(run["batch"]), "--lr",
+            str(serving.TRAIN_RUN["lr"]), "--device", "cuda"]
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    one = train_mod.run(argv + ["--steps", "1"], params=params)
+    l1 = one.losses[0]
+    log(f"  16b 1x1 launcher, step 0 at seq {run['seq_len']} batch "
+        f"{run['batch']}: loss {l1!r} ({time.perf_counter() - t0:.1f} s)")
+    del one
+    torch.cuda.empty_cache()
+    dims = (run["data"], run["model"])
+    # the 1x1 tree in the 2x2 global layout (qwen2's 14 heads, 2 kv heads
+    # and its vocabulary split evenly over 2: the same tensors)
+    params = convert.fit_global(params, cfg, tp=dims[1], dp=dims[0])
+    mesh_argv = argv + ["--steps", str(run["steps"]), "--data",
+                        str(run["data"]), "--model", str(run["model"])]
+    t0 = time.perf_counter()
+    res = build.shard_mapped(spmd_train_rank, dims,
+                             [(mesh_argv, params, run["steps"])] * 4,
+                             device="cuda")
+    wall = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    b_local = run["batch"] // run["data"]
+    mb = max(1, min(cfg.microbatches, b_local))
+    want_fa = 2 * cfg.n_layers * mb * run["steps"]
+    paths = []
+    for kind in ("default", "fused"):
+        per = [r_[kind] for r_ in res]
+        losses = per[0]["losses"]
+        if any(p["losses"] != losses for p in per):
+            raise AssertionError(f"16b {kind}: ranks disagree on the loss")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"16b {kind}: non-finite loss {losses}")
+        for r_, p in enumerate(per):
+            if p["counts"]["flash_attention"] != want_fa:
+                raise AssertionError(
+                    f"16b {kind}: rank {r_} launched kernel 4 "
+                    f"{p['counts']['flash_attention']} times, want 2 x "
+                    f"{cfg.n_layers} x {mb} x {run['steps']} = {want_fa}")
+            want_fu = p["n_buckets"] * run["steps"] if kind == "fused" else 0
+            if p["counts"]["fused_update"] != want_fu:
+                raise AssertionError(
+                    f"16b {kind}: rank {r_} launched kernel 5 "
+                    f"{p['counts']['fused_update']} times, want {want_fu}")
+        walls = per[0]["walls"]
+        tok = run["seq_len"] * run["batch"]
+        log(f"  16b {kind} sync on 2x2: losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + "; step wall ms (rank 0) "
+            + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+            + f"; {tok * (len(walls) - 1) / sum(walls[1:]):.1f} train tok/s "
+            f"(steps 2..{run['steps']}); peak per rank GiB "
+            + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in per)
+            + "; launches per step per rank (flash, put, dma, combine, "
+            f"fused): " + ", ".join(
+                f"{p['counts'][k] / run['steps']:g}" for p in per[:1]
+                for k in ("flash_attention", "put_copy", "dma_copy",
+                          "reduce_combine", "fused_update"))
+            + (f"; {per[0]['n_buckets']} fused buckets a rank"
+               if kind == "fused" else "")
+            + f"; heap rounds (a slot-sized chunk of a ppermute round "
+            f"each) a step {per[0]['rounds'] / run['steps']:g}, host time "
+            f"in their syncs a step (stream wait + barrier; ranks 0-3) "
+            f"ms " + ", ".join(
+                f"{p['sync_s'] / run['steps'] * 1e3:.1f}" for p in per))
+        paths.append({k: sum(p["counts"][k] for p in per)
+                      for k in per[0]["counts"]})
+    l2 = res[0]["default"]["losses"][0]
+    diff = abs(l1 - l2)
+    log(f"  16b step-0 loss: 1x1 {l1!r}, 2x2 {l2!r}, |diff| {diff:.3g} "
+        f"(bound 0.05 x max(1, |l1|) = {0.05 * max(1.0, abs(l1)):.3g}); "
+        f"both 2x2 runs in one spawn: {wall:.1f} s ({card})")
+    if not diff < 0.05 * max(1.0, abs(l1)):
+        raise AssertionError(f"16b: the 2x2 loss {l2} is not the 1x1 "
+                             f"loss {l1}")
+    if res[0]["fused"]["losses"][0] != l2:
+        log(f"  16b note: fused step-0 loss {res[0]['fused']['losses'][0]!r}"
+            f" vs default {l2!r}")
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -4751,10 +5082,20 @@ def main() -> int:
                                        served, launches))
     log(f"  phase 15 wall {time.perf_counter() - t15:.1f} s ({card})")
 
+    log("== phase 16: the SPMD backend (rank processes sharing the card, "
+        "one symmetric heap mapped by CUDA IPC)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    spmd_paths = spmd_collectives(torch, np, card)
+    spmd_paths += spmd_train(torch, np, serving, card)
+    log(f"  phase 16 wall {time.perf_counter() - t16:.1f} s ({card})")
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
         + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths \
-        + moe_paths + frontend_paths + service_paths + elastic_paths
+        + moe_paths + frontend_paths + service_paths + elastic_paths \
+        + spmd_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -4770,7 +5111,9 @@ def main() -> int:
         f"{frontend_paths}, services (profiled 8 B collectives, tune sweep, "
         f"traced engine, launcher) {service_paths}, elastic (15a's faulted "
         f"puts, the PGAS stream, uninterrupted / victim / resumed fused "
-        f"steps, the drained engine) {elastic_paths}")
+        f"steps, the drained engine) {elastic_paths}, spmd (16a 4 and 8 "
+        f"ranks, 2x2 Comm; 16b default, fused; summed over ranks) "
+        f"{spmd_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]

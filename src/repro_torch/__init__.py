@@ -1,7 +1,9 @@
 """repro_torch: the PyTorch/CUDA port of `repro`: the paper's OpenSHMEM
-runtime on the SIM backend (`core/`: patterns, teams, the §3.6
-collectives, ShmemContext, the fused reduce-scatter -> AdamW), the
-model-serving stack and the one-device trainer (`train/`, `launch/`).
+runtime on the SIM and SPMD backends (`core/`: patterns, teams, the §3.6
+collectives, ShmemContext, the fused reduce-scatter -> AdamW, rank
+processes sharing a symmetric heap), the model-serving stack and the
+trainer, on one device or a data x model mesh of ranks (`train/`,
+`launch/`).
 
 Module names and layout follow `repro` so that each counterpart is easy to
 find.  Entry points run on the CUDA card unless the caller passes

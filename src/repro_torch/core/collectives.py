@@ -21,13 +21,20 @@ is ``schedule.cost(topo)`` on the *same object* — predicted and executed
 schedules cannot drift apart.  `choose_algorithm` prices candidate
 schedules with the cost model to pick the cheapest (`algorithm="auto"`).
 
-All functions take the PE-stacked array of the SIM backend (one device
-carries every PE; dim 0 is the PE axis).  PE ranks and every per-PE block
-index are host numpy, turned into cached device tables: nothing in a
+All functions take the PE-stacked array of the net: dim 0 holds the
+net's PE rows (`NetOps.rows`) — every PE under SIM (one device carries
+them all), this PE's one row under SPMD (one rank process per PE).  PE
+ranks and every per-PE block index are host numpy, cut to the net's rows
+(`NetOps.local_rows`) and turned into cached device tables: nothing in a
 stage loop reads the device back.  On the card three kernels carry the
-data (`kernels/`): every ppermute is one put_copy launch, every block
-gather of a ring (`_take_blocks`) one dma_copy launch, and every stage
-combine of a sum/prod/max/min reduction one reduce_combine launch.
+data (`kernels/`): every SIM ppermute is one put_copy launch (an SPMD one
+two dma_copy launches a round: the store and the read of a heap slot),
+every block gather of a ring (`_take_blocks`) one dma_copy launch, and
+every stage combine of a sum/prod/max/min reduction one reduce_combine
+launch.  Under autograd the block moves and the sum combine are
+Functions whose backward runs the same kernels (the inverse block
+permutation; the cotangent to both operands), so the backward of every
+collective is the reversed schedule.
 
 `profile=` takes a :class:`~repro_torch.core.profile.Profiler`: each
 executor notes the resolved algorithm, chunk count, embedding and schedule
@@ -63,11 +70,11 @@ def _is_pow2(n: int) -> bool:
 
 
 def _payload_bytes(net: NetOps, x) -> float:
-    """Per-PE payload bytes of tree `x` (the SIM backend's leading PE axis
-    is not payload)."""
+    """Per-PE payload bytes of tree `x` (the leading axis of PE rows is
+    not payload)."""
     leaves, _ = tree_flatten(x)
     total = float(sum(l.numel() * l.element_size() for l in leaves))
-    return total / net.n_pes
+    return total / net.rows
 
 
 # ---------------------------------------------------------------------------
@@ -843,7 +850,15 @@ def _plan(kind: str, idx: np.ndarray, pre: int, B: int, n_src: int,
 
 def _take_blocks(net: NetOps, x, idx, nblk: int, axis: int):
     """out block t = x block idx[pe, t] (idx: host table, one row per
-    PE), one dma_copy launch."""
+    PE, cut to the net's rows; each row a permutation), one dma_copy
+    launch; under autograd its backward is the inverse permutation."""
+    idx = net.local_rows(idx)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _TakeBlocks.apply(x, idx, nblk, axis)
+    return _take_raw(x, idx, nblk, axis)
+
+
+def _take_raw(x, idx, nblk: int, axis: int):
     pre, B = _block_geometry(x, nblk, axis)
     if x.numel() == 0:
         return x.clone()
@@ -853,9 +868,47 @@ def _take_blocks(net: NetOps, x, idx, nblk: int, axis: int):
     return out
 
 
+class _TakeBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx, nblk, axis):
+        ctx.inv = np.argsort(idx, axis=1)
+        ctx.nblk, ctx.axis = nblk, axis
+        return _take_raw(x, idx, nblk, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_take_raw(g.contiguous(), ctx.inv, ctx.nblk, ctx.axis),
+                None, None, None)
+
+
 def _place_blocks(net: NetOps, x, rank, n: int, axis: int):
     """A zero buffer of n blocks along `axis` per PE with PE p's x at block
-    rank[p], one dma_copy launch."""
+    rank[p], one dma_copy launch; under autograd its backward takes block
+    rank[p] back out (one dma_copy launch)."""
+    rank = net.local_rows(np.asarray(rank).reshape(-1, 1))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PlaceBlocks.apply(x, rank, n, axis)
+    return _place_raw(x, rank, n, axis)
+
+
+class _PlaceBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rank, n, axis):
+        ctx.rank, ctx.n, ctx.axis, ctx.shape = rank, n, axis, x.shape
+        return _place_raw(x, rank, n, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty(ctx.shape, dtype=g.dtype, device=g.device)
+        pre, B = _block_geometry(out, 1, ctx.axis)
+        if out.numel():
+            plan = _plan("take", ctx.rank, pre, B, ctx.n, 1)
+            _pc.dma_copy(g.contiguous().reshape(plan.src_shape),
+                         out.view(plan.dst_shape), plan)
+        return out, None, None, None
+
+
+def _place_raw(x, rank, n: int, axis: int):
     ax = axis + 1
     shape = list(x.shape)
     shape[ax] *= n
@@ -863,7 +916,7 @@ def _place_blocks(net: NetOps, x, rank, n: int, axis: int):
     pre, B = _block_geometry(x, 1, axis)
     if x.numel() == 0:
         return buf
-    plan = _plan("place", np.asarray(rank).reshape(-1, 1), pre, B, 1, n)
+    plan = _plan("place", rank, pre, B, 1, n)
     _pc.dma_copy(x.reshape(plan.src_shape), buf.view(plan.dst_shape), plan)
     return buf
 
@@ -900,7 +953,7 @@ def barrier(net: NetOps, token=None, team=None, algorithm: str | None = None,
     tok = torch.zeros((), dtype=torch.int32, device=net.device) \
         if token is None else token
     if tok.dim() == 0:
-        tok = tok.expand(net.n_pes).clone()
+        tok = tok.expand(net.rows).clone()
     stages = barrier_schedule(n, algo).stages
     if algo == "tree":
         n_gather = _ceil_log2(n)
@@ -1158,10 +1211,26 @@ def _collect_ring(net: NetOps, x, axis: int, n_chunks: int = 1, team=None):
 # reductions
 # ---------------------------------------------------------------------------
 
+class _SumCombine(torch.autograd.Function):
+    """a + b through the combine kernel, differentiable: the cotangent
+    goes to both operands."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        return _rc.reduce_combine([a, b], "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g
+
+
 def _combine(op: str) -> Callable:
     """The stage combine of `op`: the reduce_combine kernel on CUDA
     tensors, its plain version on CPU tensors."""
     def fn(a, b):
+        if op == "sum" and torch.is_grad_enabled() and (
+                a.requires_grad or b.requires_grad):
+            return _SumCombine.apply(a, b)
         return _rc.reduce_combine([a, b], op)
     fn.__name__ = f"combine_{op}"
     return fn
@@ -1615,10 +1684,10 @@ def exclusive_scan(net: NetOps, x, op: str = "sum"):
     contributions of PEs < i."""
     n = net.n_pes
     identity = _SCAN_IDENTITY[op]
-    all_vals = fcollect(net, x.unsqueeze(1), axis=0)    # (n_pes, n, ...)
-    below = np.arange(n)[None, :] < np.arange(n)[:, None]
+    all_vals = fcollect(net, x.unsqueeze(1), axis=0)    # (rows, n, ...)
+    below = net.local_rows(np.arange(n)[None, :] < np.arange(n)[:, None])
     mask = device_table(below, all_vals.device).reshape(
-        (n, n) + (1,) * (all_vals.dim() - 2))
+        (net.rows, n) + (1,) * (all_vals.dim() - 2))
     dt = all_vals.dtype
     if identity is None:        # max/min: mask with the dtype's extremes
         info = torch.finfo(dt)

@@ -26,7 +26,8 @@ fused_rs_adam
 choose_attention / choose_grad_rs price the fused variants against the
 monolithic ones (abmodel.modeled_overlapped_time, the schedules' alpha-beta
 times); a measured tuner verdict (`tuner=`, core/tuner.py) wins over the
-model.  The SPMD backend is not ported yet.
+model.  fused_rs_adam runs on both backends (SIM and SPMD: each PE row's
+owned chunk); ring attention on the SIM backend.
 """
 from __future__ import annotations
 
@@ -42,8 +43,8 @@ from .pattern import ring_pattern
 from ..kernels import ops
 from ..kernels import ring_attention as _ra
 
-_SLICE5 = "only the SIM backend is ported (the SPMD backend comes with " \
-    "slice 5)"
+_SLICE5 = "ring attention runs on the SIM backend; on the SPMD backend " \
+    "it comes with slice 5c-3 (sequence-sharded caches)"
 
 
 # ---------------------------------------------------------------------------
@@ -125,8 +126,6 @@ def fused_rs_adam(net: NetOps, g_buf, p_buf, m, v, wd_mask, c1, c2, *,
     it), bit for bit equal to reduce-scatter + allgather + the plain
     AdamW on f32 moments.  With `profile`, the innermost open op notes
     the "fused_rs_adam" selection and its reduce-scatter schedule."""
-    if not isinstance(net, SimNetOps):
-        raise NotImplementedError(_SLICE5)
     out_dtype = p_buf.dtype if out_dtype is None else out_dtype
     local, incoming, info, mask = coll._reduce_scatter_parts(
         net, g_buf, coll.OPS["sum"], team=team)
@@ -142,10 +141,11 @@ def fused_rs_adam(net: NetOps, g_buf, p_buf, m, v, wd_mask, c1, c2, *,
     p_pad = coll._flatpad(p_buf, padded)
     wd_pad = torch.nn.functional.pad(wd_mask.reshape(-1).to(torch.int8),
                                      (0, padded - size))
-    own = device_table(np.asarray(own_idx, np.int64), net.device)
+    own = device_table(net.local_rows(np.asarray(own_idx, np.int64)),
+                       net.device)
     p_chunk = netops.dyn_slice_block(net, p_pad, own, chunk, axis=0)
-    wd_chunk = netops.dyn_slice_block(net, wd_pad.expand(n, padded), own,
-                                      chunk, axis=0)
+    wd_chunk = netops.dyn_slice_block(net, wd_pad.expand(net.rows, padded),
+                                      own, chunk, axis=0)
     g_parts = [local] if incoming is None else [local, incoming]
     new_p, new_m, new_v = ops.fused_adam_update(
         g_parts, p_chunk, m, v, wd_chunk, c1, c2, lr=lr, b1=b1, b2=b2,

@@ -13,9 +13,17 @@ cached source-row table; on the CPU it is the kernel's plain version.
     kernel, so the work scales with the hottest link's multiplicity while
     the result stays bit-identical to ``SimNetOps``.
 
-The SPMD backend (one PE per device over torch.distributed) is not
-ported yet.  PE ids and patterns are static host data; every index table
-is built on the host once and cached on the device.
+  * ``SpmdNetOps``   — one PE per rank process (`core/spmd.py`): a
+    ppermute edge is a store by the sending rank's DMA kernel into the
+    destination rank's slot of the symmetric heap, one round per set of
+    unique sources (`CommPattern.unique_src_rounds`).
+
+Every net's arrays carry a leading axis of `rows` PE rows: all `n_pes`
+under SIM, this PE's one row under SPMD, so the collectives, written for
+the PE-stacked layout, run unchanged on both; a per-PE host table (a
+block index, a mask) is cut to the net's rows by `local_rows`.  PE ids
+and patterns are static host data; every index table is built on the
+host once and cached on the device.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 from .. import resolve_device
 from ..kernels import put_copy as _pc
 from ..kernels import reduce_combine as _rc
+from . import spmd
 from .heap import tree_flatten, tree_unflatten
 from .pattern import CommPattern, PatternLike, as_pattern, intern_get
 
@@ -62,8 +71,8 @@ def _mask_of(pe_mask) -> np.ndarray:
 
 
 class NetOps:
-    """Protocol: n_pes, device, my_pe(), ppermute(), select(), with
-    sender-driven semantics."""
+    """Protocol: n_pes, device, rows, my_pe(), ppermute(), select(),
+    local_rows(), with sender-driven semantics."""
 
     n_pes: int
     device: torch.device
@@ -81,6 +90,16 @@ class NetOps:
 
     def my_pe(self):
         raise NotImplementedError
+
+    @property
+    def rows(self) -> int:
+        """PE rows on the leading axis of this net's arrays."""
+        return self.n_pes
+
+    def local_rows(self, table) -> np.ndarray:
+        """The rows of a per-PE host table (one row per PE) that belong
+        to this net's arrays: all of them under SIM."""
+        return np.asarray(table)
 
     def _check_fault(self, p: CommPattern) -> None:
         f = self.fault
@@ -222,20 +241,183 @@ class NocSimNetOps(SimNetOps):
         return tree_map(one, x)
 
 
+@dataclasses.dataclass(eq=False)
+class SpmdNetOps(NetOps):
+    """One PE per rank process of `core.spmd.run`, over mesh `axis` (one
+    name or a tuple, flattened row-major into the PE space; the rank's
+    current mesh unless `mesh` is given).  Arrays carry this PE's one
+    row on the leading axis.
+
+    ppermute: for each round of `unique_src_rounds`, (a) each source
+    stores its payload into its destination's heap slot of the current
+    bank with the DMA kernel (kernel 2), in slot-sized chunks; (b) the
+    stream is synchronised and every rank passes the host barrier; (c)
+    each destination copies its slot out (kernel 2).  A PE named as no
+    destination gets zeros; rounds combine by + (| for bool) with the
+    combine kernel, as the reference's rounds of lax.ppermute.  Under
+    autograd the delivery is a Function whose backward is the delivery
+    along each round's inverse pattern: the reversed schedule of every
+    collective built on it comes for free, as the transpose of
+    lax.ppermute gives it to the reference."""
+
+    axis: object
+    mesh: object = None
+    n_pes: int = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.runtime = spmd.current()
+        if self.mesh is None:
+            self.mesh = self.runtime.mesh
+        if self.mesh is None:
+            raise RuntimeError("no rank mesh: call launch.mesh.make_mesh "
+                               "(or make_rank_mesh) in the rank first")
+        self.group = self.mesh.group(self.axis)
+        self.n_pes = len(self.group)
+        self.pe = self.mesh.axis_index(self.axis)
+        self.device = self.runtime.device
+        self.heap = self.runtime.heap
+
+    @property
+    def rows(self) -> int:
+        return 1
+
+    def my_pe(self):
+        return torch.tensor([self.pe], dtype=torch.int32, device=self.device)
+
+    def local_rows(self, table) -> np.ndarray:
+        return np.asarray(table)[[self.pe]]
+
+    def check(self, v: torch.Tensor) -> None:
+        """Raise unless `v` is this PE's row, on the rank's device."""
+        if v.device != self.device:
+            raise ValueError(f"tensor on {v.device}, the rank runs on "
+                             f"{self.device}")
+        if v.dim() == 0 or v.shape[0] != 1:
+            raise ValueError(f"tensor of shape {tuple(v.shape)} has no "
+                             f"leading axis of this PE's one row")
+
+    def ppermute(self, x, perm):
+        p = as_pattern(perm, self.n_pes)
+        if self.fault is not None:
+            self._check_fault(p)
+        if self.profile is not None:
+            self._count_ppermute(p, x)
+
+        def one(v):
+            self.check(v)
+            if torch.is_grad_enabled() and v.requires_grad:
+                return _Deliver.apply(v, self, p)
+            return self.deliver(v, p)
+
+        return tree_map(one, x)
+
+    def deliver(self, v: torch.Tensor, p: CommPattern) -> torch.Tensor:
+        """The rounds of `p` over the heap (no autograd)."""
+        outs = [self._round(v, r) for r in p.unique_src_rounds()]
+        if not outs:
+            return torch.zeros_like(v)
+        if len(outs) == 1:
+            return outs[0]
+        if v.dtype == torch.bool:
+            return _rc.reduce_combine([o.view(torch.uint8) for o in outs],
+                                      "sum").view(torch.bool)
+        return _rc.reduce_combine(outs, "sum")
+
+    def _round(self, v: torch.Tensor, r: CommPattern) -> torch.Tensor:
+        """One round: unique sources and destinations."""
+        rt, heap = self.runtime, self.heap
+        nbytes = v.numel() * v.element_size()
+        dst = int(np.flatnonzero(r.src_for_dst == self.pe)[0]) \
+            if r.src_mask[self.pe] else None
+        recv = r.dst_mask[self.pe]
+        # a destination's every byte is read from its slot below
+        out = (torch.empty if recv else torch.zeros)(
+            v.shape, dtype=v.dtype, device=v.device)
+        flat = v.reshape(-1)
+        if nbytes and flat.stride(0) != 1:       # e.g. an expanded scalar
+            flat = flat.clone(memory_format=torch.contiguous_format)
+        src_b = flat.view(torch.uint8) if nbytes else None
+        out_b = out.view(-1).view(torch.uint8) if nbytes else None
+        for lo in range(0, nbytes, heap.slot_bytes):
+            hi = min(lo + heap.slot_bytes, nbytes)
+            bank = rt.next_bank()
+            if dst is not None:
+                slot = heap.slot(self.group[dst], bank)
+                _copy_bytes(src_b[lo:hi], slot[:hi - lo])
+            rt.barrier()
+            if recv:
+                slot = heap.slot(self.group[self.pe], bank)
+                _copy_bytes(slot[:hi - lo], out_b[lo:hi])
+        return out
+
+    def select(self, pe_mask, a, b):
+        pick = bool(_mask_of(pe_mask)[self.pe])
+        return tree_map(lambda x, y: x if pick else y, a, b)
+
+    def axis_all_gather(self, x, *, tiled=True):
+        """Every PE's row concatenated along dim 1 (the row's first
+        dim; `tiled=False` stacks a new dim), through fcollect."""
+        from . import collectives as coll
+
+        def one(v):
+            v = v if tiled else v.unsqueeze(1)
+            return coll.fcollect(self, v, axis=0)
+        return tree_map(one, x)
+
+    def axis_psum(self, x):
+        from . import collectives as coll
+        return coll.allreduce(self, x, "sum")
+
+
+def _copy_bytes(src: torch.Tensor, dst: torch.Tensor) -> None:
+    """1-D uint8 `src` into 1-D uint8 `dst` of its length: one dma_copy
+    launch (kernel 2) on the card, its plain version on the CPU."""
+    n = src.numel()
+    _pc.dma_copy(src.view(1, n), dst.view(1, n), _byte_plan(n))
+
+
+_PLAN_LOCK = threading.Lock()
+_BYTE_PLANS: dict = {}
+
+
+def _byte_plan(n: int) -> "_pc.DmaPlan":
+    return intern_get(_BYTE_PLANS, _PLAN_LOCK, 256, n,
+                      lambda: _pc.DmaPlan([[0, 0, 0, 0, 1, n]], (1, n),
+                                          (1, n)))
+
+
+class _Deliver(torch.autograd.Function):
+    """A SPMD ppermute under autograd: the backward delivers the
+    cotangent along each round's inverse pattern and sums the rounds."""
+
+    @staticmethod
+    def forward(ctx, v, net, p):
+        ctx.net, ctx.p = net, p
+        return net.deliver(v, p)
+
+    @staticmethod
+    def backward(ctx, g):
+        net = ctx.net
+        outs = [net.deliver(g.contiguous(), r.inverse)
+                for r in ctx.p.unique_src_rounds()]
+        if not outs:
+            return torch.zeros_like(g), None, None
+        grad = outs[0] if len(outs) == 1 else _rc.reduce_combine(outs, "sum")
+        return grad, None, None
+
+
 # -- per-PE dynamic slicing helpers ------------------------------------------
 
-def _block_index(net: SimNetOps, x, block_index, block_size: int, ax: int):
-    """(n_pes, ...) gather index of each PE's block along dim `ax` of the
-    stacked x; starts are clamped into range, as the reference's
+def _block_index(net: NetOps, x, block_index, block_size: int, ax: int):
+    """(rows, ...) gather index of each PE row's block along dim `ax` of
+    the stacked x; starts are clamped into range, as the reference's
     dynamic_slice clamps them."""
-    if not isinstance(net, SimNetOps):
-        raise NotImplementedError("only the SIM backend is ported")
     net.check(x)
     starts = torch.as_tensor(block_index, device=x.device).long() \
         .reshape(-1) * block_size
     starts = starts.clamp(0, max(x.shape[ax] - block_size, 0))
     idx = starts[:, None] + torch.arange(block_size, device=x.device)
-    shape = [net.n_pes] + [1] * (x.dim() - 1)
+    shape = [net.rows] + [1] * (x.dim() - 1)
     shape[ax] = block_size
     sizes = list(x.shape)
     sizes[ax] = block_size
@@ -245,7 +427,7 @@ def _block_index(net: SimNetOps, x, block_index, block_size: int, ax: int):
 def dyn_slice_block(net: NetOps, x, block_index, block_size: int, axis: int):
     """Each PE's ``v[..., block_index[pe]*block_size : +block_size, ...]``
     along `axis` of its (per-PE) array; `block_index` holds one index per
-    PE."""
+    PE row of x."""
     idx = _block_index(net, x, block_index, block_size, axis + 1)
     return torch.gather(x, axis + 1, idx)
 

@@ -60,7 +60,7 @@ class CommPattern:
     __slots__ = (
         "pairs", "n_pes", "dst_mask", "src_mask", "src_for_dst",
         "_inverse", "_hops_cache", "_table_cache", "_link_cache",
-        "_wave_cache",
+        "_wave_cache", "_rounds_cache",
     )
 
     def __init__(self, pairs: tuple[tuple[int, int], ...], n_pes: int,
@@ -88,6 +88,7 @@ class CommPattern:
         self._table_cache: dict = {}
         self._link_cache: dict = {}
         self._wave_cache: dict = {}
+        self._rounds_cache: tuple | None = None
 
     # -- structure ----------------------------------------------------------
     def __len__(self) -> int:
@@ -126,6 +127,30 @@ class CommPattern:
                                   device=device)
             self._table_cache[device] = got
         return got
+
+    def unique_src_rounds(self) -> tuple["CommPattern", ...]:
+        """The pairs split into rounds with unique sources, each compiled.
+
+        Destinations are unique by construction, but sources may repeat
+        (fan-out: one owner pushing to many requesters, e.g. an IPI-get
+        with several readers).  The SPMD backend runs one store round per
+        entry — the analogue of the owner serializing its pushes on the
+        NoC; the common case is a single round."""
+        if self._rounds_cache is None:
+            rounds: list[list[tuple[int, int]]] = []
+            used: list[set[int]] = []
+            for s, d in self.pairs:
+                for r, u in zip(rounds, used):
+                    if s not in u:
+                        r.append((s, d))
+                        u.add(s)
+                        break
+                else:
+                    rounds.append([(s, d)])
+                    used.append({s})
+            self._rounds_cache = tuple(compile_pattern(r, self.n_pes)
+                                       for r in rounds)
+        return self._rounds_cache
 
     def relabel(self, ranks: Sequence[int], n_pes: int) -> "CommPattern":
         """Map this pattern's PE ids through `ranks` (index -> new PE id)

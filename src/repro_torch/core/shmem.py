@@ -47,7 +47,7 @@ from . import team as team_mod
 from . import tuner as tuner_mod
 from .fault import DeadlineExceeded, LinkFailure
 from .heap import tree_flatten
-from .netops import NetOps, NocSimNetOps, SimNetOps
+from .netops import NetOps, NocSimNetOps, SimNetOps, SpmdNetOps
 from .pattern import CommPattern, PatternLike, as_pattern
 from .profile import Profiler, trace_clean, wait_device
 from .topology import MeshTopology
@@ -149,7 +149,7 @@ class Ctx:
                  ) -> Future:
         leaves, _ = tree_flatten(payload)
         nbytes = float(sum(l.numel() * l.element_size() for l in leaves))
-        nbytes /= self.n_pes                # leading PE axis is not payload
+        nbytes /= self.shmem.net.rows       # leading PE axis is not payload
         # Straggler delay charged by the fault injector at issue time
         # rides on the Future and is FELT at quiet() — a slow PE's DMA
         # takes longer to land, not longer to enqueue (DESIGN.md §17).
@@ -307,8 +307,9 @@ class Ctx:
 
 
 class ShmemContext:
-    """The whole chip's view of the library on the SIM backend: every
-    array carries a leading axis of `n_pes` PEs on the net's device."""
+    """The library bound to a net: under SIM the whole chip's view (every
+    array carries a leading axis of `n_pes` PEs on the net's device),
+    under SPMD one PE's (arrays carry this PE's one row)."""
 
     def __init__(self, net: NetOps, topo: MeshTopology | None = None,
                  use_wand_barrier: bool = False, link=None, embedding=None,
@@ -316,8 +317,8 @@ class ShmemContext:
                  fingerprint=None):
         self.net = net
         self.topo = topo
-        # the hardware WAND barrier needs the SPMD backend; on SIM the
-        # dissemination barrier runs either way
+        # the hardware WAND barrier analogue (SPMD backend only; on SIM
+        # the dissemination barrier runs either way)
         self.use_wand_barrier = use_wand_barrier
         # alpha-beta LinkModel that algorithm="auto" prices schedules with
         # (None = abmodel.ICI_V5E)
@@ -547,8 +548,13 @@ class ShmemContext:
 
     # -- collectives ----------------------------------------------------------
     def barrier_all(self, token=None):
-        """The dissemination software barrier over all PEs (the WAND
-        hardware barrier analogue needs the SPMD backend)."""
+        """WAND hardware barrier analogue (a zero-token axis_psum over
+        the group) when enabled on the SPMD backend, else the
+        dissemination software barrier."""
+        if self.use_wand_barrier and isinstance(self.net, SpmdNetOps):
+            tok = torch.zeros(1, dtype=torch.int32, device=self.device) \
+                if token is None else token
+            return self.net.axis_psum(tok)
         return coll.barrier(self.net, token)
 
     def barrier(self, token=None, team=None, algorithm=None):
@@ -710,9 +716,10 @@ class ShmemContext:
 
 
 def spmd_ctx(axis, topo=None, **kw) -> ShmemContext:
-    """The SPMD backend (one PE per device) is not ported yet."""
-    raise NotImplementedError("spmd_ctx: the SPMD backend is not ported "
-                              "yet (slice 5's SPMD item); use sim_ctx")
+    """This rank's PE of the group over mesh `axis` (inside a rank process
+    of `core.spmd.run`, after `launch.mesh.make_mesh`): arrays carry this
+    PE's one row on their leading axis."""
+    return ShmemContext(SpmdNetOps(axis), topo, **kw)
 
 
 def sim_ctx(n_pes: int, topo=None, noc: bool = False, device=None,

@@ -1,12 +1,23 @@
 """Training launcher: real steps on one device (the CUDA card, or the CPU
-with --device cpu), with checkpoint/restart and straggler records.
+with --device cpu), or on a --data x --model mesh of rank processes
+sharing that device (`core.spmd`), with checkpoint/restart and straggler
+records.
 
   python -m repro_torch.launch.train --arch qwen2-0.5b
+  python -m repro_torch.launch.train --arch qwen2-0.5b --data 2 --model 2
   python -m repro_torch.launch.train --arch qwen2-0.5b --smoke --device cpu \\
          --steps 12 --ckpt-dir /tmp/ckpt --resume auto
   python -m repro_torch.launch.train --arch hubert-xlarge --smoke --device cpu
   python -m repro_torch.launch.train --arch phi-3-vision-4.2b --smoke \\
          --device cpu
+
+On a mesh every rank trains its local shards on its slice of the global
+batch (`launch/build.make_train_step`) and the launcher returns rank 0's
+losses; --ckpt-dir saves the GLOBAL tree gathered from the ranks (the
+model-sharded leaves allgathered over `model`), so a restore onto
+another mesh has what the reference's has.  --topo, --allreduce-algo,
+--pipeline-chunks and --embedding steer the mesh's collectives as the
+reference's flags do.
 
 The audio frontend trains on stub frames (B, L, d_model) and the vision
 one on stub frontend embeds (B, n_frontend_tokens, d_model) beside the
@@ -21,32 +32,30 @@ measured tuner (on one device no collective consults it, and, as in the
 reference at --data 1, there is no calibration sweep).
 
 The flags of the reference launcher whose services are not ported yet
-are accepted and refused with the slice that brings them.
+are accepted and refused with the slice that brings them (on a mesh also
+the measurement services' flags: their per-rank documents come with
+slice 5c-3).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import sys
 import time
 
 import numpy as np
 
 # reference flags refused here: (flag, value meaning "not asked for",
 # the slice that brings the service)
-_SPMD = "slice 5's SPMD item"
 _UNPORTED = [
-    ("data", 1, f"{_SPMD} (the multi-device backend)"),
-    ("model", 1, f"{_SPMD} (the multi-device backend)"),
-    ("pod", 0, f"{_SPMD} (the multi-device backend)"),
-    ("topo", None, f"{_SPMD} (topology-aware selection on a real mesh)"),
-    ("embedding", "off", f"{_SPMD} (mesh embeddings on a real mesh)"),
-    ("allreduce_algo", "paper", f"{_SPMD} (cost-model selection on a "
-                                "real mesh)"),
-    ("pipeline_chunks", None, f"{_SPMD} (chunked collectives on a real "
-                              "mesh)"),
-    ("shard_strategy", None, f"{_SPMD} (sharding strategies)"),
+    ("pod", 0, "slice 5c-3 (a pod axis)"),
+    ("shard_strategy", None, "slice 5c-3 (sharding strategies)"),
 ]
+# flags refused on a mesh of more than one rank: (flag, unset value)
+_ONE_DEVICE_ONLY = [("autotune", False), ("tuning_db", ""),
+                    ("profile_out", ""), ("trace_out", ""),
+                    ("metrics_out", "")]
 
 
 @dataclasses.dataclass
@@ -117,14 +126,51 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(argv=None) -> TrainRun:
-    """Parse `argv` and train; `main` without the return of state."""
+def _topology(args):
+    """The data axis's MeshTopology from --topo, or the reference's
+    near-square guess when --embedding needs one; None otherwise."""
+    from ..core.topology import MeshTopology
+    if args.topo:
+        shape = tuple(int(p) for p in args.topo.lower().split("x"))
+        if int(np.prod(shape)) != args.data:
+            raise SystemExit(f"--topo {args.topo} covers "
+                             f"{int(np.prod(shape))} PEs but the data axis "
+                             f"has {args.data}")
+        return MeshTopology(shape, torus=(False,) * len(shape))
+    if args.embedding != "off":
+        d, r = args.data, int(args.data ** 0.5)
+        while r > 1 and d % r:
+            r -= 1
+        shape = (r, d // r) if r > 1 else (d,)
+        print(f"[train] --embedding without --topo: assuming data-axis "
+              f"layout {'x'.join(map(str, shape))} (pass --topo to state "
+              f"the real one)")
+        return MeshTopology(shape, torus=(False,) * len(shape))
+    return None
+
+
+def _chunks(args):
+    c = args.pipeline_chunks
+    return c if c is None or c == "auto" else int(c)
+
+
+def run(argv=None, *, params=None) -> TrainRun:
+    """Parse `argv` and train; `main` without the return of state.
+    `params`, when given, is the GLOBAL parameter tree (the port's
+    layout) to start from in place of the seed-0 init."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = _parser()
     args = ap.parse_args(argv)
     for name, unset, slice_ in _UNPORTED:
         if getattr(args, name) != unset:
             ap.error(f"--{name.replace('_', '-')} is not ported yet: it "
                      f"comes with {slice_}")
+    if args.data * args.model > 1:
+        for name, unset in _ONE_DEVICE_ONLY:
+            if getattr(args, name) != unset:
+                ap.error(f"--{name.replace('_', '-')} on a mesh of rank "
+                         f"processes comes with slice 5c-3")
+        return _run_mesh(argv, args, params)
 
     from .. import resolve_device
     from ..ckpt import manager as ckpt
@@ -157,10 +203,16 @@ def run(argv=None) -> TrainRun:
     if args.autotune or args.tuning_db:
         from ..core import tuner as tuner_mod
         tuner = tuner_mod.Tuner(path=args.tuning_db or None)
+    topo = _topology(args)
     step_fn = tstep.build_train_step(
-        cfg, adamw=adamw, grad_rs=grad_rs,
+        cfg, adamw=adamw, allreduce_algo=args.allreduce_algo,
+        grad_rs=grad_rs, pipeline_chunks=_chunks(args), topo=topo,
+        embedding=None if args.embedding == "off" else args.embedding,
         autotune=tuner if args.autotune else None, profile=profiler)
-    params = transformer.init_params(cfg, seed=0, device=device)
+    if params is None:
+        params = transformer.init_params(cfg, seed=0, device=device)
+    else:
+        params = transformer.map_params(lambda t: t.to(device), params)
     opt_state = opt.init_state(params, adamw, cfg.local_global_period)
 
     start = 0
@@ -231,8 +283,140 @@ def run(argv=None) -> TrainRun:
     return TrainRun(losses, step_s, params, opt_state)
 
 
+def _run_mesh(argv, args, params) -> TrainRun:
+    """--data x --model rank processes on one device; rank 0's losses
+    and step walls, and the GLOBAL parameters gathered from the ranks."""
+    from .. import resolve_device
+    from . import build
+    device = resolve_device(args.device)
+    out = build.shard_mapped(
+        train_rank, (args.data, args.model),
+        [(argv, params)] * (args.data * args.model),
+        device=device)
+    r0 = out[0]
+    return TrainRun(r0["losses"], r0["step_s"], r0["params"], r0["opt"])
+
+
+def _gather_global(comm, specs, tree):
+    """The GLOBAL tree of a rank's local `tree` (params, or f32/bf16
+    moments of the same structure): model-sharded leaves allgathered
+    over `model` along their sharded dim."""
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, sv) for v, sv in zip(t, s)]
+        if "model" in s:
+            return comm.allgather(t, "model", concat_axis=s.index("model"))
+        return t
+    return walk(tree, specs)
+
+
+def train_rank(argv, params_global):
+    """One rank of `_run_mesh`: the launcher's loop on its local shards;
+    rank 0 writes the checkpoints and the log."""
+    from ..ckpt import manager as ckpt
+    from ..configs import get_config, smoke_config
+    from ..core import spmd
+    from ..core.heap import tree_flatten, tree_unflatten
+    from ..data.pipeline import SyntheticLM, frontend_kwargs
+    from ..models import convert, transformer
+    from ..parallel import sharding
+    from ..parallel.comm import Comm
+    from ..train import optimizer as opt
+    from . import build
+
+    args = _parser().parse_args(argv)
+    rt = spmd.current()
+    mesh = rt.mesh
+    lead = rt.rank == 0
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.remat:
+        cfg = dataclasses.replace(cfg, remat=args.remat)
+    pipe = SyntheticLM(cfg.vocab, args.seq_len, args.batch,
+                       **frontend_kwargs(cfg))
+    adamw = opt.AdamWConfig(lr=args.lr, moment_dtype=cfg.moment_dtype)
+    grad_rs = {"off": False, "on": True, "auto": "auto"}[args.grad_rs]
+    step_fn, (_, specs), _ = build.make_train_step(
+        cfg, mesh, allreduce_algo=args.allreduce_algo,
+        grad_rs=grad_rs, pipeline_chunks=_chunks(args),
+        topo=_topology(args),
+        embedding=None if args.embedding == "off" else args.embedding,
+        adamw=adamw)
+    if params_global is not None:
+        params = convert.local_shards(params_global, cfg, mesh)
+        params = transformer.map_params(lambda t: t.to(rt.device), params)
+    else:
+        init, _, _ = build.make_init_fn(cfg, mesh)
+        params = init(0, rt.device)
+    opt_state = opt.init_state(params, adamw, cfg.local_global_period)
+    leaves = tree_flatten(params)[0]
+    if len(opt_state["mv"]) != len(leaves):
+        raise NotImplementedError("checkpoints of grouped (int8) moments "
+                                  "on a mesh come with slice 5c-3")
+    comm = Comm(build.axis_spec(mesh, cfg))
+    spec_leaves = sharding.spec_leaves(params, specs)
+
+    def global_state():
+        """The GLOBAL {"params", "opt"} (every rank takes part)."""
+        p = _gather_global(comm, specs, params)
+        mv = [{k: _gather_global(comm, s, d[k]) for k in ("m", "v")}
+              for d, s in zip(opt_state["mv"], spec_leaves)]
+        return {"params": p, "opt": {"mv": mv, "step": opt_state["step"]}}
+
+    start = 0
+    ft = None
+    if args.ckpt_dir:
+        ft = ckpt.FaultToleranceManager(
+            args.ckpt_dir, save_every=args.ckpt_every,
+            step_deadline_s=args.step_deadline,
+            async_save=args.ckpt_async == "on") if lead else None
+        if args.resume == "auto" and ckpt.latest_step(args.ckpt_dir) \
+                is not None:
+            template = global_state()
+            start, got = ckpt.restore(args.ckpt_dir, template)
+            params = transformer.map_params(
+                lambda t: t.to(rt.device),
+                convert.local_shards(got["params"], cfg, mesh))
+            flat = tree_flatten(got["opt"]["mv"])[0]
+            mv, mdef = tree_flatten(opt_state["mv"])
+            opt_state = {"mv": tree_unflatten(mdef, [
+                convert.local_leaf(g, s, mesh).to(device=l.device,
+                                                  dtype=l.dtype)
+                for g, l, s in zip(flat, mv, [s for s in spec_leaves
+                                              for _ in "mv"])]),
+                "step": got["opt"]["step"].to(rt.device)}
+            if lead:
+                print(f"[train] resumed from step {start}")
+
+    losses, step_s = [], []
+    for step in range(start, args.steps):
+        t0 = time.perf_counter()
+        loss, params, opt_state = step_fn(params, opt_state,
+                                          pipe.batch(step))
+        loss = float(loss)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if lead:
+            print(f"[train] step {step:5d} loss {loss:8.4f} "
+                  f"({step_s[-1]:.2f}s) on {args.data}x{args.model} ranks")
+        state = global_state() if (args.ckpt_dir and step and
+                                   step % args.ckpt_every == 0) else None
+        if ft:
+            ft.on_step(step, lambda: state)
+    final = global_state() if args.ckpt_dir else None
+    if ft:
+        ft.finalize(args.steps, lambda: final)
+    if not np.isfinite(losses).all():
+        raise FloatingPointError(f"non-finite loss: {losses}")
+    p_global = _gather_global(comm, specs, params)
+    return {"losses": losses, "step_s": step_s,
+            "params": p_global if lead else None,
+            "opt": opt_state if lead else None}
+
+
 def main(argv=None):
-    """Train; returns the list of step losses."""
+    """Train; returns the list of step losses (rank 0's on a mesh)."""
     return run(argv).losses
 
 

@@ -88,6 +88,13 @@ class ModelConfig:
                                  # backward pass (torch.utils.checkpoint)
     microbatches: int = 1        # grad-accumulation steps per train step
     moment_dtype: str = "f32"    # f32 | bf16 | int8 (optimizer moments)
+    # sharding (the reference's fields, same defaults)
+    attention: str = "mono"      # mono | ring: "ring" runs sequence-sharded
+                                 # attention over `data` (slice 5c-3)
+    fsdp: bool = False           # ZeRO-3: 2D block weights sharded over
+                                 # data (slice 5c-3)
+    shard_strategy: str = "tp"   # tp | dp_only (replicate params, shard
+                                 # the batch over data x model; 5c-3)
 
     @property
     def hd(self) -> int:

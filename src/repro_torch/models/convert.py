@@ -1,4 +1,5 @@
-"""Parameter trees between the JAX package's layout and the port's."""
+"""Parameter trees between the JAX package's layout and the port's, and
+between a global tree and the local shards of each rank of a mesh."""
 from __future__ import annotations
 
 import numpy as np
@@ -94,3 +95,151 @@ def params_to_jax(params, cfg: ModelConfig):
         if key in params:
             out[key] = map_params(leaf, params[key])
     return out
+
+
+# ---------------------------------------------------------------------------
+# the rank mesh: global trees <-> each rank's local shards
+# ---------------------------------------------------------------------------
+
+def _spec_slices(spec, shape, sizes: dict, coords: dict):
+    """The region of a global leaf of `shape` a rank at `coords` holds
+    under `spec` (one entry per dim: None, an axis, or a tuple of axes
+    flattened row-major): a list of (dim, start, length)."""
+    out = []
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axs = ax if isinstance(ax, tuple) else (ax,)
+        n = int(np.prod([sizes[a] for a in axs]))
+        idx = int(np.ravel_multi_index([coords[a] for a in axs],
+                                       [sizes[a] for a in axs]))
+        if shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"over {n} PEs")
+        size = shape[dim] // n
+        out.append((dim, idx * size, size))
+    return out
+
+
+def _specs(cfg: ModelConfig, params, tp: int):
+    from ..parallel import sharding
+    return sharding.param_specs(cfg, params, sharding.MeshAxes(), tp)
+
+
+def _zip_specs(fn, tree, specs):
+    """`fn(leaf, spec)` over a parameter tree and its spec tree (a spec is
+    a tuple, so it is walked as a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _zip_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zip_specs(fn, v, s) for v, s in zip(tree, specs)]
+    return fn(tree, specs)
+
+
+def local_leaf(leaf, spec, mesh):
+    """The rank's shard of one GLOBAL leaf under `spec`, at its
+    coordinates on `mesh` (a `launch.mesh.RankMesh`)."""
+    for dim, start, size in _spec_slices(spec, leaf.shape, mesh.sizes,
+                                         mesh.coords):
+        leaf = leaf.narrow(dim, start, size)
+    return leaf.contiguous()
+
+
+def local_shards(global_params, cfg: ModelConfig, mesh):
+    """The rank's local shards of the port's GLOBAL tree (the port's
+    layout at global shapes): each leaf cut along the dims its spec
+    (`parallel.sharding.param_specs`) splits, at the rank's coordinates
+    on `mesh` (a `launch.mesh.RankMesh`)."""
+    specs = _specs(cfg, global_params, mesh.sizes.get("model", 1))
+    return _zip_specs(lambda leaf, spec: local_leaf(leaf, spec, mesh),
+                      global_params, specs)
+
+
+def global_params(rank_trees, cfg: ModelConfig, mesh_shape, axis_names=(
+        "data", "model")):
+    """The GLOBAL tree from every rank's local tree (`rank_trees[r]` is
+    rank r's, ranks row-major over `mesh_shape`): each region taken from
+    the first rank (in rank order) that holds it.  Parameters, or
+    gradients of the same structure."""
+    from ..launch.mesh import RankMesh
+    meshes = [RankMesh(tuple(axis_names), tuple(mesh_shape), r)
+              for r in range(len(rank_trees))]
+    sizes = meshes[0].sizes
+    tp = sizes.get("model", 1)
+    specs = _specs(cfg, rank_trees[0], tp)
+
+    def walk(trees, spec_tree):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: walk([t[k] for t in trees], spec_tree[k])
+                    for k in first}
+        if isinstance(first, list):
+            return [walk([t[i] for t in trees], spec_tree[i])
+                    for i in range(len(first))]
+        shape = list(first.shape)
+        for dim, ax in enumerate(spec_tree):
+            if ax is not None:
+                axs = ax if isinstance(ax, tuple) else (ax,)
+                shape[dim] *= int(np.prod([sizes[a] for a in axs]))
+        out = torch.empty(shape, dtype=first.dtype)
+        seen = set()
+        for leaf, m in zip(trees, meshes):
+            region = tuple(_spec_slices(spec_tree, shape, sizes, m.coords))
+            if region in seen:
+                continue
+            seen.add(region)
+            view = out
+            for dim, start, size in region:
+                view = view.narrow(dim, start, size)
+            view.copy_(leaf.detach().cpu())
+        return out
+
+    return walk(rank_trees, specs)
+
+
+def fit_global(params, cfg: ModelConfig, tp: int, dp: int = 1):
+    """The port's tp = 1 tree re-laid-out at the global shapes of a `dp`
+    x `tp` mesh, as the reference's `test_tp2_matches_single_device` fits
+    its 1x1 params: each leaf tile-extended along every dim that grows
+    (ghost heads, padded vocab) and cut to size.  The extended slots are
+    masked to zero effect by construction, so the loss is unchanged.
+    The dense family (its leaves need no column remap)."""
+    from ..launch.mesh import RankMesh
+    from .transformer import init_params
+    mesh = RankMesh(("data", "model"), (dp, tp), 0)
+    local = init_params(cfg, device="meta", tp=tp, dp=dp)
+    specs = _specs(cfg, local, tp)
+    sizes = mesh.sizes
+
+    def target(leaf, spec):
+        shape = list(leaf.shape)
+        for dim, ax in enumerate(spec):
+            if ax is not None:
+                shape[dim] *= sizes[ax]
+        return tuple(shape)
+
+    targets = _zip_specs(target, local, specs)
+
+    def fit(a, t):
+        for ax in range(a.dim()):
+            have, want = a.shape[ax], t[ax]
+            if have == want:
+                continue
+            if have < want:
+                reps = [1] * a.dim()
+                reps[ax] = -(-want // have)
+                a = a.repeat(*reps)
+            a = a.narrow(ax, 0, want)
+        return a.contiguous()
+
+    if cfg.family not in ("dense",):
+        raise NotImplementedError(f"fit_global takes the dense family; "
+                                  f"{cfg.family} comes with slice 5c-2")
+    return _zip_specs(fit, params, targets)
+
+
+def shards_from_jax(tree, cfg: ModelConfig, mesh, device="cpu"):
+    """The rank's local shards of the port from the reference's GLOBAL
+    tree (numpy, the layout `repro.launch.build.global_shape` gives:
+    layers stacked) on `mesh` (a `launch.mesh.RankMesh`)."""
+    return local_shards(params_from_jax(tree, cfg, device), cfg, mesh)

@@ -7,7 +7,13 @@ the flash kernel, the absorbed decode in f32) and the routed MoE layer.
 
 Counterpart of `repro/models/layers.py`.  Each function takes a `Comm`
 and calls its collectives where `repro` does; on one device they are the
-identity.  Weights are plain tensors in dicts, initialised from a
+identity.  Megatron-style tensor parallelism over `model` (the dense
+family's training path): attention heads and the FFN hidden are sharded,
+every layer ends with one allreduce, the vocabulary is sharded for the
+embedding and the loss; KV projections are replicated when n_kv_heads <
+tp or tp does not divide the heads, whose padded "ghost" q heads are
+masked to zero.  The decode paths, MLA, MoE and Mamba2 at tp > 1 raise,
+naming the slice that brings them.  Weights are plain tensors in dicts, initialised from a
 `torch.Generator`.  The paged KV pool and the dense KV cache are updated
 in place (the JAX functions return new ones), MLA's latent cache too: no
 copy per step.
@@ -67,7 +73,9 @@ def _normal(gen, shape, scale: float, device, dtype):
     that a bf16 tree never holds more than one f32 leaf at a time and
     draws the same numbers as an f32 one.  The draw is scaled in place:
     deepseek-v3's (256, 7168, 2048) expert leaves are 15 GiB each in
-    f32."""
+    f32.  On the meta device (shapes only) nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device=device, dtype=dtype)
     return torch.randn(shape, generator=gen, device=device,
                        dtype=torch.float32).mul_(scale).to(dtype)
 
@@ -132,8 +140,19 @@ def sharded_xent(comm: Comm, cfg: ModelConfig, logits, targets):
 # GQA attention
 # ---------------------------------------------------------------------------
 
+def _model_parallel(comm: Comm, what: str, slice_: str) -> None:
+    """Raise when the model axis has more than one PE: `what` at tp > 1
+    comes with `slice_`."""
+    if comm.axis_size(comm.axes.model) != 1:
+        raise NotImplementedError(f"{what} at tp > 1 comes with slice "
+                                  f"{slice_}")
+
+
 def _gqa_dims(cfg: ModelConfig, tp: int):
-    """(q heads per device, kv heads stored per device, kv replicated?)."""
+    """(q heads per device, kv heads stored per device, kv replicated?).
+    Head counts that don't divide tp are padded with 'ghost' q heads whose
+    outputs are masked to zero; KV projections are stored replicated when
+    n_kv < tp, each device gathering the kv head(s) its q heads map to."""
     nq_local = -(-cfg.n_heads // tp)
     kv_repl = cfg.n_kv_heads < tp or cfg.n_heads % tp != 0
     nkv_store = cfg.n_kv_heads if kv_repl else cfg.n_kv_heads // tp
@@ -168,34 +187,61 @@ def layer_window(cfg: ModelConfig, is_local_layer: bool = False):
     return cfg.window
 
 
+def _head_ids(comm: Comm, cfg: ModelConfig, tp: int):
+    """(global q-head ids of this device's heads, validity of each: False
+    for a ghost head), host lists."""
+    nq_local, _, _ = _gqa_dims(cfg, tp)
+    first = comm.axis_index(comm.axes.model) * nq_local
+    ids = [first + j for j in range(nq_local)]
+    return ids, [i < cfg.n_heads for i in ids]
+
+
+def _local_kv(comm: Comm, cfg: ModelConfig, k, v, tp: int):
+    """Per-local-q-head K/V (head-major, (B, H, L, hd)): when the KV
+    projection is replicated, each q head's kv group head is gathered
+    (any head/kv/tp combination, group of one after); otherwise K/V are
+    already the local shard (group attention)."""
+    _, _, kv_repl = _gqa_dims(cfg, tp)
+    if not kv_repl:
+        return k, v
+    group = cfg.n_heads // cfg.n_kv_heads
+    ids, _ = _head_ids(comm, cfg, tp)
+    kv_idx = torch.tensor([min(i, cfg.n_heads - 1) // group for i in ids],
+                          device=k.device)
+    return k.index_select(1, kv_idx), v.index_select(1, kv_idx)
+
+
 def attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions, *,
               is_local_layer: bool = False):
-    """Full-sequence attention (training): x (B, L, d) -> (B, L, d), one
-    allreduce over `model`.  Attends through `ops.attention` (the flash
-    kernel forward on the card, a reference-recompute backward) within
-    the layer's window (`layer_window`).  One device means tp = 1, where
-    the reference's replicated-KV gather and ghost-head mask are
-    identities."""
+    """Full-sequence attention (training): x (B, L, d) replicated over
+    `model` -> (B, L, d) replicated, one allreduce over `model`.  This
+    device's q heads attend through `ops.attention` (the flash kernel
+    forward on the card, a reference-recompute backward) within the
+    layer's window (`layer_window`), against their kv heads (gathered
+    per q head when the KV projection is replicated); ghost heads are
+    zeroed before the output projection."""
     tp = comm.axis_size(comm.axes.model)
-    if tp != 1:
-        raise NotImplementedError("tensor parallelism is not ported yet "
-                                  "(slice 5)")
     B, L, _ = x.shape
-    q, k, v = attention_qkv(cfg, p, x, positions)
+    q, k, v = attention_qkv(cfg, p, x, positions, tp)
+    k, v = _local_kv(comm, cfg, k, v, tp)
     o = kops.attention(q, k, v, causal=cfg.causal,
                        window=layer_window(cfg, is_local_layer),
-                       softcap=cfg.softcap).transpose(1, 2)
-    o = o.reshape(B, L, -1).to(cfg.dtype)
+                       softcap=cfg.softcap)
+    if cfg.n_heads % tp:                      # zero the ghost heads
+        _, valid = _head_ids(comm, cfg, tp)
+        o = o * torch.tensor(valid, dtype=o.dtype,
+                             device=o.device)[None, :, None, None]
+    o = o.transpose(1, 2).reshape(B, L, -1).to(cfg.dtype)
     return comm.allreduce(_dense(o, p["wo"]), comm.axes.model)
 
 
-def attention_qkv(cfg: ModelConfig, p: Params, x, positions):
-    """The heads `attention` attends over, on one device: x (B, L, d) ->
-    q (B, Hq, L, hd), k and v (B, Hkv, L, hd) (head-major views), after
-    the projections and RoPE."""
+def attention_qkv(cfg: ModelConfig, p: Params, x, positions, tp: int = 1):
+    """The heads `attention` attends over: x (B, L, d) -> q (B, Hq, L,
+    hd), k and v (B, Hkv, L, hd) (head-major views; this device's heads
+    at `tp`), after the projections and RoPE."""
     B, L, _ = x.shape
     hd = cfg.hd
-    nq_local, nkv_store, _ = _gqa_dims(cfg, 1)
+    nq_local, nkv_store, _ = _gqa_dims(cfg, tp)
     q = _dense(x, p["wq"], p.get("bq")).reshape(B, L, nq_local, hd)
     k = _dense(x, p["wk"], p.get("bk")).reshape(B, L, nkv_store, hd)
     v = _dense(x, p["wv"], p.get("bv")).reshape(B, L, nkv_store, hd)
@@ -212,7 +258,7 @@ def init_attn_cache(cfg: ModelConfig, tp: int, batch_local: int,
     _, nkv_store, kv_repl = _gqa_dims(cfg, tp)
     if kv_repl:
         raise NotImplementedError("the replicated-KV cache plan comes with "
-                                  "tensor parallelism (slice 5)")
+                                  "slice 5c-3 (the serve engine at tp > 1)")
     s = cache_len if window_bound is None else min(cache_len, window_bound)
     shape = (batch_local, s, nkv_store, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -237,8 +283,7 @@ def attention_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache,
     tp = comm.axis_size(comm.axes.model)
     if tp != 1 or seq_shards != 1:
         raise NotImplementedError("tensor-parallel and sequence-sharded "
-                                  "decode come with the multi-device "
-                                  "backend (slice 5)")
+                                  "decode come with slice 5c-3")
     B = x.shape[0]
     q, k, v = (t.transpose(1, 2)                         # (B, 1, H, hd)
                for t in attention_qkv(cfg, p, x, position[:, None]))
@@ -329,9 +374,7 @@ def mla_attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions):
     rope against a v head dim of its own, scaled by 1/sqrt(nope + rope).
     One device (tp = 1)."""
     m = cfg.mla
-    if comm.axis_size(comm.axes.model) != 1:
-        raise NotImplementedError("tensor parallelism is not ported yet "
-                                  "(slice 5)")
+    _model_parallel(comm, "MLA", "5c-2")
     B, L, _ = x.shape
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     c_kv, k_rope = _mla_latent(cfg, p, x, positions)
@@ -368,9 +411,7 @@ def mla_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache, position):
     score is q_nope . (W_kb^T c_kv) + q_rope . k_rope, the context is
     read from c_kv and expanded through W_vb."""
     m = cfg.mla
-    if comm.axis_size(comm.axes.model) != 1:
-        raise NotImplementedError("tensor parallelism is not ported yet "
-                                  "(slice 5)")
+    _model_parallel(comm, "MLA decode", "5c-2")
     B = x.shape[0]
     pos = position[:, None]
     q_nope, q_rope = _mla_q(cfg, p, x, pos)
@@ -483,6 +524,7 @@ def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
     here unless the caller has checked them (`positions_checked`, as
     `prefill_paged` does once for the whole stack).  Decode attends
     through `_attend_mq`."""
+    _model_parallel(comm, "paged attention", "5c-3")
     tp = comm.axis_size(comm.axes.model)
     B, L, d = x.shape
     hd = cfg.hd
@@ -615,6 +657,7 @@ def moe(comm: Comm, cfg: ModelConfig, p: Params, x):
     the shared experts are added after.  aux is the load-balance loss E *
     sum(mean(gates) * mean(picks per expert))."""
     mo = cfg.moe
+    _model_parallel(comm, "MoE (expert parallelism)", "5c-2")
     tp = comm.axis_size(comm.axes.model)
     ep_axes = ((comm.axes.data, comm.axes.model) if mo.ep_over_data
                else comm.axes.model)
@@ -729,6 +772,7 @@ def mamba2(comm: Comm, cfg: ModelConfig, p: Params, x):
     reference's shifted sum in the activation dtype; x, B and C reach
     `ops.ssd` as views of the conv's output (no copy)."""
     s = cfg.ssm
+    _model_parallel(comm, "Mamba2", "5c-2")
     tp = comm.axis_size(comm.axes.model)
     B, seq, _ = x.shape
     d_in_local, nheads_local, gdim = _mamba_split(cfg, tp)
@@ -777,6 +821,7 @@ def mamba2_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache):
     """One-step recurrence (decode): x (B, 1, d) -> ((B, 1, d), new
     cache).  The conv history and the state come back as new tensors."""
     s = cfg.ssm
+    _model_parallel(comm, "Mamba2 decode", "5c-2")
     tp = comm.axis_size(comm.axes.model)
     B = x.shape[0]
     d_in_local, nheads_local, gdim = _mamba_split(cfg, tp)

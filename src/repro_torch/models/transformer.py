@@ -68,10 +68,16 @@ def _is_local(cfg: ModelConfig, i: int) -> bool:
     return cfg.local_global_period is not None and i % 2 == 0
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, tp: int = 1,
+                dp: int = 1) -> Params:
     """Random parameters from a `torch.Generator` seeded with `seed`, made
     on `device` (default: the CUDA card; raises without one unless
-    ``device="cpu"``).  Each weight of two or more dims is drawn in f32
+    ``device="cpu"``): one rank's local shards on a mesh of `tp` model
+    PEs and `dp` data PEs (the reference's ``init_params(key, cfg, tp,
+    dp)``).  Every rank draws from the same seed, so replicated leaves
+    are identical everywhere and sharded leaves are consistent
+    shard-local draws, as the reference's shard_map init gives them.
+    On the meta device it gives the shapes and dtypes alone.  Each weight of two or more dims is drawn in f32
     and cast to `cfg.param_dtype` as soon as it is made (as `repro` casts
     its f32 tree), so no f32 copy of the whole tree exists; vectors stay
     f32.  gemma2's layers are made in the list's order, pair by pair; the
@@ -83,8 +89,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
         raise ValueError(f"local/global pairs need an even n_layers, not "
                          f"{cfg.n_layers}")
     device = resolve_device(device)
-    tp = 1
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if device.type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     p: Params = {"embed": L.init_embedding(gen, cfg, tp, device),
                  "final_norm": torch.zeros(cfg.d_model, device=device)}
     if cfg.family in _ATTN_FAMILIES:
@@ -95,7 +101,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
         if nd:
             p["dense_layers"] = [_init_attn_block(gen, cfg, tp, device)
                                  for _ in range(nd)]
-        p["layers"] = [_init_attn_block(gen, cfg, tp, device, moe=True)
+        p["layers"] = [_init_attn_block(gen, cfg, tp, device, moe=True,
+                                        dp=dp)
                        for _ in range(cfg.n_layers - nd)]
         if cfg.mtp:
             d = cfg.d_model
@@ -114,12 +121,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     return p
 
 
-def _init_attn_block(gen, cfg, tp, device, moe: bool = False) -> Params:
+def _init_attn_block(gen, cfg, tp, device, moe: bool = False,
+                     dp: int = 1) -> Params:
     """An attention (GQA, or MLA when ``cfg.attn == "mla"``) block with
     an MLP, or with an MoE layer under "moe"."""
     attn = (L.init_mla(gen, cfg, tp, device) if cfg.attn == "mla"
             else L.init_attention(gen, cfg, tp, device))
-    ffn = ({"moe": L.init_moe(gen, cfg, tp, device)} if moe
+    ffn = ({"moe": L.init_moe(gen, cfg, tp, device, dp)} if moe
            else {"mlp": L.init_mlp(gen, cfg, tp, device)})
     return {"attn": attn, **ffn,
             "ln1": torch.zeros(cfg.d_model, device=device),

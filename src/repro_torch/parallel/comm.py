@@ -1,16 +1,24 @@
-"""Comm: the collective surface the model code and the trainer call, for
-one device.
+"""Comm: the collective surface the model code and the trainer call.
 
 Counterpart of `repro/parallel/comm.py`.  The model functions take a Comm
-and call its collectives at the same places as in `repro`.  With one
-device every axis has size 1: `axis_index` is 0 and the model-axis
-collectives (allreduce, allgather, and the expert-parallel alltoall) are
-the identity.  The gradient syncs run the SIM runtime's
-collectives (`core/collectives.py`, `core/fusion.py`) on `SimNetOps(1)`,
-each flat bucket viewed with a leading PE axis of one, so a one-device
-train step goes through the same reduce-scatter / allgather / fused
-AdamW code as a 16-PE SIM bucket.  The multi-device backend (SPMD over
-torch.distributed) is slice 5.
+and call its collectives at the same places as in `repro`.  Axis roles:
+
+  model  — tensor parallelism (activation allreduces, the vocab-sharded
+           loss's reductions)
+  data   — data parallelism (the fused gradient buckets)
+  pod    — cross-pod; not ported (slice 5c-3)
+
+Inside a rank process of `core.spmd.run` whose mesh `launch.mesh` made,
+axis sizes and indices are read from that mesh and every collective runs
+the paper's algorithms (`core/collectives.py`, `core/fusion.py`) over the
+axis's `SpmdNetOps`: each PE's local tensor viewed with a leading PE row
+of one.  Outside a rank process the mesh is one device: every axis has
+size 1, the model-axis collectives are the identity, and the gradient
+syncs run the same collectives on `SimNetOps(1)`.  All collectives are
+differentiable (compositions of the SPMD ppermute Function, the block
+moves and the sum combine), so the manual-TP backward is the reversed
+communication schedule, as the reference gets it from the transpose of
+lax.ppermute.
 """
 from __future__ import annotations
 
@@ -18,12 +26,18 @@ import dataclasses
 
 from ..core import collectives as coll
 from ..core import fusion
-from ..core.netops import SimNetOps
+from ..core import spmd
+from ..core import team as team_mod
+from ..core.netops import SimNetOps, SpmdNetOps, tree_map
+
+_UNSET = object()
 
 
 @dataclasses.dataclass(frozen=True)
 class AxisSpec:
-    """Mesh axis names by role (model = tensor parallel, data, pod)."""
+    """Mesh axis names by role (model = tensor parallel, data, pod); a
+    tuple is flattened into one PE space.  model=None disables tensor
+    parallelism."""
     data: str | tuple[str, ...] = "data"
     model: str | tuple[str, ...] | None = "model"
     pod: str | None = None
@@ -37,65 +51,107 @@ class AxisSpec:
 
 
 class Comm:
-    """Collectives over a one-device mesh.
+    """Substrate-neutral collective surface used by models and training.
 
-    backend: "shmem" (the paper's runtime; "xla" is not ported);
-    grad_rs: True runs gradient syncs as ring reduce-scatter + allgather
-    instead of an allreduce.  The reference's `allreduce_algo` picks
-    among allreduce algorithms, which on a one-PE data axis are all the
-    identity; it comes with the multi-device backend (slice 5).  Until
-    then `grad_rs` True and False also compute the same identity: the
-    bucketed form is kept for that multi-PE data axis.  `tuner` (a
-    core.tuner.Tuner or TunedSelector) and `profile` (a
-    core.profile.Profiler) are kept for the collectives over axes of
-    more than one PE; on one device no collective runs, so neither is
-    consulted, as the reference's size-1 axes consult neither."""
+    backend: "shmem" (the paper's runtime; "xla" is not ported).
+    tuning (as the reference's):
+      allreduce_algo : "paper" (dissemination for pow2 / ring otherwise,
+                       §3.6 verbatim), "auto" (cost-model selection on
+                       `topo`; with a 2D+ topo it also prices the
+                       hierarchical allreduce over the mesh's row teams),
+                       "rd", "ring", "ring_emb" or "hier" (forced)
+      topo           : MeshTopology the cost model prices hops against
+                       (used only on an axis of its PE count)
+      link           : alpha-beta LinkModel "auto" prices with
+      grad_rs        : gradient syncs as ring reduce-scatter + allgather
+                       instead of an allreduce
+      pipeline_chunks: chunked double-buffered execution of allreduces
+                       (int, "auto", None = monolithic; bit-identical)
+      embedding      : mesh-embedded ring collectives (None, "auto",
+                       "snake"; needs `topo`)
+      tuner          : a core.tuner.Tuner or TunedSelector every "auto"
+                       selection consults first
+      profile        : a core.profile.Profiler noting the selections
+    """
 
     def __init__(self, axes: AxisSpec = AxisSpec(), backend: str = "shmem",
-                 grad_rs: bool = False, n_devices: int = 1, tuner=None,
-                 profile=None):
-        if n_devices != 1:
-            raise NotImplementedError(
-                "the port runs on one device; the multi-device backend is "
-                "not ported yet")
+                 allreduce_algo: str = "paper", grad_rs: bool = False,
+                 topo=None, link=None, pipeline_chunks=None, embedding=None,
+                 tuner=None, profile=None):
         if backend != "shmem":
             raise NotImplementedError(f"backend {backend!r}: only the shmem "
                                       f"backend is ported")
+        if allreduce_algo not in ("paper", "auto", "rd", "ring", "ring_emb",
+                                  "hier"):
+            raise ValueError(f"allreduce_algo {allreduce_algo!r}")
         self.axes = axes
         self.backend = backend
+        self.allreduce_algo = allreduce_algo
         self.grad_rs = grad_rs
+        self.topo = topo
+        self.link = link
+        self.pipeline_chunks = pipeline_chunks
+        self.embedding = embedding
         self.tuner = tuner
+        self._sel = tuner.selector() if hasattr(tuner, "selector") else tuner
         self.profile = profile
+        # the rank mesh inside a rank process, None on one device
+        self.mesh = spmd.current().mesh if spmd.active() else None
+        self._nets: dict = {}
+        self._partitions: dict = {}
 
-    def _net(self, device) -> SimNetOps:
-        """The data axis's one-PE SIM net on `device`."""
-        return SimNetOps(1, device)
+    def _prof(self):
+        p = self.profile
+        return p if (p is not None and p.enabled) else None
+
+    # -- helpers -------------------------------------------------------------
+    def _net(self, axis, device):
+        """The axis's net: its SpmdNetOps on a rank mesh, else the
+        one-PE SIM net on `device`."""
+        if self.mesh is None:
+            return SimNetOps(1, device)
+        key = axis
+        got = self._nets.get(key)
+        if got is None:
+            got = self._nets[key] = SpmdNetOps(axis, self.mesh)
+        return got
+
+    def _topo_for(self, net):
+        """The configured topology, only when it describes this axis's
+        PE space."""
+        if self.topo is not None and self.topo.n_pes == net.n_pes:
+            return self.topo
+        return None
+
+    def _embedding_for(self, net):
+        return self.embedding if self._topo_for(net) is not None else None
+
+    def _partition_for(self, net):
+        """The row-team partition of `topo` the hierarchical allreduce
+        runs over, when the axis PE space is the topology's and it has a
+        second dimension to split; None otherwise."""
+        got = self._partitions.get(net.n_pes, _UNSET)
+        if got is not _UNSET:
+            return got
+        part = None
+        if (self.topo is not None and len(self.topo.shape) >= 2
+                and self.topo.n_pes == net.n_pes):
+            part = team_mod.split_2d(team_mod.team_world(net.n_pes),
+                                     self.topo, axis=-1)
+            if part.n_teams <= 1 or part.size <= 1:
+                part = None
+        self._partitions[net.n_pes] = part
+        return part
 
     def axis_size(self, axis) -> int:
-        return 1
+        if axis is None or axis == () or self.mesh is None:
+            return 1
+        return self.mesh.axis_size(axis)
 
     def axis_index(self, axis) -> int:
-        return 0
-
-    def allreduce(self, x, axis, op: str = "sum"):
-        return x
-
-    def allgather(self, x, axis, *, concat_axis: int = 0):
-        return x
-
-    def alltoall(self, x, axis, *, split_axis: int = 0,
-                 concat_axis: int = 0):
-        """The MoE dispatch's exchange over `axis` (the expert-parallel
-        group).  The shmem backend's alltoall is in place, so it splits
-        and concatenates along one axis.  Every axis has size 1 here, so
-        it is the identity; a SIM-backed expert-parallel dispatch over
-        several PEs comes with the multi-device backend (slice 5)."""
-        if axis is None or axis == ():
-            return x
-        if split_axis != concat_axis:
-            raise ValueError("shmem alltoall is in-place ragged: "
-                             "split_axis must equal concat_axis")
-        return x
+        if axis is None or axis == () or self.mesh is None:
+            return 0
+        return self.mesh.axis_index(axis)
 
     def _scale(self) -> int:
         n = 1
@@ -103,18 +159,105 @@ class Comm:
             n *= self.axis_size(a)
         return n
 
+    # -- collectives ----------------------------------------------------------
+    def allreduce(self, x, axis, op: str = "sum"):
+        if self.axis_size(axis) == 1:
+            return x
+        algo = None if self.allreduce_algo == "paper" else self.allreduce_algo
+
+        def one(v):
+            net = self._net(axis, v.device)
+            part = self._partition_for(net) if algo in ("auto", "hier") \
+                else None
+            a = "auto" if algo == "hier" and part is None else algo
+            return coll.allreduce(net, v[None], op, algorithm=a,
+                                  topo=self._topo_for(net), link=self.link,
+                                  pipeline_chunks=self.pipeline_chunks,
+                                  partition=part,
+                                  embedding=self._embedding_for(net),
+                                  profile=self._prof(),
+                                  tuner=self._sel)[0]
+
+        return tree_map(one, x)
+
+    def allgather(self, x, axis, *, concat_axis: int = 0):
+        if self.axis_size(axis) == 1:
+            return x
+        net = self._net(axis, x.device)
+        return coll.fcollect(net, x[None], axis=concat_axis,
+                             topo=self._topo_for(net), link=self.link,
+                             embedding=self._embedding_for(net),
+                             profile=self._prof(), tuner=self._sel)[0]
+
+    def reduce_scatter(self, x, axis, *, op: str = "sum",
+                       scatter_axis: int = 0):
+        """PE i gets block i of the `op`-reduction along `scatter_axis`
+        (psum_scatter's layout)."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return x
+        net = self._net(axis, x.device)
+        moved = x.movedim(scatter_axis, 0)
+        if moved.shape[0] % n:
+            raise ValueError(f"scatter dim {moved.shape[0]} not divisible "
+                             f"by {n}")
+        blk_shape = (moved.shape[0] // n,) + tuple(moved.shape[1:])
+        own, _ = coll.reduce_scatter(net, moved[None], op)
+        # the ring leaves PE p holding block (p+1)%n; one rotation ships
+        # each block to its home PE
+        home = net.ppermute(own, [(p, (p + 1) % n) for p in range(n)])
+        return home[0].reshape(blk_shape).movedim(0, scatter_axis)
+
+    def alltoall(self, x, axis, *, split_axis: int = 0,
+                 concat_axis: int = 0):
+        """The MoE dispatch's exchange over `axis`: in place, so it
+        splits and concatenates along one axis.  The identity on an axis
+        of one PE; over more PEs it is slice 5c-2 (expert parallelism)."""
+        if axis is None or axis == ():
+            return x
+        if split_axis != concat_axis:
+            raise ValueError("shmem alltoall is in-place ragged: "
+                             "split_axis must equal concat_axis")
+        if self.axis_size(axis) == 1:
+            return x
+        raise NotImplementedError("Comm.alltoall over more than one PE comes "
+                                  "with slice 5c-2 (expert parallelism)")
+
+    def broadcast(self, x, axis, root: int = 0):
+        if self.axis_size(axis) == 1:
+            return x
+        return coll.broadcast(self._net(axis, x.device), x[None], root,
+                              profile=self._prof(), tuner=self._sel)[0]
+
+    def ppermute(self, x, axis, perm):
+        if self.axis_size(axis) == 1:
+            return x
+        return self._net(axis, x.device).ppermute(x[None], perm)[0]
+
     # -- gradient synchronization over the data axis -------------------------
+    def _data_net(self, device):
+        if self.axes.pod is not None and self.axis_size(self.axes.pod) > 1:
+            raise NotImplementedError("a pod axis comes with slice 5c-3")
+        return self._net(self.axes.data, device)
+
     def grad_sync(self, grads, *, mean: bool = True):
         """Average each gradient tensor (a list, or one tensor) over the
         data axis: ring reduce-scatter + allgather with `grad_rs`, else
-        the paper's allreduce."""
+        the allreduce of `allreduce_algo`."""
         def one(g):
-            net = self._net(g.device)
             if self.grad_rs:
-                own, info = coll.reduce_scatter(net, g[None], "sum")
-                out = coll.allgather_unpad(net, own, info)[0]
-            else:
+                net = self._data_net(g.device)
+                team = coll.embedding_team(self._embedding_for(net),
+                                           self._topo_for(net), net.n_pes,
+                                           self.link)
+                own, info = coll.reduce_scatter(net, g[None], "sum",
+                                                team=team)
+                out = coll.allgather_unpad(net, own, info, team=team)[0]
+            elif self.mesh is None:
+                net = self._data_net(g.device)
                 out = coll.allreduce(net, g[None], "sum")[0]
+            else:
+                out = self.allreduce(g, self.axes.data)
             return out / self._scale() if mean else out
 
         if isinstance(grads, (list, tuple)):
@@ -123,11 +266,42 @@ class Comm:
 
     def grad_sync_bucketed(self, buckets, *, mean: bool = True):
         """Ring reduce-scatter of every flat bucket, then the allgathers
-        (two-phase issue, as the reference)."""
-        owned = [coll.reduce_scatter(self._net(b.device), b[None], "sum")
-                 for b in buckets]
-        out = [coll.allgather_unpad(self._net(b.device), *own)[0]
-               for b, own in zip(buckets, owned)]
+        (two-phase issue, as the reference).  On a 2D+ `topo` with
+        allreduce_algo "auto"/"hier", a bucket whose hierarchical
+        schedule prices below the flat ring runs `allreduce_hier`."""
+        if not buckets:
+            return []
+        net = self._data_net(buckets[0].device)
+        topo = self._topo_for(net)
+        part = self._partition_for(net) \
+            if self.allreduce_algo in ("auto", "hier") else None
+        emb = self._embedding_for(net)
+        team = coll.embedding_team(emb, topo, net.n_pes, self.link)
+
+        def hier_wins(b) -> bool:
+            if part is None:
+                return False
+            if self.allreduce_algo == "hier":
+                return True
+            nbytes = float(b.numel() * b.element_size())
+            t_hier = coll.allreduce_hier_schedule(
+                part, nbytes, topo=topo, link=self.link,
+                embedding=emb).time(topo, self.link)
+            t_flat = coll.allreduce_schedule(
+                net.n_pes, nbytes, "ring_emb" if team is not None
+                else "ring", embedding=None if team is None
+                else team.members).time(topo, self.link)
+            return t_hier < t_flat
+
+        hier = [hier_wins(b) for b in buckets]
+        owned = [None if h else coll.reduce_scatter(net, b[None], "sum",
+                                                    team=team)
+                 for b, h in zip(buckets, hier)]
+        out = [coll.allreduce_hier(net, b[None], "sum", partition=part,
+                                   topo=topo, link=self.link,
+                                   embedding=emb)[0]
+               if h else coll.allgather_unpad(net, *own, team=team)[0]
+               for b, h, own in zip(buckets, hier, owned)]
         return [b / self._scale() for b in out] if mean else out
 
     def grad_sync_fused_update(self, g_bufs, p_bufs, moments, wd_masks,
@@ -136,8 +310,9 @@ class Comm:
                                mean: bool = True):
         """grad_rs="fused": the bucketed ring reduce-scatter with the
         final combine of every bucket inside the combine + AdamW kernel
-        (`core/fusion.fused_rs_adam`), then allgathers of the UPDATED
-        param chunks at the param dtype.
+        (`core/fusion.fused_rs_adam`: this PE's owned chunk through
+        kernel 5), then allgathers of the UPDATED param chunks at the
+        param dtype.
 
         g_bufs/p_bufs: flat f32 gradient and param buckets; moments: per
         bucket {"m", "v"} OWNED chunks, shape (ceil(total/n),); wd_masks:
@@ -147,13 +322,19 @@ class Comm:
         grad_sync_bucketed then apply_updates (f32 moments)."""
         if self.axes.pod is not None:
             raise ValueError("grad_rs='fused' does not support a pod axis")
+        if not g_bufs:
+            return [], []
+        net = self._data_net(g_bufs[0].device)
+        team = coll.embedding_team(self._embedding_for(net),
+                                   self._topo_for(net), net.n_pes, self.link)
         scale = float(self._scale()) if mean else 1.0
         parts = [fusion.fused_rs_adam(
-                     self._net(g.device), g[None], p[None], mv["m"][None],
-                     mv["v"][None], w, c1, c2, lr=lr, b1=b1, b2=b2, eps=eps,
-                     wd_coef=wd_coef, scale=scale, out_dtype=dt)
+                     net, g[None], p[None], mv["m"][None], mv["v"][None], w,
+                     c1, c2, lr=lr, b1=b1, b2=b2, eps=eps, wd_coef=wd_coef,
+                     scale=scale, out_dtype=dt, team=team,
+                     profile=self._prof())
                  for g, p, mv, w, dt in zip(g_bufs, p_bufs, moments,
                                             wd_masks, out_dtypes)]
-        outs = [coll.allgather_unpad(self._net(pc.device), pc, info)[0]
+        outs = [coll.allgather_unpad(net, pc, info, team=team)[0]
                 for pc, _, _, info in parts]
         return outs, [{"m": m[0], "v": v[0]} for _, m, v, _ in parts]

@@ -1,16 +1,138 @@
-"""Which gradient leaves the data-axis sync must reduce (the part of
-`repro/parallel/sharding.py` the one-device trainer reads).
+"""Sharding rules for parameters and step inputs (port of
+`repro/parallel/sharding.py` for the dense family's tensor- and
+data-parallel training).
 
-Without fsdp and without expert parallelism over `data` (neither is
-ported), every leaf of the dense family is replicated over `data`, so
-every gradient leaf is synced."""
+A spec is a tuple with one entry per dim of a leaf: None (replicated), an
+axis name, or a tuple of axis names (the dim split over their flattened
+PE space, row-major) — the reference's PartitionSpec as plain data.  The
+port's parameter tree holds one dict per layer, so no spec carries the
+reference's stacked-layer prefix.
+
+  * TP dims follow the local sizing in models/layers.py (q heads, FFN
+    hidden, vocab over `model`);
+  * replicated-over-model leaves (KV projections when n_kv < tp or the
+    heads do not divide tp, norms) get None there.
+
+fsdp (ZeRO-3 over `data`) is slice 5c-3 and expert parallelism over
+`data` slice 5c-2; both raise here.
+"""
 from __future__ import annotations
 
+import dataclasses
+
+from ..models import layers as L
 from ..models.config import ModelConfig
-from ..models.transformer import map_params
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    data: str = "data"
+    model: str | None = "model"   # None = dp_only (params replicated)
+    pod: str | None = None
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.fsdp:
+        raise NotImplementedError("fsdp comes with slice 5c-3")
+    if cfg.moe is not None and cfg.moe.ep_over_data:
+        raise NotImplementedError("expert parallelism over `data` comes "
+                                  "with slice 5c-2")
+
+
+def _base_spec(path: tuple[str, ...], leaf, cfg: ModelConfig, ax: MeshAxes,
+               tp: int) -> tuple:
+    """The spec of one leaf from its name (the last path entry)."""
+    name = path[-1]
+    in_moe = "moe" in path and "shared" not in path
+    nd = leaf.dim()
+    if in_moe and name in ("w_gate", "w_up", "w_down"):
+        return (ax.model, None, None)
+    if name == "router":
+        return (None, None)
+    if name in ("wq", "w_gate", "w_up", "wq_b", "wkv_b", "w_in", "conv_w"):
+        return (None, ax.model)
+    if name in ("wo", "w_down", "w_out"):
+        return (ax.model, None)
+    if name in ("wk", "wv"):
+        # replicated when kv heads don't divide tp (gathered per q head)
+        _, _, repl = L._gqa_dims(cfg, tp)
+        return (None, None) if repl else (None, ax.model)
+    if name in ("bk", "bv"):
+        _, _, repl = L._gqa_dims(cfg, tp)
+        return (None,) if repl else (ax.model,)
+    if name in ("bq", "a_log", "dt_bias", "d_skip", "norm_w", "conv_b"):
+        return (ax.model,)
+    if name in ("wq_a", "wkv_a", "proj"):
+        return (None, None)
+    if name == "table":
+        return (ax.model, None)
+    if name == "head":
+        return (None, ax.model)
+    if name in ("q_norm", "kv_norm", "ln", "ln1", "ln2", "final_norm"):
+        return (None,)
+    if nd == 1:
+        return (None,)
+    raise ValueError(f"no sharding rule for param {'/'.join(path)}")
+
+
+def _map_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_path(fn, v, path + (str(i),))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def param_specs(cfg: ModelConfig, params, ax: MeshAxes, tp: int):
+    """The spec tree of `params` (the port's tree, any leaves with
+    `.dim()`: tensors, or meta tensors for shapes only)."""
+    _check_ported(cfg)
+    return _map_path(lambda p, l: _base_spec(p, l, cfg, ax, tp), params)
+
+
+def spec_leaves(params, specs) -> list[tuple]:
+    """The specs of `params`' leaves in `core.heap.tree_flatten`'s order
+    (dict keys sorted): a spec is a tuple, which tree_flatten would walk
+    into."""
+    if isinstance(params, dict):
+        return [x for k in sorted(params)
+                for x in spec_leaves(params[k], specs[k])]
+    if isinstance(params, (list, tuple)):
+        return [x for p, s in zip(params, specs)
+                for x in spec_leaves(p, s)]
+    return [specs]
 
 
 def needs_data_sync(cfg: ModelConfig, params):
     """Bool tree of `params`' structure: True where the gradient leaf is
-    replicated over `data` and needs grad_sync (every leaf here)."""
-    return map_params(lambda _: True, params)
+    replicated over `data` and needs grad_sync.  Without fsdp and
+    without expert parallelism over `data` (5c-3, 5c-2) that is every
+    leaf."""
+    if cfg.fsdp:
+        raise NotImplementedError("fsdp comes with slice 5c-3")
+    return _map_path(lambda p, l: True, params)
+
+
+def batch_specs(cfg: ModelConfig, batch: dict, ax: MeshAxes, kind: str,
+                seq_shards: int = 1) -> dict:
+    """Input sharding: the global batch over (pod, data) — over data x
+    model when `model` is None (dp_only).  Sequence-sharded caches
+    (seq_shards > 1) replicate the batch instead."""
+    ddims = (ax.data,) if ax.model is not None else (ax.data, "model")
+    if ax.pod:
+        ddims = (ax.pod,) + ddims
+    bdim = None if seq_shards > 1 else \
+        (ddims if len(ddims) > 1 else ddims[0])
+    out = {}
+    for k in batch:
+        if k in ("tokens", "targets"):
+            out[k] = (bdim, None)
+        elif k == "positions":
+            out[k] = (bdim,)
+        elif k in ("frames", "frontend_embeds"):
+            out[k] = (bdim, None, None)
+        else:
+            raise ValueError(k)
+    return out

@@ -1,6 +1,9 @@
 """Train-step builder: microbatched gradient accumulation, heap-fused
 gradient sync over the paper's collectives, AdamW update (port of
-`repro/train/step.py` for one device).
+`repro/train/step.py`).  On one device the data axis has one PE; inside a
+rank process of `core.spmd.run` (`launch/build.make_train_step`) the
+step runs on the rank's local shards and its batch slice, and the sync
+runs over the data axis's PEs.
 
 Gradient synchronisation packs every data-replicated gradient leaf onto
 flat symmetric-heap buckets (core/heap.py) before one collective per
@@ -211,7 +214,8 @@ def loss_and_grads(comm: Comm, cfg: ModelConfig, params, batch: dict,
 def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
                      backend: str = "shmem",
                      adamw: opt.AdamWConfig | None = None,
-                     fuse_grads: bool = True, grad_rs: bool | str = False, pipeline_chunks=None,
+                     fuse_grads: bool = True, allreduce_algo: str = "paper",
+                     grad_rs: bool | str = False, pipeline_chunks=None,
                      topo=None, link=None, embedding=None, autotune=None,
                      profile=None):
     """Returns step(params, opt_state, batch) -> (loss, params, opt_state).
@@ -220,17 +224,12 @@ def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
     sync, False one allreduce per bucket, "auto" switches it on above
     GRAD_RS_AUTO_BYTES of synced gradient, and "fused" fuses the sync
     into the optimizer (opt_state from init_fused_opt_state, f32
-    moments).  On the one-device data axis every non-fused form is the
-    identity; True and "auto" are kept for slice 5's multi-PE axis.
+    moments).  allreduce_algo, pipeline_chunks, topo, link and embedding
+    are the step `Comm`'s (see there); on a one-PE data axis every sync
+    but the bucketed and fused forms is the identity, whatever they say.
     `autotune` (a core.tuner.Tuner or TunedSelector) and `profile` (a
-    core.profile.Profiler) ride on the step's `Comm`, as the reference's.
-    The chunked pipelining, topology and mesh embedding knobs are not
-    ported yet (slice 5) and raise; `allreduce_algo` comes with them."""
-    given = dict(pipeline_chunks=pipeline_chunks, topo=topo, link=link,
-                 embedding=embedding)
-    unported = sorted(k for k, v in given.items() if v is not None)
-    if unported:
-        raise NotImplementedError(f"{unported}: not ported yet (slice 5)")
+    core.profile.Profiler) ride on the step's `Comm`, as the
+    reference's."""
     adamw = adamw or opt.AdamWConfig(moment_dtype=cfg.moment_dtype)
 
     def step(params, opt_state, batch):
@@ -242,8 +241,10 @@ def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
             synced = sum(4 * l.numel() for l, m in
                          zip(leaves, tree_flatten(mask)[0]) if m)
             rs = synced >= GRAD_RS_AUTO_BYTES
-        comm = Comm(axes, backend, grad_rs=rs, tuner=autotune,
-                    profile=profile)
+        comm = Comm(axes, backend, allreduce_algo=allreduce_algo,
+                    grad_rs=rs, topo=topo, link=link,
+                    pipeline_chunks=pipeline_chunks, embedding=embedding,
+                    tuner=autotune, profile=profile)
         # clamp grad accumulation to the local batch
         b_local = next(iter(batch.values())).shape[0]
         mb = max(1, min(cfg.microbatches, b_local))

@@ -120,3 +120,29 @@ def test_training_runs_without_jax_or_repro():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert "TRAIN-ALONE-OK" in r.stdout
+
+
+SPMD_ALONE = textwrap.dedent("""
+    import numpy as np
+    from repro_torch.launch import train
+    losses = train.main(["--arch", "qwen2-0.5b", "--smoke", "--device",
+                         "cpu", "--steps", "2", "--seq-len", "16",
+                         "--batch", "4", "--data", "2", "--model", "2"])
+    assert np.isfinite(losses).all() and len(losses) == 2
+    print("SPMD-ALONE-OK")
+""")
+
+
+def test_spmd_backend_runs_without_jax_or_repro(tmp_path):
+    """The launcher on a 2x2 mesh of rank processes, with jax, jaxlib and
+    repro shadowed by packages that refuse to import, on the parent's
+    path and so on every rank's."""
+    for name in ("jax", "jaxlib", "repro"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked')\n")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}:{ROOT / 'src'}")
+    r = subprocess.run([sys.executable, "-c", SPMD_ALONE], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "SPMD-ALONE-OK" in r.stdout

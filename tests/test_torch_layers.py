@@ -237,5 +237,8 @@ def test_comm_is_one_device():
     assert c.axis_size(c.axes.model) == 1 and c.axis_index("data") == 0
     x = torch.ones(3)
     assert c.allreduce(x, "model") is x and c.allgather(x, "model") is x
-    with pytest.raises(NotImplementedError):
-        Comm(n_devices=2)
+    # outside a rank process there is no mesh: no SPMD net exists
+    from repro_torch.core.netops import SpmdNetOps
+    assert c.mesh is None
+    with pytest.raises(RuntimeError, match="rank process"):
+        SpmdNetOps("model")

@@ -220,8 +220,8 @@ def test_entry_points_and_device_rules():
         ctx.put(x[:3], [(0, 1)])               # no leading axis of 4 PEs
     with pytest.raises(ValueError):
         ctx.put(torch.zeros((4, 3), device="meta"), [(0, 1)])
-    with pytest.raises(NotImplementedError):
-        spmd_ctx("pe")
+    with pytest.raises(RuntimeError, match="rank process"):
+        spmd_ctx("pe")            # the SPMD backend runs in rank processes
     # the fault injector is ported: a plan attaches an injector to the
     # net, and anything else raises as the reference's as_injector does
     c = ShmemContext(SimNetOps(4, "cpu"), fault=FaultPlan())

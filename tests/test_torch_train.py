@@ -496,38 +496,45 @@ def test_plan_fused_buckets_and_wd_mask_match_reference(seed):
 @pytest.mark.parametrize("knob", ["pipeline_chunks", "topo", "link",
                                   "embedding", "autotune", "profile"])
 def test_build_train_step_refuses_unported_knobs(knob):
-    if knob in ("autotune", "profile"):
-        # ported: the tuner and the profiler ride on the step's Comm, as
-        # the reference's; on the one-PE data axis no collective runs,
-        # so the step is bit for bit the plain one and notes nothing
-        service = Tuner() if knob == "autotune" else Profiler(level=2)
-        p0 = params_from_jax(jparams_np(4), CFG)
-        b = batch_np(0, seq=16)
-        outs = []
-        for kw in ({}, {knob: service}):
-            step = tstep.build_train_step(CFG, **kw)
-            outs.append(step(p0, opt.init_state(p0, opt.AdamWConfig()), b))
-        assert float(outs[0][0]) == float(outs[1][0])
-        for x, y in zip(tree_flatten(outs[0][1])[0],
-                        tree_flatten(outs[1][1])[0]):
-            assert torch.equal(x, y)
-        if knob == "profile":
-            assert service.samples == []
-        else:
-            assert len(service.db) == 0
-        return
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tstep.build_train_step(CFG, **{knob: object()})
+    """Every knob is ported (the SPMD backend made the chunking,
+    topology, link and embedding knobs live, as the tuner and the
+    profiler before them): each rides on the step's Comm, as the
+    reference's; on the one-PE data axis no collective runs, so the step
+    is bit for bit the plain one (and the services note nothing)."""
+    from repro_torch.core import abmodel
+    from repro_torch.core.topology import MeshTopology
+    service = {"pipeline_chunks": 2, "topo": MeshTopology((2, 2)),
+               "link": abmodel.ICI_V5E, "embedding": "snake",
+               "autotune": Tuner(), "profile": Profiler(level=2)}[knob]
+    p0 = params_from_jax(jparams_np(4), CFG)
+    b = batch_np(0, seq=16)
+    outs = []
+    for kw in ({}, {knob: service}):
+        step = tstep.build_train_step(CFG, **kw)
+        outs.append(step(p0, opt.init_state(p0, opt.AdamWConfig()), b))
+    assert float(outs[0][0]) == float(outs[1][0])
+    for x, y in zip(tree_flatten(outs[0][1])[0],
+                    tree_flatten(outs[1][1])[0]):
+        assert torch.equal(x, y)
+    if knob == "profile":
+        assert service.samples == []
+    elif knob == "autotune":
+        assert len(service.db) == 0
 
 
 @pytest.mark.parametrize("build", [Comm, lambda **kw: tstep.build_train_step(
     CFG, **kw)], ids=["Comm", "build_train_step"])
 def test_allreduce_algo_is_not_a_knob_of_the_one_pe_port(build):
-    """Every allreduce algorithm is the identity on the one-PE data axis:
-    the knob comes with the multi-device backend, and is not accepted
-    silently before it."""
-    with pytest.raises(TypeError, match="allreduce_algo"):
-        build(allreduce_algo="auto")
+    """Every allreduce algorithm is the identity on the one-PE data axis
+    (the knob acts on a rank mesh, `tests/test_torch_spmd.py`): accepted
+    with the reference's values, and an unknown one is refused."""
+    for algo in ("paper", "auto", "rd", "ring", "ring_emb", "hier"):
+        assert callable(build(allreduce_algo=algo)) or \
+            isinstance(build(allreduce_algo=algo), Comm)
+    x = torch.ones(3)
+    assert Comm(allreduce_algo="auto").allreduce(x, "data") is x
+    with pytest.raises(ValueError, match="allreduce_algo"):
+        Comm(allreduce_algo="tree")
 
 
 def test_fused_sync_needs_f32_moments():
@@ -560,6 +567,20 @@ def test_train_launcher_loss_improves():
     ["--metrics-out", "m.json"], ["--allreduce-algo", "auto"],
     ["--pipeline-chunks", "2"], ["--shard-strategy", "dp_only"]])
 def test_train_launcher_refuses_unported_flags(flags, capsys, tmp_path):
+    if flags[0] in ("--data", "--model", "--embedding", "--allreduce-algo",
+                    "--pipeline-chunks"):
+        # ported with the SPMD backend: --data/--model run the step on a
+        # mesh of rank processes (tests/test_torch_tp.py holds it to the
+        # reference), the rest steer the collectives
+        losses = train_mod.main(SMOKE + ["--steps", "1", "--seq-len", "16",
+                                         "--batch", "2"] + flags)
+        assert len(losses) == 1 and np.isfinite(losses).all()
+        return
+    if flags[0] == "--topo":
+        # ported: as the reference's, a layout must cover the data axis
+        with pytest.raises(SystemExit, match="covers 16 PEs"):
+            train_mod.main(SMOKE + ["--steps", "1"] + flags)
+        return
     ported = {"--autotune", "--tuning-db", "--profile-out", "--trace-out",
               "--metrics-out"}
     if flags[0] in ported:
