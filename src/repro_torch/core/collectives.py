@@ -435,17 +435,15 @@ def reduce_scatter_schedule(n: int, nbytes: float = 0.0,
                             embedding=None) -> Schedule:
     """Ring reduce-scatter: n-1 stages, each moving one 1/n chunk (over
     the embedding order when one is given)."""
-    return Schedule("reduce_scatter.ring", tuple(
-        Stage(_ring_stage_pattern(n, embedding), nbytes / max(n, 1))
-        for _ in range(max(n - 1, 0))))
+    stage = Stage(_ring_stage_pattern(n, embedding), nbytes / max(n, 1))
+    return Schedule("reduce_scatter.ring", (stage,) * max(n - 1, 0))
 
 
 def allgather_schedule(n: int, nbytes: float = 0.0,
                        embedding=None) -> Schedule:
     """Ring allgather of the scattered 1/n chunks (reduce-scatter's dual)."""
-    return Schedule("allgather.ring", tuple(
-        Stage(_ring_stage_pattern(n, embedding), nbytes / max(n, 1))
-        for _ in range(max(n - 1, 0))))
+    stage = Stage(_ring_stage_pattern(n, embedding), nbytes / max(n, 1))
+    return Schedule("allgather.ring", (stage,) * max(n - 1, 0))
 
 
 def allreduce_schedule(n: int, nbytes: float = 0.0,

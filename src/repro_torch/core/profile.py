@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import threading
 import time
@@ -119,6 +120,38 @@ def _emb_str(embedding) -> str:
     if isinstance(embedding, str):
         return embedding
     return "perm:" + ",".join(str(int(p)) for p in embedding)
+
+
+@functools.lru_cache(maxsize=256)
+def _schedule_facts(schedule, topo, link, chunks: int):
+    """What a note records of a schedule: (stages, bytes moved, hottest
+    link load, per-stage costs, pipelined predicted time).  A pure
+    function of its (frozen) arguments, cached so that a profiled op
+    does not redo the route arithmetic inside its own timed region."""
+    try:
+        load = max((st.pattern.max_link_load(topo)
+                    for st in schedule.stages), default=0.0)
+    except Exception:
+        load = 0.0
+    try:
+        # per-stage attribution: the (bytes, hops, load) descriptors
+        # eq. 1 prices, plus the per-stage modeled time when a link
+        # model is known (DESIGN.md §18)
+        costs = []
+        for st in schedule.stages:
+            nb, hops, ld = st.cost(topo)
+            c = {"nbytes": float(nb), "hops": float(hops),
+                 "load": float(ld)}
+            if link is not None:
+                c["predicted_s"] = link.time(nb, hops, ld)
+            costs.append(c)
+        costs = tuple(costs)
+    except Exception:
+        costs = None
+    predicted = None if link is None \
+        else schedule.pipelined_time(chunks, topo, link)
+    return (len(schedule.stages), float(schedule.total_bytes()), load,
+            costs, predicted)
 
 
 class Profiler:
@@ -251,34 +284,16 @@ class Profiler:
                 s.team = f"n{s.n_pes}"
         if schedule is not None:
             s.schedule = schedule.name
-            s.n_stages = len(schedule.stages)
-            s.bytes_moved = float(schedule.total_bytes())
             # the object references the tracer renders per-PE stage spans
             # and link heatmaps from (not exported by to_dict)
             s._sched, s._topo = schedule, topo
-            try:
-                s.max_link_load = max(
-                    (st.pattern.max_link_load(topo)
-                     for st in schedule.stages), default=0.0)
-            except Exception:
-                s.max_link_load = 0.0
-            try:
-                # per-stage attribution: the (bytes, hops, load)
-                # descriptors eq. 1 prices, plus the per-stage modeled
-                # time when a link model is known (DESIGN.md §18)
-                s.stage_costs = []
-                for st in schedule.stages:
-                    nb, hops, load = st.cost(topo)
-                    c = {"nbytes": float(nb), "hops": float(hops),
-                         "load": float(load)}
-                    if link is not None:
-                        c["predicted_s"] = link.time(nb, hops, load)
-                    s.stage_costs.append(c)
-            except Exception:
-                s.stage_costs = None
+            (s.n_stages, s.bytes_moved, s.max_link_load, costs,
+             predicted) = _schedule_facts(schedule, topo, link,
+                                          max(s.chunks, 1))
+            s.stage_costs = None if costs is None \
+                else [dict(c) for c in costs]
             if link is not None:
-                s.predicted_s = schedule.pipelined_time(
-                    max(s.chunks, 1), topo, link)
+                s.predicted_s = predicted
         if not stack:
             self._commit(s)
 

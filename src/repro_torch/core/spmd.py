@@ -144,6 +144,10 @@ def _to_cpu(tree):
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_cpu(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _to_cpu(getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
     return tree
 
 

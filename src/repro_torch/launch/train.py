@@ -26,15 +26,14 @@ reference's pipeline draws width 1: `data/pipeline.py`).
 
 --profile-out/--trace-out attach the profiler or the Chrome-trace tracer
 (each step is one device-inclusive "train_step" op) and write their
-documents at exit; --metrics-out records the per-step wall-time
-histogram and the loss gauge; --autotune/--tuning-db hand the step a
-measured tuner (on one device no collective consults it, and, as in the
-reference at --data 1, there is no calibration sweep).
+documents at exit (on a mesh, rank 0's); --metrics-out records the
+per-step wall-time histogram and the loss gauge; --autotune/--tuning-db
+hand the step a measured tuner (on one device no collective consults
+it; on a data axis of more than one PE --autotune first calibrates with
+the reference's small SIM sweep, once, before the ranks start).
 
 The flags of the reference launcher whose services are not ported yet
-are accepted and refused with the slice that brings them (on a mesh also
-the measurement services' flags: their per-rank documents come with
-slice 5c-3).
+are accepted and refused with the slice that brings them.
 """
 from __future__ import annotations
 
@@ -52,10 +51,6 @@ _UNPORTED = [
     ("pod", 0, "slice 5c-3 (a pod axis)"),
     ("shard_strategy", None, "slice 5c-3 (sharding strategies)"),
 ]
-# flags refused on a mesh of more than one rank: (flag, unset value)
-_ONE_DEVICE_ONLY = [("autotune", False), ("tuning_db", ""),
-                    ("profile_out", ""), ("trace_out", ""),
-                    ("metrics_out", "")]
 
 
 @dataclasses.dataclass
@@ -154,147 +149,61 @@ def _chunks(args):
     return c if c is None or c == "auto" else int(c)
 
 
-def run(argv=None, *, params=None) -> TrainRun:
-    """Parse `argv` and train; `main` without the return of state.
-    `params`, when given, is the GLOBAL parameter tree (the port's
-    layout) to start from in place of the seed-0 init."""
-    argv = sys.argv[1:] if argv is None else list(argv)
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags; those not ported yet end the parse with an
+    error naming their slice."""
     ap = _parser()
-    args = ap.parse_args(argv)
+    args = ap.parse_args(sys.argv[1:] if argv is None else list(argv))
     for name, unset, slice_ in _UNPORTED:
         if getattr(args, name) != unset:
             ap.error(f"--{name.replace('_', '-')} is not ported yet: it "
                      f"comes with {slice_}")
-    if args.data * args.model > 1:
-        for name, unset in _ONE_DEVICE_ONLY:
-            if getattr(args, name) != unset:
-                ap.error(f"--{name.replace('_', '-')} on a mesh of rank "
-                         f"processes comes with slice 5c-3")
-        return _run_mesh(argv, args, params)
+    return args
 
+
+def _tuner(args, topo, device):
+    """The measured tuner of --autotune/--tuning-db, or None.  On a data
+    axis of more than one PE with no measurements for its fingerprint
+    yet, --autotune first runs the reference's small SIM sweep on
+    `device`; this happens once, in the launcher's process, so every
+    rank selects from the same DB."""
+    if not (args.autotune or args.tuning_db):
+        return None
+    from ..core import sim_ctx
+    from ..core import tuner as tuner_mod
+    tuner = tuner_mod.Tuner(path=args.tuning_db or None)
+    if args.autotune and args.data > 1:
+        fp = tuner_mod.fingerprint(topo, args.data)
+        if not any(k.startswith(fp + "|") for k in tuner.db.entries):
+            print(f"[train] autotune: calibrating {fp} (small SIM sweep)")
+            summary = tuner.tune(
+                sim_ctx(args.data, topo, device=device),
+                {"collectives": ("allreduce",),
+                 "sizes": (4096, 65536, 1 << 20),
+                 "chunks": (1, 4), "iters": 3, "warmup": 1})
+            print(f"[train] autotune: measured {summary['variants']} "
+                  f"variants; best {summary['best']}")
+    return tuner
+
+
+def run(argv=None, *, params=None) -> TrainRun:
+    """Parse `argv` and train; `main` without the return of state.
+    `params`, when given, is the GLOBAL parameter tree (the port's
+    layout) to start from in place of the seed-0 init.  On a mesh the
+    result is rank 0's: its losses and step walls, the GLOBAL parameters
+    gathered from the ranks and its local optimizer state."""
     from .. import resolve_device
-    from ..ckpt import manager as ckpt
-    from ..configs import get_config, smoke_config
-    from ..data.pipeline import SyntheticLM, frontend_kwargs
-    from ..models import transformer
-    from ..train import optimizer as opt
-    from ..train import step as tstep
-
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if args.remat:
-        cfg = dataclasses.replace(cfg, remat=args.remat)
+    args = parse_args(argv)
     device = resolve_device(args.device)
-    pipe = SyntheticLM(cfg.vocab, args.seq_len, args.batch,
-                       **frontend_kwargs(cfg))
-    adamw = opt.AdamWConfig(lr=args.lr, moment_dtype=cfg.moment_dtype)
-    grad_rs = {"off": False, "on": True, "auto": "auto"}[args.grad_rs]
-    profiler = None
-    if args.trace_out:
-        from ..core.trace import LEVEL_FULL, Tracer
-        profiler = Tracer(level=LEVEL_FULL)
-    elif args.profile_out:
-        from ..core.profile import Profiler
-        profiler = Profiler(level=2)
-    metrics = None
-    if args.metrics_out:
-        from ..serve.metrics import MetricsRegistry
-        metrics = MetricsRegistry()
-    tuner = None
-    if args.autotune or args.tuning_db:
-        from ..core import tuner as tuner_mod
-        tuner = tuner_mod.Tuner(path=args.tuning_db or None)
     topo = _topology(args)
-    step_fn = tstep.build_train_step(
-        cfg, adamw=adamw, allreduce_algo=args.allreduce_algo,
-        grad_rs=grad_rs, pipeline_chunks=_chunks(args), topo=topo,
-        embedding=None if args.embedding == "off" else args.embedding,
-        autotune=tuner if args.autotune else None, profile=profiler)
-    if params is None:
-        params = transformer.init_params(cfg, seed=0, device=device)
-    else:
-        params = transformer.map_params(lambda t: t.to(device), params)
-    opt_state = opt.init_state(params, adamw, cfg.local_global_period)
-
-    start = 0
-    ft = None
-    if args.ckpt_dir:
-        ft = ckpt.FaultToleranceManager(
-            args.ckpt_dir, save_every=args.ckpt_every,
-            step_deadline_s=args.step_deadline,
-            async_save=args.ckpt_async == "on")
-        if args.resume == "auto" and ft.resume_step() is not None:
-            start, restored = ckpt.restore(
-                args.ckpt_dir, {"params": params, "opt": opt_state})
-            params, opt_state = restored["params"], restored["opt"]
-            print(f"[train] resumed from step {start}")
-
-    losses, step_s = [], []
-    for step in range(start, args.steps):
-        t0 = time.perf_counter()
-        with (profiler.op("train_step", n_pes=1, device=device)
-              if profiler is not None else contextlib.nullcontext()):
-            loss, params, opt_state = step_fn(params, opt_state,
-                                              pipe.batch(step))
-            loss = float(loss)    # waits for the device: the step's end
-        step_s.append(time.perf_counter() - t0)
-        losses.append(loss)
-        if metrics is not None:
-            metrics.histogram("train.step_s",
-                              "full train step wall time").observe(
-                step_s[-1])
-            metrics.gauge("train.loss", "last step loss").set(loss)
-        print(f"[train] step {step:5d} loss {loss:8.4f} "
-              f"({step_s[-1]:.2f}s)")
-        if ft:
-            ft.on_step(step, lambda: {"params": params, "opt": opt_state})
-    if ft:
-        ft.finalize(args.steps, lambda: {"params": params,
-                                         "opt": opt_state})
-        if ft.stragglers:
-            print(f"[train] {len(ft.stragglers)} step(s) exceeded "
-                  f"--step-deadline {args.step_deadline:g}s (worst "
-                  f"{max(s['stall_s'] for s in ft.stragglers):.1f}s)")
-        if metrics is not None:
-            metrics.counter(
-                "train.stragglers",
-                "steps exceeding the --step-deadline").inc(
-                len(ft.stragglers))
-    if tuner is not None and args.tuning_db:
-        tuner.save(args.tuning_db)
-        print(f"[train] tuning DB ({len(tuner.db)} points) saved to "
-              f"{args.tuning_db}")
-    if profiler is not None and args.profile_out:
-        profiler.dump(args.profile_out)
-        print(f"[train] profile dumped to {args.profile_out}")
-    if args.trace_out:
-        profiler.dump_chrome(args.trace_out)
-        print(f"[train] Chrome trace ({len(profiler._events)} events) "
-              f"written to {args.trace_out} — open in ui.perfetto.dev")
-    if metrics is not None:
-        metrics.counter("train.steps", "steps executed").inc(len(losses))
-        metrics.dump(args.metrics_out)
-        print(f"[train] metrics written to {args.metrics_out}")
-    if not np.isfinite(losses).all():
-        raise FloatingPointError(f"non-finite loss: {losses}")
-    if len(losses) >= 10:
-        a, b = np.mean(losses[:3]), np.mean(losses[-3:])
-        print(f"[train] loss {a:.4f} -> {b:.4f} "
-              f"({'improved' if b < a else 'no improvement'})")
-    return TrainRun(losses, step_s, params, opt_state)
-
-
-def _run_mesh(argv, args, params) -> TrainRun:
-    """--data x --model rank processes on one device; rank 0's losses
-    and step walls, and the GLOBAL parameters gathered from the ranks."""
-    from .. import resolve_device
+    tuner = _tuner(args, topo, device)
+    n = args.data * args.model
+    if n == 1:
+        return train_loop(args, params, topo, tuner)
     from . import build
-    device = resolve_device(args.device)
-    out = build.shard_mapped(
-        train_rank, (args.data, args.model),
-        [(argv, params)] * (args.data * args.model),
-        device=device)
-    r0 = out[0]
-    return TrainRun(r0["losses"], r0["step_s"], r0["params"], r0["opt"])
+    return build.shard_mapped(train_loop, (args.data, args.model),
+                              [(args, params, topo, tuner)] * n,
+                              device=device)[0]
 
 
 def _gather_global(comm, specs, tree):
@@ -312,9 +221,14 @@ def _gather_global(comm, specs, tree):
     return walk(tree, specs)
 
 
-def train_rank(argv, params_global):
-    """One rank of `_run_mesh`: the launcher's loop on its local shards;
-    rank 0 writes the checkpoints and the log."""
+def train_loop(args, params=None, topo=None, tuner=None) -> TrainRun:
+    """The launcher's loop on parsed `args`: in this process on one
+    device, or, called in each rank process of a --data x --model mesh
+    (`launch/build.shard_mapped`), on the rank's local shards of the
+    GLOBAL `params` and its slice of the global batch.  Checkpoints hold
+    the GLOBAL tree (on a mesh every rank takes part in its gather);
+    rank 0 writes them, the log and the service documents."""
+    from .. import resolve_device
     from ..ckpt import manager as ckpt
     from ..configs import get_config, smoke_config
     from ..core import spmd
@@ -324,95 +238,161 @@ def train_rank(argv, params_global):
     from ..parallel import sharding
     from ..parallel.comm import Comm
     from ..train import optimizer as opt
+    from ..train import step as tstep
     from . import build
 
-    args = _parser().parse_args(argv)
-    rt = spmd.current()
-    mesh = rt.mesh
-    lead = rt.rank == 0
+    mesh = spmd.current().mesh if spmd.active() else None
+    lead = mesh is None or spmd.current().rank == 0
+    device = resolve_device(args.device) if mesh is None \
+        else spmd.current().device
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.remat:
         cfg = dataclasses.replace(cfg, remat=args.remat)
     pipe = SyntheticLM(cfg.vocab, args.seq_len, args.batch,
                        **frontend_kwargs(cfg))
     adamw = opt.AdamWConfig(lr=args.lr, moment_dtype=cfg.moment_dtype)
-    grad_rs = {"off": False, "on": True, "auto": "auto"}[args.grad_rs]
-    step_fn, (_, specs), _ = build.make_train_step(
-        cfg, mesh, allreduce_algo=args.allreduce_algo,
-        grad_rs=grad_rs, pipeline_chunks=_chunks(args),
-        topo=_topology(args),
+    profiler = None
+    if args.trace_out:
+        from ..core.trace import LEVEL_FULL, Tracer
+        profiler = Tracer(level=LEVEL_FULL)
+    elif args.profile_out:
+        from ..core.profile import Profiler
+        profiler = Profiler(level=2)
+    metrics = None
+    if args.metrics_out:
+        from ..serve.metrics import MetricsRegistry
+        metrics = MetricsRegistry()
+    knobs = dict(
+        adamw=adamw, allreduce_algo=args.allreduce_algo,
+        grad_rs={"off": False, "on": True, "auto": "auto"}[args.grad_rs],
+        pipeline_chunks=_chunks(args), topo=topo,
         embedding=None if args.embedding == "off" else args.embedding,
-        adamw=adamw)
-    if params_global is not None:
-        params = convert.local_shards(params_global, cfg, mesh)
-        params = transformer.map_params(lambda t: t.to(rt.device), params)
+        autotune=tuner if args.autotune else None, profile=profiler)
+    if mesh is None:
+        step_fn = tstep.build_train_step(cfg, **knobs)
+        if params is None:
+            params = transformer.init_params(cfg, seed=0, device=device)
     else:
-        init, _, _ = build.make_init_fn(cfg, mesh)
-        params = init(0, rt.device)
+        step_fn, (_, specs), _ = build.make_train_step(cfg, mesh, **knobs)
+        if params is None:
+            params = build.make_init_fn(cfg, mesh)[0](0, device)
+        else:
+            params = convert.local_shards(params, cfg, mesh)
+    params = transformer.map_params(lambda t: t.to(device), params)
     opt_state = opt.init_state(params, adamw, cfg.local_global_period)
-    leaves = tree_flatten(params)[0]
-    if len(opt_state["mv"]) != len(leaves):
-        raise NotImplementedError("checkpoints of grouped (int8) moments "
-                                  "on a mesh come with slice 5c-3")
-    comm = Comm(build.axis_spec(mesh, cfg))
-    spec_leaves = sharding.spec_leaves(params, specs)
+    if mesh is not None:
+        comm = Comm(build.axis_spec(mesh, cfg))
+        spec_leaves = sharding.spec_leaves(params, specs)
+        if len(opt_state["mv"]) != len(spec_leaves):
+            raise NotImplementedError("checkpoints of grouped (int8) "
+                                      "moments on a mesh come with slice "
+                                      "5c-3")
 
-    def global_state():
-        """The GLOBAL {"params", "opt"} (every rank takes part)."""
-        p = _gather_global(comm, specs, params)
+    def state():
+        """The GLOBAL {"params", "opt"}."""
+        if mesh is None:
+            return {"params": params, "opt": opt_state}
         mv = [{k: _gather_global(comm, s, d[k]) for k in ("m", "v")}
               for d, s in zip(opt_state["mv"], spec_leaves)]
-        return {"params": p, "opt": {"mv": mv, "step": opt_state["step"]}}
+        return {"params": _gather_global(comm, specs, params),
+                "opt": {"mv": mv, "step": opt_state["step"]}}
+
+    def local(got):
+        """This rank's (params, opt_state) of a restored GLOBAL state."""
+        if mesh is None:
+            return got["params"], got["opt"]
+        mv, mdef = tree_flatten(opt_state["mv"])
+        return (transformer.map_params(
+                    lambda t: t.to(device),
+                    convert.local_shards(got["params"], cfg, mesh)),
+                {"mv": tree_unflatten(mdef, [
+                    convert.local_leaf(g, s, mesh).to(device=m.device,
+                                                      dtype=m.dtype)
+                    for g, m, s in zip(tree_flatten(got["opt"]["mv"])[0],
+                                       mv, [s for s in spec_leaves
+                                            for _ in "mv"])]),
+                 "step": got["opt"]["step"].to(device)})
 
     start = 0
     ft = None
     if args.ckpt_dir:
-        ft = ckpt.FaultToleranceManager(
-            args.ckpt_dir, save_every=args.ckpt_every,
-            step_deadline_s=args.step_deadline,
-            async_save=args.ckpt_async == "on") if lead else None
-        if args.resume == "auto" and ckpt.latest_step(args.ckpt_dir) \
-                is not None:
-            template = global_state()
-            start, got = ckpt.restore(args.ckpt_dir, template)
-            params = transformer.map_params(
-                lambda t: t.to(rt.device),
-                convert.local_shards(got["params"], cfg, mesh))
-            flat = tree_flatten(got["opt"]["mv"])[0]
-            mv, mdef = tree_flatten(opt_state["mv"])
-            opt_state = {"mv": tree_unflatten(mdef, [
-                convert.local_leaf(g, s, mesh).to(device=l.device,
-                                                  dtype=l.dtype)
-                for g, l, s in zip(flat, mv, [s for s in spec_leaves
-                                              for _ in "mv"])]),
-                "step": got["opt"]["step"].to(rt.device)}
+        if lead:
+            ft = ckpt.FaultToleranceManager(
+                args.ckpt_dir, save_every=args.ckpt_every,
+                step_deadline_s=args.step_deadline,
+                async_save=args.ckpt_async == "on")
+        if args.resume == "auto" and \
+                ckpt.latest_step(args.ckpt_dir) is not None:
+            start, got = ckpt.restore(args.ckpt_dir, state())
+            params, opt_state = local(got)
             if lead:
                 print(f"[train] resumed from step {start}")
 
+    on = "" if mesh is None else f" on {args.data}x{args.model} ranks"
     losses, step_s = [], []
     for step in range(start, args.steps):
         t0 = time.perf_counter()
-        loss, params, opt_state = step_fn(params, opt_state,
-                                          pipe.batch(step))
-        loss = float(loss)
+        with (profiler.op("train_step", n_pes=args.data * args.model,
+                          device=device)
+              if profiler is not None else contextlib.nullcontext()):
+            loss, params, opt_state = step_fn(params, opt_state,
+                                              pipe.batch(step))
+            loss = float(loss)    # waits for the device: the step's end
         step_s.append(time.perf_counter() - t0)
         losses.append(loss)
+        if metrics is not None:
+            metrics.histogram("train.step_s",
+                              "full train step wall time").observe(
+                step_s[-1])
+            metrics.gauge("train.loss", "last step loss").set(loss)
         if lead:
             print(f"[train] step {step:5d} loss {loss:8.4f} "
-                  f"({step_s[-1]:.2f}s) on {args.data}x{args.model} ranks")
-        state = global_state() if (args.ckpt_dir and step and
-                                   step % args.ckpt_every == 0) else None
+                  f"({step_s[-1]:.2f}s){on}")
         if ft:
-            ft.on_step(step, lambda: state)
-    final = global_state() if args.ckpt_dir else None
+            ft.on_step(step, state)
+        elif args.ckpt_dir and step and step % args.ckpt_every == 0:
+            state()               # this rank's part in rank 0's gather
     if ft:
-        ft.finalize(args.steps, lambda: final)
+        ft.finalize(args.steps, state)
+        if ft.stragglers:
+            print(f"[train] {len(ft.stragglers)} step(s) exceeded "
+                  f"--step-deadline {args.step_deadline:g}s (worst "
+                  f"{max(s['stall_s'] for s in ft.stragglers):.1f}s)")
+        if metrics is not None:
+            metrics.counter(
+                "train.stragglers",
+                "steps exceeding the --step-deadline").inc(
+                len(ft.stragglers))
+    elif args.ckpt_dir:
+        state()
+    if lead:
+        if tuner is not None and args.tuning_db:
+            tuner.save(args.tuning_db)
+            print(f"[train] tuning DB ({len(tuner.db)} points) saved to "
+                  f"{args.tuning_db}")
+        if profiler is not None and args.profile_out:
+            profiler.dump(args.profile_out)
+            print(f"[train] profile dumped to {args.profile_out}")
+        if args.trace_out:
+            profiler.dump_chrome(args.trace_out)
+            print(f"[train] Chrome trace ({len(profiler._events)} events) "
+                  f"written to {args.trace_out} — open in ui.perfetto.dev")
+        if metrics is not None:
+            metrics.counter("train.steps", "steps executed").inc(
+                len(losses))
+            metrics.dump(args.metrics_out)
+            print(f"[train] metrics written to {args.metrics_out}")
     if not np.isfinite(losses).all():
         raise FloatingPointError(f"non-finite loss: {losses}")
-    p_global = _gather_global(comm, specs, params)
-    return {"losses": losses, "step_s": step_s,
-            "params": p_global if lead else None,
-            "opt": opt_state if lead else None}
+    if lead and len(losses) >= 10:
+        a, b = np.mean(losses[:3]), np.mean(losses[-3:])
+        print(f"[train] loss {a:.4f} -> {b:.4f} "
+              f"({'improved' if b < a else 'no improvement'})")
+    if mesh is not None:
+        params = _gather_global(comm, specs, params)
+        if not lead:
+            params = opt_state = None
+    return TrainRun(losses, step_s, params, opt_state)
 
 
 def main(argv=None):

@@ -13,8 +13,9 @@ axis sizes and indices are read from that mesh and every collective runs
 the paper's algorithms (`core/collectives.py`, `core/fusion.py`) over the
 axis's `SpmdNetOps`: each PE's local tensor viewed with a leading PE row
 of one.  Outside a rank process the mesh is one device: every axis has
-size 1, the model-axis collectives are the identity, and the gradient
-syncs run the same collectives on `SimNetOps(1)`.  All collectives are
+size 1, the allreduces are the identity, and the bucketed gradient
+syncs run the same collectives on `SimNetOps(1)`; inside a rank process
+a Comm needs the rank mesh and raises without one.  All collectives are
 differentiable (compositions of the SPMD ppermute Function, the block
 moves and the sum combine), so the manual-TP backward is the reversed
 communication schedule, as the reference gets it from the transpose of
@@ -97,6 +98,10 @@ class Comm:
         self.profile = profile
         # the rank mesh inside a rank process, None on one device
         self.mesh = spmd.current().mesh if spmd.active() else None
+        if spmd.active() and self.mesh is None:
+            raise RuntimeError("Comm in a rank process with no rank mesh: "
+                               "call launch.mesh.make_mesh (or "
+                               "make_rank_mesh) in the rank first")
         self._nets: dict = {}
         self._partitions: dict = {}
 
@@ -253,9 +258,6 @@ class Comm:
                 own, info = coll.reduce_scatter(net, g[None], "sum",
                                                 team=team)
                 out = coll.allgather_unpad(net, own, info, team=team)[0]
-            elif self.mesh is None:
-                net = self._data_net(g.device)
-                out = coll.allreduce(net, g[None], "sum")[0]
             else:
                 out = self.allreduce(g, self.axes.data)
             return out / self._scale() if mean else out

@@ -123,6 +123,11 @@ def rank_body(inp):
     rt = spmd.current()
     r = rt.rank
     out = {}
+    try:                        # before any mesh: no one-device fallback
+        Comm(AxisSpec())
+        out["comm_without_mesh"] = "built"
+    except RuntimeError as e:
+        out["comm_without_mesh"] = str(e)
     make_rank_mesh((N,), ("pe",))
     ctx = spmd_ctx("pe")
     x = torch.from_numpy(inp["x"])[r:r + 1]
@@ -259,6 +264,14 @@ def test_barrier_all_dissemination_and_wand(runs):
                        sim.fcollect(torch.from_numpy(runs[2]["x"])))
     for r in port:
         assert torch.equal(r["wand"], torch.zeros(1, dtype=torch.int32))
+
+
+def test_comm_in_a_rank_needs_the_rank_mesh(runs):
+    """A Comm made in a rank before its mesh raises: it would otherwise
+    act as one device (axis sizes 1, allreduce the identity) and train
+    without any tensor- or data-parallel sync."""
+    port, _, _ = runs
+    assert all("no rank mesh" in r["comm_without_mesh"] for r in port)
 
 
 def test_comm_alltoall_over_pes_names_its_slice(runs):

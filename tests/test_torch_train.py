@@ -10,6 +10,7 @@ is None, except the train step, which runs in shard_map on a 1x1 mesh as
 dtype float32) where the point is the algorithm."""
 import dataclasses
 import json
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -611,6 +612,28 @@ def test_train_launcher_refuses_unported_flags(flags, capsys, tmp_path):
     with pytest.raises(SystemExit):
         train_mod.main(SMOKE + ["--steps", "1"] + flags)
     assert "slice 5" in capsys.readouterr().err
+
+
+def test_train_launcher_services_on_a_mesh(tmp_path):
+    """On a --data 2 mesh the one launcher loop runs the measurement
+    services in every rank and rank 0 writes its documents; --autotune
+    calibrates the data axis once, before the ranks start, so both ranks
+    select from the same DB."""
+    db, prof, met = (str(tmp_path / f) for f in ("db.json", "p.json",
+                                                 "m.json"))
+    losses = train_mod.main(SMOKE + [
+        "--steps", "2", "--seq-len", "16", "--batch", "2", "--data", "2",
+        "--allreduce-algo", "auto", "--autotune", "--tuning-db", db,
+        "--profile-out", prof, "--metrics-out", met])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert json.loads(pathlib.Path(db).read_text())["entries"]
+    steps = [r for r in json.loads(pathlib.Path(prof).read_text())[
+        "timeline"] if r["collective"] == "train_step"]
+    assert [r["n_pes"] for r in steps] == [2, 2]
+    doc = json.loads(pathlib.Path(met).read_text())
+    assert validate_metrics(doc) == []
+    assert doc["metrics"]["train.steps"]["value"] == 2
+    assert doc["metrics"]["train.step_s"]["count"] == 2
 
 
 def test_train_launcher_needs_cuda_unless_cpu_is_asked(monkeypatch):
