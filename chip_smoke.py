@@ -268,7 +268,29 @@ Phases; any failure exits non-zero before the result line is printed:
      the reference's bound (0.05 x max(1, |l1|)) of the 1x1 one,
      kernel-4 launches per rank 2 x 24 layers x 4 microbatches x steps,
      kernel 5 once per bucket per fused step; step walls, peak memory
-     per rank and launches per step.
+     per rank and launches per step;
+ 17. expert parallelism and the Mamba2 and MLA layers at tp > 1 — (a)
+     Comm.alltoall over model of 1x4, (data, model) of 2x2 and model of
+     1x8, output and gradient bit for bit sim_ctx(n)'s, 4n kernel-2
+     launches a rank; kernels 4 and 7 at the per-rank shapes of (b)-(d)
+     against their plain versions, and timed; (b) granite-moe-3b-a800m at
+     full width on 1x4 (EP 4, 10 of 40 experts a rank): one MoE layer in
+     f32 at a no-drop capacity against the 1x1 layer (output and input
+     gradient within 1e-5 of the largest, picks exactly), then the
+     launcher's loop, 3 steps at seq 512, batch 8, its step-0 loss
+     within the reference's bound of the 1x1 loss of the same tree, the
+     ranks' launches and heap rounds equal to formulas from the code;
+     (c) zamba2-1.2b at full width on 2x2 as 16b, each step's loss
+     within its bound of the 1x1 launcher's, fused step 0 == default,
+     exact kernel-7, -4 and -5 launches; (d) deepseek-v3 cut to 4
+     layers forward at full width on 2x2 (EP over (data, model), 64 of
+     256 experts a rank, MLA at 64 heads): its layer gate as (b), each
+     rank's loss within the reference's bound of the 1x1 loss, launches
+     and heap rounds equal to formulas.
+
+The run fails if a process it started (a rank, nvcc, nvidia-smi, the
+resource tracker that spawning the ranks launches) is still alive or
+unreaped before the result is printed.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}:
 the seven kernels, then one flash_attention row per prefill shape of
@@ -282,6 +304,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -323,6 +346,22 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def live_children() -> list[str]:
+    """This process's child processes that are still alive or not yet
+    reaped (pid, state and command line of each, from /proc)."""
+    me, found = os.getpid(), []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+            cmd = (stat.parent / "cmdline").read_bytes()
+        except (OSError, IndexError):
+            continue                      # it ended while we looked
+        if int(fields[1]) == me:
+            found.append(f"{stat.parent.name} {fields[0]} "
+                         f"{cmd.replace(bytes(1), b' ').decode()[:120]}")
+    return found
 
 
 def kernel_label(mangled: str) -> str:
@@ -4725,53 +4764,64 @@ def spmd_collectives(torch, np, card) -> list:
     return paths
 
 
-def spmd_train_rank(argv, params_global, fused_steps):
-    """16b, one rank: the launcher's loop (`launch.train.train_loop`)
-    on `argv`, then `fused_steps` steps of build.make_train_step with
-    grad_rs="fused" from the same global parameters; the launch counts,
-    walls and peak memory of each."""
+def mesh_train_rank(argv, fused_steps):
+    """16b, 17c, one rank: the 1x1 launcher's seed-0 tree fitted to the
+    mesh (`convert.fit_global`; every rank draws the same 1x1 tree, so
+    none is handed it) and cut to this rank's shards; the launcher's
+    loop (`launch.train.train_loop`) on `argv` from its own copy of
+    them (updated in place), then `fused_steps` steps of
+    build.make_train_step with grad_rs="fused" from the same shards; the
+    launch counts, walls, peak memory, heap rounds and host time in the
+    syncs of each."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.core import spmd
     from repro_torch.core.heap import tree_flatten
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import build
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import convert
+    from repro_torch.models import convert, transformer
     from repro_torch.train import optimizer as opt
     from repro_torch.train import step as tstep
-    from repro_torch.configs import qwen2_0_5b as serving
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rt = spmd.current()
+    args = train_mod.parse_args(argv)
+    cfg, mesh = get_config(args.arch), rt.mesh
+    shards = transformer.map_params(torch.clone, convert.local_shards(
+        convert.fit_global(transformer.init_params(cfg, seed=0,
+                                                   device="cuda"),
+                           cfg, tp=mesh.sizes["model"],
+                           dp=mesh.sizes["data"]), cfg, mesh))
+    gc.collect()                 # no 1x1 leaf is kept
+    torch.cuda.empty_cache()
     out = {}
+    own = transformer.map_params(torch.clone, shards)   # the default run's
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()                             # path (i) starts
-    sync0, rounds0 = rt.sync_s, rt.rounds
-    res = train_mod.train_loop(train_mod.parse_args(argv), params_global)
+    _reset_counts()                                   # path (i) starts
+    r0, s0 = rt.rounds, rt.sync_s
+    res = train_mod.train_loop(args, shards=own)
     torch.cuda.synchronize()
     out["default"] = dict(losses=res.losses, walls=res.step_s,
                           counts=_counts(),
                           peak=torch.cuda.max_memory_allocated(),
-                          sync_s=rt.sync_s - sync0,
-                          rounds=rt.rounds - rounds0)
-    del res
+                          rounds=rt.rounds - r0, sync_s=rt.sync_s - s0)
+    del res, own
     torch.cuda.empty_cache()
-    cfg, mesh = serving.CONFIG, rt.mesh
-    run = SPMD_TRAIN
-    adamw = opt.AdamWConfig(lr=serving.TRAIN_RUN["lr"],
-                            moment_dtype=cfg.moment_dtype)
+    adamw = opt.AdamWConfig(lr=args.lr, moment_dtype=cfg.moment_dtype)
     step, _, _ = build.make_train_step(cfg, mesh, grad_rs="fused",
                                        adamw=adamw)
-    params = convert.local_shards(params_global, cfg, mesh)
-    state = tstep.init_fused_opt_state(params, run["data"])
+    params = shards        # no second reference: each step frees the last
+    del shards
+    state = tstep.init_fused_opt_state(params, mesh.sizes["data"])
     n_buckets = len(tstep.plan_fused_buckets(tree_flatten(params)[0]))
-    pipe = SyntheticLM(cfg.vocab, run["seq_len"], run["batch"])
+    pipe = SyntheticLM(cfg.vocab, args.seq_len, args.batch)
     losses, walls = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()                             # path (ii) starts
-    sync0, rounds0 = rt.sync_s, rt.rounds
+    _reset_counts()                                   # path (ii) starts
+    r0, s0 = rt.rounds, rt.sync_s
     for s in range(fused_steps):
         t0 = time.perf_counter()
         loss, params, state = step(params, state, pipe.batch(s))
@@ -4780,129 +4830,772 @@ def spmd_train_rank(argv, params_global, fused_steps):
     torch.cuda.synchronize()
     out["fused"] = dict(losses=losses, walls=walls, counts=_counts(),
                         peak=torch.cuda.max_memory_allocated(),
-                        n_buckets=n_buckets, sync_s=rt.sync_s - sync0,
-                        rounds=rt.rounds - rounds0,
+                        n_buckets=n_buckets, rounds=rt.rounds - r0,
+                        sync_s=rt.sync_s - s0,
                         digest=[float(t.double().sum())
                                 for t in tree_flatten(params)[0]])
     return out
 
 
-def spmd_train(torch, np, serving, card) -> list:
-    """16b: qwen2-0.5b at full width on a 2x2 (data x model) mesh of 4
-    rank processes on the card: SPMD_TRAIN's steps through the
-    launcher's loop (default sync) and as many with the fused sync, from
-    the global parameters of the port's 1x1 launcher, which first runs
-    the same steps on the same batches.  Gates: every loss of both 2x2
-    runs within SPMD_LOSS_TOL of the 1x1 loss of its step (the first one
-    also within the reference's test_tp2_matches_single_device bound),
-    the fused step-0 loss equal to the default one (the same forward),
-    every loss finite, kernel-4 launches per rank = 2 x layers x
-    microbatches x steps, kernel 5 once per bucket per fused step, and
-    after the fused steps the two data replicas of each model shard
-    holding the same parameters (per-leaf f64 sums equal).  Returns the
-    launch counts of both runs, summed over the ranks."""
+def mesh_train(torch, np, cfg, run, tol, card, label) -> tuple:
+    """16b and 17c: `cfg` at full width on a data x model mesh of rank
+    processes on the card (`run`: steps, seq_len, batch, lr, data,
+    model): the port's 1x1 launcher first, run's steps on run's batches
+    from its seed-0 init; then the ranks from that init fitted to the
+    mesh (`mesh_train_rank`: each rank draws and fits it itself, so no
+    global tree is held here while the ranks run), through the
+    launcher's loop (default sync) and as many steps with the fused
+    sync.  Gates: every loss of both runs within `tol` of the 1x1 loss
+    of its step (the first also within the reference's
+    test_tp2_matches_single_device bound), equal on all ranks, finite;
+    the fused step-0 loss equal to the default one (the same forward);
+    after the fused steps the data replicas of each model shard holding
+    the same parameters (per-leaf f64 sums equal); per rank and
+    microbatch (remat recomputing each layer's forward) kernel 4 twice
+    an attention layer (the hybrid family's: an application of its
+    shared block), kernel 7 twice a Mamba2 layer, and kernel 5 once a
+    bucket a fused step.  Returns the launch counts of both runs, summed
+    over the ranks, and kernel 4's per rank."""
     from repro_torch.launch import build
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import convert, transformer
-    cfg, run = serving.CONFIG, SPMD_TRAIN
-    argv = ["--arch", "qwen2-0.5b", "--seq-len", str(run["seq_len"]),
-            "--batch", str(run["batch"]), "--lr",
-            str(serving.TRAIN_RUN["lr"]), "--device", "cuda",
-            "--steps", str(run["steps"])]
-    params = transformer.init_params(cfg, seed=0, device="cuda")
+    from repro_torch.models import transformer
     dims = (run["data"], run["model"])
-    # the 1x1 tree in the 2x2 global layout (qwen2's 14 heads, 2 kv heads
-    # and its vocabulary split evenly over 2: the same tensors), taken
-    # before the 1x1 run
-    fitted = convert.fit_global(params, cfg, tp=dims[1], dp=dims[0])
+    argv = ["--arch", cfg.name, "--seq-len", str(run["seq_len"]),
+            "--batch", str(run["batch"]), "--lr", str(run["lr"]),
+            "--device", "cuda", "--steps", str(run["steps"])]
     t0 = time.perf_counter()
-    l1 = train_mod.run(argv, params=params).losses
-    log(f"  16b 1x1 launcher, {run['steps']} steps at seq {run['seq_len']} "
-        f"batch {run['batch']}: losses {l1!r} "
+    l1 = train_mod.run(argv).losses          # from its seed-0 init
+    log(f"  {label} 1x1 launcher, {run['steps']} steps at seq "
+        f"{run['seq_len']} batch {run['batch']}: losses {l1!r} "
         f"({time.perf_counter() - t0:.1f} s)")
-    del params
+    gc.collect()
     torch.cuda.empty_cache()
-    mesh_argv = argv + ["--data", str(run["data"]), "--model",
-                        str(run["model"])]
+    mesh_argv = argv + ["--data", str(dims[0]), "--model", str(dims[1])]
     t0 = time.perf_counter()
-    res = build.shard_mapped(spmd_train_rank, dims,
-                             [(mesh_argv, fitted, run["steps"])] * 4,
-                             device="cuda")
+    # the fused steps peak near 17 GiB a rank at zamba2's width (every
+    # bucket's packed gradient, parameters and new moments alive at
+    # once): the ranks' allocators grow their segments in place instead
+    # of stranding ~0.5-1 GiB a rank
+    with mock.patch.dict("os.environ",
+                         PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"):
+        res = build.shard_mapped(mesh_train_rank, dims,
+                                 [(mesh_argv, run["steps"])] * math.prod(dims),
+                                 device="cuda")
     wall = time.perf_counter() - t0
-    del fitted
-    torch.cuda.empty_cache()
-    b_local = run["batch"] // run["data"]
+    b_local = run["batch"] // dims[0]
     mb = max(1, min(cfg.microbatches, b_local))
-    want_fa = 2 * cfg.n_layers * mb * run["steps"]
+    n = mb * run["steps"]
+    n_ssd = cfg.n_layers if cfg.ssm is not None else 0
+    n_attn = (transformer.n_shared_blocks(cfg) if cfg.family == "hybrid"
+              else cfg.n_layers - n_ssd)
     paths = []
     for kind in ("default", "fused"):
         per = [r_[kind] for r_ in res]
         losses = per[0]["losses"]
         if any(p["losses"] != losses for p in per):
-            raise AssertionError(f"16b {kind}: ranks disagree on the loss")
+            raise AssertionError(f"{label} {kind}: ranks disagree on the "
+                                 f"loss")
         if not np.isfinite(losses).all():
-            raise AssertionError(f"16b {kind}: non-finite loss {losses}")
+            raise AssertionError(f"{label} {kind}: non-finite loss "
+                                 f"{losses}")
         diffs = [abs(a - b) for a, b in zip(losses, l1)]
-        log(f"  16b {kind} 2x2 vs 1x1, |loss diff| per step: "
-            + ", ".join(f"{d:.3g}" for d in diffs)
-            + " (bound " + ", ".join(f"{t:g}" for t in SPMD_LOSS_TOL)
-            + f"; {card})")
+        log(f"  {label} {kind} {dims[0]}x{dims[1]} vs 1x1, |loss diff| per "
+            f"step: " + ", ".join(f"{d:.4g}" for d in diffs)
+            + " (bound " + ", ".join(f"{t:g}" for t in tol) + f"; {card})")
         if len(losses) != len(l1) or any(
-                not d <= t for d, t in zip(diffs, SPMD_LOSS_TOL)):
-            raise AssertionError(f"16b {kind}: the 2x2 losses {losses} are "
-                                 f"not the 1x1 losses {l1} within "
-                                 f"{SPMD_LOSS_TOL}")
+                not d <= t for d, t in zip(diffs, tol)):
+            raise AssertionError(f"{label} {kind}: the mesh's losses "
+                                 f"{losses} are not the 1x1 losses {l1} "
+                                 f"within {tol}")
         for r_, p in enumerate(per):
-            if p["counts"]["flash_attention"] != want_fa:
-                raise AssertionError(
-                    f"16b {kind}: rank {r_} launched kernel 4 "
-                    f"{p['counts']['flash_attention']} times, want 2 x "
-                    f"{cfg.n_layers} x {mb} x {run['steps']} = {want_fa}")
-            want_fu = p["n_buckets"] * run["steps"] if kind == "fused" else 0
-            if p["counts"]["fused_update"] != want_fu:
-                raise AssertionError(
-                    f"16b {kind}: rank {r_} launched kernel 5 "
-                    f"{p['counts']['fused_update']} times, want {want_fu}")
+            want = dict(flash_attention=2 * n_attn * n,
+                        ssd_scan=2 * n_ssd * n,
+                        fused_update=p["n_buckets"] * run["steps"]
+                        if kind == "fused" else 0)
+            got = {k: p["counts"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"{label} {kind}: rank {r_} launched "
+                                     f"{got}, the formulas give {want}")
         walls = per[0]["walls"]
         tok = run["seq_len"] * run["batch"]
-        log(f"  16b {kind} sync on 2x2: losses "
-            + ", ".join(f"{x:.4f}" for x in losses)
+        log(f"  {label} {kind} sync on {dims[0]}x{dims[1]}: losses "
+            + ", ".join(f"{x:.5f}" for x in losses)
             + "; step wall ms (rank 0) "
             + ", ".join(f"{w * 1e3:.1f}" for w in walls)
             + f"; {tok * (len(walls) - 1) / sum(walls[1:]):.1f} train tok/s "
             f"(steps 2..{run['steps']}); peak per rank GiB "
             + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in per)
-            + "; launches per step per rank (flash, put, dma, combine, "
-            f"fused): " + ", ".join(
-                f"{p['counts'][k] / run['steps']:g}" for p in per[:1]
-                for k in ("flash_attention", "put_copy", "dma_copy",
-                          "reduce_combine", "fused_update"))
+            + "; launches per step per rank (flash, ssd, put, dma, combine, "
+            "fused): " + ", ".join(
+                f"{per[0]['counts'][k] / run['steps']:g}"
+                for k in ("flash_attention", "ssd_scan", "put_copy",
+                          "dma_copy", "reduce_combine", "fused_update"))
             + (f"; {per[0]['n_buckets']} fused buckets a rank"
                if kind == "fused" else "")
             + f"; heap rounds (a slot-sized chunk of a ppermute round "
             f"each) a step {per[0]['rounds'] / run['steps']:g}, host time "
-            f"in their syncs a step (stream wait + barrier; ranks 0-3) "
-            f"ms " + ", ".join(
-                f"{p['sync_s'] / run['steps'] * 1e3:.1f}" for p in per))
+            f"in their syncs a step (stream wait + barrier; ranks) ms "
+            + ", ".join(f"{p['sync_s'] / run['steps'] * 1e3:.1f}"
+                        for p in per))
         paths.append({k: sum(p["counts"][k] for p in per)
                       for k in per[0]["counts"]})
     l2 = res[0]["default"]["losses"][0]
-    log(f"  16b step-0 loss: 1x1 {l1[0]!r}, 2x2 {l2!r}, |diff| "
+    log(f"  {label} step-0 loss: 1x1 {l1[0]!r}, mesh {l2!r}, |diff| "
         f"{abs(l1[0] - l2):.3g} (the reference's bound 0.05 x max(1, |l1|) "
-        f"= {0.05 * max(1.0, abs(l1[0])):.3g}); both 2x2 runs in one "
+        f"= {0.05 * max(1.0, abs(l1[0])):.3g}); both mesh runs in one "
         f"spawn: {wall:.1f} s ({card})")
     if not abs(l1[0] - l2) < 0.05 * max(1.0, abs(l1[0])):
-        raise AssertionError(f"16b: the 2x2 loss {l2} is not the 1x1 "
+        raise AssertionError(f"{label}: the mesh's loss {l2} is not the 1x1 "
                              f"loss {l1[0]}")
-    for m in range(dims[1]):              # rank r = (d, m) = divmod(r, 2)
-        if res[m]["fused"]["digest"] != res[dims[1] + m]["fused"]["digest"]:
-            raise AssertionError(f"16b fused: the data replicas of model "
-                                 f"shard {m} hold different parameters")
+    for m in range(dims[1]):              # rank r = (d, m) = divmod(r, tp)
+        digests = [res[d * dims[1] + m]["fused"]["digest"]
+                   for d in range(dims[0])]
+        if any(g != digests[0] for g in digests):
+            raise AssertionError(f"{label} fused: the data replicas of "
+                                 f"model shard {m} hold different "
+                                 f"parameters")
     if res[0]["fused"]["losses"][0] != l2:
-        raise AssertionError(f"16b: the fused step-0 loss "
+        raise AssertionError(f"{label}: the fused step-0 loss "
                              f"{res[0]['fused']['losses'][0]!r} is not the "
                              f"default one {l2!r} (the same forward)")
+    return paths, sum(r_[k]["counts"]["flash_attention"]
+                      for r_ in res[:1] for k in ("default", "fused"))
+
+
+# ---------------------------------------------------------------------------
+# phase 17: expert parallelism, and the Mamba2 and MLA layers at tp > 1
+# ---------------------------------------------------------------------------
+# 17a holds Comm.alltoall over rank processes (the paper's pairwise
+# exchange through the heap) and its gradient to sim_ctx(n) bit for bit,
+# and kernels 4 and 7 at the per-rank shapes of 17b-17d to their plain
+# versions; 17b trains granite-moe-3b-a800m on a 1x4 mesh (its 40
+# experts 10 a rank); 17c zamba2-1.2b on 2x2 (Mamba2 and the shared
+# attention at tp 2); 17d runs deepseek-v3 cut to the 4 layers of its
+# SERVE_RUN forward on 2x2 (MLA at tp 2, its 256 experts over (data,
+# model), 64 a rank).  No rank is handed a whole tree: in 17b and 17d
+# each rank draws its own seed-0 parameters, as a launcher does (every
+# rank's init is the same local tree, and the 1x1 run it is held to runs
+# on that tree tiled along each sharded dim, `tiled_global`); in 17c, as
+# in 16b, each rank fits the 1x1 seed-0 tree itself (`mesh_train_rank`).
+
+# (mesh, axis) of each exchange 17a holds; EP_A2A_ROWS f32 rows of 256 a
+# block per destination PE (512 KiB)
+EP_EXCHANGES = (((1, 4), "model"), ((2, 2), ("data", "model")),
+                ((1, 8), "model"))
+EP_A2A_ROWS = 512
+# 17b and 17c: the launcher's loop at this sequence length, global batch
+# and step count (the configs' own microbatches: granite 2, zamba2 8,
+# clamped to the local batch of 4 on 2x2)
+EP_TRAIN = dict(seq_len=512, batch=8, steps=3)
+# 17d: deepseek-v3's forward at this global batch and length on 2x2
+EP_DS = dict(seq_len=512, batch=4)
+# the layer gates: one MoE layer in f32 compute at a no-drop capacity,
+# the mesh's output and input gradient within EP_GATE_RTOL x max|1x1| of
+# the 1x1 layer's, its picks exactly the 1x1 picks.  Tokens: granite
+# (8, 512) on 1x4 (the rank's dispatch buffer (40, 1024, 1536) f32, 252
+# MB); deepseek one (1, 64) batch a data row on 2x2 (t_local 32: (256,
+# 32, 7168) f32, 235 MB, under 256 MiB)
+EP_GATE_RTOL = 1e-5
+EP_GATE_TOKENS = {"granite-moe-3b-a800m": (8, 512),
+                  "deepseek-v3-671b": (1, 64)}
+# 17b: the largest spread of each step's loss over the 4 ranks.  Each
+# rank adds its own MoE aux loss (0.01 x aux / n_layers, aux from the
+# gates of the rank's own token slice: the reference's semantics), so
+# the ranks' losses differ by the aux term's spread and by nothing
+# else (the cross-entropy is computed from the gathered and allreduced
+# activations, the same on every rank).  The term lies in [0, 0.01 x
+# n_experts]; its spread grows once the first update concentrates the
+# routes.  On the H100 the readings are 3.29e-3, 1.50e-2, 4.20e-3
+# (PERF.md § 6): the bounds leave ~3x room.
+EP_RANK_SPREAD = (1e-2, 5e-2, 1.5e-2)
+# 17c: the largest |2x2 loss - 1x1 loss| at each step (SPMD_LOSS_TOL's
+# rule).  At tp 2 Mamba2's gated norm runs over each shard's own 2048
+# channels (the reference's layout), so the 2x2 model is not the 1x1
+# model: its step-0 loss is ~1.5e-2 away, within the reference's 0.05 x
+# max(1, |l1|), and Adam's first steps from other gradients carry it
+# ~0.1 further.  On the H100 the readings are 1.536e-2, 0.101, 0.118 for
+# both syncs (PERF.md § 6): the bounds leave ~3x room.
+EP_ZAMBA_LOSS_TOL = (5e-2, 0.3, 0.35)
+
+
+def _ep_exchange_inputs(torch, n):
+    """17a's global input and upstream gradient: (n, n * EP_A2A_ROWS,
+    256) f32 each, the same in every rank and in the parent."""
+    gen = torch.Generator(device="cuda").manual_seed(1700 + n)
+    return (torch.randn(n, n * EP_A2A_ROWS, 256, device="cuda",
+                        generator=gen),
+            torch.randn(n, n * EP_A2A_ROWS, 256, device="cuda",
+                        generator=gen))
+
+
+def ep_exchange_rank(cases):
+    """17a, one rank: Comm.alltoall over each (mesh, axis) of `cases`
+    that has this run's rank count, on its row of the seeded input, then
+    the backward of sum(g * out) under the seeded upstream gradient g;
+    the launches and heap rounds of each exchange (forward and
+    backward), counted from 0."""
+    import torch
+    from repro_torch.core import spmd
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.parallel.comm import AxisSpec, Comm
+    rt = spmd.current()
+    out = []
+    for dims, axis in cases:
+        mesh = make_rank_mesh(dims, ("data", "model"))
+        n = mesh.axis_size(axis)
+        x, g = _ep_exchange_inputs(torch, n)
+        u = x[mesh.axis_index(axis)].clone().requires_grad_()
+        comm = Comm(AxisSpec())
+        torch.cuda.synchronize()
+        _reset_counts()
+        r0 = rt.rounds
+        y = comm.alltoall(u, axis, split_axis=0, concat_axis=0)
+        (y * g[mesh.axis_index(axis)]).sum().backward()
+        torch.cuda.synchronize()
+        out.append(dict(y=y.detach(), grad=u.grad, counts=_counts(),
+                        rounds=rt.rounds - r0))
+    return out
+
+
+def ep_exchange(torch) -> list:
+    """17a: each exchange of EP_EXCHANGES on its rank processes, its
+    output and its gradient bit for bit sim_ctx(n)'s alltoall of the
+    same global input and upstream gradient (the pairwise exchange is
+    its own inverse), and its launches per rank: per exchange and per
+    direction n - 1 heap rounds, each a kernel-2 store into the peer's
+    slot and a read of its own, and two kernel-2 block moves (the
+    pre-rotation and the post-gather), so 4n kernel-2 launches, no
+    kernel-1 or kernel-3 launch.  Returns the launch counts summed over
+    ranks."""
+    from repro_torch.core import sim_ctx, spmd
+    paths = []
+    for world in (4, 8):
+        cases = [(d, a) for d, a in EP_EXCHANGES if math.prod(d) == world]
+        t0 = time.perf_counter()
+        res = spmd.run(ep_exchange_rank, world, cases, device="cuda")
+        wall = time.perf_counter() - t0
+        for i, (dims, axis) in enumerate(cases):
+            n = world
+            x, g = _ep_exchange_inputs(torch, n)
+            sim = sim_ctx(n)
+            want_y, want_g = sim.alltoall(x), sim.alltoall(g)
+            got_y = torch.cat([r[i]["y"][None] for r in res]).cuda()
+            got_g = torch.cat([r[i]["grad"][None] for r in res]).cuda()
+            same_bits(torch, got_y, want_y, f"17a alltoall over {axis} "
+                      f"of {dims[0]}x{dims[1]}")
+            same_bits(torch, got_g, want_g, f"17a alltoall's gradient over "
+                      f"{axis} of {dims[0]}x{dims[1]}")
+            for r_, rr in enumerate(res):
+                c = rr[i]["counts"]
+                want = dict(c, dma_copy=4 * n, put_copy=0, reduce_combine=0)
+                if c != want or rr[i]["rounds"] != 2 * (n - 1):
+                    raise AssertionError(
+                        f"17a {axis} of {dims}: rank {r_} launched {c} in "
+                        f"{rr[i]['rounds']} heap rounds, want dma_copy "
+                        f"{4 * n}, no put_copy or reduce_combine, "
+                        f"{2 * (n - 1)} rounds")
+            counts = [r[i]["counts"] for r in res]
+            paths.append({k: sum(c[k] for c in counts) for k in counts[0]})
+            log(f"  17a Comm.alltoall over {axis} of {dims[0]}x{dims[1]} "
+                f"({n} PEs, {x[0].numel() * 4 // n} B a block): output and "
+                f"gradient == sim_ctx({n}).alltoall bit for bit; per rank "
+                f"{2 * (n - 1)} heap rounds and {4 * n} dma_copy launches "
+                f"(forward + backward)")
+        log(f"  17a {world}-rank run wall {wall:.1f} s (spawn included)")
     return paths
+
+
+def ep_rank_shapes(granite_cfg, zamba_cfg, ds_cfg, mb) -> list:
+    """(label, Hq, Hkv, D, Dv, window, softcap, launches a rank, causal,
+    B) of kernel 4's calls in 17b-17d, per rank: granite at tp 4 (6 of
+    24 q heads, 2 of 8 KV heads), zamba2's shared block at tp 2 (16 of
+    32), deepseek's MLA at tp 2 (64 of 128 heads at D 192, Dv 128); B
+    the local microbatch."""
+    g, z, ds = granite_cfg, zamba_cfg, ds_cfg
+    m = ds.mla
+    steps = EP_TRAIN["steps"]
+    nz = -(-z.n_layers // z.hybrid_attn_period)
+    return [(g.name + " tp4", g.n_heads // 4, g.n_kv_heads // 4, g.hd, g.hd,
+             None, None, 2 * g.n_layers * mb["granite"] * steps, True,
+             EP_TRAIN["batch"] // mb["granite"]),
+            (z.name + " tp2", z.n_heads // 2, z.n_kv_heads // 2, z.hd, z.hd,
+             None, None, 2 * 2 * nz * mb["zamba"] * steps, True,
+             EP_TRAIN["batch"] // 2 // mb["zamba"]),
+            (ds.name + " MLA tp2", ds.n_heads // 2, ds.n_heads // 2,
+             m.qk_nope_dim + m.qk_rope_dim, m.v_dim, None, None,
+             ds.n_layers + 1, True, EP_DS["batch"] // 2)]
+
+
+def ep_check_kernels(torch, ops, ref, fa, gen, shapes, zamba_cfg) -> None:
+    """17a: kernel 4 at each per-rank shape over EP_TRAIN's 512 tokens,
+    bf16 (on the tensor cores) and f32, against `plain_attention` within
+    phase 2's limits; kernel 7 at zamba2's tp-2 shape (H 32, P 64, N 64,
+    chunk 128, L 512; the model's draws), contiguous and strided, f32
+    and bf16, against the plain chunked version and each of its phases
+    (phase 9's limits)."""
+    seq = EP_TRAIN["seq_len"]
+    for label, hq, hkv, d, dv, _, _, _, causal, b in shapes:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = attention_inputs(torch, gen, b, hq, hkv, seq, seq, d,
+                                       dt, dv)
+            out = ops.attention(q, k, v, causal=causal)
+            want = plain_attention(torch, ref, q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err, over = attention_over(torch, out, want, dt)
+            route = "tensor cores" if fa.tensor_core_route(q, k, v) \
+                else "CUDA cores"
+            log(f"  17a kernel 4 at {label} B{b} Hq{hq} Hkv{hkv} L{seq} D{d} "
+                f"Dv{dv} {dt} ({route}): max|err| {err:.3e} (worst "
+                f"err/limit {over:.3f})")
+            if dt == torch.bfloat16 and route != "tensor cores":
+                raise AssertionError(f"17a: kernel 4 at {label} did not take "
+                                     f"the tensor cores")
+            if not (over <= 1.0 and torch.isfinite(out).all()):
+                raise AssertionError(f"17a: kernel 4 at {label} {dt}: "
+                                     f"err/limit {over}")
+            del q, k, v, out, want
+    s = zamba_cfg.ssm
+    h = s.expand * zamba_cfg.d_model // s.head_dim // 2
+    cases = []
+    for dtype, scale in (("float32", 0.3), ("bfloat16", 1.0)):
+        cases.append(("zamba_tp2_L512", 1, seq, h, s.head_dim, s.state, 1,
+                      s.chunk, dtype, dict(scale=scale, model=True)))
+        cases.append(("zamba_tp2_strided", 1, seq, h, s.head_dim, s.state, 1,
+                      s.chunk, dtype, dict(scale=scale, model=True,
+                                           strided=True)))
+    worst, worst_phase = check_ssd_cases(torch, ops, ref, gen, cases)
+    log(f"  17a kernel 7 at zamba2's tp-2 shape (H {h}): worst err/limit "
+        f"{worst:.3f}, of its phases {worst_phase:.3f}")
+    torch.cuda.empty_cache()
+
+
+def tiled_global(cfg, local, dims):
+    """The GLOBAL tree of a data x model mesh of `dims` whose every rank
+    holds `local`: each leaf repeated along the dim its spec
+    (`sharding.param_specs`) splits, as many times as that dim's PEs.
+    Every rank's own init draws the same local tree from the same seed,
+    so this is the tree a launcher on that mesh trains from its seed;
+    its padded vocabulary rows (granite: 49155 over 4) stay, so the 1x1
+    run on it sees the columns the mesh's loss does."""
+    from repro_torch.parallel import sharding
+    sizes = {"data": dims[0], "model": dims[1]}
+    specs = sharding.param_specs(cfg, local, sharding.MeshAxes(), dims[1])
+
+    def reps(spec):
+        return [math.prod(sizes[a] for a in (ax if isinstance(ax, tuple)
+                                             else (ax,)))
+                if ax is not None else 1 for ax in spec]
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, sv) for v, sv in zip(t, s)]
+        r = reps(s)
+        return t.repeat(*r) if any(x > 1 for x in r) else t
+
+    return walk(local, specs)
+
+
+def ep_gate_params(torch, cfg, experts, model_rank=0, tp=1):
+    """One MoE layer of `cfg` for the layer gates, each weight drawn
+    from a generator of its own on the card, rounded to the config's
+    param dtype and held in f32 (the gate computes in f32, and bf16
+    weights cast per call would keep three f32 copies of deepseek's
+    experts, 45 GB, for the backward beside them): the router (seed
+    1750), routed expert e's w_gate, w_up, w_down (seed 1751 + e), the
+    shared experts' MLP (seed 1749), cut to `model_rank` of `tp` as
+    `init_mlp` lays it out.  `experts` are the ids this holder keeps (a
+    rank its own slice, the 1x1 run all of them): the same weights bit
+    for bit either way, and expert e's differ from every other's, so a
+    block delivered to the wrong rank changes the output."""
+    mo, d, dt = cfg.moe, cfg.d_model, cfg.param_dtype
+
+    def draw(gen, shape, fan):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(
+            1.0 / math.sqrt(fan)).to(dt).float()
+
+    p = {"router": draw(torch.Generator(device="cuda").manual_seed(1750),
+                        (d, mo.n_experts), d)}
+    shapes = (("w_gate", (d, mo.d_ff), d), ("w_up", (d, mo.d_ff), d),
+              ("w_down", (mo.d_ff, d), mo.d_ff))
+    for name, shape, _ in shapes:
+        p[name] = torch.empty((len(experts),) + shape, device="cuda")
+    for i, e in enumerate(experts):
+        gen = torch.Generator(device="cuda").manual_seed(1751 + e)
+        for name, shape, fan in shapes:
+            p[name][i] = draw(gen, shape, fan)
+    if mo.n_shared:
+        ff = mo.n_shared * mo.d_ff
+        lo, hi = model_rank * ff // tp, (model_rank + 1) * ff // tp
+        gen = torch.Generator(device="cuda").manual_seed(1749)
+        full = {k: draw(gen, s, f)
+                for k, s, f in (("w_gate", (d, ff), d), ("w_up", (d, ff), d),
+                                ("w_down", (ff, d), ff))}
+        p["shared"] = {"w_gate": full["w_gate"][:, lo:hi].contiguous(),
+                       "w_up": full["w_up"][:, lo:hi].contiguous(),
+                       "w_down": full["w_down"][lo:hi].contiguous()}
+    return p
+
+
+def ep_gate_inputs(torch, cfg, dp):
+    """The gate's input and upstream gradient, (dp, B, L, d) f32: one
+    batch a data row (seed 1748)."""
+    b, seq = EP_GATE_TOKENS[cfg.name]
+    gen = torch.Generator(device="cuda").manual_seed(1748)
+    return (torch.randn(dp, b, seq, cfg.d_model, device="cuda",
+                        generator=gen),
+            torch.randn(dp, b, seq, cfg.d_model, device="cuda",
+                        generator=gen))
+
+
+def ep_gate_cfg(cfg):
+    """`cfg` at a capacity that drops no pick: capacity_factor =
+    n_experts / top_k makes cap = the tokens a device routes."""
+    mo = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_experts / mo.top_k))
+
+
+def ep_gate_layer(torch, cfg, comm, p, x, w):
+    """One MoE layer forward in x's dtype (f32) and the backward of
+    sum(w * out) (the aux loss left out: it is each device's own) ->
+    (out, the picks of this device's token slice, x's gradient, whether
+    every pick was kept)."""
+    from repro_torch.models import layers as L
+    u = x.clone().requires_grad_()
+    out, _ = L.moe(comm, cfg, p, u)
+    (out * w).sum().backward()
+    with torch.no_grad():
+        _, _, tope, _, keep, _ = L.moe_route(cfg, p, L.moe_tokens(comm, x))
+    return out.detach(), tope, u.grad, bool(keep.all())
+
+
+def ep_gate_rank(arch):
+    """A rank's half of a layer gate: its experts' weights and its data
+    row's input, the layer on the rank mesh."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import spmd
+    from repro_torch.parallel.comm import AxisSpec, Comm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ep_gate_cfg(get_config(arch))
+    mesh = spmd.current().mesh
+    dp, tp = mesh.sizes["data"], mesh.sizes["model"]
+    ep = dp * tp if cfg.moe.ep_over_data else tp
+    e_local = -(-cfg.moe.n_experts // ep)
+    me = mesh.axis_index(("data", "model")) if cfg.moe.ep_over_data \
+        else mesh.axis_index("model")
+    experts = [e for e in range(me * e_local, (me + 1) * e_local)
+               if e < cfg.moe.n_experts]
+    if len(experts) != e_local:
+        raise AssertionError(f"17: {cfg.name} pads its experts on {dp}x{tp}")
+    p = ep_gate_params(torch, cfg, experts, mesh.axis_index("model"), tp)
+    x, w = ep_gate_inputs(torch, cfg, dp)
+    d = mesh.axis_index("data")
+    out, tope, grad, kept = ep_gate_layer(torch, cfg, Comm(AxisSpec()), p,
+                                          x[d], w[d])
+    del p
+    torch.cuda.empty_cache()
+    return dict(out=out, tope=tope, grad=grad, kept=kept)
+
+
+def ep_gate_reference(torch, cfg):
+    """The 1x1 side of a layer gate: every expert, every data row's
+    tokens in one call (with no drop each token's output is its own)."""
+    from repro_torch.parallel.comm import Comm
+    gcfg = ep_gate_cfg(cfg)
+    p = ep_gate_params(torch, gcfg, range(gcfg.moe.n_experts))
+    x, w = ep_gate_inputs(torch, gcfg, 1 if not cfg.moe.ep_over_data else 2)
+    out, tope, grad, kept = ep_gate_layer(
+        torch, gcfg, Comm(), p, x.flatten(0, 1), w.flatten(0, 1))
+    del p
+    torch.cuda.empty_cache()
+    if not kept:
+        raise AssertionError(f"17: {cfg.name}'s 1x1 gate dropped a pick")
+    return out.reshape(x.shape), tope, grad.reshape(x.shape)
+
+
+def ep_gate_check(torch, cfg, want, got, dims) -> None:
+    """The mesh's layer against the 1x1 layer: each rank's output (the
+    full token set of its data row, after the allgather) and the sum of
+    its data row's input gradients over `model` divided by tp (each
+    rank's gradient is its own slice's, scaled by tp by the transposed
+    allgather) within EP_GATE_RTOL x max|1x1|, and its picks exactly the
+    1x1 picks of its token slice."""
+    out1, tope1, grad1 = want
+    dp, tp = dims
+    t_row = out1[0].numel() // cfg.d_model
+    lim_o = EP_GATE_RTOL * out1.abs().max().item()
+    lim_g = EP_GATE_RTOL * grad1.abs().max().item()
+    worst_o = worst_g = 0.0
+    for d in range(dp):
+        row = [got[d * tp + m] for m in range(tp)]
+        for m, r in enumerate(row):
+            if not r["kept"]:
+                raise AssertionError(f"17: {cfg.name} gate rank ({d}, {m}) "
+                                     f"dropped a pick")
+            worst_o = max(worst_o, (r["out"].cuda() - out1[d]).abs().max()
+                          .item())
+            lo = d * t_row + m * (t_row // tp)
+            if not torch.equal(r["tope"].cuda(),
+                               tope1[lo:lo + t_row // tp]):
+                raise AssertionError(f"17: {cfg.name} gate rank ({d}, {m}) "
+                                     f"picks differ from the 1x1 picks")
+        g = sum(r["grad"].cuda() for r in row) / tp
+        worst_g = max(worst_g, (g - grad1[d]).abs().max().item())
+    log(f"  {cfg.name} MoE layer gate on {dp}x{tp} (f32, no-drop capacity, "
+        f"{out1.shape[0] * t_row} tokens, full width): picks == 1x1 "
+        f"exactly; max|out - 1x1| {worst_o:.3e} (limit {lim_o:.3e}), "
+        f"max|grad - 1x1| {worst_g:.3e} (limit {lim_g:.3e})")
+    if not (worst_o <= lim_o and worst_g <= lim_g):
+        raise AssertionError(f"17: {cfg.name}'s layer on {dp}x{tp} is not "
+                             f"the 1x1 layer: {worst_o}, {worst_g}")
+
+
+def ep_loss_1x1(torch, cfg, dims, batch):
+    """The 1x1 loss, no gradient, of the tree a launcher on a `dims`
+    mesh starts from (each rank's seed-0 init, tiled); the card's memory
+    is freed before it returns."""
+    from repro_torch.models import transformer
+    from repro_torch.parallel.comm import Comm
+    from repro_torch.train import step as tstep
+    local = transformer.init_params(cfg, seed=0, device="cuda", tp=dims[1],
+                                    dp=dims[0])
+    glob = tiled_global(cfg, local, dims)
+    del local
+    with torch.no_grad():
+        loss = float(transformer.train_loss(
+            Comm(), cfg, glob, tstep.batch_to_device(batch, "cuda")))
+    del glob
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def ep_granite_rank(argv):
+    """17b, one rank: the MoE layer gate, then the launcher's loop on
+    `argv` (its own seed-0 init, updated in place) with the launches,
+    heap rounds, host time in the syncs, walls and peak memory."""
+    import torch
+    from repro_torch.core import spmd
+    from repro_torch.launch import train as train_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rt = spmd.current()
+    args = train_mod.parse_args(argv)
+    out = {"gate": ep_gate_rank(args.arch)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                                    # the path starts
+    r0, s0 = rt.rounds, rt.sync_s
+    res = train_mod.train_loop(args)
+    torch.cuda.synchronize()
+    out.update(losses=res.losses, walls=res.step_s, counts=_counts(),
+               peak=torch.cuda.max_memory_allocated(),
+               rounds=rt.rounds - r0, sync_s=rt.sync_s - s0)
+    return out
+
+
+def ep_granite(torch, np, granite, card) -> list:
+    """17b: granite-moe-3b-a800m at full width on a 1x4 mesh (EP 4 over
+    `model`: 10 of 40 experts, 6 of 24 q heads and 2 of 8 KV heads a
+    rank).  Why not 2x2: its 3.37 B parameters take 16 B each as f32
+    weights, gradients, m and v (~13.5 GB a rank on 1x4; on 2x2 every
+    expert is held twice, ~104 GB).  First the 1x1 side in this process:
+    the layer gate's 1x1 layer and the 1x1 loss of the launcher's tree
+    on EP_TRAIN's first batch (memory freed after each); then 4 ranks:
+    the layer gate (`ep_gate_check`), and the launcher's loop, EP_TRAIN's
+    steps at the config's 2 microbatches.  Gates: the step-0 loss within
+    the reference's 0.05 x max(1, |l1|) of the 1x1 loss (capacity is
+    counted per rank slice, so the drops differ: a bound, not equality);
+    every rank's losses finite, their spread within EP_RANK_SPREAD; per
+    rank and microbatch (L layers, remat recomputing each layer's
+    forward): kernel 4 2L, heap rounds 30L + 14 (forward: the embedding
+    allreduce 2, a layer's attention allreduce 2, two alltoalls 3 + 3
+    and the token allgather 2, the loss's three allreduces 6; the
+    recompute 10L; the backward the same rounds reversed but the
+    stabiliser's max, 10L + 6), kernel 2 twice a round plus 15L block
+    moves (5 a layer's exchange per pass), kernel 3 4L + 8 (one a stage
+    of each sum and max allreduce in the forward and the recompute),
+    no kernel-1 launch.  Returns the path's launch counts, summed over
+    ranks, and kernel 4's per rank."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import build
+    cfg, run = granite.CONFIG, EP_TRAIN
+    dims = (1, 4)
+    t0 = time.perf_counter()
+    want = ep_gate_reference(torch, cfg)
+    batch = SyntheticLM(cfg.vocab, run["seq_len"], run["batch"]).batch(0)
+    l1 = ep_loss_1x1(torch, cfg, dims, batch)
+    log(f"  17b 1x1 side: layer gate and the 1x1 loss {l1!r} on the "
+        f"launcher's tree, {time.perf_counter() - t0:.1f} s; memory "
+        f"allocated as the ranks start "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    argv = ["--arch", cfg.name, "--seq-len", str(run["seq_len"]), "--batch",
+            str(run["batch"]), "--steps", str(run["steps"]), "--device",
+            "cuda", "--data", str(dims[0]), "--model", str(dims[1])]
+    t0 = time.perf_counter()
+    res = build.shard_mapped(ep_granite_rank, dims, [(argv,)] * 4,
+                             device="cuda")
+    wall = time.perf_counter() - t0
+    ep_gate_check(torch, cfg, want, [r["gate"] for r in res], dims)
+    del want
+    torch.cuda.empty_cache()
+    L, mb = cfg.n_layers, min(cfg.microbatches, run["batch"])
+    n = mb * run["steps"]
+    formula = dict(flash_attention=2 * L * n, put_copy=0,
+                   dma_copy=(2 * (30 * L + 14) + 15 * L) * n,
+                   reduce_combine=(4 * L + 8) * n, fused_update=0,
+                   ssd_scan=0, ring_attention=0)
+    for r_, p in enumerate(res):
+        if not np.isfinite(p["losses"]).all():
+            raise AssertionError(f"17b: rank {r_} non-finite loss "
+                                 f"{p['losses']}")
+        if p["counts"] != formula or p["rounds"] != (30 * L + 14) * n:
+            raise AssertionError(f"17b: rank {r_} launched {p['counts']} in "
+                                 f"{p['rounds']} heap rounds; the formulas "
+                                 f"give {formula} in {(30 * L + 14) * n}")
+    spread = [max(p["losses"][s] for p in res)
+              - min(p["losses"][s] for p in res)
+              for s in range(run["steps"])]
+    losses = res[0]["losses"]
+    walls = res[0]["walls"]
+    tok = run["seq_len"] * run["batch"]
+    log(f"  17b granite on 1x4: losses (rank 0) "
+        + ", ".join(f"{x:.5f}" for x in losses)
+        + "; spread over the ranks per step "
+        + ", ".join(f"{s:.3g}" for s in spread)
+        + f" (bound {EP_RANK_SPREAD}); step-0 |1x4 - 1x1| "
+        f"{abs(losses[0] - l1):.4g} (the reference's bound "
+        f"{0.05 * max(1.0, abs(l1)):.3g}); step wall ms (rank 0) "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+        + f"; {tok * (len(walls) - 1) / sum(walls[1:]):.1f} train tok/s "
+        f"(steps 2..{run['steps']}); peak per rank GiB "
+        + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in res)
+        + f"; per step per rank: {res[0]['rounds'] / run['steps']:g} heap "
+        f"rounds,"
+        f" launches (flash, dma, combine) " + ", ".join(
+            f"{res[0]['counts'][k] / run['steps']:g}"
+            for k in ("flash_attention", "dma_copy", "reduce_combine"))
+        + "; host time in the syncs a step (ranks 0-3) ms "
+        + ", ".join(f"{p['sync_s'] / run['steps'] * 1e3:.1f}" for p in res)
+        + f" == the formulas; run wall {wall:.1f} s, spawn included ({card})")
+    if not abs(losses[0] - l1) < 0.05 * max(1.0, abs(l1)):
+        raise AssertionError(f"17b: the 1x4 loss {losses[0]} is not the 1x1 "
+                             f"loss {l1}")
+    if any(not x <= t for x, t in zip(spread, EP_RANK_SPREAD)):
+        raise AssertionError(f"17b: the ranks' losses spread by {spread}")
+    return [{k: sum(p["counts"][k] for p in res) for k in formula}], \
+        res[0]["counts"]["flash_attention"]
+
+
+def ep_deepseek_rank(ds_cfg, batch):
+    """17d, one rank: the MoE layer gate, then the train loss, forward
+    only, of the rank's own seed-0 init on its slice of `batch`, the
+    data-axis mean, with the launches and heap rounds of the forward."""
+    import torch
+    from repro_torch.core import spmd
+    from repro_torch.launch import build
+    from repro_torch.models import transformer
+    from repro_torch.parallel.comm import AxisSpec, Comm
+    from repro_torch.train import step as tstep
+    rt = spmd.current()
+    out = {"gate": ep_gate_rank(ds_cfg.name)}
+    mesh = rt.mesh
+    params = build.make_init_fn(ds_cfg, mesh)[0](0, "cuda")
+    local = tstep.batch_to_device(build.local_batch(ds_cfg, batch, mesh),
+                                  "cuda")
+    comm = Comm(AxisSpec())
+    def forward():
+        with torch.no_grad():
+            loss = transformer.train_loss(comm, ds_cfg, params, local)
+            return float(comm.allreduce(loss, "data")
+                         / comm.axis_size("data"))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                                    # the path starts
+    r0 = rt.rounds
+    t0 = time.perf_counter()
+    loss = forward()
+    out.update(loss=loss, wall=time.perf_counter() - t0, counts=_counts(),
+               rounds=rt.rounds - r0, peak=torch.cuda.max_memory_allocated())
+    t0 = time.perf_counter()            # once more, warm (not counted)
+    out.update(loss2=forward(), wall2=time.perf_counter() - t0)
+    return out
+
+
+def ep_deepseek(torch, np, ds_cfg, card) -> list:
+    """17d: deepseek-v3 cut to the 4 layers of its SERVE_RUN (its 3
+    dense MLA layers and its first MoE layer: every kind of layer at its
+    published width, and the MTP head) forward at full width on a 2x2
+    mesh: EP over (data, model) = 4, 64 of 256 experts a rank, MLA at 64
+    of 128 heads.  Forward only: ~4.8 B bf16 parameters a rank, ~38 GB
+    over four; bf16 gradients would double that and leave no room for
+    activations on one card.  First the 1x1 side (the layer gate's 1x1
+    layer; the 1x1 loss of the ranks' tree at EP_DS's batch), its memory
+    freed before the ranks start; then 4 ranks: the layer gate, and the
+    train loss.  Gates: each rank's loss (the data-axis mean; each
+    model rank adds its own aux) within the reference's 0.05 x max(1,
+    |l1|) of the 1x1 loss, finite; per rank (nd dense layers of L, the
+    MTP block after): kernel 4 L + 1, heap rounds 2nd + 9(L - nd) + 11
+    (each dense layer's two allreduces over tp 2, 1 round each; an MoE
+    layer's attention and shared-expert allreduces 1 + 1, two alltoalls
+    over 4 PEs 3 + 3, the token allgather 1; the embedding 1, the loss's
+    3, the MTP head's embedding 1, block 2 and loss 3, the data mean 1),
+    kernel 2 twice a round plus 5(L - nd) block moves, kernel 3 2L + 11,
+    no kernel-1 launch.  Returns the path's launch counts, summed over
+    ranks, and kernel 4's per rank."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import build
+    dims = (2, 2)
+    t0 = time.perf_counter()
+    want = ep_gate_reference(torch, ds_cfg)
+    batch = SyntheticLM(ds_cfg.vocab, EP_DS["seq_len"],
+                        EP_DS["batch"]).batch(0)
+    l1 = ep_loss_1x1(torch, ds_cfg, dims, batch)
+    log(f"  17d 1x1 side: layer gate and the 1x1 loss {l1!r} on the ranks' "
+        f"tree, {time.perf_counter() - t0:.1f} s; memory allocated as the "
+        f"ranks start {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    t0 = time.perf_counter()
+    res = build.shard_mapped(ep_deepseek_rank, dims, [(ds_cfg, batch)] * 4,
+                             device="cuda")
+    wall = time.perf_counter() - t0
+    ep_gate_check(torch, ds_cfg, want, [r["gate"] for r in res], dims)
+    del want
+    torch.cuda.empty_cache()
+    L, nd = ds_cfg.n_layers, ds_cfg.moe.first_dense_layers
+    rounds = 2 * nd + 9 * (L - nd) + 11
+    formula = dict(flash_attention=L + 1, put_copy=0,
+                   dma_copy=2 * rounds + 5 * (L - nd),
+                   reduce_combine=2 * L + 11, fused_update=0, ssd_scan=0,
+                   ring_attention=0)
+    for r_, p in enumerate(res):
+        if p["counts"] != formula or p["rounds"] != rounds:
+            raise AssertionError(f"17d: rank {r_} launched {p['counts']} in "
+                                 f"{p['rounds']} heap rounds; the formulas "
+                                 f"give {formula} in {rounds}")
+        if p["loss2"] != p["loss"]:
+            raise AssertionError(f"17d: rank {r_}'s second forward gave "
+                                 f"{p['loss2']}, the first {p['loss']}")
+        if not (np.isfinite(p["loss"])
+                and abs(p["loss"] - l1) < 0.05 * max(1.0, abs(l1))):
+            raise AssertionError(f"17d: rank {r_}'s loss {p['loss']} is not "
+                                 f"the 1x1 loss {l1}")
+    log(f"  17d deepseek-v3 ({L} layers) forward on 2x2: losses (ranks 0-3) "
+        + ", ".join(f"{p['loss']:.5f}" for p in res)
+        + f", 1x1 {l1:.5f} (the reference's bound "
+        f"{0.05 * max(1.0, abs(l1)):.3g}); forward wall ms (ranks 0-3) "
+        + ", ".join(f"{p['wall'] * 1e3:.1f}" for p in res)
+        + ", warm " + ", ".join(f"{p['wall2'] * 1e3:.1f}" for p in res)
+        + "; peak per rank GiB "
+        + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in res)
+        + f"; per rank {rounds} heap rounds, launches (flash, dma, combine) "
+        + ", ".join(str(formula[k]) for k in ("flash_attention", "dma_copy",
+                                                "reduce_combine"))
+        + f" == the formulas; run wall {wall:.1f} s, spawn included ({card})")
+    return [{k: sum(p["counts"][k] for p in res) for k in formula}], \
+        res[0]["counts"]["flash_attention"]
 
 
 def main() -> int:
@@ -5139,14 +5832,54 @@ def main() -> int:
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
     spmd_paths = spmd_collectives(torch, np, card)
-    spmd_paths += spmd_train(torch, np, serving, card)
+    got, _ = mesh_train(torch, np, serving.CONFIG,
+                        dict(SPMD_TRAIN, lr=serving.TRAIN_RUN["lr"]),
+                        SPMD_LOSS_TOL, card, "16b")
+    spmd_paths += got
     log(f"  phase 16 wall {time.perf_counter() - t16:.1f} s ({card})")
+
+    log("== phase 17: expert parallelism, and the Mamba2 and MLA layers at "
+        "tp > 1 (Comm.alltoall over the ranks; granite-moe on 1x4, zamba2 "
+        "on 2x2, deepseek-v3's 4-layer cut forward on 2x2)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    ep_paths = ep_exchange(torch)
+    mb = {"granite": min(granite.CONFIG.microbatches, EP_TRAIN["batch"]),
+          "zamba": max(1, min(zamba.CONFIG.microbatches,
+                              EP_TRAIN["batch"] // 2))}
+    ep_shapes = ep_rank_shapes(granite.CONFIG, zamba.CONFIG, ds_cfg, mb)
+    ep_check_kernels(torch, ops, ref, fa, gen, ep_shapes, zamba.CONFIG)
+    ep_timing = [time_dense_attention(torch, fa, ref, ra, gen, card, s[:9],
+                                      EP_TRAIN["seq_len"])
+                 for s in ep_shapes]
+    zs = zamba.CONFIG.ssm
+    time_ssd(torch, kssd, ref, gen,
+             (1, EP_TRAIN["seq_len"],
+              zs.expand * zamba.CONFIG.d_model // zs.head_dim // 2,
+              zs.head_dim, zs.state, zs.n_groups, zs.chunk))
+    fa_ranks = []
+    for run_ in (lambda: ep_granite(torch, np, granite, card),
+                 lambda: mesh_train(torch, np, zamba.CONFIG,
+                                    dict(EP_TRAIN, lr=3e-4, data=2, model=2),
+                                    EP_ZAMBA_LOSS_TOL, card, "17c"),
+                 lambda: ep_deepseek(torch, np, ds_cfg, card)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        got, n_fa = run_()
+        ep_paths += got
+        fa_ranks.append(n_fa)
+    for t, n_fa in zip(ep_timing, fa_ranks):
+        if t["calls"] != n_fa:
+            raise AssertionError(f"17: kernel 4 at {t['shape']} launched "
+                                 f"{n_fa} times a rank, want {t['calls']}")
+    log(f"  phase 17 wall {time.perf_counter() - t17:.1f} s ({card})")
 
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
         + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths \
         + moe_paths + frontend_paths + service_paths + elastic_paths \
-        + spmd_paths
+        + spmd_paths + ep_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -5164,7 +5897,9 @@ def main() -> int:
         f"puts, the PGAS stream, uninterrupted / victim / resumed fused "
         f"steps, the drained engine) {elastic_paths}, spmd (16a 4 and 8 "
         f"ranks, 2x2 Comm; 16b default, fused; summed over ranks) "
-        f"{spmd_paths}")
+        f"{spmd_paths}, ep (17a the exchanges over model of 1x4, (data, "
+        f"model) of 2x2, model of 1x8; 17b granite 1x4; 17c zamba2 2x2 "
+        f"default, fused; 17d deepseek 2x2; summed over ranks) {ep_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]
@@ -5195,10 +5930,14 @@ def main() -> int:
                      max_abs_err=t["max_abs_err"], ms=t["ms"],
                      plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                      bound_by=t["bound_by"], library_ms=t["library_ms"])
-                for t in dense_timing + moe_timing + frontend_timing]
+                for t in dense_timing + moe_timing + frontend_timing
+                + ep_timing]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")
+    left = live_children()
+    if left:                      # every process this run started has ended
+        return fail(f"child processes still running: {left}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ into the destination PE's slot of a heap every process maps:
     group, runs ``fn(*args)`` in each and returns the ranks' results.
     Gloo carries host rendezvous and barriers only, never a payload.
     A rank that raises makes `run` raise (the other ranks are ended).
+    No process that `run` started outlives it.
   * `current()` — inside a rank process: its `RankContext` (rank, world
     size, heap, device, the rank mesh `launch.mesh.make_mesh` set up).
 
@@ -183,13 +184,21 @@ def run(fn, n: int, *args, slot_bytes: int | None = None, device=None,
     results, moved to the CPU.  `fn` must be importable by name (a
     module-level function).  The heap (`heap`, or a new one of `n` slots
     of `slot_bytes`, see `SymmetricHeap.allocate`) is held here until
-    every rank has exited."""
+    every rank has exited.  No process outlives the call: the ranks are
+    joined, and the resource tracker that starting them launched (if
+    none ran before) is stopped and reaped."""
+    from multiprocessing import resource_tracker
+
     import torch.multiprocessing as mp
 
     if heap is None:
         heap = SymmetricHeap.allocate(n, slot_bytes, device)
     elif heap.n_pes != n:
         raise ValueError(f"a heap of {heap.n_pes} PEs for {n} ranks")
+    # a spawn-context process start launches multiprocessing's resource
+    # tracker, a child that would run on past this process's exit
+    tracker = resource_tracker._resource_tracker
+    own_tracker = tracker._pid is None
     tmp = tempfile.mkdtemp(prefix="repro_spmd_")
     try:
         mp.spawn(_entry, args=(n, fn, args, heap.buf,
@@ -199,3 +208,5 @@ def run(fn, n: int, *args, slot_bytes: int | None = None, device=None,
                            weights_only=False) for r in range(n)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        if own_tracker:
+            tracker._stop()

@@ -164,10 +164,13 @@ def make_train_step(cfg: ModelConfig, mesh, backend: str = "shmem",
                     fuse_grads: bool = True, allreduce_algo: str = "paper",
                     grad_rs: bool | str = False, pipeline_chunks=None,
                     topo=None, link=None, embedding=None, autotune=None,
-                    profile=None, adamw: opt.AdamWConfig | None = None):
+                    profile=None, adamw: opt.AdamWConfig | None = None,
+                    donate: bool = False):
     """(step, (shapes, pspecs), ocfg): ``step(params, opt_state,
     global_batch)`` runs in a rank on its local shards and its slice of
-    the global batch (numpy or tensors) -> (loss, params, opt_state)."""
+    the global batch (numpy or tensors) -> (loss, params, opt_state);
+    with `donate` it updates the trees it is given in place
+    (`train/step.build_train_step`)."""
     _check_ported(cfg, mesh)
     shapes, pspecs = abstract_params(cfg, mesh)
     ocfg = adamw or opt.AdamWConfig(moment_dtype=cfg.moment_dtype)
@@ -175,7 +178,8 @@ def make_train_step(cfg: ModelConfig, mesh, backend: str = "shmem",
         cfg, axis_spec(mesh, cfg), backend, adamw=ocfg,
         fuse_grads=fuse_grads, allreduce_algo=allreduce_algo,
         grad_rs=grad_rs, pipeline_chunks=pipeline_chunks, topo=topo,
-        link=link, embedding=embedding, autotune=autotune, profile=profile)
+        link=link, embedding=embedding, autotune=autotune, profile=profile,
+        donate=donate)
 
     def step(params, opt_state, batch):
         m = spmd.current().mesh if spmd.active() else mesh

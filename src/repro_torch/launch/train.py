@@ -57,7 +57,7 @@ _UNPORTED = [
 class TrainRun:
     """What `run` returns: the losses and host wall time of each step
     (each ends in a read of the loss, which waits for the device), and
-    the final parameters and optimizer state."""
+    the final parameters and optimizer state (None on a mesh)."""
     losses: list
     step_s: list
     params: dict
@@ -190,8 +190,8 @@ def run(argv=None, *, params=None) -> TrainRun:
     """Parse `argv` and train; `main` without the return of state.
     `params`, when given, is the GLOBAL parameter tree (the port's
     layout) to start from in place of the seed-0 init.  On a mesh the
-    result is rank 0's: its losses and step walls, the GLOBAL parameters
-    gathered from the ranks and its local optimizer state."""
+    result is rank 0's losses and step walls (with --ckpt-dir the
+    checkpoint holds the GLOBAL tree gathered from the ranks)."""
     from .. import resolve_device
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -208,26 +208,35 @@ def run(argv=None, *, params=None) -> TrainRun:
 
 def _gather_global(comm, specs, tree):
     """The GLOBAL tree of a rank's local `tree` (params, or f32/bf16
-    moments of the same structure): model-sharded leaves allgathered
-    over `model` along their sharded dim."""
+    moments of the same structure): each sharded leaf allgathered along
+    its sharded dim over that dim's axis (`model`, or the EP group's
+    flattened (data, model) for the experts under `ep_over_data`)."""
     def walk(t, s):
         if isinstance(t, dict):
             return {k: walk(v, s[k]) for k, v in t.items()}
         if isinstance(t, list):
             return [walk(v, sv) for v, sv in zip(t, s)]
-        if "model" in s:
-            return comm.allgather(t, "model", concat_axis=s.index("model"))
+        for dim, ax in enumerate(s):
+            if ax is not None:
+                t = comm.allgather(t, ax, concat_axis=dim)
         return t
     return walk(tree, specs)
 
 
-def train_loop(args, params=None, topo=None, tuner=None) -> TrainRun:
+def train_loop(args, params=None, topo=None, tuner=None, *,
+               shards=None) -> TrainRun:
     """The launcher's loop on parsed `args`: in this process on one
     device, or, called in each rank process of a --data x --model mesh
     (`launch/build.shard_mapped`), on the rank's local shards of the
-    GLOBAL `params` and its slice of the global batch.  Checkpoints hold
-    the GLOBAL tree (on a mesh every rank takes part in its gather);
-    rank 0 writes them, the log and the service documents."""
+    GLOBAL `params` (or on `shards`: this rank's local shards, cut
+    already and its own, so that no rank is handed the whole tree) and
+    its slice of the global batch.  Checkpoints hold the GLOBAL tree (on
+    a mesh every rank takes part in its gather); rank 0 writes them, the
+    log and the service documents.  On a mesh the result holds the
+    losses and walls only (the checkpoint holds the trained tree), and a
+    rank that owns its parameters (its own init, or `shards`) updates
+    them in place (`build_train_step`'s `donate`): the state is not held
+    twice."""
     from .. import resolve_device
     from ..ckpt import manager as ckpt
     from ..configs import get_config, smoke_config
@@ -273,8 +282,12 @@ def train_loop(args, params=None, topo=None, tuner=None) -> TrainRun:
         if params is None:
             params = transformer.init_params(cfg, seed=0, device=device)
     else:
-        step_fn, (_, specs), _ = build.make_train_step(cfg, mesh, **knobs)
-        if params is None:
+        owned = params is None          # its own init, or `shards`
+        step_fn, (_, specs), _ = build.make_train_step(
+            cfg, mesh, donate=owned, **knobs)
+        if shards is not None:
+            params = shards
+        elif owned:
             params = build.make_init_fn(cfg, mesh)[0](0, device)
         else:
             params = convert.local_shards(params, cfg, mesh)
@@ -283,7 +296,7 @@ def train_loop(args, params=None, topo=None, tuner=None) -> TrainRun:
     if mesh is not None:
         comm = Comm(build.axis_spec(mesh, cfg))
         spec_leaves = sharding.spec_leaves(params, specs)
-        if len(opt_state["mv"]) != len(spec_leaves):
+        if args.ckpt_dir and len(opt_state["mv"]) != len(spec_leaves):
             raise NotImplementedError("checkpoints of grouped (int8) "
                                       "moments on a mesh come with slice "
                                       "5c-3")
@@ -389,9 +402,7 @@ def train_loop(args, params=None, topo=None, tuner=None) -> TrainRun:
         print(f"[train] loss {a:.4f} -> {b:.4f} "
               f"({'improved' if b < a else 'no improvement'})")
     if mesh is not None:
-        params = _gather_global(comm, specs, params)
-        if not lead:
-            params = opt_state = None
+        params = opt_state = None
     return TrainRun(losses, step_s, params, opt_state)
 
 

@@ -197,28 +197,60 @@ def global_params(rank_trees, cfg: ModelConfig, mesh_shape, axis_names=(
     return walk(rank_trees, specs)
 
 
+def _axis_count(ax, sizes: dict) -> int:
+    """The PE count of a spec entry: 1 for None, else the product of its
+    axes' sizes (a tuple is flattened)."""
+    if ax is None:
+        return 1
+    return int(np.prod([sizes[a] for a in (ax if isinstance(ax, tuple)
+                                           else (ax,))]))
+
+
+def _mamba_columns(cfg: ModelConfig, tp: int, name: str):
+    """The column index of a tp = 1 Mamba2 leaf (`w_in`, `conv_w`,
+    `conv_b`) that each global column of its `tp`-shard layout reads:
+    shard s's columns are [z_s, x_s, B, C, dt_s] of the fused
+    in-projection, and [x_s, B, C] of the conv (B and C, one group,
+    repeated in every shard); None for the other leaves, whose columns
+    are head-blocked and split evenly."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    gdim = s.n_groups * s.state
+    nh = d_in // s.head_dim
+    di, hl = d_in // tp, nh // tp
+    bc = np.arange(2 * gdim)
+    cols = []
+    for i in range(tp):
+        x_s = d_in + np.arange(i * di, (i + 1) * di)
+        if name == "w_in":
+            cols += [np.arange(i * di, (i + 1) * di), x_s, 2 * d_in + bc,
+                     2 * d_in + 2 * gdim + np.arange(i * hl, (i + 1) * hl)]
+        elif name in ("conv_w", "conv_b"):
+            cols += [x_s - d_in, d_in + bc]
+        else:
+            return None
+    return torch.from_numpy(np.concatenate(cols))
+
+
 def fit_global(params, cfg: ModelConfig, tp: int, dp: int = 1):
     """The port's tp = 1 tree re-laid-out at the global shapes of a `dp`
     x `tp` mesh, as the reference's `test_tp2_matches_single_device` fits
     its 1x1 params: each leaf tile-extended along every dim that grows
-    (ghost heads, padded vocab) and cut to size.  The extended slots are
-    masked to zero effect by construction, so the loss is unchanged.
-    The dense family (its leaves need no column remap)."""
+    (ghost heads, padded vocab, padded expert slots, which no token
+    routes to) and cut to size; every Mamba2 leaf whose columns are
+    per-shard [z_s, x_s, B, C, dt_s] (`w_in`) or [x_s, B, C] (`conv_w`,
+    `conv_b`) is rebuilt column by column from the tp = 1 layout (that
+    test's `remap_mamba`).  The extended slots are masked to zero effect
+    by construction; what still differs from tp = 1 is Mamba2's gated
+    norm, which runs over each shard's own channels."""
     from ..launch.mesh import RankMesh
     from .transformer import init_params
-    mesh = RankMesh(("data", "model"), (dp, tp), 0)
+    sizes = RankMesh(("data", "model"), (dp, tp), 0).sizes
     local = init_params(cfg, device="meta", tp=tp, dp=dp)
-    specs = _specs(cfg, local, tp)
-    sizes = mesh.sizes
-
-    def target(leaf, spec):
-        shape = list(leaf.shape)
-        for dim, ax in enumerate(spec):
-            if ax is not None:
-                shape[dim] *= sizes[ax]
-        return tuple(shape)
-
-    targets = _zip_specs(target, local, specs)
+    targets = _zip_specs(
+        lambda leaf, spec: tuple(n * _axis_count(ax, sizes)
+                                 for n, ax in zip(leaf.shape, spec)),
+        local, _specs(cfg, local, tp))
 
     def fit(a, t):
         for ax in range(a.dim()):
@@ -232,10 +264,18 @@ def fit_global(params, cfg: ModelConfig, tp: int, dp: int = 1):
             a = a.narrow(ax, 0, want)
         return a.contiguous()
 
-    if cfg.family not in ("dense",):
-        raise NotImplementedError(f"fit_global takes the dense family; "
-                                  f"{cfg.family} comes with slice 5c-2")
-    return _zip_specs(fit, params, targets)
+    def walk(tree, tgt, path=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, tgt[k], path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, t, path) for v, t in zip(tree, tgt)]
+        cols = _mamba_columns(cfg, tp, path[-1]) \
+            if tp > 1 and "mamba" in path else None
+        if cols is None:
+            return fit(tree, tgt)
+        return tree.index_select(-1, cols.to(tree.device)).contiguous()
+
+    return walk(params, targets)
 
 
 def shards_from_jax(tree, cfg: ModelConfig, mesh, device="cpu"):

@@ -12,11 +12,16 @@ family's training path): attention heads and the FFN hidden are sharded,
 every layer ends with one allreduce, the vocabulary is sharded for the
 embedding and the loss; KV projections are replicated when n_kv_heads <
 tp or tp does not divide the heads, whose padded "ghost" q heads are
-masked to zero.  The decode paths, MLA, MoE and Mamba2 at tp > 1 raise,
-naming the slice that brings them.  Weights are plain tensors in dicts, initialised from a
-`torch.Generator`.  The paged KV pool and the dense KV cache are updated
-in place (the JAX functions return new ones), MLA's latent cache too: no
-copy per step.
+masked to zero.  MLA splits its q heads over `model` (the latent
+projections replicated), Mamba2 its SSM heads (each shard's columns of
+the fused in-projection are [z, x, B, C, dt] of its own heads, B and C
+replicated), and the MoE layer shards its experts over the EP group
+(`model`, or (data, model) under `ep_over_data`) with the paper's
+pairwise alltoall.  The decode paths at tp > 1 raise, naming the slice
+that brings them (5c-3, with the serve engine at tp > 1).  Weights are
+plain tensors in dicts, initialised from a `torch.Generator`.  The paged
+KV pool and the dense KV cache are updated in place (the JAX functions
+return new ones), MLA's latent cache too: no copy per step.
 Gradients come from autograd; attention's goes through the
 `kernels/ops.attention` Function, the SSD scan's through `ops.ssd`.
 """
@@ -372,9 +377,10 @@ def mla_attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions):
     The latent KV is expanded to every head's k (k_nope, then the shared
     k_rope) and v, and attends through `ops.attention` at head dim nope +
     rope against a v head dim of its own, scaled by 1/sqrt(nope + rope).
-    One device (tp = 1)."""
+    At tp > 1 this device holds n_heads / tp q heads (`wq_b`, `wkv_b`
+    and `wo` split by head, `wq_a`, `wkv_a` and the norms replicated)
+    and the output projection ends in one allreduce over `model`."""
     m = cfg.mla
-    _model_parallel(comm, "MLA", "5c-2")
     B, L, _ = x.shape
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     c_kv, k_rope = _mla_latent(cfg, p, x, positions)
@@ -411,7 +417,7 @@ def mla_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache, position):
     score is q_nope . (W_kb^T c_kv) + q_rope . k_rope, the context is
     read from c_kv and expanded through W_vb."""
     m = cfg.mla
-    _model_parallel(comm, "MLA decode", "5c-2")
+    _model_parallel(comm, "MLA decode", "5c-3")
     B = x.shape[0]
     pos = position[:, None]
     q_nope, q_rope = _mla_q(cfg, p, x, pos)
@@ -641,6 +647,22 @@ def moe_route(cfg: ModelConfig, p: Params, xs):
     return gates, topv, tope, slot, slot < cap, cap
 
 
+def moe_tokens(comm: Comm, x):
+    """This device's slice of the MoE layer's tokens: x (B, L, d), the
+    same on every PE of `model`, flattened to (B * L, d), padded with
+    zero tokens to a multiple of tp (a decode step can carry fewer
+    tokens than tp: the pads route, and are dropped on the way back) and
+    cut into tp slices."""
+    tp = comm.axis_size(comm.axes.model)
+    flat = x.reshape(-1, x.shape[-1])
+    t_pad = -(-flat.shape[0] // tp) * tp
+    if t_pad != flat.shape[0]:
+        flat = F.pad(flat, (0, 0, 0, t_pad - flat.shape[0]))
+    t_local = t_pad // tp
+    my = comm.axis_index(comm.axes.model)
+    return flat[my * t_local:(my + 1) * t_local]
+
+
 def moe(comm: Comm, cfg: ModelConfig, p: Params, x):
     """x: (B, L, d) -> (out (B, L, d), aux), `repro.models.layers.moe`
     step by step.
@@ -651,14 +673,20 @@ def moe(comm: Comm, cfg: ModelConfig, p: Params, x):
     does.  The kept picks are assigned into the (E, C, d) dispatch buffer
     (each kept (expert, slot) holds exactly one token, so the assignment
     is deterministic and equals the reference's scatter-add), exchanged
-    by `Comm.alltoall` (the identity on one device), run through the
+    by `Comm.alltoall` over the EP group, run through the
     experts as batched products in the activation dtype, and combined in
     f32 as an in-order sum over k of each pick's rows times its weight;
     the shared experts are added after.  aux is the load-balance loss E *
-    sum(mean(gates) * mean(picks per expert))."""
+    sum(mean(gates) * mean(picks per expert)).
+
+    At ep > 1 (the reference's dispatch): the tokens are split over
+    `model` (padded with zero tokens to a multiple of tp), each device
+    routes its own slice with the capacity of that slice, the E_pad =
+    e_local * ep slots (padded experts get no picks) go to their owners
+    and come back by two alltoalls over the EP group, and the token
+    slices are allgathered over `model`; aux is this device's, from its
+    own gates."""
     mo = cfg.moe
-    _model_parallel(comm, "MoE (expert parallelism)", "5c-2")
-    tp = comm.axis_size(comm.axes.model)
     ep_axes = ((comm.axes.data, comm.axes.model) if mo.ep_over_data
                else comm.axes.model)
     ep = (math.prod(comm.axis_size(a) for a in ep_axes)
@@ -668,14 +696,8 @@ def moe(comm: Comm, cfg: ModelConfig, p: Params, x):
     e_pad = e_local * ep
 
     # 1. this device's token slice of the model group
-    flat = x.reshape(B * L, d)
-    t_total = B * L
-    t_pad = -(-t_total // tp) * tp
-    if t_pad != t_total:
-        flat = F.pad(flat, (0, 0, 0, t_pad - t_total))
-    t_local = t_pad // tp
-    my = comm.axis_index(comm.axes.model)
-    xs = flat[my * t_local:(my + 1) * t_local]
+    xs = moe_tokens(comm, x)
+    t_total, t_local = B * L, xs.shape[0]
 
     # 2-3. route, capacity, dispatch of the kept picks into (E_pad, C, d)
     gates, topv, tope, slot, keep, cap = moe_route(cfg, p, xs)
@@ -767,12 +789,12 @@ def _mamba_split(cfg: ModelConfig, tp: int):
 
 
 def mamba2(comm: Comm, cfg: ModelConfig, p: Params, x):
-    """Full-sequence Mamba2 (prefill): x (B, L, d) -> (B, L, d), one
-    allreduce at the out-projection.  The causal depthwise conv is the
+    """Full-sequence Mamba2 (prefill, training): x (B, L, d) -> (B, L,
+    d), one allreduce at the out-projection; at tp > 1 on this device's
+    SSM heads (`_mamba_split`).  The causal depthwise conv is the
     reference's shifted sum in the activation dtype; x, B and C reach
     `ops.ssd` as views of the conv's output (no copy)."""
     s = cfg.ssm
-    _model_parallel(comm, "Mamba2", "5c-2")
     tp = comm.axis_size(comm.axes.model)
     B, seq, _ = x.shape
     d_in_local, nheads_local, gdim = _mamba_split(cfg, tp)
@@ -821,7 +843,7 @@ def mamba2_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache):
     """One-step recurrence (decode): x (B, 1, d) -> ((B, 1, d), new
     cache).  The conv history and the state come back as new tensors."""
     s = cfg.ssm
-    _model_parallel(comm, "Mamba2 decode", "5c-2")
+    _model_parallel(comm, "Mamba2 decode", "5c-3")
     tp = comm.axis_size(comm.axes.model)
     B = x.shape[0]
     d_in_local, nheads_local, gdim = _mamba_split(cfg, tp)

@@ -4,7 +4,7 @@ Counterpart of `repro/parallel/comm.py`.  The model functions take a Comm
 and call its collectives at the same places as in `repro`.  Axis roles:
 
   model  — tensor parallelism (activation allreduces, the vocab-sharded
-           loss's reductions)
+           loss's reductions, the MoE expert alltoall)
   data   — data parallelism (the fused gradient buckets)
   pod    — cross-pod; not ported (slice 5c-3)
 
@@ -215,9 +215,12 @@ class Comm:
 
     def alltoall(self, x, axis, *, split_axis: int = 0,
                  concat_axis: int = 0):
-        """The MoE dispatch's exchange over `axis`: in place, so it
-        splits and concatenates along one axis.  The identity on an axis
-        of one PE; over more PEs it is slice 5c-2 (expert parallelism)."""
+        """The MoE dispatch's exchange over `axis` (a name, or a tuple
+        flattened into one PE space): block j of `split_axis` goes to PE
+        j, and the block from PE i lands at block i (the paper's pairwise
+        exchange, `coll.alltoall`).  In place, so it splits and
+        concatenates along one axis.  Its gradient is the inverse
+        exchange, from the delivery Function's backward."""
         if axis is None or axis == ():
             return x
         if split_axis != concat_axis:
@@ -225,8 +228,9 @@ class Comm:
                              "split_axis must equal concat_axis")
         if self.axis_size(axis) == 1:
             return x
-        raise NotImplementedError("Comm.alltoall over more than one PE comes "
-                                  "with slice 5c-2 (expert parallelism)")
+        return coll.alltoall(self._net(axis, x.device), x[None],
+                             axis=split_axis, profile=self._prof(),
+                             tuner=self._sel)[0]
 
     def broadcast(self, x, axis, root: int = 0):
         if self.axis_size(axis) == 1:

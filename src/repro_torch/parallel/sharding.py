@@ -1,6 +1,6 @@
 """Sharding rules for parameters and step inputs (port of
-`repro/parallel/sharding.py` for the dense family's tensor- and
-data-parallel training).
+`repro/parallel/sharding.py` for tensor-, expert- and data-parallel
+training).
 
 A spec is a tuple with one entry per dim of a leaf: None (replicated), an
 axis name, or a tuple of axis names (the dim split over their flattened
@@ -9,12 +9,13 @@ port's parameter tree holds one dict per layer, so no spec carries the
 reference's stacked-layer prefix.
 
   * TP dims follow the local sizing in models/layers.py (q heads, FFN
-    hidden, vocab over `model`);
+    hidden, vocab, SSM heads over `model`);
   * replicated-over-model leaves (KV projections when n_kv < tp or the
-    heads do not divide tp, norms) get None there.
+    heads do not divide tp, MLA latents, routers, norms) get None there;
+  * MoE expert leaves are sharded over the EP group: `model`, or the
+    flattened (data, model) when `ep_over_data`.
 
-fsdp (ZeRO-3 over `data`) is slice 5c-3 and expert parallelism over
-`data` slice 5c-2; both raise here.
+fsdp (ZeRO-3 over `data`) is slice 5c-3 and raises here.
 """
 from __future__ import annotations
 
@@ -34,19 +35,26 @@ class MeshAxes:
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.fsdp:
         raise NotImplementedError("fsdp comes with slice 5c-3")
-    if cfg.moe is not None and cfg.moe.ep_over_data:
-        raise NotImplementedError("expert parallelism over `data` comes "
-                                  "with slice 5c-2")
+
+
+def _ep_over_data(cfg: ModelConfig) -> bool:
+    return cfg.moe is not None and cfg.moe.ep_over_data
+
+
+def _is_expert(path: tuple[str, ...]) -> bool:
+    """A routed expert's weight (not the shared experts' MLP)."""
+    return ("moe" in path and "shared" not in path
+            and path[-1] in ("w_gate", "w_up", "w_down"))
 
 
 def _base_spec(path: tuple[str, ...], leaf, cfg: ModelConfig, ax: MeshAxes,
                tp: int) -> tuple:
     """The spec of one leaf from its name (the last path entry)."""
     name = path[-1]
-    in_moe = "moe" in path and "shared" not in path
     nd = leaf.dim()
-    if in_moe and name in ("w_gate", "w_up", "w_down"):
-        return (ax.model, None, None)
+    if _is_expert(path):
+        ep = (ax.data, ax.model) if _ep_over_data(cfg) else ax.model
+        return (ep, None, None)
     if name == "router":
         return (None, None)
     if name in ("wq", "w_gate", "w_up", "wq_b", "wkv_b", "w_in", "conv_w"):
@@ -107,12 +115,14 @@ def spec_leaves(params, specs) -> list[tuple]:
 
 def needs_data_sync(cfg: ModelConfig, params):
     """Bool tree of `params`' structure: True where the gradient leaf is
-    replicated over `data` and needs grad_sync.  Without fsdp and
-    without expert parallelism over `data` (5c-3, 5c-2) that is every
-    leaf."""
+    replicated over `data` and needs grad_sync.  The expert leaves under
+    `ep_over_data` are sharded over `data` and arrive reduced over it
+    (their gradients are not divided by the data size, as in the
+    reference); fsdp is slice 5c-3."""
     if cfg.fsdp:
         raise NotImplementedError("fsdp comes with slice 5c-3")
-    return _map_path(lambda p, l: True, params)
+    ep_data = _ep_over_data(cfg)
+    return _map_path(lambda p, l: not (ep_data and _is_expert(p)), params)
 
 
 def batch_specs(cfg: ModelConfig, batch: dict, ax: MeshAxes, kind: str,

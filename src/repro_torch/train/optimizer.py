@@ -149,12 +149,14 @@ def init_state(params, cfg: AdamWConfig,
     leaves, _ = tree_flatten(params)
 
     def one(group):
-        z = torch.zeros(sum(leaves[i].numel() for i in group),
-                        dtype=torch.float32, device=leaves[group[0]].device)
-        if len(group) == 1:
-            z = z.reshape(leaves[group[0]].shape)
-        return {"m": _q_encode(z, cfg.moment_dtype),
-                "v": _q_encode(z, cfg.moment_dtype, nonneg=True)}
+        shape = leaves[group[0]].shape if len(group) == 1 else \
+            (sum(leaves[i].numel() for i in group),)
+        dev = leaves[group[0]].device
+        # m and v each in storage of its own: an in-place step writes both
+        return {"m": _q_encode(torch.zeros(shape, device=dev),
+                               cfg.moment_dtype),
+                "v": _q_encode(torch.zeros(shape, device=dev),
+                               cfg.moment_dtype, nonneg=True)}
 
     return {"mv": [one(g) for g in moment_groups(params, cfg.moment_dtype,
                                                  local_global_period)],
@@ -163,20 +165,34 @@ def init_state(params, cfg: AdamWConfig,
 
 
 def apply_updates(params, grads, state, cfg: AdamWConfig,
-                  local_global_period: int | None = None):
+                  local_global_period: int | None = None, *,
+                  inplace: bool = False):
     """One AdamW step: (new params, new state), the reference's
     arithmetic operation for operation.  `local_global_period` must be
-    the one `init_state` was given."""
+    the one `init_state` was given.  With `inplace` and f32 moments the
+    parameters and moments are updated in their own storage by the same
+    operations in the same order (bit for bit the same result, and no
+    second copy of the state): the caller gives up the trees it passed.
+    Other moment dtypes are re-encoded out of place either way."""
     step = state["step"] + 1
     c1, c2 = bias_corrections(cfg, step)
+    inplace = inplace and cfg.moment_dtype == "f32"
 
     def one(p, g, m, v, decay):
         g32 = g.float()
-        m = cfg.b1 * m + (1 - cfg.b1) * g32
-        v = cfg.b2 * v + (1 - cfg.b2) * g32 * g32
+        if inplace:
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * g32 * g32)
+        else:
+            m = cfg.b1 * m + (1 - cfg.b1) * g32
+            v = cfg.b2 * v + (1 - cfg.b2) * g32 * g32
         upd = (m / c1) / (sqrt_rn(v / c2) + cfg.eps)
         if decay:
             upd = upd + cfg.weight_decay * p.float()
+        if inplace:
+            if p.dtype == torch.float32:
+                return p.sub_(cfg.lr * upd), m, v
+            return p.copy_(p.float() - cfg.lr * upd), m, v
         return (p.float() - cfg.lr * upd).to(p.dtype), m, v
 
     flat_p, treedef = tree_flatten(params)

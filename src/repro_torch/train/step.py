@@ -134,6 +134,8 @@ def fused_grad_sync(comm: Comm, grads, sync_mask, *, fuse: bool = True,
     the leaves are packed onto flat buckets of `bucket_bytes`: one
     collective per bucket (with comm.grad_rs, the bucketed reduce-scatter
     + allgather of all buckets) instead of one per tensor."""
+    if not comm.grad_rs and comm._scale() == 1:
+        return grads        # one data PE: the mean is g / 1, bit for bit
     leaves, treedef = tree_flatten(grads)
     mask, _ = tree_flatten(sync_mask)
     to_sync = [l for l, m in zip(leaves, mask) if m]
@@ -208,7 +210,7 @@ def loss_and_grads(comm: Comm, cfg: ModelConfig, params, batch: dict,
             a.add_(gi)
         loss = loss + l
         del g
-    return loss / mb, tree_unflatten(treedef, [a / mb for a in acc])
+    return loss / mb, tree_unflatten(treedef, [a.div_(mb) for a in acc])
 
 
 def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
@@ -217,7 +219,7 @@ def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
                      fuse_grads: bool = True, allreduce_algo: str = "paper",
                      grad_rs: bool | str = False, pipeline_chunks=None,
                      topo=None, link=None, embedding=None, autotune=None,
-                     profile=None):
+                     profile=None, donate: bool = False):
     """Returns step(params, opt_state, batch) -> (loss, params, opt_state).
 
     grad_rs: True forces the bucketed reduce-scatter + allgather gradient
@@ -229,7 +231,10 @@ def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
     but the bucketed and fused forms is the identity, whatever they say.
     `autotune` (a core.tuner.Tuner or TunedSelector) and `profile` (a
     core.profile.Profiler) ride on the step's `Comm`, as the
-    reference's."""
+    reference's.  With `donate` the step updates the `params` and
+    `opt_state` it is given in place (f32 moments; see
+    `opt.apply_updates`): the caller must own them and not read them
+    again, as JAX's donated arguments."""
     adamw = adamw or opt.AdamWConfig(moment_dtype=cfg.moment_dtype)
 
     def step(params, opt_state, batch):
@@ -259,7 +264,8 @@ def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
             return loss, new_params, new_state
         grads = fused_grad_sync(comm, grads, mask, fuse=fuse_grads)
         new_params, new_state = opt.apply_updates(
-            params, grads, opt_state, adamw, cfg.local_global_period)
+            params, grads, opt_state, adamw, cfg.local_global_period,
+            inplace=donate)
         return loss, new_params, new_state
 
     return step

@@ -9,7 +9,8 @@ port's own `sim_ctx(8, device="cpu")`:
     the WAND analogue;
   * its 2x4 (data x model) `Comm` checks: allreduce, allgather,
     reduce_scatter and broadcast over `model`, grad_sync over `data`, at
-    rtol 1e-5 (alltoall over more than one PE is slice 5c-2 and raises);
+    rtol 1e-5; alltoall over `model` and over the flattened ("data",
+    "model"), and its gradient, bit for bit;
   * two back-to-back ppermutes of different patterns with every even
     rank slow to read its slot: right with the two banks, wrong when the
     bank is pinned to one (the case catches a missing second bank);
@@ -67,9 +68,10 @@ REF_SCRIPT = textwrap.dedent("""
     mesh2 = jax.make_mesh((2, 4), ("data", "model"),
                           axis_types=(jax.sharding.AxisType.Auto,) * 2)
     y, w = jnp.asarray(inp["y"]), jnp.asarray(inp["w"])
+    z, wz = jnp.asarray(inp["z"]), jnp.asarray(inp["wz"])
     ST = P(("data", "model"))
 
-    def body(v, wl):
+    def body(v, wl, zl, wzl):
         comm = Comm(AxisSpec(), "shmem")
         a = comm.allreduce(v, "model")
         b = comm.allgather(v, "model", concat_axis=0)
@@ -80,14 +82,21 @@ REF_SCRIPT = textwrap.dedent("""
         wg = jnp.concatenate([wl] * 4, 0)
         gb = jax.grad(lambda u: jnp.sum(
             wg * comm.allgather(u, "model", concat_axis=0)))(v)
-        return tuple(t[None] for t in (a, b, c, e, f, ga, gb))
+        a2a = []
+        for ax in ("model", ("data", "model")):
+            a2a.append(comm.alltoall(zl, ax, split_axis=1, concat_axis=1))
+            a2a.append(jax.grad(lambda u: jnp.sum(wzl * comm.alltoall(
+                u, ax, split_axis=1, concat_axis=1)))(zl))
+        return tuple(t[None] for t in (a, b, c, e, f, ga, gb, *a2a))
 
     res = jax.jit(jax.shard_map(
-        body, mesh=mesh2, in_specs=(ST, ST), out_specs=(ST,) * 7,
-        check_vma=False))(y, w)
+        body, mesh=mesh2, in_specs=(ST,) * 4, out_specs=(ST,) * 11,
+        check_vma=False))(y, w, z, wz)
     for k, v in zip(("allreduce", "allgather", "reduce_scatter",
                      "broadcast", "grad_sync", "grad_allreduce",
-                     "grad_allgather"), res):
+                     "grad_allgather", "alltoall_model",
+                     "grad_alltoall_model", "alltoall_data_model",
+                     "grad_alltoall_data_model"), res):
         out["comm/" + k] = np.asarray(v)
     np.savez(sys.argv[1], **out)
     print("REF-OK")
@@ -99,7 +108,9 @@ def _inputs():
             "x2": np.random.RandomState(2).randn(N, N * 2).astype(
                 np.float32),
             "y": np.random.RandomState(1).randn(8, 4).astype(np.float32),
-            "w": np.random.RandomState(3).randn(8, 4).astype(np.float32)}
+            "w": np.random.RandomState(3).randn(8, 4).astype(np.float32),
+            "z": np.random.RandomState(4).randn(8, 16).astype(np.float32),
+            "wz": np.random.RandomState(5).randn(8, 16).astype(np.float32)}
 
 
 def _slow_barrier(rt):
@@ -178,11 +189,15 @@ def rank_body(inp):
     (torch.cat([w] * 4) * comm.allgather(u, "model", concat_axis=0)
      ).sum().backward()
     out["comm/grad_allgather"] = u.grad
-    try:
-        comm.alltoall(b, "model")
-        out["alltoall_raises"] = ""
-    except NotImplementedError as e:
-        out["alltoall_raises"] = str(e)
+    z = torch.from_numpy(inp["z"])[r:r + 1]
+    wz = torch.from_numpy(inp["wz"])[r:r + 1]
+    for ax, name in (("model", "model"), (("data", "model"), "data_model")):
+        out[f"comm/alltoall_{name}"] = comm.alltoall(z, ax, split_axis=1,
+                                                     concat_axis=1)
+        u = z.clone().requires_grad_()
+        (wz * comm.alltoall(u, ax, split_axis=1, concat_axis=1)
+         ).sum().backward()
+        out[f"comm/grad_alltoall_{name}"] = u.grad
     return out
 
 
@@ -274,9 +289,16 @@ def test_comm_in_a_rank_needs_the_rank_mesh(runs):
     assert all("no rank mesh" in r["comm_without_mesh"] for r in port)
 
 
-def test_comm_alltoall_over_pes_names_its_slice(runs):
-    port, _, _ = runs
-    assert all("5c-2" in r["alltoall_raises"] for r in port)
+@pytest.mark.parametrize("axis", ["model", "data_model"])
+def test_comm_alltoall_over_pes_matches_shard_map(runs, axis):
+    """Comm.alltoall over `model` (4 PEs) and over the flattened
+    ("data", "model") (8 PEs), and its gradient (the inverse exchange),
+    bit for bit against shard_map."""
+    port, ref, _ = runs
+    for name in (f"alltoall_{axis}", f"grad_alltoall_{axis}"):
+        got = _stacked(port, "comm/" + name)
+        np.testing.assert_array_equal(
+            got, ref["comm/" + name].reshape(got.shape), err_msg=name)
 
 
 @pytest.mark.parametrize("name", ["grad_allreduce", "grad_allgather"])
@@ -323,3 +345,33 @@ def test_heap_and_runtime_entry_rules():
         spmd.current()
     from repro_torch.train import step as tstep
     assert spmd.SLOT_BYTES == tstep.BUCKET_BYTES
+
+
+def _children():
+    """Pids of this process's children (alive or not yet reaped)."""
+    me, out = os.getpid(), set()
+    for stat in os.listdir("/proc"):
+        if not stat.isdigit():
+            continue
+        try:
+            with open(f"/proc/{stat}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError):
+            continue
+        if ppid == me:
+            out.add(int(stat))
+    return out
+
+
+@pytest.mark.parametrize("bad_rank", [-1, 1], ids=["ok", "raising"])
+def test_a_run_leaves_no_process_behind(bad_rank):
+    """`run` joins its ranks and stops the resource tracker that starting
+    them launched: no child it started is alive after it returns."""
+    before = _children()
+    if bad_rank < 0:
+        assert spmd.run(raising_body, 2, bad_rank, slot_bytes=64,
+                        device="cpu") == [0, 0]
+    else:
+        with pytest.raises(Exception, match="rank fault"):
+            spmd.run(raising_body, 2, bad_rank, slot_bytes=64, device="cpu")
+    assert _children() <= before
