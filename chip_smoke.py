@@ -286,7 +286,27 @@ Phases; any failure exits non-zero before the result line is printed:
      layers forward at full width on 2x2 (EP over (data, model), 64 of
      256 experts a rank, MLA at 64 heads): its layer gate as (b), each
      rank's loss within the reference's bound of the 1x1 loss, launches
-     and heap rounds equal to formulas.
+     and heap rounds equal to formulas;
+ 18. serving at tp > 1 — kernel 4 at the per-rank paged prefill shapes
+     (Lq 128, Lk 256, D 64: 7 q heads over 1 kv head at tp 2, 4 over 4
+     expanded kv heads at tp 4) against its plain version, timed beside
+     it and SDPA; (a) qwen2-0.5b's paged engine on 1x2 and 1x4 rank
+     meshes with phase 3's traffic on phase 3's seed-0 tree, fitted to
+     the mesh and cut by each rank: every rank's results equal rank 0's,
+     two requests alone equal the batch bit for bit, each request's
+     first-token logits within PREFILL_LOGITS_RTOL of the 1x1 engine's,
+     tokens equal phase 3's except after a near tie of phase 3's top two
+     logits, per rank kernel 4 24 layers x 8 prefills and (2L + 3)
+     log2(tp) heap rounds a prefill or decode step (kernel 2 twice a
+     round, kernel 3 once); TTFT p50, per-token p50 and tok/s beside
+     phase 3's; (b) one dense-cache decode step after a prompt of 4 x 8
+     (teacher-forced) for zamba2-1.2b on 1x2, deepseek-v3's 4-layer cut
+     on 1x2 and granite-moe-3b-a800m on 1x4, f32 compute at a no-drop
+     capacity: the step's logits within PREFILL_LOGITS_RTOL of the same
+     mesh's prefill over the prompt and the pick, the step's and the
+     prefill's within it of the 1x1 side's on the same global tree
+     (zamba2's 1x1 side norms each shard's channels, as the mesh does),
+     picks equal; kernel 4 and 7 launches equal their formulas.
 
 The run fails if a process it started (a rank, nvcc, nvidia-smi, the
 resource tracker that spawning the ranks launches) is still alive or
@@ -294,7 +314,8 @@ unreaped before the result is printed.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}:
 the seven kernels, then one flash_attention row per prefill shape of
-phases 10-13, with a "shape" key),
+phases 10-13 and per-rank shape of phases 17 and 18, with a "shape"
+key),
 the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.
 """
@@ -816,7 +837,8 @@ def serve(torch, np, fa, serving, ServeEngine):
     log("  batched == alone, bit for bit, for requests "
         f"{rids[:2]}")
     stats = {"tokens": [eng.results[r].copy() for r in rids],
-             "ttft_p50": pct(ttft, 50), "per_token_p50": pct(gaps, 50)}
+             "ttft_p50": pct(ttft, 50), "per_token_p50": pct(gaps, 50),
+             "tok_s": n_tok / wall}
     return eng, prompts, launches, stats
 
 
@@ -5598,6 +5620,577 @@ def ep_deepseek(torch, np, ds_cfg, card) -> list:
         res[0]["counts"]["flash_attention"]
 
 
+# ---------------------------------------------------------------------------
+# phase 18: serving at tp > 1
+# ---------------------------------------------------------------------------
+# 18a serves qwen2-0.5b's paged engine on 1x2 and 1x4 meshes of rank
+# processes (each rank its own replica of the scheduler, in lockstep on
+# the allreduced tokens) with phase 3's traffic and engine; each rank
+# fits phase 3's seed-0 tree to the mesh itself (`convert.fit_global`:
+# at tp 4 the 14 q heads pad to 16, two ghost heads on rank 3, and the 2
+# kv heads are replicated under the cache plan, ndk 2) and cuts its
+# shards, as 16b does.  18b runs one dense-cache decode step, after a
+# short prompt, of zamba2-1.2b at 1x2 (Mamba2 and the shared attention
+# at tp 2), deepseek-v3's 4-layer cut at 1x2 (MLA at tp 2, its experts
+# over `model`) and granite-moe-3b-a800m at 1x4, against the same
+# model's 1x1 step on the same global weights, in f32 and then in the
+# config's own bf16 (its picks only).  One spawn of 2 ranks
+# runs qwen2's engine, zamba2 and deepseek in turn, one of 4 qwen2's
+# engine and granite, each model freed before the next.
+
+SERVE_TP = (2, 4)
+# 18b: (arch, tp) of each decode step, and its prompt: B sequences of P
+# tokens fed, teacher-forced, through P dense-cache decode steps; then
+# the step itself at position P on their greedy pick, and the prefill
+# (kernels 4 and 7) over the prompt and that pick, whose last position
+# is the step's
+DECODE_TP = (("zamba2-1.2b", 2), ("deepseek-v3-671b", 2),
+             ("granite-moe-3b-a800m", 4))
+DECODE_TP_RUN = dict(batch=4, prompt_len=4)
+# 18b's f32 limit on logits, x the largest: the same function on the
+# mesh and on 1x1 (only the allreduce's summation order differs) agreed
+# to within 1.1e-4 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6)
+DECODE_TP_F32_RTOL = 1e-3
+
+
+def top2_gap(np, lg) -> float:
+    """The gap between the two largest entries of a 1-D array."""
+    a, b = np.partition(np.asarray(lg, np.float64), -2)[-2:]
+    return float(b - a)
+
+
+def serve_tp_engine(cfg, engine_kw, prompts, new_tokens):
+    """18a, one rank: phase 3's seed-0 tree fitted to the mesh and cut
+    to this rank's shards; the engine on phase 3's traffic (the path:
+    launches, heap rounds and host time in their syncs counted from 0
+    just before, read just after); two requests alone on a second
+    engine; phase 3's traffic again on a third that keeps every token's
+    logits over the whole vocabulary (gathered over `model`), its tokens
+    and logits rank 0's returned."""
+    import numpy as np
+    import torch
+    from repro_torch.core import spmd
+    from repro_torch.models import convert, transformer
+    from repro_torch.serve.engine import ServeEngine
+    rt = spmd.current()
+    mesh = rt.mesh
+    params = transformer.map_params(torch.clone, convert.local_shards(
+        convert.fit_global(transformer.init_params(cfg, seed=0,
+                                                   device="cuda"),
+                           cfg, tp=mesh.sizes["model"]), cfg, mesh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServeEngine(cfg, mesh, params=params, **engine_kw)
+    decodes = []
+    torch.cuda.synchronize()
+    _reset_counts()                                    # the path starts
+    r0, s0 = rt.rounds, rt.sync_s
+    rids, ttft, gaps, wall = drive_engine(
+        torch, eng, prompts, new_tokens,
+        on_step=lambda res: decodes.append(res["decoded"] > 0))
+    out = dict(counts=_counts(), rounds=rt.rounds - r0,
+               sync_s=rt.sync_s - s0, wall=wall, ttft=ttft, gaps=gaps,
+               n_prefill=eng.scheduler.n_admitted, n_decode=sum(decodes),
+               steps=eng.steps, tokens=[eng.results[r] for r in rids],
+               results=dict(eng.results))
+    solo = ServeEngine(cfg, mesh, params=params, **engine_kw)
+    out["alone"] = []
+    for rid in rids[:2]:
+        s = solo.submit(prompts[rid], new_tokens)
+        solo.run()
+        out["alone"].append(solo.results[s])
+    del solo, eng
+    cap = ServeEngine(cfg, mesh, params=params, capture_logits=True,
+                      **engine_kw)
+    cr = [cap.submit(p, new_tokens) for p in prompts]
+    cap.run()
+    if rt.rank == 0:
+        out["cap_tokens"] = [cap.results[r] for r in cr]
+        out["logits"] = [np.stack(cap.logits_trace[r])[:, :cfg.vocab]
+                         for r in cr]
+    del cap, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def engine_1x1_logits(torch, cfg, engine_kw, params, prompts, new_tokens):
+    """The 1x1 engine's tokens and logits of each token of each of
+    `prompts` (on the card batched equals alone bit for bit: phase
+    3)."""
+    from repro_torch.serve.engine import ServeEngine
+    e = ServeEngine(cfg, params=params, device="cuda", capture_logits=True,
+                    **engine_kw)
+    rids = [e.submit(p, new_tokens) for p in prompts]
+    e.run()
+    return [e.results[r] for r in rids], [e.logits_trace[r] for r in rids]
+
+
+def serve_tp_check(np, serving, tp, res, phase3, logits1, card):
+    """18a's gates on one mesh's ranks: every rank's results equal rank
+    0's; the two requests alone equal the batch bit for bit; the
+    capturing engine's tokens equal the batch's, and its logits of every
+    step of each request, up to and including the first whose token
+    differs from phase 3's, within PREFILL_LOGITS_RTOL x the largest
+    logit of phase 3's (`logits1`: each request's logits of each token on
+    the 1x1 engine); the first differing token allowed only where phase
+    3's gap between its top two logits there is within that bound (a
+    near tie), and the request not compared after it; per rank 8
+    prefills (phase 3's requests, each admitted once), kernel 4 L x
+    prefills launches and (2L + 3) log2(tp) heap rounds a prefill and a
+    decode step (the embedding's, two a layer, sample_greedy's max and
+    min; one round a stage of the recursive doubling), two kernel-2
+    launches and one kernel-3 launch a round.  Returns the path's launch
+    counts, summed over the ranks."""
+    cfg = serving.CONFIG
+    lead = res[0]
+    for r_, got in enumerate(res):
+        if sorted(got["results"]) != sorted(lead["results"]) or any(
+                not np.array_equal(got["results"][k], lead["results"][k])
+                for k in lead["results"]):
+            raise AssertionError(f"18a 1x{tp}: rank {r_}'s results differ "
+                                 f"from rank 0's")
+    for i, a in enumerate(lead["alone"]):
+        if not np.array_equal(a, lead["tokens"][i]):
+            raise AssertionError(f"18a 1x{tp}: request {i} alone "
+                                 f"{a.tolist()} != batched "
+                                 f"{lead['tokens'][i].tolist()}")
+    first, worst, ties, upto, n_cmp = 0.0, 0.0, [], [], 0
+    for i, (got, want) in enumerate(zip(lead["tokens"], phase3["tokens"])):
+        if not np.array_equal(lead["cap_tokens"][i], got):
+            raise AssertionError(f"18a 1x{tp}: request {i} on the "
+                                 f"capturing engine "
+                                 f"{lead['cap_tokens'][i].tolist()} != "
+                                 f"{got.tolist()}")
+        diff = np.flatnonzero(got != want)
+        d = int(diff[0]) if diff.size else len(want)
+        upto.append(d if diff.size else None)
+        n_cmp += min(d + 1, len(want))
+        for j in range(min(d + 1, len(want))):
+            lg, lg1 = lead["logits"][i][j], logits1[i][j]
+            err = float(np.abs(lg - lg1).max())
+            lim = PREFILL_LOGITS_RTOL * float(np.abs(lg1).max())
+            worst = max(worst, err / lim)
+            if j == 0:
+                first = max(first, err / lim)
+            if not (np.isfinite(lg).all() and err <= lim):
+                raise AssertionError(f"18a 1x{tp}: request {i}'s logits of "
+                                     f"token {j} off phase 3's by {err} "
+                                     f"(limit {lim})")
+        if not diff.size:
+            continue
+        gap = top2_gap(np, logits1[i][d])
+        lim = PREFILL_LOGITS_RTOL * float(np.abs(logits1[i][d]).max())
+        ties.append((i, d, gap, lim))
+        if not gap <= lim:
+            raise AssertionError(f"18a 1x{tp}: request {i}'s token {d} is "
+                                 f"{int(got[d])}, phase 3's {int(want[d])} "
+                                 f"at a top-2 gap of {gap} (near-tie bound "
+                                 f"{lim})")
+    L = cfg.n_layers
+    stages = int(math.log2(tp))
+    n_req = serving.SERVE_TRAFFIC["requests"]
+    for r_, got in enumerate(res):
+        if got["n_prefill"] != n_req:
+            raise AssertionError(f"18a 1x{tp}: rank {r_} admitted "
+                                 f"{got['n_prefill']} prefills, want one a "
+                                 f"request, {n_req}")
+        passes = got["n_prefill"] + got["n_decode"]
+        rounds = passes * (2 * L + 3) * stages
+        want = dict(flash_attention=L * n_req, put_copy=0,
+                    dma_copy=2 * rounds, reduce_combine=rounds,
+                    fused_update=0, ssd_scan=0, ring_attention=0)
+        if got["counts"] != want or got["rounds"] != rounds:
+            raise AssertionError(f"18a 1x{tp}: rank {r_} launched "
+                                 f"{got['counts']} in {got['rounds']} heap "
+                                 f"rounds; the formulas give {want} in "
+                                 f"{rounds}")
+    n_tok = sum(len(t) for t in lead["tokens"])
+    per_tok = pct(lead["gaps"], 50)
+    log(f"  18a qwen2-0.5b engine on 1x{tp}: every rank's results == rank "
+        f"0's; requests 0, 1 alone == batched bit for bit; the capturing "
+        f"engine's tokens == the batch's; logits vs phase 3's (limit "
+        f"{PREFILL_LOGITS_RTOL:.4f} x max|logit|) worst err/limit {worst:.3f}"
+        f" over {n_cmp} steps (first tokens {first:.3f}); first differing "
+        f"token of each "
+        f"request {upto} (None: none); tokens == phase 3's"
+        + (f" but near ties (request, token, top-2 gap, bound) {ties}"
+           if ties else "")
+        + f"; {n_tok} tokens in {lead['wall']:.3f} s: {n_tok / lead['wall']:.1f}"
+        f" tok/s (phase 3 {phase3['tok_s']:.1f}), TTFT p50 "
+        f"{pct(lead['ttft'], 50) * 1e3:.2f} ms (phase 3 "
+        f"{phase3['ttft_p50'] * 1e3:.2f}), per-token p50 {per_tok * 1e3:.3f}"
+        f" ms (phase 3 {phase3['per_token_p50'] * 1e3:.3f}); per rank "
+        f"{lead['n_prefill']} prefills and {lead['n_decode']} decode steps "
+        f"in {lead['steps']} engine steps, {lead['rounds']} heap rounds "
+        f"({(2 * L + 3) * stages} a pass), host time in their syncs "
+        + ", ".join(f"{g['sync_s']:.3f}" for g in res)
+        + f" s of the {lead['wall']:.3f} s wall (ranks; share "
+        f"{lead['sync_s'] / lead['wall']:.3f} on rank 0), launches "
+        f"(flash, dma, combine) " + ", ".join(
+            str(lead["counts"][k]) for k in ("flash_attention", "dma_copy",
+                                             "reduce_combine"))
+        + f" == the formulas ({card})")
+    return {k: sum(g["counts"][k] for g in res) for k in lead["counts"]}
+
+
+def decode_tp_run(torch, cfg, comm, params, prompt, tp, prefill=True):
+    """18b's path on `params` (a rank's shards, or the 1x1 tree): P
+    teacher-forced dense-cache decode steps over `prompt` (B, P), the
+    step at position P on their greedy pick, and (with `prefill`) the
+    prefill (kernels 4 and 7) over the prompt and the pick.  -> (the
+    step's logits, the prefill's last-position logits or None, the
+    picks, the logits they were picked from), (B, V_local) or (B,), no
+    gradient."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import step as sstep
+    tokens = torch.as_tensor(prompt, device="cuda").long()
+    B, P = tokens.shape
+    with torch.no_grad():
+        cache = transformer.init_cache(cfg, tp, B, P + 1, device="cuda")
+        for t in range(P):
+            lg, cache = transformer.decode_step(
+                comm, cfg, params, cache, tokens[:, t:t + 1],
+                torch.full((B,), t, device="cuda"))
+        pick = sstep.sample_greedy(comm, lg[:, 0])
+        step, cache = transformer.decode_step(
+            comm, cfg, params, cache, pick[:, None],
+            torch.full((B,), P, device="cuda"))
+        del cache
+        pre = transformer.prefill(comm, cfg, params, torch.cat(
+            [tokens, pick[:, None]], 1))[:, 0] if prefill else None
+    torch.cuda.synchronize()
+    return step[:, 0], pre, pick, lg[:, 0]
+
+
+def decode_tp_cfg(arch, dtype=None):
+    """18b's config of `arch`: deepseek cut to its SERVE_RUN layers; its
+    compute dtype `dtype`, f32 unless given: the logits are gated in f32,
+    as phases 9 and 11 gate their models (in bf16 a random-weight stack
+    amplifies each flipped rounding to tens of percent of the largest
+    logit, and one flipped route of an MoE layer moves a token's output
+    whole; deepseek's bf16 experts are cast per call, ~15 GB of f32
+    copies at once on the 1x1 side), and the config's own bf16 step only
+    for finite logits and its picks; the moe family at a capacity that
+    drops no pick (`ep_gate_cfg`), since capacity is counted per rank
+    slice and the 1x1 step would drop other picks."""
+    import torch
+    from repro_torch.configs import deepseek_v3_671b, get_config
+    cfg = dataclasses.replace(get_config(arch),
+                              dtype=dtype or torch.float32)
+    if arch == "deepseek-v3-671b":
+        cfg = dataclasses.replace(
+            cfg, n_layers=deepseek_v3_671b.SERVE_RUN["n_layers"])
+    return ep_gate_cfg(cfg) if cfg.moe is not None else cfg
+
+
+def decode_tp_prompt(np, cfg):
+    return np.random.default_rng(1800).integers(
+        1, cfg.vocab, size=(DECODE_TP_RUN["batch"],
+                            DECODE_TP_RUN["prompt_len"]), dtype=np.int32)
+
+
+def decode_tp_params(torch, cfg, mesh=None, tp=1):
+    """The tree 18b runs: the hybrid family's 1x1 seed-0 tree, on a mesh
+    fitted to it and cut to the rank's shards (Mamba2's columns are laid
+    out per shard: 17c's rule); the moe family's seed-0 init of a rank of
+    1 x tp, on the 1x1 side tiled to the global tree (17b's rule)."""
+    from repro_torch.launch import build
+    from repro_torch.models import convert, transformer
+    if cfg.family == "hybrid":
+        p = transformer.init_params(cfg, seed=0, device="cuda")
+        if mesh is None:
+            return p
+        return transformer.map_params(torch.clone, convert.local_shards(
+            convert.fit_global(p, cfg, tp=tp), cfg, mesh))
+    if mesh is not None:
+        return build.make_init_fn(cfg, mesh)[0](0, "cuda")
+    local = transformer.init_params(cfg, seed=0, device="cuda", tp=tp)
+    glob = tiled_global(cfg, local, (1, tp))
+    del local
+    return glob
+
+
+def decode_tp_rank(arch):
+    """18b, one rank: its tree; `decode_tp_run` in f32, then the
+    config's own bf16 step (no prefill) on the same tree, each with the
+    launches and heap rounds counted from 0 just before it and read just
+    after; the logits gathered over `model` (after the count), rank 0's
+    returned."""
+    import numpy as np
+    import torch
+    from repro_torch.core import spmd
+    from repro_torch.parallel.comm import AxisSpec, Comm
+    rt = spmd.current()
+    cfg = decode_tp_cfg(arch)
+    tp = rt.mesh.sizes["model"]
+    params = decode_tp_params(torch, cfg, rt.mesh, tp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    comm = Comm(AxisSpec())
+    out = {}
+    for key, c, prefill in (("f32", cfg, True),
+                            ("bf16", decode_tp_cfg(arch, torch.bfloat16),
+                             False)):
+        torch.cuda.synchronize()
+        _reset_counts()                                # the path starts
+        r0 = rt.rounds
+        t0 = time.perf_counter()
+        got = decode_tp_run(torch, c, comm, params,
+                            decode_tp_prompt(np, cfg), tp, prefill)
+        out[key] = dict(wall=time.perf_counter() - t0, counts=_counts(),
+                        rounds=rt.rounds - r0)
+        full = [comm.allgather(t, "model", concat_axis=1)
+                for t in (got[0], got[1], got[3]) if t is not None]
+        if rt.rank == 0:
+            out[key]["logits"] = [t.float().cpu().numpy() for t in full]
+            out[key]["pick"] = got[2].cpu().numpy()
+        del got, full
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_norm(torch, cfg, tp):
+    """The 1x1 side of a Mamba2 model at `tp`: its gated norm (the
+    `layers.rms_norm` of the d_in channels) over each shard's d_in / tp
+    channels, as the mesh runs it (the reference's layout: at tp > 1
+    each rank norms its own heads' channels), so that the 1x1 step is the
+    mesh model's function; on a smoke zamba2 the two then agree to
+    3e-6 of logits near 3.5, 2.7 apart without it."""
+    from repro_torch.models import layers
+    d_in = cfg.ssm.expand * cfg.d_model
+    orig = layers.rms_norm
+
+    def norm(x, w, eps=1e-6):
+        if x.shape[-1] != d_in:
+            return orig(x, w, eps)
+        return torch.cat([orig(a, b, eps) for a, b in
+                          zip(x.chunk(tp, -1), w.chunk(tp, -1))], -1)
+
+    return mock.patch.object(layers, "rms_norm", norm)
+
+
+def decode_tp_reference(torch, np, arch, tp):
+    """18b's 1x1 side: the same paths, f32 and bf16, on the global tree
+    (a Mamba2 model's gated norm per shard, `shard_norm`), its memory
+    freed before it returns."""
+    import contextlib
+    from repro_torch.parallel.comm import Comm
+    cfg = decode_tp_cfg(arch)
+    params = decode_tp_params(torch, cfg, tp=tp)
+    out = {}
+    with (shard_norm(torch, cfg, tp) if cfg.ssm is not None
+          else contextlib.nullcontext()):
+        for key, c, prefill in (("f32", cfg, True),
+                                ("bf16", decode_tp_cfg(arch, torch.bfloat16),
+                                 False)):
+            got = decode_tp_run(torch, c, Comm(), params,
+                                decode_tp_prompt(np, cfg), 1, prefill)
+            out[key] = dict(logits=[t.float().cpu().numpy() for t in
+                                    (got[0], got[1], got[3])
+                                    if t is not None],
+                            pick=got[2].cpu().numpy())
+            del got
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_tp_check(np, arch, tp, res, want, card) -> dict:
+    """18b's gates on one model's ranks.  f32, each within
+    DECODE_TP_F32_RTOL x the largest logit, row by row: the step's
+    logits against the same mesh's prefill over the prompt and the pick
+    (the decode path against the full-sequence path of the same model),
+    the step's and the prefill's logits against the 1x1 side's; the
+    picks equal the 1x1 side's (no near tie is expected in f32).  The
+    config's bf16 step: finite logits; the picks after the prompt, and
+    the step's argmax where those agree, equal the 1x1 bf16 side's
+    except at a near tie (the 1x1 top-2 gap within PREFILL_LOGITS_RTOL x
+    the largest logit).  Per rank kernel 4 once an attention layer
+    (zamba2: an application of its shared block) and kernel 7 once a
+    Mamba2 layer, both in the f32 prefill, neither in the bf16 step.
+    Returns the launch counts summed over the ranks and both dtypes."""
+    from repro_torch.models import transformer
+    cfg = decode_tp_cfg(arch)
+    lead, lead1 = res[0]["f32"], want["f32"]
+    V = cfg.vocab
+    step, pre, _ = (t[:, :V] for t in lead["logits"])
+    step1, pre1, _ = (t[:, :V] for t in lead1["logits"])
+    if not np.array_equal(lead["pick"], lead1["pick"]):
+        raise AssertionError(f"18b {arch} 1x{tp}: picks "
+                             f"{lead['pick'].tolist()}, the 1x1 side's "
+                             f"{lead1['pick'].tolist()}")
+    worst = {}
+    for name, got, w in (("step vs the mesh's prefill", step, pre),
+                         ("step vs 1x1", step, step1),
+                         ("prefill vs 1x1", pre, pre1)):
+        for b in range(got.shape[0]):
+            err = float(np.abs(got[b] - w[b]).max())
+            lim = DECODE_TP_F32_RTOL * float(np.abs(w[b]).max())
+            worst[name] = max(worst.get(name, 0.0), err / lim)
+            if not (np.isfinite(got[b]).all() and err <= lim):
+                raise AssertionError(f"18b {arch} 1x{tp}: {name}, row {b}: "
+                                     f"max|diff| {err} (limit {lim})")
+    hb, hb1 = res[0]["bf16"], want["bf16"]
+    (bstep, blg), (bstep1, blg1) = ([t[:, :V] for t in h["logits"]]
+                                     for h in (hb, hb1))
+    if not (np.isfinite(bstep).all() and np.isfinite(blg).all()):
+        raise AssertionError(f"18b {arch} 1x{tp}: bf16 logits not finite")
+    bties, bdev = [], 0.0
+    for b in range(bstep.shape[0]):
+        for name, got, w, lg1 in (
+                ("pick", hb["pick"][b], hb1["pick"][b], blg1[b]),
+                ("step", int(bstep[b].argmax()), int(bstep1[b].argmax()),
+                 bstep1[b])):
+            if name == "step" and hb["pick"][b] != hb1["pick"][b]:
+                break                       # the step reads another token
+            bdev = max(bdev, float(np.abs(
+                (blg if name == "pick" else bstep)[b] - lg1).max()
+                / np.abs(lg1).max()))
+            if got == w:
+                continue
+            gap = top2_gap(np, lg1)
+            lim = PREFILL_LOGITS_RTOL * float(np.abs(lg1).max())
+            bties.append((name, b, gap, lim))
+            if not gap <= lim:
+                raise AssertionError(f"18b {arch} 1x{tp}: bf16 {name} of row "
+                                     f"{b} is {int(got)}, 1x1's {int(w)} at "
+                                     f"a top-2 gap of {gap} (near-tie bound "
+                                     f"{lim})")
+    n_ssd = cfg.n_layers if cfg.ssm is not None else 0
+    n_attn = (transformer.n_shared_blocks(cfg) if cfg.family == "hybrid"
+              else cfg.n_layers)
+    for r_, got in enumerate(res):
+        for key, fa_, ssd_ in (("f32", n_attn, n_ssd), ("bf16", 0, 0)):
+            c = got[key]["counts"]
+            if c["flash_attention"] != fa_ or c["ssd_scan"] != ssd_:
+                raise AssertionError(f"18b {arch} 1x{tp}: rank {r_} "
+                                     f"launched {c} in {key}; want kernel 4 "
+                                     f"{fa_}, kernel 7 {ssd_}")
+    log(f"  18b {arch} ({cfg.n_layers} layers) decode step on 1x{tp} after "
+        f"a prompt of {DECODE_TP_RUN['batch']} x "
+        f"{DECODE_TP_RUN['prompt_len']}: f32, worst max|diff| / limit "
+        + ", ".join(f"{k} {v:.4f}" for k, v in worst.items())
+        + f" (limit {DECODE_TP_F32_RTOL:g} x max|logit|"
+        + ("; the 1x1 side's gated norm per shard" if cfg.ssm is not None
+           else "")
+        + f"), picks {lead['pick'].tolist()} == 1x1; bf16 ({cfg.name}'s "
+        f"own dtype), logits finite, max|diff| / max|logit| vs 1x1 "
+        f"{bdev:.4f}, picks {hb['pick'].tolist()} and the step's argmax == "
+        f"1x1's" + (f" but near ties (which, row, top-2 gap, bound) {bties}"
+                    if bties else "")
+        + f"; per rank {lead['rounds']} + {hb['rounds']} heap rounds, "
+        f"kernel 4 {n_attn} and kernel 7 {n_ssd} launches == the formulas; "
+        f"path walls (rank 0) {lead['wall'] * 1e3:.1f} + "
+        f"{hb['wall'] * 1e3:.1f} ms ({card})")
+    return {k: sum(g[d]["counts"][k] for g in res for d in ("f32", "bf16"))
+            for k in lead["counts"]}
+
+
+def serve_tp_rank(tasks):
+    """18, one rank: each task of `tasks` in turn, each model freed
+    before the next."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for name, args in tasks:
+        out.append(serve_tp_engine(*args) if name == "engine"
+                   else decode_tp_rank(*args))
+    return out
+
+
+def serve_tp(torch, np, serving, phase3, card) -> tuple:
+    """Phase 18: the 1x1 sides in this process first (phase 3's traffic
+    on a 1x1 engine that keeps every token's logits, on phase 3's tree:
+    its tokens must be phase 3's; each 18b model's 1x1 path), each freed
+    before the next; then one spawn of 2 ranks (qwen2's engine, zamba2,
+    deepseek) and one of 4 (qwen2's engine, granite).  Returns the
+    launch counts of each path, summed over the ranks, and kernel 4's
+    launches on 18a's engine path of each mesh, summed over its ranks."""
+    from repro_torch.launch import build
+    from repro_torch.models import transformer
+    cfg, engine_kw = serving.CONFIG, serving.SERVE_ENGINE
+    traffic = serving.SERVE_TRAFFIC
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, size=(traffic["requests"],
+                                               traffic["prompt_len"]),
+                           dtype=np.int32)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    tokens1, logits1 = engine_1x1_logits(torch, cfg, engine_kw, params,
+                                         prompts, traffic["new_tokens"])
+    del params
+    if any(not np.array_equal(a, b) for a, b in zip(tokens1,
+                                                     phase3["tokens"])):
+        raise AssertionError("18: the 1x1 engine that keeps its logits "
+                             "did not give phase 3's tokens")
+    want = {a: decode_tp_reference(torch, np, a, tp) for a, tp in DECODE_TP}
+    log(f"  18 1x1 sides: phase 3's tokens and logits and "
+        f"{[a for a, _ in DECODE_TP]}'s paths in "
+        f"{time.perf_counter() - t0:.1f} s; memory allocated as the ranks "
+        f"start {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    paths, engine_fa = [], {}
+    for tp in SERVE_TP:
+        tasks = [("engine", (cfg, engine_kw, prompts,
+                             traffic["new_tokens"]))]
+        tasks += [("decode", (a,)) for a, t in DECODE_TP if t == tp]
+        t0 = time.perf_counter()
+        res = build.shard_mapped(serve_tp_rank, (1, tp), [(tasks,)] * tp,
+                                 device="cuda")
+        wall = time.perf_counter() - t0
+        paths.append(serve_tp_check(np, serving, tp, [r[0] for r in res],
+                                    phase3, logits1, card))
+        engine_fa[tp] = paths[-1]["flash_attention"]
+        for i, (_, (arch,)) in enumerate(tasks[1:], 1):
+            paths.append(decode_tp_check(np, arch, tp, [r[i] for r in res],
+                                         want[arch], card))
+        log(f"  18 the {tp}-rank spawn: {wall:.1f} s, spawn included "
+            f"({card})")
+    return paths, engine_fa
+
+
+def serve_tp_attention(torch, fa, ref, gen, card, serving) -> list:
+    """18: kernel 4 at 18a's per-rank paged prefill shapes (B 1, the
+    prompt bucket of queries against the engine's max_seq of keys, D
+    64, bf16, causal): tp 2 holds 7 q heads over 1 kv head, tp 4 4 q
+    heads over 4 (the kv heads expanded through the cache plan's q2slot,
+    group 1), against the plain version within phase 2's limit, then
+    timed beside it and scaled_dot_product_attention; each row's
+    `calls`, L x 8 prefills x tp, is what 18a must launch, summed over
+    the ranks (its measured count is held to it in `main`)."""
+    import torch.nn.functional as F
+    cfg, kw = serving.CONFIG, serving.SERVE_ENGINE
+    n_prefill = serving.SERVE_TRAFFIC["requests"]
+    rows = []
+    for tp in SERVE_TP:
+        hq = -(-cfg.n_heads // tp)
+        hkv = cfg.n_kv_heads // tp if cfg.n_kv_heads >= tp \
+            and cfg.n_heads % tp == 0 else hq
+        q, k, v = attention_inputs(torch, gen, 1, hq, hkv,
+                                   kw["prompt_bucket"], kw["max_seq"],
+                                   cfg.hd, torch.bfloat16)
+        out = fa.flash_attention(q, k, v, causal=True)
+        want = plain_attention(torch, ref, q, k, v, causal=True)
+        err, over = attention_over(torch, out, want, torch.bfloat16)
+        if not (over <= 1.0 and fa.tensor_core_route(q, k, v)):
+            raise AssertionError(f"18: kernel 4 at the 1x{tp} paged prefill "
+                                 f"shape: err/limit {over}")
+        del q, k, v, out, want
+        t = time_attention_at(torch, F, fa, ref, gen, card, 1, hq, hkv,
+                              kw["prompt_bucket"], kw["max_seq"], cfg.hd)
+        t.update(shape=f"{cfg.name} paged prefill 1x{tp} per rank (B 1, Hq "
+                 f"{hq}, Hkv {hkv}, Lq {kw['prompt_bucket']}, Lk "
+                 f"{kw['max_seq']}, D {cfg.hd}, bf16, causal)",
+                 calls=cfg.n_layers * n_prefill * tp)
+        log(f"  18 kernel 4 at the 1x{tp} paged prefill shape: err/limit "
+            f"{over:.3f} against the plain version (tensor cores)")
+        rows.append(t)
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -5875,11 +6468,27 @@ def main() -> int:
                                  f"{n_fa} times a rank, want {t['calls']}")
     log(f"  phase 17 wall {time.perf_counter() - t17:.1f} s ({card})")
 
+    log("== phase 18: serving at tp > 1 (qwen2-0.5b's paged engine on 1x2 "
+        "and 1x4 ranks; one decode step of zamba2 and deepseek-v3's cut on "
+        "1x2, granite-moe on 1x4)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    tp_timing = serve_tp_attention(torch, fa, ref, gen, card, serving)
+    tp_paths, tp_fa = serve_tp(torch, np, serving, served, card)
+    for t, tp in zip(tp_timing, SERVE_TP):
+        if t["calls"] != tp_fa[tp]:
+            raise AssertionError(f"18: kernel 4 at {t['shape']} launched "
+                                 f"{tp_fa[tp]} times over the ranks of 18a, "
+                                 f"want {t['calls']}")
+        t["calls"] = tp_fa[tp]                  # the measured count
+    log(f"  phase 18 wall {time.perf_counter() - t18:.1f} s ({card})")
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
         + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths \
         + moe_paths + frontend_paths + service_paths + elastic_paths \
-        + spmd_paths + ep_paths
+        + spmd_paths + ep_paths + tp_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -5899,7 +6508,9 @@ def main() -> int:
         f"ranks, 2x2 Comm; 16b default, fused; summed over ranks) "
         f"{spmd_paths}, ep (17a the exchanges over model of 1x4, (data, "
         f"model) of 2x2, model of 1x8; 17b granite 1x4; 17c zamba2 2x2 "
-        f"default, fused; 17d deepseek 2x2; summed over ranks) {ep_paths}")
+        f"default, fused; 17d deepseek 2x2; summed over ranks) {ep_paths}, "
+        f"tp (18a qwen2 engine 1x2, 18b zamba2 1x2, deepseek 1x2, 18a qwen2 "
+        f"engine 1x4, 18b granite 1x4; summed over ranks) {tp_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]
@@ -5931,7 +6542,7 @@ def main() -> int:
                      plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                      bound_by=t["bound_by"], library_ms=t["library_ms"])
                 for t in dense_timing + moe_timing + frontend_timing
-                + ep_timing]
+                + ep_timing + tp_timing]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")

@@ -44,7 +44,7 @@ from ..kernels import ops
 from ..kernels import ring_attention as _ra
 
 _SLICE5 = "ring attention runs on the SIM backend; on the SPMD backend " \
-    "it comes with slice 5c-3 (sequence-sharded caches)"
+    "it comes with slice 5c-3b (sequence sharding)"
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Step assembly on the rank mesh (port of `repro/launch/build.py` for
-training): from (arch config, mesh dims, comm knobs) to the functions a
-rank process runs, and the shapes and specs of the parameters.
+training and serving): from (arch config, mesh dims, comm knobs) to the
+functions a rank process runs, and the shapes and specs of the
+parameters and decode caches.
 
 The reference's `shard_mapped` wraps a function in shard_map; here it
 runs the function in every rank process of `core.spmd.run`, each on its
@@ -10,15 +11,17 @@ seen from rank 0: only its axis names and sizes are read).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from ..core import spmd
 from ..models import transformer
-from ..models.config import ModelConfig
+from ..models.config import SHAPES, ModelConfig
 from ..parallel import sharding
 from ..parallel.comm import AxisSpec
+from ..serve import step as sstep
 from ..train import optimizer as opt
 from ..train import step as tstep
 from .mesh import RankMesh, make_mesh
@@ -53,10 +56,10 @@ def mesh_axes(mesh, cfg=None) -> sharding.MeshAxes:
 
 def _check_ported(cfg: ModelConfig, mesh) -> None:
     if mesh_dims(mesh)[2]:
-        raise NotImplementedError("a pod axis comes with slice 5c-3")
+        raise NotImplementedError("a pod axis comes with slice 5c-3d")
     if cfg.shard_strategy != "tp":
         raise NotImplementedError(f"shard_strategy {cfg.shard_strategy!r} "
-                                  f"comes with slice 5c-3")
+                                  f"comes with slice 5c-3c")
 
 
 def eff_tp(cfg: ModelConfig, mesh) -> int:
@@ -144,9 +147,10 @@ def make_init_fn(cfg: ModelConfig, mesh):
     return init, shapes, specs
 
 
-def local_batch(cfg: ModelConfig, batch: dict, mesh) -> dict:
+def local_batch(cfg: ModelConfig, batch: dict, mesh,
+                kind: str = "train") -> dict:
     """This rank's slice of a GLOBAL batch, per `sharding.batch_specs`."""
-    specs = sharding.batch_specs(cfg, batch, mesh_axes(mesh, cfg), "train")
+    specs = sharding.batch_specs(cfg, batch, mesh_axes(mesh, cfg), kind)
     out = {}
     for k, v in batch.items():
         for dim, ax in enumerate(specs[k]):
@@ -186,3 +190,59 @@ def make_train_step(cfg: ModelConfig, mesh, backend: str = "shmem",
         return inner(params, opt_state, local_batch(cfg, batch, m))
 
     return step, (shapes, pspecs), ocfg
+
+
+def make_serve_steps(cfg: ModelConfig, mesh, shape_name: str,
+                     backend: str = "shmem"):
+    """(prefill, decode, (cache_shapes, cache_specs), (shapes, pspecs),
+    seq_shards) for the shape cell `shape_name` of `SHAPES` on `mesh`,
+    as the reference's (serving never runs fsdp).  ``prefill(params,
+    batch)`` and ``decode(params, cache, batch)`` run in a rank on its
+    local shards and its slice of the GLOBAL batch (numpy or tensors,
+    the batch over `data`): the last-position logits (B_local, 1,
+    V_local), and with the cache (the rank's `init_cache` at the cell's
+    length, its specs `sharding.cache_specs`) the decode step's.
+    `cache_shapes` are meta tensors (None for a prefill cell).  A decode
+    cell whose batch is below the data size (the reference shards its
+    cache's sequence over `data`) raises, naming slice 5c-3b."""
+    cfg = dataclasses.replace(cfg, fsdp=False)
+    _check_ported(cfg, mesh)
+    dp, tp, pod = mesh_dims(mesh)
+    axes = axis_spec(mesh)
+    shapes, pspecs = abstract_params(cfg, mesh)
+    s = SHAPES[shape_name]
+    B, Lc = s["global_batch"], s["seq_len"]
+    data_total = dp * (pod or 1)
+    if s["kind"] == "decode" and B < data_total:
+        raise NotImplementedError(
+            f"{shape_name}: a decode batch of {B} below the data size "
+            f"{data_total} shards the cache's sequence over data, which "
+            f"comes with slice 5c-3b")
+    seq_shards = 1
+    if s["kind"] == "decode":
+        cache_shapes = transformer.init_cache(cfg, tp, B // data_total, Lc,
+                                              device="meta")
+        cspecs = sharding.cache_specs(cfg, cache_shapes, mesh_axes(mesh))
+    else:               # prefill / encoder forward: no decode cache exists
+        cache_shapes, cspecs = None, None
+    prefill_fn = sstep.build_prefill(cfg, axes, backend)
+    decode_fn = sstep.build_decode_step(cfg, axes, backend, seq_shards)
+
+    def local(params, batch, kind):
+        """The rank's slice, on its parameters' device, ids as int64."""
+        m = spmd.current().mesh if spmd.active() else mesh
+        dev = params["final_norm"].device
+        out = {}
+        for k, v in local_batch(cfg, batch, m, kind).items():
+            v = torch.as_tensor(v, device=dev)
+            out[k] = v if v.is_floating_point() else v.long()
+        return out
+
+    def prefill(params, batch):
+        return prefill_fn(params, local(params, batch, "prefill"))
+
+    def decode(params, cache, batch):
+        return decode_fn(params, cache, local(params, batch, "decode"))
+
+    return prefill, decode, (cache_shapes, cspecs), (shapes, pspecs), \
+        seq_shards

@@ -40,6 +40,19 @@ launcher exits for it, as the reference's does, before any work.
 deepseek-v3-671b at full size (671 B parameters) does not fit one card;
 `chip_smoke.py` serves it cut to its `SERVE_RUN["n_layers"]` layers
 through `_decode_loop`.
+
+--data and --model lay the run out on a data x model mesh of rank
+processes sharing the device (`core.spmd`), as the reference's flags lay
+it on devices, with the reference's choice of path: the dense and vlm
+families at --data 1 run the paged engine on the (1, model) mesh (every
+rank its own replica of the scheduler, in lockstep); the other families,
+or --data > 1, run the dense-cache decode loop with the batch over
+`data`.  On a mesh rank 0 prints the result and writes the documents.
+--comm shmem is the paper's runtime; --comm xla comes with slice 5d.
+
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --model 2
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke --device cpu \\
+      --data 2 --model 2
 """
 from __future__ import annotations
 
@@ -50,49 +63,78 @@ import numpy as np
 import torch
 
 
-def _decode_loop(cfg, device, args):
-    """The reference's `_legacy_decode_loop`: seeded weights, dense decode
-    caches of --cache-len slots, --prompt-len prompt tokens fed one step
-    at a time, then --tokens greedy tokens.  Returns the (batch, tokens)
-    generated ids."""
+def _decode_loop(cfg, device, args, params=None, mesh=None):
+    """The reference's `_legacy_decode_loop`: seeded weights (or
+    `params`: this process's tree, on a mesh its local shards), dense
+    decode caches of --cache-len slots, --prompt-len prompt tokens fed
+    one step at a time, then --tokens greedy tokens (`sample_greedy`,
+    the lowest index of the largest logit over the whole vocabulary).
+    On a data x model `mesh` each rank decodes its slice of the batch
+    over `data` on its shards and the tokens are gathered over `data`.
+    Returns the (batch, tokens) generated ids."""
     from ..models import transformer
+    from ..parallel.comm import Comm
     from ..serve import step as sstep
 
     B = args.batch
     rng = np.random.default_rng(0)
     prompt = rng.integers(1, cfg.vocab, size=(B, args.prompt_len),
                           dtype=np.int32)
-    params = transformer.init_params(cfg, seed=0, device=device)
-    cache = transformer.init_cache(cfg, 1, B, args.cache_len, device=device)
+    dp = tp = 1
+    if mesh is not None:
+        from . import build
+        dp, tp = mesh.sizes["data"], mesh.sizes["model"]
+        if params is None:
+            params = build.make_init_fn(cfg, mesh)[0](0, device)
+        d = mesh.axis_index("data")
+        prompt = prompt[d * B // dp:(d + 1) * B // dp]
+    elif params is None:
+        params = transformer.init_params(cfg, seed=0, device=device)
+    b_local = prompt.shape[0]
+    cache = transformer.init_cache(cfg, tp, b_local, args.cache_len,
+                                   device=device)
     decode = sstep.build_decode_step(cfg)
+    comm = Comm()
     prompt_d = torch.as_tensor(prompt, device=device).long()
     t0 = time.perf_counter()
     tok = prompt_d[:, :1]
     out_tokens = []
     for t in range(args.prompt_len + args.tokens - 1):
         batch = {"tokens": tok,
-                 "positions": torch.full((B,), t, device=device)}
+                 "positions": torch.full((b_local,), t, device=device)}
         logits, cache = decode(params, cache, batch)
-        nxt = logits[:, 0].argmax(-1)
+        nxt = sstep.sample_greedy(comm, logits[:, 0])
         if t + 1 < args.prompt_len:
             tok = prompt_d[:, t + 1:t + 2]
         else:
             tok = nxt[:, None]
             out_tokens.append(nxt)
-    gen = torch.stack(out_tokens, 1).cpu().numpy().astype(np.int32)
+    gen = torch.stack(out_tokens, 1)
+    if dp > 1:
+        gen = comm.allgather(gen, comm.axes.data, concat_axis=0)
+    gen = gen.cpu().numpy().astype(np.int32)
     dt = time.perf_counter() - t0
-    print(f"[serve] (dense loop, {device}) generated {gen.shape} in "
-          f"{dt:.2f}s ({B * gen.shape[1] / dt:.1f} tok/s)")
+    if mesh is None or mesh.rank == 0:
+        on = "" if mesh is None else f" on {dp}x{tp} ranks"
+        print(f"[serve] (dense loop, {device}{on}) generated {gen.shape} in "
+              f"{dt:.2f}s ({B * gen.shape[1] / dt:.1f} tok/s)")
     return gen
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config instead of full size")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel ranks (the batch over them)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel ranks")
+    ap.add_argument("--comm", default="shmem", choices=["shmem", "xla"],
+                    help="the collectives' backend (xla comes with slice "
+                         "5d)")
     ap.add_argument("--batch", type=int, default=4,
                     help="number of requests (batch mode) / arrival batch")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -132,24 +174,71 @@ def main(argv=None):
                     help="record serving metrics (TTFT/per-token "
                          "histograms, queue/KV gauges, wire bytes) and "
                          "dump the registry JSON here at exit")
+    return ap
+
+
+def run(argv=None, *, params=None):
+    """Parse `argv` and serve; returns the generated tokens (rank 0's
+    on a mesh).  `params`, when given, is the GLOBAL parameter tree (the
+    port's layout) to serve in place of the seed-0 init; on a mesh each
+    rank serves its local shards of it."""
+    ap = _parser()
     args = ap.parse_args(argv)
+    if args.comm != "shmem":
+        ap.error("--comm xla is not ported yet: it comes with slice 5d "
+                 "(the xla backend)")
 
     from .. import resolve_device
     from ..configs import get_config, smoke_config
     from ..models import transformer
-    from ..serve.engine import ServeEngine
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.is_encoder:
         raise SystemExit("encoder-only arch has no decode loop")
     device = resolve_device(args.device)
-    if cfg.family not in transformer.paged_families():
+    paged = cfg.family in transformer.paged_families() and args.data == 1
+    if not paged:
         if cfg.family != "ssm" and cfg.window is None \
                 and args.prompt_len + args.tokens - 1 > args.cache_len:
             ap.error(f"--cache-len {args.cache_len} holds fewer than the "
                      f"{args.prompt_len + args.tokens - 1} positions the "
                      f"loop decodes")
-        return _decode_loop(cfg, device, args)
+        if args.batch % args.data:
+            ap.error(f"--batch {args.batch} does not split over --data "
+                     f"{args.data}")
+    n = args.data * args.model
+    if n == 1:
+        return _serve(args, cfg, device, paged, params)
+    from . import build
+    return build.shard_mapped(_serve_rank, (args.data, args.model),
+                              [(args, cfg, paged, params)] * n,
+                              device=device)[0]
+
+
+def _serve_rank(args, cfg, paged, params):
+    """One rank of a --data x --model mesh: its local shards of the
+    GLOBAL `params` (or its own seed-0 init), then `_serve`."""
+    from ..core import spmd
+    from ..models import convert
+    rt = spmd.current()
+    if params is not None:
+        params = convert.local_shards(params, cfg, rt.mesh)
+    return _serve(args, cfg, rt.device, paged, params, rt.mesh)
+
+
+def _serve(args, cfg, device, paged, params=None, mesh=None):
+    """Serve on one device, or in a rank of `mesh`: the dense-cache
+    decode loop, or the paged engine (batch or --continuous mode) with
+    the services the flags attach; on a mesh rank 0 prints and writes
+    the documents."""
+    from ..models import transformer
+    from ..serve.engine import ServeEngine
+
+    if not paged:
+        params = None if params is None else transformer.map_params(
+            lambda t: t.to(device), params)
+        return _decode_loop(cfg, device, args, params, mesh)
+    lead = mesh is None or mesh.rank == 0
     profiler = None
     if args.trace_out:
         # one object serves both documents: a Tracer is a Profiler
@@ -173,12 +262,16 @@ def main(argv=None):
     slots = args.slots or min(args.batch, 8)
     max_seq = max(args.cache_len, args.prompt_len + args.tokens)
     bucket = -(-args.prompt_len // args.page_size) * args.page_size
-    eng = ServeEngine(cfg, device=device, max_slots=slots,
-                      page_size=args.page_size, max_seq=max_seq,
-                      prompt_bucket=min(bucket, max_seq),
-                      kv_heap_bytes=args.kv_heap_bytes or None,
-                      tuner=(tuner if args.autotune else None),
-                      profile=profiler, metrics=metrics)
+    kw = dict(device=device, max_slots=slots, page_size=args.page_size,
+              max_seq=max_seq, prompt_bucket=min(bucket, max_seq),
+              kv_heap_bytes=args.kv_heap_bytes or None,
+              tuner=(tuner if args.autotune else None), profile=profiler,
+              metrics=metrics)
+    if mesh is not None:
+        kw["mesh"] = mesh
+    if params is not None:
+        kw["params"] = transformer.map_params(lambda t: t.to(device), params)
+    eng = ServeEngine(cfg, **kw)
     rng = np.random.default_rng(0)
     prompts = rng.integers(1, cfg.vocab, size=(n_req, args.prompt_len),
                            dtype=np.int32)
@@ -199,8 +292,11 @@ def main(argv=None):
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     gen = np.stack([eng.results[r] for r in rids])
+    if not lead:
+        return gen
     mode = "continuous, " if args.continuous else ""
-    print(f"[serve] ({mode}paged, {device}) generated {gen.shape} in "
+    on = "" if mesh is None else f" on 1x{mesh.sizes['model']} ranks"
+    print(f"[serve] ({mode}paged, {device}{on}) generated {gen.shape} in "
           f"{dt:.2f}s ({gen.size / dt:.1f} tok/s, {eng.steps} engine "
           f"steps, page={args.page_size} slots={slots})")
     print(gen[:, :8])
@@ -223,6 +319,11 @@ def main(argv=None):
               f"(ttft p50={h.percentile(50) * 1e3:.1f}ms, per-token "
               f"p50={metrics.per_token_s.percentile(50) * 1e3:.2f}ms)")
     return gen
+
+
+def main(argv=None):
+    """Serve; returns the generated tokens (rank 0's on a mesh)."""
+    return run(argv)
 
 
 if __name__ == "__main__":

@@ -48,8 +48,9 @@ import numpy as np
 # reference flags refused here: (flag, value meaning "not asked for",
 # the slice that brings the service)
 _UNPORTED = [
-    ("pod", 0, "slice 5c-3 (a pod axis)"),
-    ("shard_strategy", None, "slice 5c-3 (sharding strategies)"),
+    ("pod", 0, "slice 5c-3d (a pod axis)"),
+    ("shard_strategy", None, "slice 5c-3c (sharding strategies)"),
+    ("comm", "shmem", "slice 5d (the xla backend)"),
 ]
 
 
@@ -94,6 +95,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--pod", type=int, default=0)
+    ap.add_argument("--comm", default="shmem", choices=["shmem", "xla"],
+                    help="the collectives' backend (xla comes with slice "
+                         "5d)")
     ap.add_argument("--topo", default=None)
     ap.add_argument("--embedding", default="off",
                     choices=["off", "auto", "snake"])
@@ -299,7 +303,7 @@ def train_loop(args, params=None, topo=None, tuner=None, *,
         if args.ckpt_dir and len(opt_state["mv"]) != len(spec_leaves):
             raise NotImplementedError("checkpoints of grouped (int8) "
                                       "moments on a mesh come with slice "
-                                      "5c-3")
+                                      "5c-3c")
 
     def state():
         """The GLOBAL {"params", "opt"}."""

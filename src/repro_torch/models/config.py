@@ -90,11 +90,11 @@ class ModelConfig:
     moment_dtype: str = "f32"    # f32 | bf16 | int8 (optimizer moments)
     # sharding (the reference's fields, same defaults)
     attention: str = "mono"      # mono | ring: "ring" runs sequence-sharded
-                                 # attention over `data` (slice 5c-3)
+                                 # attention over `data` (slice 5c-3b)
     fsdp: bool = False           # ZeRO-3: 2D block weights sharded over
-                                 # data (slice 5c-3)
+                                 # data (slice 5c-3c)
     shard_strategy: str = "tp"   # tp | dp_only (replicate params, shard
-                                 # the batch over data x model; 5c-3)
+                                 # the batch over data x model; 5c-3c)
 
     @property
     def hd(self) -> int:

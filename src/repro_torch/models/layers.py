@@ -17,8 +17,11 @@ projections replicated), Mamba2 its SSM heads (each shard's columns of
 the fused in-projection are [z, x, B, C, dt] of its own heads, B and C
 replicated), and the MoE layer shards its experts over the EP group
 (`model`, or (data, model) under `ep_over_data`) with the paper's
-pairwise alltoall.  The decode paths at tp > 1 raise, naming the slice
-that brings them (5c-3, with the serve engine at tp > 1).  Weights are
+pairwise alltoall.  Every decode path runs at tp > 1 on the rank's
+shards; a replicated-KV cache stores only the distinct KV heads each
+device's q heads read (`kv_cache_plan`).  The sequence-sharded cache and
+the ring on a data axis of more than one PE raise, naming slice 5c-3b.
+Weights are
 plain tensors in dicts, initialised from a `torch.Generator`.  The paged
 KV pool and the dense KV cache are updated in place (the JAX functions
 return new ones), MLA's latent cache too: no copy per step.
@@ -27,8 +30,10 @@ Gradients come from autograd; attention's goes through the
 """
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -145,14 +150,6 @@ def sharded_xent(comm: Comm, cfg: ModelConfig, logits, targets):
 # GQA attention
 # ---------------------------------------------------------------------------
 
-def _model_parallel(comm: Comm, what: str, slice_: str) -> None:
-    """Raise when the model axis has more than one PE: `what` at tp > 1
-    comes with `slice_`."""
-    if comm.axis_size(comm.axes.model) != 1:
-        raise NotImplementedError(f"{what} at tp > 1 comes with slice "
-                                  f"{slice_}")
-
-
 def _gqa_dims(cfg: ModelConfig, tp: int):
     """(q heads per device, kv heads stored per device, kv replicated?).
     Head counts that don't divide tp are padded with 'ghost' q heads whose
@@ -192,13 +189,14 @@ def layer_window(cfg: ModelConfig, is_local_layer: bool = False):
     return cfg.window
 
 
-def _head_ids(comm: Comm, cfg: ModelConfig, tp: int):
-    """(global q-head ids of this device's heads, validity of each: False
-    for a ghost head), host lists."""
+@functools.lru_cache(maxsize=64)
+def _q_kv_heads(cfg: ModelConfig, tp: int, r: int, device):
+    """(nq_local,) long on `device`: the kv head each q head of device r
+    reads (a ghost q head the last real head's)."""
     nq_local, _, _ = _gqa_dims(cfg, tp)
-    first = comm.axis_index(comm.axes.model) * nq_local
-    ids = [first + j for j in range(nq_local)]
-    return ids, [i < cfg.n_heads for i in ids]
+    group = cfg.n_heads // cfg.n_kv_heads
+    return torch.tensor([min(r * nq_local + j, cfg.n_heads - 1) // group
+                         for j in range(nq_local)], device=device)
 
 
 def _local_kv(comm: Comm, cfg: ModelConfig, k, v, tp: int):
@@ -209,11 +207,83 @@ def _local_kv(comm: Comm, cfg: ModelConfig, k, v, tp: int):
     _, _, kv_repl = _gqa_dims(cfg, tp)
     if not kv_repl:
         return k, v
-    group = cfg.n_heads // cfg.n_kv_heads
-    ids, _ = _head_ids(comm, cfg, tp)
-    kv_idx = torch.tensor([min(i, cfg.n_heads - 1) // group for i in ids],
-                          device=k.device)
+    kv_idx = _q_kv_heads(cfg, tp, comm.axis_index(comm.axes.model),
+                         k.device)
     return k.index_select(1, kv_idx), v.index_select(1, kv_idx)
+
+
+def kv_cache_plan(cfg: ModelConfig, tp: int):
+    """The replicated-KV decode cache's static plan (`repro`'s, host
+    only): each device stores only the DISTINCT kv heads its q heads
+    read, ndk of them (the largest count over the devices; a device with
+    fewer repeats its last one), not one copy per q head.  Returns None
+    when the KV projection is sharded, else (ndk, store_idx (tp, ndk),
+    q2slot (tp, nq_local)) int32: device r stores kv heads store_idx[r]
+    and its q head j reads slot q2slot[r, j] (a ghost q head reads the
+    last real head's)."""
+    nq_local, _, kv_repl = _gqa_dims(cfg, tp)
+    if not kv_repl:
+        return None
+    group = max(1, cfg.n_heads // max(cfg.n_kv_heads, 1))
+    store, q2slot = [], []
+    for r in range(tp):
+        kvs = [min(r * nq_local + j, cfg.n_heads - 1) // group
+               for j in range(nq_local)]
+        distinct = sorted(set(kvs))
+        store.append(distinct)
+        q2slot.append([distinct.index(kv) for kv in kvs])
+    ndk = max(len(d) for d in store)
+    store_idx = np.asarray([d + [d[-1]] * (ndk - len(d)) for d in store],
+                           np.int32)
+    return ndk, store_idx, np.asarray(q2slot, np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_tensors(cfg: ModelConfig, tp: int, r: int, device):
+    """Device r's rows of `kv_cache_plan` as long tensors on `device`
+    (store_idx, q2slot), or None when the KV projection is sharded; the
+    plan is static per (cfg, tp, r), so every layer of every step reuses
+    one copy."""
+    plan = kv_cache_plan(cfg, tp)
+    if plan is None:
+        return None
+    _, store_idx, q2slot = plan
+    return (torch.as_tensor(store_idx[r], dtype=torch.long, device=device),
+            torch.as_tensor(q2slot[r], dtype=torch.long, device=device))
+
+
+@functools.lru_cache(maxsize=64)
+def _ghost_mask(cfg: ModelConfig, tp: int, r: int, dtype, device):
+    """(nq_local,) of device r: 1 for a real q head, 0 for a ghost."""
+    nq_local, _, _ = _gqa_dims(cfg, tp)
+    return torch.tensor([r * nq_local + j < cfg.n_heads
+                         for j in range(nq_local)], dtype=dtype,
+                        device=device)
+
+
+def _kv_slots(comm: Comm, cfg: ModelConfig, tp: int, k, v):
+    """The KV heads a decode cache stores, k and v (B, L, H, hd) -> (k,
+    v, q2slot): under `kv_cache_plan` this device's ndk stored heads and
+    the (nq_local,) slot each q head reads; otherwise k and v as they
+    are (this device's shard) and None."""
+    plan = _plan_tensors(cfg, tp, comm.axis_index(comm.axes.model),
+                         k.device)
+    if plan is None:
+        return k, v, None
+    sidx, q2slot = plan
+    return k.index_select(2, sidx), v.index_select(2, sidx), q2slot
+
+
+def _zero_ghosts(comm: Comm, cfg: ModelConfig, tp: int, o, head_dim: int):
+    """`o` with the ghost q heads' outputs (dim `head_dim`) zeroed, when
+    the heads do not divide tp."""
+    if cfg.n_heads % tp == 0:
+        return o
+    mask = _ghost_mask(cfg, tp, comm.axis_index(comm.axes.model), o.dtype,
+                       o.device)
+    shape = [1] * o.dim()
+    shape[head_dim] = mask.numel()
+    return o * mask.view(shape)
 
 
 def attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions, *,
@@ -224,7 +294,14 @@ def attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions, *,
     forward on the card, a reference-recompute backward) within the
     layer's window (`layer_window`), against their kv heads (gathered
     per q head when the KV projection is replicated); ghost heads are
-    zeroed before the output projection."""
+    zeroed before the output projection.  `cfg.attention == "ring"`
+    over a data axis of more than one PE (the reference's sequence-
+    sharded ring) raises, naming slice 5c-3b; on a data axis of one PE
+    the ring is this attention, as in the reference."""
+    if cfg.attention == "ring" and comm.axis_size(comm.axes.data) > 1:
+        raise NotImplementedError("attention='ring' over a data axis of "
+                                  "more than one PE (the sequence-sharded "
+                                  "ring on a mesh) comes with slice 5c-3b")
     tp = comm.axis_size(comm.axes.model)
     B, L, _ = x.shape
     q, k, v = attention_qkv(cfg, p, x, positions, tp)
@@ -232,10 +309,7 @@ def attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions, *,
     o = kops.attention(q, k, v, causal=cfg.causal,
                        window=layer_window(cfg, is_local_layer),
                        softcap=cfg.softcap)
-    if cfg.n_heads % tp:                      # zero the ghost heads
-        _, valid = _head_ids(comm, cfg, tp)
-        o = o * torch.tensor(valid, dtype=o.dtype,
-                             device=o.device)[None, :, None, None]
+    o = _zero_ghosts(comm, cfg, tp, o, 1)
     o = o.transpose(1, 2).reshape(B, L, -1).to(cfg.dtype)
     return comm.allreduce(_dense(o, p["wo"]), comm.axes.model)
 
@@ -259,11 +333,12 @@ def init_attn_cache(cfg: ModelConfig, tp: int, batch_local: int,
                     cache_len: int, device, window_bound: int | None = None):
     """A dense KV cache {"k", "v"} of (B, S, K, hd) in cfg.dtype, S =
     min(cache_len, window_bound): a sliding window needs no more slots
-    than its width (`attention_decode` then writes it as a ring)."""
+    than its width (`attention_decode` then writes it as a ring).  K is
+    this device's kv heads at `tp`: its shard, or under the replicated-KV
+    plan the ndk distinct heads its q heads read (`kv_cache_plan`)."""
     _, nkv_store, kv_repl = _gqa_dims(cfg, tp)
     if kv_repl:
-        raise NotImplementedError("the replicated-KV cache plan comes with "
-                                  "slice 5c-3 (the serve engine at tp > 1)")
+        nkv_store = kv_cache_plan(cfg, tp)[0]
     s = cache_len if window_bound is None else min(cache_len, window_bound)
     shape = (batch_local, s, nkv_store, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -282,16 +357,21 @@ def attention_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache,
     the cache is returned.  The layer's window is `layer_window`'s.  A
     windowed cache no longer than its window is a ring: position t lands
     in slot t % S and a slot is valid when the position it holds is at
-    most t.  Attends through `_cache_attend`.  One
-    device only: the sequence-sharded cache and the replicated-KV plan
-    (tp > 1) come with slice 5."""
+    most t.  Attends through `_cache_attend`.  At tp > 1 this device's
+    heads attend against its cache (`init_attn_cache` at that tp: under
+    the replicated-KV plan it stores the new row's `kv_cache_plan` heads
+    and each q head reads its slot), the ghost heads are zeroed, and the
+    output projection ends in one allreduce over `model`.  The
+    sequence-sharded cache (seq_shards > 1) raises, naming slice
+    5c-3b."""
     tp = comm.axis_size(comm.axes.model)
-    if tp != 1 or seq_shards != 1:
-        raise NotImplementedError("tensor-parallel and sequence-sharded "
-                                  "decode come with slice 5c-3")
+    if seq_shards != 1:
+        raise NotImplementedError("the sequence-sharded decode cache "
+                                  "(seq_shards > 1) comes with slice 5c-3b")
     B = x.shape[0]
     q, k, v = (t.transpose(1, 2)                         # (B, 1, H, hd)
-               for t in attention_qkv(cfg, p, x, position[:, None]))
+               for t in attention_qkv(cfg, p, x, position[:, None], tp))
+    k, v, q2slot = _kv_slots(comm, cfg, tp, k, v)
     S = cache["k"].shape[1]
     window = layer_window(cfg, is_local_layer)
     ring = window is not None and S <= window
@@ -310,16 +390,19 @@ def attention_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache,
         valid = pos_idx <= pos
         if window is not None:
             valid &= pos_idx > (pos - window)
-    out = _cache_attend(cfg, q, cache["k"], cache["v"], valid)
+    out = _cache_attend(cfg, q, cache["k"], cache["v"], valid, q2slot)
+    out = _zero_ghosts(comm, cfg, tp, out, 2)
     out = out.reshape(B, 1, -1).to(cfg.dtype)
     y = _dense(out, p["wo"])
     return comm.allreduce(y, comm.axes.model), cache
 
 
-def _cache_attend(cfg, q, ck, cv, valid):
+def _cache_attend(cfg, q, ck, cv, valid, q2slot=None):
     """q: (B,1,Hq,hd); ck/cv: (B,S,K,hd); valid: (B,S) -> (B,1,Hq,hd):
-    `repro.models.layers._cache_attend`'s grouped GQA, in f32."""
-    return _attend_mq(cfg, q, ck, cv, valid[:, None, :])
+    `repro.models.layers._cache_attend` in f32, grouped GQA, or with
+    `q2slot` the replicated-KV plan's slot of each q head (see
+    `_attend_mq`)."""
+    return _attend_mq(cfg, q, ck, cv, valid[:, None, :], q2slot)
 
 
 # ---------------------------------------------------------------------------
@@ -415,9 +498,10 @@ def mla_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache, position):
     position.clamp(max=S - 1) (where dynamic_update_slice clamps its
     start), then the reference's absorbed attention runs in f32: the
     score is q_nope . (W_kb^T c_kv) + q_rope . k_rope, the context is
-    read from c_kv and expanded through W_vb."""
+    read from c_kv and expanded through W_vb.  At tp > 1 on this
+    device's n_heads / tp heads (the latent cache is replicated), with
+    one allreduce over `model` after the output projection."""
     m = cfg.mla
-    _model_parallel(comm, "MLA decode", "5c-3")
     B = x.shape[0]
     pos = position[:, None]
     q_nope, q_rope = _mla_q(cfg, p, x, pos)
@@ -479,12 +563,20 @@ def paged_kv_gather(pool_leaf, page_table):
     return got.reshape((B, P * ps) + tuple(got.shape[3:]))
 
 
-def _attend_mq(cfg, q, ck, cv, valid):
+def _attend_mq(cfg, q, ck, cv, valid, q2slot=None):
     """Multi-query attention against a gathered cache, plain torch in f32.
 
     q: (B,L,Hq,hd); ck/cv: (B,S,K,hd); valid: (B,L,S) -> (B,L,Hq,hd).
-    Every op is per row, so a row's result does not depend on the other
-    rows of the batch (the engine's batched-vs-alone bit-identity)."""
+    Grouped GQA (Hq = K x group), or with `q2slot` (Hq,) the
+    replicated-KV plan: q head j reads stored head q2slot[j].  The
+    reference contracts each q head against all K stored heads and then
+    selects its slot by a one-hot (Hq, K) map in f32; gathering each q
+    head's slot first (`index_select`) gives the same products, since a
+    one-hot contraction adds exact zeros.  Every op is per row, so a
+    row's result does not depend on the other rows of the batch (the
+    engine's batched-vs-alone bit-identity)."""
+    if q2slot is not None:
+        ck, cv = ck.index_select(2, q2slot), cv.index_select(2, q2slot)
     B, S, K = ck.shape[0], ck.shape[1], ck.shape[2]
     L, hq, hd = q.shape[1], q.shape[2], cfg.hd
     group = hq // K
@@ -529,8 +621,13 @@ def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
     and it attends through `ops.attention`.  The positions are checked
     here unless the caller has checked them (`positions_checked`, as
     `prefill_paged` does once for the whole stack).  Decode attends
-    through `_attend_mq`."""
-    _model_parallel(comm, "paged attention", "5c-3")
+    through `_attend_mq`.  At tp > 1 the pool holds this device's kv
+    heads (`init_attn_cache` at that tp); under the replicated-KV plan
+    it stores `kv_cache_plan`'s heads, and the prefill hands the kernel
+    K and V expanded to one head per local q head through q2slot (group
+    1, as `_local_kv` does in training) while the decode reads each q
+    head's slot; the ghost heads are zeroed and the output projection
+    ends in one allreduce over `model`."""
     tp = comm.axis_size(comm.axes.model)
     B, L, d = x.shape
     hd = cfg.hd
@@ -540,6 +637,7 @@ def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
     v = _dense(x, p["wv"], p.get("bv")).reshape(B, L, nkv_store, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    k, v, q2slot = _kv_slots(comm, cfg, tp, k, v)
 
     paged_kv_update(pool["k"], page_table, k, positions, page_size)
     paged_kv_update(pool["v"], page_table, v, positions, page_size)
@@ -550,6 +648,8 @@ def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
     if L > 1:
         if not positions_checked:
             check_prefill_positions(positions)
+        if q2slot is not None:          # one kv head per local q head
+            ck, cv = ck.index_select(2, q2slot), cv.index_select(2, q2slot)
         out = kops.attention(
             q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
             causal=True, window=window, softcap=cfg.softcap,
@@ -560,7 +660,8 @@ def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
         valid = kv_pos <= positions[:, :, None]
         if window is not None:
             valid &= kv_pos > (positions[:, :, None] - window)
-        out = _attend_mq(cfg, q, ck, cv, valid)
+        out = _attend_mq(cfg, q, ck, cv, valid, q2slot)
+    out = _zero_ghosts(comm, cfg, tp, out, 2)
     out = out.reshape(B, L, nq_local * hd).to(cfg.dtype)
     y = _dense(out, p["wo"])
     return comm.allreduce(y, comm.axes.model), pool
@@ -841,9 +942,10 @@ def init_mamba_cache(cfg: ModelConfig, tp: int, batch_local: int, device):
 
 def mamba2_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache):
     """One-step recurrence (decode): x (B, 1, d) -> ((B, 1, d), new
-    cache).  The conv history and the state come back as new tensors."""
+    cache).  The conv history and the state come back as new tensors.
+    At tp > 1 on this device's SSM heads (`_mamba_split`; its cache is
+    `init_mamba_cache` at that tp), one allreduce over `model`."""
     s = cfg.ssm
-    _model_parallel(comm, "Mamba2 decode", "5c-3")
     tp = comm.axis_size(comm.axes.model)
     B = x.shape[0]
     d_in_local, nheads_local, gdim = _mamba_split(cfg, tp)

@@ -160,7 +160,8 @@ def map_params(fn, tree):
 def init_kv_pool(cfg: ModelConfig, tp: int, num_pages: int, page_size: int,
                  device) -> Params:
     """Paged KV pools of every layer: {"k", "v"} of shape (n_layers,
-    num_pages, page_size, K, hd).  Page p of a sequence lives at the same
+    num_pages, page_size, K, hd), K this rank's kv heads at `tp`
+    (`layers.init_attn_cache`).  Page p of a sequence lives at the same
     physical index in every layer's pool, so one page table serves the
     whole stack."""
     _check_family(cfg, paged_families())
@@ -279,12 +280,15 @@ def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
     moe: an attention cache (GQA, or MLA's latent {"c_kv", "k_rope"}) per
     layer under "dense_layers" and "layers", as its parameters.
     The dense and vlm families' serving engine decodes through the paged
-    KV pool (`init_kv_pool`) instead.  The audio encoder has no decode
-    cache and raises ValueError, as the reference's."""
+    KV pool (`init_kv_pool`) instead.  At `tp` > 1 the caches are one
+    rank's: its kv heads (under the replicated-KV plan the distinct
+    heads its q heads read, `layers.kv_cache_plan`) and its SSM heads and
+    conv channels; MLA's latent cache is replicated.  The audio encoder
+    has no decode cache and raises ValueError, as the reference's."""
     _check_family(cfg, _DECODE_FAMILIES)
     if seq_shards != 1:
-        raise NotImplementedError("sequence-sharded caches come with the "
-                                  "multi-device backend (slice 5)")
+        raise NotImplementedError("sequence-sharded decode caches "
+                                  "(seq_shards > 1) come with slice 5c-3b")
     device = resolve_device(device)
 
     def attn(is_local=False):

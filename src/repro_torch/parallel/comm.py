@@ -6,7 +6,7 @@ and call its collectives at the same places as in `repro`.  Axis roles:
   model  — tensor parallelism (activation allreduces, the vocab-sharded
            loss's reductions, the MoE expert alltoall)
   data   — data parallelism (the fused gradient buckets)
-  pod    — cross-pod; not ported (slice 5c-3)
+  pod    — cross-pod; not ported (slice 5c-3d)
 
 Inside a rank process of `core.spmd.run` whose mesh `launch.mesh` made,
 axis sizes and indices are read from that mesh and every collective runs
@@ -246,7 +246,7 @@ class Comm:
     # -- gradient synchronization over the data axis -------------------------
     def _data_net(self, device):
         if self.axes.pod is not None and self.axis_size(self.axes.pod) > 1:
-            raise NotImplementedError("a pod axis comes with slice 5c-3")
+            raise NotImplementedError("a pod axis comes with slice 5c-3d")
         return self._net(self.axes.data, device)
 
     def grad_sync(self, grads, *, mean: bool = True):

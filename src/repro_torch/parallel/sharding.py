@@ -1,6 +1,6 @@
-"""Sharding rules for parameters and step inputs (port of
-`repro/parallel/sharding.py` for tensor-, expert- and data-parallel
-training).
+"""Sharding rules for parameters, decode caches and step inputs (port
+of `repro/parallel/sharding.py` for tensor-, expert- and data-parallel
+training and serving).
 
 A spec is a tuple with one entry per dim of a leaf: None (replicated), an
 axis name, or a tuple of axis names (the dim split over their flattened
@@ -13,9 +13,11 @@ reference's stacked-layer prefix.
   * replicated-over-model leaves (KV projections when n_kv < tp or the
     heads do not divide tp, MLA latents, routers, norms) get None there;
   * MoE expert leaves are sharded over the EP group: `model`, or the
-    flattened (data, model) when `ep_over_data`.
+    flattened (data, model) when `ep_over_data`;
+  * decode caches (`cache_specs`) hold their batch over `data` and
+    their kv heads, SSM heads and conv channels over `model`.
 
-fsdp (ZeRO-3 over `data`) is slice 5c-3 and raises here.
+fsdp (ZeRO-3 over `data`) is slice 5c-3c and raises here.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ class MeshAxes:
 
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.fsdp:
-        raise NotImplementedError("fsdp comes with slice 5c-3")
+        raise NotImplementedError("fsdp comes with slice 5c-3c")
 
 
 def _ep_over_data(cfg: ModelConfig) -> bool:
@@ -118,11 +120,35 @@ def needs_data_sync(cfg: ModelConfig, params):
     replicated over `data` and needs grad_sync.  The expert leaves under
     `ep_over_data` are sharded over `data` and arrive reduced over it
     (their gradients are not divided by the data size, as in the
-    reference); fsdp is slice 5c-3."""
+    reference); fsdp is slice 5c-3c."""
     if cfg.fsdp:
-        raise NotImplementedError("fsdp comes with slice 5c-3")
+        raise NotImplementedError("fsdp comes with slice 5c-3c")
     ep_data = _ep_over_data(cfg)
     return _map_path(lambda p, l: not (ep_data and _is_expert(p)), params)
+
+
+def cache_specs(cfg: ModelConfig, cache, ax: MeshAxes, seq_shards: int = 1):
+    """The spec tree of a decode cache (`transformer.init_cache`'s tree,
+    one dict per layer): the batch over `data`; "k"/"v" (B, S, H, hd)
+    their heads over `model`, "c_kv"/"k_rope" (B, S, r) replicated over
+    it (MLA's latent cache), "conv" (B, w, channels) its channels and
+    "ssm" (B, H, P, N) its heads over `model`.  The sequence-sharded
+    cache (seq_shards > 1) raises, naming slice 5c-3b."""
+    if seq_shards != 1:
+        raise NotImplementedError("sequence-sharded decode caches "
+                                  "(seq_shards > 1) come with slice 5c-3b")
+    rules = {"k": (ax.data, None, ax.model, None),
+             "v": (ax.data, None, ax.model, None),
+             "c_kv": (ax.data, None, None), "k_rope": (ax.data, None, None),
+             "conv": (ax.data, None, ax.model),
+             "ssm": (ax.data, ax.model, None, None)}
+
+    def one(path, leaf):
+        if path[-1] not in rules:
+            raise ValueError(f"no cache rule for {'/'.join(path)}")
+        return rules[path[-1]]
+
+    return _map_path(one, cache)
 
 
 def batch_specs(cfg: ModelConfig, batch: dict, ax: MeshAxes, kind: str,

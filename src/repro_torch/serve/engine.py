@@ -19,6 +19,14 @@ cache.  Counterpart of `repro/serve/engine.py`.
     re-queues its live requests, which then regenerate the same tokens
     (`ServeEngine.step`, DESIGN.md §17).
 
+On a (1, tp) rank mesh (`mesh=`, in each rank process of `core.spmd`)
+every rank runs this engine on its own shards: its own replica of the
+host scheduler, its own KV pool of its kv heads, the model's
+collectives over `model` as heap rounds.  The replicas stay in lockstep
+because every decision they make reads only what the ranks share: the
+submitted requests and the sampled tokens, which `sample_greedy`'s
+allreduces hand every rank alike.  Rank 0's `results` are the engine's.
+
 Observability (DESIGN.md §16): a `ServeMetrics` (`metrics=`) records the
 request lifecycle (submit, admit, first token, decode steps, evict,
 admission backpressure); a `Profiler` or `Tracer` (`profile=`) times
@@ -37,12 +45,12 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core import spmd
 from ..core.fault import PEFailure, fault_event
 from ..core.heap import SymmetricHeap
 from ..core.trace import Tracer
-from ..models import layers as L
 from ..models import transformer
-from ..parallel.comm import Comm
+from ..parallel.comm import AxisSpec, Comm
 from . import step as sstep
 from .kv import PagedKV, PagePool, pages_for
 
@@ -139,19 +147,28 @@ class Scheduler:
 
 class ServeEngine:
     """Continuous-batching engine: paged prefill + fixed-shape batched
-    decode over `max_slots` sequences, greedy sampling.
+    decode over `max_slots` sequences, greedy sampling through the
+    vocab-sharded `sample_greedy`.
 
-    Runs on `device` (default CUDA; raises without a card unless
-    `device="cpu"`).  `params` default to the port's seeded init
-    (`init_seed`).  `kv_heap_bytes` caps the symmetric-heap KV region —
-    by default sized to hold every slot's worst-case sequence plus the
-    null page; the KV pool on the device holds that many pages.
+    On one device (`mesh` None) it runs on `device` (default CUDA;
+    raises without a card unless `device="cpu"`).  On a rank mesh
+    (`mesh`: the rank's `launch.mesh.RankMesh`, in a rank process) it
+    runs on the rank's device with tensor parallelism over `model`; the
+    data axis must be 1 and there must be no pod (the batch lives in
+    engine slots), as in the reference.  `params` are the rank's local
+    shards (the whole tree on one device), or None for the seeded init
+    (`init_seed`; on a mesh `launch.build.make_init_fn`'s).
+    `kv_heap_bytes` caps the symmetric-heap KV region — by default sized
+    to hold every slot's worst-case sequence plus the null page; the KV
+    pool on the device holds that many pages, each of the rank's kv
+    heads.  `capture_logits` keeps each emitted token's logits over the
+    whole vocabulary (on a mesh gathered over `model`).
     `profile`/`metrics` attach the observability layer (module
-    docstring); `tuner` rides on the engine's `Comm`, whose axes all
-    have size 1 on one device, so no collective consults it."""
+    docstring); `tuner` rides on the engine's `Comm` (on one device
+    every axis has size 1, so no collective consults it)."""
 
-    def __init__(self, cfg, *, params=None, device=None, max_slots: int = 4,
-                 page_size: int = 8, max_seq: int = 64,
+    def __init__(self, cfg, mesh=None, *, params=None, device=None,
+                 max_slots: int = 4, page_size: int = 8, max_seq: int = 64,
                  prompt_bucket: int = 32, kv_heap_bytes: int | None = None,
                  eos_id: int | None = None, init_seed: int = 0,
                  capture_logits: bool = False, tuner=None, profile=None,
@@ -160,25 +177,40 @@ class ServeEngine:
             raise ValueError(
                 f"paged serving supports {transformer.paged_families()}, "
                 f"not {cfg.family!r}")
+        tp = 1
+        if mesh is not None:
+            sizes = mesh.sizes
+            if sizes.get("data", 1) != 1 or sizes.get("pod"):
+                raise ValueError("ServeEngine batches in engine slots; use "
+                                 "a (1, tp) mesh (data axis must be 1, no "
+                                 "pod)")
+            if not spmd.active() or spmd.current().mesh != mesh:
+                raise RuntimeError("a ServeEngine on a rank mesh runs in "
+                                   "the rank processes of core.spmd.run, "
+                                   "on the rank's own mesh")
+            tp = sizes["model"]
         if prompt_bucket > max_seq:
             raise ValueError("prompt_bucket must be <= max_seq")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = spmd.current().device if mesh is not None \
+            else resolve_device(device)
         self.page_size = int(page_size)
         self.max_seq = int(max_seq)
         self.prompt_bucket = int(prompt_bucket)
         self.max_slots = int(max_slots)
         self.eos_id = eos_id
         self.capture_logits = capture_logits
-        self.comm = Comm(tuner=tuner, profile=profile)
+        self.comm = Comm(AxisSpec(), tuner=tuner, profile=profile)
         self.profile = profile
         self.metrics = metrics
         self._trace = profile if isinstance(profile, Tracer) else None
 
         max_pages = pages_for(max_seq, page_size)
-        _, nkv, _ = L._gqa_dims(cfg, self.comm.axis_size(self.comm.axes.model))
-        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
-        page_bytes = 2 * cfg.n_layers * page_size * nkv * cfg.hd * itemsize
+        # one page of the rank's pool, as the reference sizes it
+        page_bytes = sum(t.numel() * t.element_size() for t in
+                         transformer.init_kv_pool(cfg, tp, 1, page_size,
+                                                  "meta").values())
         if kv_heap_bytes is None:
             kv_heap_bytes = page_bytes * (max_slots * max_pages + 1)
         self.page_bytes = page_bytes
@@ -194,11 +226,14 @@ class ServeEngine:
         self.logits_trace: dict[int, list] = {}
         self.steps = 0
 
-        if params is None:
+        if params is None and mesh is not None:
+            from ..launch import build
+            params = build.make_init_fn(cfg, mesh)[0](init_seed, self.device)
+        elif params is None:
             params = transformer.init_params(cfg, seed=init_seed,
                                              device=self.device)
         self.params = params
-        self.pool = transformer.init_kv_pool(cfg, 1, pool.num_pages,
+        self.pool = transformer.init_kv_pool(cfg, tp, pool.num_pages,
                                              page_size, self.device)
 
     # -- observability helpers ------------------------------------------------
@@ -248,6 +283,14 @@ class ServeEngine:
     def _tensor(self, a):
         return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
 
+    def _captured(self, lg):
+        """(rows, V_local) logits -> what `capture_logits` keeps: the
+        whole vocabulary, gathered over `model` on a mesh (the
+        reference's out spec P(None, "model")); None when off."""
+        if not self.capture_logits:
+            return None
+        return self.comm.allgather(lg, self.comm.axes.model, concat_axis=1)
+
     def step(self) -> dict:
         """One engine iteration: evict -> admit(+prefill) -> batched
         decode.  Returns {"evicted": [...], "admitted": [...],
@@ -260,10 +303,16 @@ class ServeEngine:
         is preserved and — because greedy decode is bit-identical batched
         or alone — regenerated results match what the lost step would
         have produced.  The step then returns ``{"faulted": True,
-        "requeued": [...], ...}``."""
+        "requeued": [...], ...}``.  On a rank mesh a PE failure raises
+        NotImplementedError instead, naming slice 5c-3c (the elastic
+        mirrors): one rank's drain alone would split the replicas."""
         try:
             return self._step_inner()
         except PEFailure as exc:
+            if self.mesh is not None:
+                raise NotImplementedError(
+                    "draining the engine after a PE failure on a rank mesh "
+                    "(the elastic mirrors) comes with slice 5c-3c") from exc
             return self._fault_drain(exc)
 
     def _fault_drain(self, exc: PEFailure) -> dict:
@@ -333,7 +382,8 @@ class ServeEngine:
                         page_size=self.page_size)
                     lg = logits[:, len(st.prompt) - 1]            # (1, V)
                     tok = int(sstep.sample_greedy(self.comm, lg)[0])
-                self._emit(st, tok, lg[0])
+                    lg = self._captured(lg)
+                self._emit(st, tok, None if lg is None else lg[0])
                 if metrics is not None:
                     metrics.on_first_token(st.rid)
                 self._req_event("first_token", st.rid)
@@ -355,13 +405,14 @@ class ServeEngine:
                         self._tensor(poss), page_size=self.page_size)
                     lg = logits[:, 0]
                     tok = sstep.sample_greedy(self.comm, lg).cpu().numpy()
+                    lg = self._captured(lg)
                 if metrics is not None:
                     metrics.on_decode_step(len(active),
                                            time.perf_counter() - t0)
                 for i in active:
                     st = sched.slots[i]
                     st.pos += 1
-                    self._emit(st, tok[i], lg[i])
+                    self._emit(st, tok[i], None if lg is None else lg[i])
         self.steps += 1
         if metrics is not None:
             metrics.sample_engine(self)

@@ -1,11 +1,12 @@
 """Serve-step builders (batched prefill, single-token decode over the
 dense decode cache) and greedy sampling over (vocab-sharded) logits.
 
-The builders compute no gradient.  The tuner and the profiler ride on
-the `Comm` they build, as the reference's; the topology, link model and
-mesh embedding knobs come with the multi-device backend (slice 5) and
-raise here.  Its `allreduce_algo` picks among allreduce algorithms, all
-the identity on one device: the port's `Comm` has none."""
+The builders compute no gradient.  As the reference's, they build the
+step's `Comm` from the tuning knobs (`allreduce_algo`, `topo`, `link`,
+`embedding`, `tuner`, `profile`), which steer its collectives over the
+rank mesh of `core.spmd` when the step runs in a rank process; on one
+device every axis has one PE and no collective consults them.  The
+sequence-sharded decode (seq_shards > 1) raises, naming slice 5c-3b."""
 from __future__ import annotations
 
 import torch
@@ -15,59 +16,59 @@ from ..models.config import ModelConfig
 from ..parallel.comm import AxisSpec, Comm
 
 
-def _refuse_unported(**knobs):
-    unported = sorted(k for k, v in knobs.items() if v is not None)
-    if unported:
-        raise NotImplementedError(f"{unported}: not ported yet (slice 5)")
-
-
 def build_prefill(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
-                  backend: str = "shmem", *, topo=None, link=None,
-                  embedding=None, tuner=None, profile=None):
+                  backend: str = "shmem", *, allreduce_algo: str = "paper",
+                  topo=None, link=None, embedding=None, tuner=None,
+                  profile=None):
     """fn(params, batch) -> last-position logits (B, 1, vocab_local) of
     batch["tokens"] (B, L), or of the audio frontend's batch["frames"]
     (B, L, d); the vision frontend's batch["frontend_embeds"] (B, nf, d)
     pass through to `transformer.prefill`.  Runs under
     `torch.no_grad()`."""
-    _refuse_unported(topo=topo, link=link, embedding=embedding)
 
     @torch.no_grad()
     def fn(params, batch):
+        comm = Comm(axes, backend, allreduce_algo=allreduce_algo, topo=topo,
+                    link=link, embedding=embedding, tuner=tuner,
+                    profile=profile)
         return transformer.prefill(
-            Comm(axes, backend, tuner=tuner, profile=profile), cfg, params,
-            batch.get("tokens"), frames=batch.get("frames"),
+            comm, cfg, params, batch.get("tokens"),
+            frames=batch.get("frames"),
             frontend_embeds=batch.get("frontend_embeds"))
     return fn
 
 
 def build_decode_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
                       backend: str = "shmem", seq_shards: int = 1, *,
-                      topo=None, link=None, embedding=None, tuner=None,
-                      profile=None):
+                      allreduce_algo: str = "paper", topo=None, link=None,
+                      embedding=None, tuner=None, profile=None):
     """fn(params, cache, batch) -> (logits (B, 1, vocab_local), new cache)
     for batch {"tokens": (B, 1), "positions": (B,)}, under
     `torch.no_grad()`."""
-    _refuse_unported(topo=topo, link=link, embedding=embedding)
     if seq_shards != 1:
-        raise NotImplementedError("sequence-sharded decode comes with the "
-                                  "multi-device backend (slice 5)")
+        raise NotImplementedError("the sequence-sharded decode (seq_shards "
+                                  "> 1) comes with slice 5c-3b")
 
     @torch.no_grad()
     def fn(params, cache, batch):
-        return transformer.decode_step(Comm(axes, backend, tuner=tuner,
-                                            profile=profile), cfg, params,
-                                       cache, batch["tokens"],
-                                       batch["positions"])
+        comm = Comm(axes, backend, allreduce_algo=allreduce_algo, topo=topo,
+                    link=link, embedding=embedding, tuner=tuner,
+                    profile=profile)
+        return transformer.decode_step(comm, cfg, params, cache,
+                                       batch["tokens"], batch["positions"])
     return fn
 
 
 def sample_greedy(comm: Comm, logits):
-    """logits (..., V_local) -> (...) int64 global token ids.
+    """logits (..., V_local) -> (...) int64 global token ids, the same on
+    every PE of `model`.
 
     Ties break to the LOWEST global index: each shard takes the lowest
-    index of its local max, shards whose local max is below the global max
-    offer an off-the-end sentinel, and a min-reduce picks the smallest
-    global index among the tied shards."""
+    index of its local max, shards whose local max is below the global
+    max offer an off-the-end sentinel, and a min-reduce picks the
+    smallest global index among the tied shards.  Over a model axis of
+    more than one PE that is two allreduces: a max in the logits' dtype,
+    then a min of int64 indices."""
     v_local = logits.shape[-1]
     n = comm.axis_size(comm.axes.model)
     base = comm.axis_index(comm.axes.model) * v_local

@@ -22,7 +22,9 @@ all at rtol 1e-4 / atol 1e-5.  Also: `convert.fit_global` 1x1 -> 2x2
 against the reference's fit (`test_system.py`'s `remap_mamba`) bit for
 bit, and its loss within that test's bound of the 1x1 loss; the launcher's
 gathered global tree through tuple-axis specs; the decode paths at tp >
-1 raising and naming slice 5c-3; the port's train launcher at --data 2
+1 with a sequence-sharded cache raising and naming slice 5c-3b (tp > 1
+itself is served since slice 5c-3a: tests/test_torch_serve_tp.py); the
+port's train launcher at --data 2
 --model 2 --smoke for granite-moe and zamba2 against the reference's,
 loss for loss.  The reference runs in a subprocess with 4 host devices
 and hands its numbers over as .npz."""
@@ -411,20 +413,23 @@ def _rank_case(arch, params, batch, moe, gp):
                                                                x.detach()))
         out["moe"] = {"out": o.detach(), "aux": aux.detach(), "gx": x.grad,
                       "tope": tope}
-    if mesh.sizes["model"] > 1:       # the decode paths stay at tp = 1
-        bp = params["layers"][0]
+    if mesh.sizes["model"] > 1:       # a sequence-sharded decode cache
+        tp = mesh.sizes["model"]
         x1 = torch.zeros(1, 1, cfg.d_model)
         pos = torch.zeros(1, dtype=torch.long)
-        try:
-            if arch in ("mamba2-2.7b", "zamba2-1.2b"):
-                L.mamba2_decode(comm, cfg, bp["mamba"], x1, None)
-            elif cfg.attn == "mla":
-                L.mla_decode(comm, cfg, bp["attn"], x1, None, pos)
-            else:
-                L.attention_decode(comm, cfg, bp["attn"], x1, None, pos)
-            out["decode"] = "ran"
-        except NotImplementedError as e:
-            out["decode"] = str(e)
+        calls = [lambda: transformer.init_cache(cfg, tp, 1, 8, seq_shards=2,
+                                                device="cpu")]
+        attn = params.get("shared_attn", params["layers"][0]).get("attn")
+        if cfg.attn == "gqa" and attn is not None:
+            calls.append(lambda: L.attention_decode(
+                comm, cfg, attn, x1, None, pos, seq_shards=2))
+        out["decode"] = []
+        for call in calls:
+            try:
+                call()
+                out["decode"].append("ran")
+            except NotImplementedError as e:
+                out["decode"].append(str(e))
     return out
 
 
@@ -613,13 +618,17 @@ def test_launcher_gathers_tuple_axis_specs(inputs, port):
 
 
 def test_decode_paths_at_tp_over_one_name_their_slice(port):
-    """mamba2_decode, mla_decode and attention_decode at tp > 1 raise
-    and name 5c-3 (they come with the serve engine at tp > 1)."""
+    """At tp > 1 the decode paths run (slice 5c-3a,
+    tests/test_torch_serve_tp.py); what still raises is the
+    sequence-sharded cache: init_cache and attention_decode with
+    seq_shards > 1 name slice 5c-3b on every rank."""
     for (arch, dims) in CASES:
         if dims[1] == 1:
             continue
         for res in port[_tag(arch, dims)]:
-            assert "5c-3" in res["decode"], (arch, dims, res["decode"])
+            assert res["decode"] and all(
+                "5c-3b" in m for m in res["decode"]), (arch, dims,
+                                                        res["decode"])
 
 
 def test_fused_sync_raises_under_ep_over_data():

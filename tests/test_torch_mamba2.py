@@ -342,7 +342,7 @@ def test_dense_cache_decode_is_the_ssm_familys():
     with pytest.raises(ValueError, match="audio"):
         T.init_cache(smoke_config("hubert-xlarge"), 1, 2, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
-        sstep.build_prefill(CFG, topo=object())
+        sstep.build_decode_step(CFG, seq_shards=2)
     # the tuner and the profiler ride on the step's Comm, as the
     # reference's: accepted, and the one-device step is unchanged
     assert callable(sstep.build_prefill(CFG, tuner=Tuner(),

@@ -331,9 +331,12 @@ def test_multi_device_decode_names_slice_5():
     with pytest.raises(NotImplementedError, match="slice 5"):
         L.attention_decode(Comm(), cfg, {}, torch.zeros(1, 1, cfg.d_model),
                            {}, torch.zeros(1), seq_shards=2)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        L.init_attn_cache(dataclasses.replace(cfg, n_heads=3, n_kv_heads=1),
-                          2, 1, 8, "cpu")
+    # the replicated-KV plan at tp 2 (3 q heads over 1 kv head) is ported
+    # with the serve engine at tp > 1 (slice 5c-3a): the cache stores the
+    # one distinct kv head each rank's q heads read
+    got = L.init_attn_cache(dataclasses.replace(cfg, n_heads=3, n_kv_heads=1),
+                            2, 1, 8, "cpu")
+    assert tuple(got["k"].shape) == (1, 8, 1, cfg.hd)
 
 
 # ---------------------------------------------------------------------------
