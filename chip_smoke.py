@@ -307,6 +307,31 @@ Phases; any failure exits non-zero before the result line is printed:
      prefill's within it of the 1x1 side's on the same global tree
      (zamba2's 1x1 side norms each shard's channels, as the mesh does),
      picks equal; kernel 4 and 7 launches equal their formulas.
+ 19. sequence sharding over one spawn of 4 rank processes on a (4, 1)
+     mesh (data 4) — kernel 6 at the per-rank shapes (B 1, Hq 14, Hkv 2,
+     D 64: 8192 x 8192 bf16, 2048 x 2048 bf16 and f32) against its plain
+     version, timed beside it, its bound and SDPA with the block mask;
+     (a) fusion.ring_attention on the data axis's spmd_ctx over phase
+     8's prompt (qwen2-0.5b's layer-0 q, k, v of 32768 tokens, 8192 a
+     rank): each rank's rows within max(2e-5, 1 bf16 step) of kernel 4
+     over the gathered sequence, per rank 4 kernel-6 launches, 9 heap
+     rounds and 18 dma_copy, the ring's wall beside the mono wall; the
+     gradient of the ring layer (attention="ring", 512 of 2048 tokens a
+     rank, f32) against the mono layer's at rtol 1e-4 / atol 1e-5 x
+     max|g|, every leaf; (b) qwen2-0.5b's 24 layers with
+     attention="ring" over 8192 tokens (2048 a rank, global positions)
+     in f32 (sampled rows' logits within 1e-3 x max|logit| of the 1x1
+     mono forward) and in bf16 (finite, every row's argmax the 1x1's
+     but at near ties), per rank 96 kernel-6 launches and 216 heap
+     rounds a forward; (c) zamba2-1.2b's decode through
+     build.make_serve_steps at long_500k (seq_shards 4, 131072 of the
+     524288 slots a rank in each of its 7 shared caches, every cache
+     seeded chunk by chunk so the 1x1 cache is the shards' rows), 4
+     teacher-forced steps where the last shard writes and 4 in shard 1's
+     range, in bf16 (picks equal to the 1x1 decode's but at near ties)
+     and in f32 at 65536 slots (logits within 1e-3 x max|logit|), 42
+     heap rounds a step a rank (7 layers x 3 allreduces x 2 stages);
+     step walls, the rounds' host time and each rank's peak.
 
 The run fails if a process it started (a rank, nvcc, nvidia-smi, the
 resource tracker that spawning the ranks launches) is still alive or
@@ -314,8 +339,8 @@ unreaped before the result is printed.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}:
 the seven kernels, then one flash_attention row per prefill shape of
-phases 10-13 and per-rank shape of phases 17 and 18, with a "shape"
-key),
+phases 10-13 and per-rank shape of phases 17 and 18, and one
+ring_attention row per per-rank shape of phase 19, with a "shape" key),
 the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.
 """
@@ -2169,8 +2194,9 @@ def decode_loop(torch, np, arch, cfg=None) -> None:
     seen = {}
     real = transformer.decode_step
 
-    def spy(comm, cfg_, params_, cache, tokens, positions):
-        logits, cache = real(comm, cfg_, params_, cache, tokens, positions)
+    def spy(comm, cfg_, params_, cache, tokens, positions, **kw):
+        logits, cache = real(comm, cfg_, params_, cache, tokens, positions,
+                             **kw)
         step = seen.setdefault("steps", 0)
         if step == run["prompt_len"] - 1:
             seen.update(logits=logits.clone(), params=params_)
@@ -2242,6 +2268,11 @@ NEG_INF = -1e30
 RING_M_RTOL = 1e-5
 RING_ACC_TOL = 2e-5
 RING_OUT_ATOL = 2e-5
+# the limits above hold blocks of up to this many keys (8b's ring step);
+# at phase 19's 8192-key block the H100 read 1.45 of them (the sums of l
+# and acc over 4x the keys, two f32 orders): the limits of the sums grow
+# as sqrt(Lk / RING_LIMIT_LK) above it, the rounding of a sum of Lk terms
+RING_LIMIT_LK = 2048
 
 
 def ring_positions(torch, gen, layout, p, lq, lk, step=0):
@@ -2303,18 +2334,22 @@ def ring_cases():
     ]
 
 
-def ring_over(torch, got, want, vmax) -> tuple[dict, int, int]:
+def ring_over(torch, got, want, vmax, lk: int = RING_LIMIT_LK
+              ) -> tuple[dict, int, int]:
     """({component: worst err/limit} of acc, m, l and their finalize, rows
     that keep a key, rows that keep none) under 8a's limits; a row that
     keeps none counts as inf under "masked" unless its m and l equal the
-    plain version's exactly."""
+    plain version's exactly.  Blocks of `lk` > RING_LIMIT_LK keys: the
+    limits of the sums over the keys (acc, l, finalize) grow as sqrt(lk /
+    RING_LIMIT_LK)."""
     acc, m, l = got
     racc, rm, rl = want
     grow = math.sqrt(acc.shape[-1] / 16)
+    sums = math.sqrt(max(1.0, lk / RING_LIMIT_LK))
     kept = rm > NEG_INF
     none = ~kept
     exact = torch.equal(m[none], rm[none]) and torch.equal(l[none], rl[none])
-    lim_acc = RING_ACC_TOL * (rl * vmax).clamp_min(1.0)[..., None]
+    lim_acc = sums * RING_ACC_TOL * (rl * vmax).clamp_min(1.0)[..., None]
     over = {"masked": 0.0 if exact else math.inf,
             "acc": ((acc - racc).abs() / lim_acc).max().item()}
     if kept.any():
@@ -2322,10 +2357,10 @@ def ring_over(torch, got, want, vmax) -> tuple[dict, int, int]:
                      / (grow * RING_M_RTOL * rm.abs()[kept].clamp_min(1.0))
                      ).max().item()
         over["l"] = ((l - rl).abs()[kept]
-                     / (grow * RING_M_RTOL * rl[kept])).max().item()
+                     / (sums * grow * RING_M_RTOL * rl[kept])).max().item()
     over["finalize"] = (acc / l.clamp_min(1e-30)[..., None]
                         - racc / rl.clamp_min(1e-30)[..., None]
-                        ).abs().max().item() / (grow * RING_OUT_ATOL)
+                        ).abs().max().item() / (sums * grow * RING_OUT_ATOL)
     return over, int(kept.sum()), int(none.sum())
 
 
@@ -2383,24 +2418,31 @@ def ring_block_counts(p, b, hq, hkv, lq, lk, d, itemsize, pairs):
     return nbytes, 4 * d * pairs * b * hq
 
 
-def time_ring_partials(torch, ra, ref, gen, card) -> dict:
+# 8b's shape: the ring step of phase 8 (P, B, Hq, Hkv, Lq, Lk, D)
+RING_STEP_SHAPE = (16, 1, 14, 2, 2048, 2048, 64)
+
+
+def time_ring_partials(torch, ra, ref, gen, card, shape=RING_STEP_SHAPE,
+                       dtype="bfloat16") -> dict:
     """8b: kernel 6 at the ring step's shape (16 PEs, B 1, Hq 14, Hkv 2,
-    Lq = Lk = 2048, D 64, bf16, causal) on three blocks: the diagonal one
-    (each PE its own block, the ring's first step), one wholly kept (every
-    key before every query) and one wholly masked (every key after every
-    query).  Each: its C entry back to back, the wrapper, the plain
-    version, and scaled_dot_product_attention over the same 16 PEs with
-    the block's boolean mask (a yardstick of the work: it computes the
-    normalised output, not (acc, m, l)), beside its own bound.  Returns
-    the diagonal block's, with the others under their names."""
+    Lq = Lk = 2048, D 64, bf16, causal; or `shape` and `dtype`) on three
+    blocks: the diagonal one (each PE its own block, the ring's first
+    step), one wholly kept (every key before every query) and one wholly
+    masked (every key after every query).  Each: its C entry back to
+    back, the wrapper, the plain version, and
+    scaled_dot_product_attention over the same PEs with the block's
+    boolean mask (a yardstick of the work: it computes the normalised
+    output, not (acc, m, l)), beside its own bound.  Returns the diagonal
+    block's, with the others under their names."""
     import torch.nn.functional as F
-    p, b, hq, hkv, lq, lk, d = 16, 1, 14, 2, 2048, 2048, 64
-    dt = torch.bfloat16
+    p, b, hq, hkv, lq, lk, d = shape
+    dt = getattr(torch, dtype)
+    itemsize = torch.finfo(dt).bits // 8
     q, k, v = attention_inputs(torch, gen, p * b, hq, hkv, lq, lk, d, dt)
     q, k, v = (x.reshape((p, b) + tuple(x.shape[1:])) for x in (q, k, v))
-    if not ra.tensor_core_route(q, k, v):
-        raise AssertionError("kernel 6 at the ring step is not on the "
-                             "tensor cores")
+    if ra.tensor_core_route(q, k, v) != (dt == torch.bfloat16):
+        raise AssertionError(f"kernel 6 at {shape} {dtype} is not on the "
+                             f"tensor cores in bf16 (CUDA cores in f32)")
     scale = 1.0 / math.sqrt(d)
     lib = ra._library()
     stream = torch.cuda.current_stream().cuda_stream
@@ -2414,17 +2456,19 @@ def time_ring_partials(torch, ra, ref, gen, card) -> dict:
         q_pos, k_pos = ring_positions(torch, gen, layout, p, lq, lk, 0)
         res = ra.attn_block_partials(q, k, v, q_pos, k_pos, causal=True)
         want = ref.ring_partials_ref(q, k, v, q_pos, k_pos, causal=True)
-        over = max(ring_over(torch, res, want,
-                             v.float().abs().max().item())[0].values())
+        parts = ring_over(torch, res, want, v.float().abs().max().item(),
+                          lk)[0]
+        over = max(parts.values())
         err = max((g - w).abs().max().item() for g, w in zip(res, want))
         if not over <= 1.0:
-            raise AssertionError(f"ring partials at the ring step, {block} "
-                                 f"block: err/limit {over}")
+            raise AssertionError(f"ring partials at {shape} {dtype}, {block} "
+                                 f"block: err/limit {parts}")
         acc, m, l = res
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
                 k_pos.data_ptr(), acc.data_ptr(), m.data_ptr(),
-                l.data_ptr(), vsum.data_ptr(), bounds.data_ptr(), 1, p, b,
-                hq, hkv, lq, lk, d, 1, 0, 0.0, scale, stream)
+                l.data_ptr(), vsum.data_ptr(), bounds.data_ptr(),
+                ra._DTYPES[dt], p, b, hq, hkv, lq, lk, d, 1, 0, 0.0, scale,
+                stream)
         kernel_ms = time_ms(lambda: lib.repro_ring_partials(*args),
                             iters=20, warmup=3)
         wrapper_ms = time_ms(lambda: ra.attn_block_partials(
@@ -2439,28 +2483,30 @@ def time_ring_partials(torch, ra, ref, gen, card) -> dict:
         pairs = int(mask.sum().item())
         if pairs:
             nbytes, ops_count = ring_block_counts(p, b, hq, hkv, lq, lk, d,
-                                                  2, pairs)
+                                                  itemsize, pairs)
             sdpa_err = (sdpa().float() - (acc / l[..., None])[:, 0]
                         ).abs().max().item()
         else:
             # no kept pair: the function needs v (its sum), the positions,
             # and writes acc, m and l; q and k are never read
-            nbytes = (p * b * hkv * lk * d * 2 + 4 * p * (lq + lk)
+            nbytes = (p * b * hkv * lk * d * itemsize + 4 * p * (lq + lk)
                       + 4 * p * b * hq * lq * (d + 2))
             ops_count, sdpa_err = 0, float("nan")
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops_count / PEAK_OPS_PER_S[str(dt)] * 1e3
         bound = max(t_bytes, t_ops)
-        log(f"  times at P{p} B{b} Hq{hq} Hkv{hkv} Lq{lq} Lk{lk} D{d} bf16 "
-            f"causal, {block} block ({card}): kernel {kernel_ms:.5f} ms, "
+        log(f"  times at P{p} B{b} Hq{hq} Hkv{hkv} Lq{lq} Lk{lk} D{d} "
+            f"{dtype} causal, {block} block ({card}): err/limit vs plain "
+            + " ".join(f"{c_} {x_:.3f}" for c_, x_ in parts.items())
+            + f"; kernel {kernel_ms:.5f} ms, "
             f"wrapper {wrapper_ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa "
             f"with the block mask {library_ms:.5f} ms (sdpa max|err| vs the "
             f"kernel's acc/l {sdpa_err:.3e}); max|err| vs plain {err:.3e}; "
             f"bound {bound:.6f} ms by {'bytes' if t_bytes >= t_ops else 'operations'} "
             f"({nbytes} B = {t_bytes:.6f} ms; {ops_count} products-ops of "
-            f"the {pairs} kept pairs = {t_ops:.6f} ms at the bf16 "
-            f"tensor-core rate, {ops_count / f32 * 1e3:.6f} ms at the f32 "
-            f"rate); kernel at {bound / kernel_ms:.1%} of its bound")
+            f"the {pairs} kept pairs = {t_ops:.6f} ms at the {dtype} "
+            f"rate, {ops_count / f32 * 1e3:.6f} ms at the f32 rate); "
+            f"kernel at {bound / kernel_ms:.1%} of its bound")
         got[block] = dict(max_abs_err=err, ms=kernel_ms,
                           wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=bound,
@@ -6191,6 +6237,542 @@ def serve_tp_attention(torch, fa, ref, gen, card, serving) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 19: sequence sharding — the ring's model path over rank processes,
+# and the sequence-sharded long-context decode
+# ---------------------------------------------------------------------------
+# One spawn of SEQ_RANKS rank processes on a (4, 1) mesh (data 4) runs
+# 19a-19c in turn, each model freed before the next; the parent runs every
+# 1x1 side after the ranks exit.  19a: `fusion.ring_attention` on the
+# data axis's `spmd_ctx` over phase 8's prompt (qwen2-0.5b's layer-0 q,
+# k, v of RING_RUN's 32768 tokens, 8192 a rank), against kernel 4 over
+# the gathered sequence; one backward through the ring layer in f32.
+# 19b: qwen2-0.5b's 24 layers with attention="ring" over SEQ_MODEL_LEN
+# tokens sharded by sequence, at their global positions.  19c:
+# zamba2-1.2b's decode at the reference's long_500k cell through
+# `build.make_serve_steps` (seq_shards 4: each rank holds 131072 of the
+# 524288 slots of each of the 7 shared attention caches).
+
+SEQ_RANKS = 4
+# 19a: the ring layer's gradient over this many tokens (512 a rank), f32
+SEQ_GRAD_LEN = 2048
+# 19a: the ring layer's gradient against the mono layer's, every leaf:
+# |ring - mono| <= SEQ_GRAD_RTOL |mono| + SEQ_GRAD_ATOL x max|mono| (the
+# CPU parity tests' rtol 1e-4 / atol 1e-5, the atol relative to the
+# leaf's scale)
+SEQ_GRAD_RTOL, SEQ_GRAD_ATOL = 1e-4, 1e-5
+# 19b: qwen2-0.5b's forward over this many tokens (2048 a rank); the f32
+# logits of every SEQ_ROW_STRIDE-th row of a shard (and its last) go back
+# to the parent, the argmax of every row
+SEQ_MODEL_LEN = 8192
+SEQ_ROW_STRIDE = 64
+# 19c: the long_500k decode: 4 teacher-forced steps from position
+# SEQ_T0 - 4 after the end (the last shard owns the writes), then 4 in
+# shard 1's range; the f32 gate's cache length
+SEQ_DECODE_STEPS = 4
+SEQ_F32_CELL = dict(seq_len=65536, global_batch=1, kind="decode")
+# 19c's caches are drawn this many rows at a time (zamba2: 1 GiB of f32)
+SEQ_FILL_ROWS = 1 << 17
+
+
+def seq_ring_qkv(torch, np, cfg, params, run, lo, hi):
+    """Phase 8's ring inputs, rows [lo, hi): qwen2's layer-`run["layer"]`
+    q, k, v (B, H, rows, D) of RING_RUN's seeded prompt at its global
+    positions, and those positions (int32)."""
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.comm import Comm
+    seq = run["seq_len"]
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(run["batch"], seq))[:, lo:hi], device="cuda")
+    pos = torch.arange(lo, hi, device="cuda").expand(run["batch"], hi - lo)
+    bp = params["layers"][run["layer"]]
+    with torch.no_grad():
+        h = L.rms_norm(L.embed(Comm(), cfg, params["embed"], tokens),
+                       bp["ln1"])
+        q, k, v = L.attention_qkv(cfg, bp["attn"], h, pos)
+    return q, k, v, pos[0].to(torch.int32)
+
+
+def seq_grad_inputs(torch, cfg):
+    """19a's gradient check: x (1, SEQ_GRAD_LEN, d) and the cotangent
+    weights w, drawn from seeded generators on the card (every rank and
+    the parent draw the same)."""
+    gen = torch.Generator(device="cuda").manual_seed(1900)
+    shape = (1, SEQ_GRAD_LEN, cfg.d_model)
+    return (torch.randn(shape, generator=gen, device="cuda"),
+            torch.randn(shape, generator=gen, device="cuda"))
+
+
+def seq_layer_grads(torch, cfg, comm, p, x, w, positions):
+    """(output, dx, {leaf: gradient}) of sum(w * attention(x)) for the
+    attention layer `p` in f32."""
+    from repro_torch.models import layers as L
+    p = {k: t.detach().clone().requires_grad_() for k, t in p.items()}
+    x = x.detach().clone().requires_grad_()
+    out = L.attention(comm, cfg, p, x, positions)
+    (w * out).sum().backward()
+    return out.detach(), x.grad, {k: t.grad for k, t in p.items()}
+
+
+def seq_forward(comm, cfg, params, tokens, positions):
+    """qwen2's layer stack at the given (global) positions -> logits:
+    `transformer.forward` builds arange(L) of the tokens it is handed
+    (the reference's, too), so a sequence shard is driven block by block
+    here; at 1x1 with positions arange(L) it is `forward` +
+    `lm_logits`."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    x = transformer._embed_scaled(comm, cfg, params, tokens)
+    for i, bp in enumerate(params["layers"]):
+        x, _ = transformer._attn_block(comm, cfg, bp, x, positions,
+                                       transformer._is_local(cfg, i))
+    x = L.rms_norm(x, params["final_norm"])
+    return L.lm_logits(comm, cfg, params["embed"], x)
+
+
+def seq_model_tokens(np, cfg):
+    return np.random.default_rng(1901).integers(
+        1, cfg.vocab, size=(1, SEQ_MODEL_LEN))
+
+
+def seq_rows(ls):
+    """The rows of a shard of `ls` whose f32 logits 19b returns."""
+    return sorted(set(range(0, ls, SEQ_ROW_STRIDE)) | {ls - 1})
+
+
+def seq_decode_positions(S):
+    """19c's positions for a cache of S global slots: the last 4 (the
+    last shard writes), then 4 early in shard 1's range."""
+    s1 = S // SEQ_RANKS + S // (4 * SEQ_RANKS)
+    return (list(range(S - SEQ_DECODE_STEPS, S))
+            + list(range(s1, s1 + SEQ_DECODE_STEPS)))
+
+
+def seq_decode_tokens(np, cfg, n):
+    return np.random.default_rng(1902).integers(1, cfg.vocab, size=(1, n))
+
+
+def seq_fill_cache(torch, cache, shard, n_shards):
+    """Fill a zamba2 decode cache in place from seeded generators: each
+    shared attention cache (k, v) chunk by chunk, chunk (layer, shard s)
+    from its own seed, so that the rank of shard `shard` (of `n_shards`
+    ranks; n_shards 1: the 1x1 cache, every chunk at its rows) holds
+    exactly its rows of the 1x1 cache; the Mamba2 caches (replicated over
+    the data axis) from a seed a layer."""
+    for i, c in enumerate(cache["layers"]):
+        gen = torch.Generator(device="cuda").manual_seed(19000 + i)
+        for k in ("conv", "ssm"):
+            c[k].copy_(0.5 * torch.randn(c[k].shape, generator=gen,
+                                         device="cuda"))
+    chunks = [shard] if n_shards > 1 else range(SEQ_RANKS)
+    for i, c in enumerate(cache["shared"]):
+        for j, k in enumerate(("k", "v")):
+            t = c[k]
+            rows = t.shape[1] // len(chunks)
+            for n, s in enumerate(chunks):
+                gen = torch.Generator(device="cuda").manual_seed(
+                    19100 + 100 * i + 10 * s + j)
+                part = t[:, n * rows:(n + 1) * rows]
+                for lo in range(0, rows, SEQ_FILL_ROWS):
+                    hi = min(lo + SEQ_FILL_ROWS, rows)
+                    part[:, lo:hi].copy_(torch.randn(
+                        part[:, lo:hi].shape, generator=gen, device="cuda"))
+
+
+def seq_decode_run(torch, decode, params, cache, tokens, positions, rt=None):
+    """19c's steps: decode(params, cache, {"tokens", "positions"}) at each
+    position in turn on the global batch (1 sequence), teacher-forced.
+    -> (logits (steps, V_local) f32 on the host, wall a step, heap rounds
+    a step, launch counts summed over the steps)."""
+    tokens = torch.as_tensor(tokens, device="cuda")
+    out, rounds = [], []
+    torch.cuda.synchronize()
+    _reset_counts()                                  # the path starts
+    t0 = time.perf_counter()
+    for n, pos in enumerate(positions):
+        r0 = rt.rounds if rt is not None else 0
+        lg, cache = decode(params, cache, {
+            "tokens": tokens[:, n:n + 1],
+            "positions": torch.full((1,), pos, device="cuda")})
+        out.append(lg[0, 0].float())
+        rounds.append(rt.rounds - r0 if rt is not None else 0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / len(positions)
+    counts = _counts()                               # the path ends
+    return (torch.stack(out).cpu().numpy(), wall, rounds, counts)
+
+
+def seq_shard_rank(serving_cfg, run, zamba_cfg):
+    """19, one rank of the (4, 1) mesh: 19a, 19b, 19c in turn, each
+    path's launches, heap rounds and host time in their syncs counted
+    from 0 just before it and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fusion, spmd
+    from repro_torch.core.shmem import spmd_ctx
+    from repro_torch.launch import build
+    from repro_torch.models import config as mconfig
+    from repro_torch.models import transformer
+    from repro_torch.parallel.comm import AxisSpec, Comm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rt = spmd.current()
+    n, d = rt.mesh.axis_size("data"), rt.mesh.axis_index("data")
+    out = {}
+    cfg = serving_cfg
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    # 19a: the ring over the ranks, phase 8's prompt
+    ls = run["seq_len"] // n
+    q, k, v, pos = seq_ring_qkv(torch, np, cfg, params, run, d * ls,
+                                (d + 1) * ls)
+    ctx = spmd_ctx("data")
+    for _ in range(2):                    # the first call warms the rank
+        torch.cuda.synchronize()
+        _reset_counts()                              # the path starts
+        r0, s0 = rt.rounds, rt.sync_s
+        t0 = time.perf_counter()
+        o = fusion.ring_attention(ctx, q[None], k[None], v[None], pos[None],
+                                  pos[None], causal=True)
+        torch.cuda.synchronize()
+        out["19a"] = dict(wall=time.perf_counter() - t0, counts=_counts(),
+                          rounds=rt.rounds - r0, sync_s=rt.sync_s - s0)
+    out["19a"]["out"] = o[0].cpu()
+    del q, k, v, o
+    # 19a: one backward through the ring layer, f32
+    ring32 = dataclasses.replace(cfg, dtype=torch.float32, attention="ring")
+    x, w = seq_grad_inputs(torch, cfg)
+    gl = SEQ_GRAD_LEN // n
+    rows = slice(d * gl, (d + 1) * gl)
+    _reset_counts()
+    _, gx, gp = seq_layer_grads(
+        torch, ring32, Comm(AxisSpec()), params["layers"][0]["attn"],
+        x[:, rows], w[:, rows],
+        torch.arange(SEQ_GRAD_LEN, device="cuda")[rows][None])
+    out["19a"]["grad"] = dict(gx=gx.cpu(), gp={k_: g.cpu()
+                                               for k_, g in gp.items()},
+                              counts=_counts())
+    del x, w, gx, gp
+    # 19b: the 24 layers through the ring, f32 compute then bf16
+    toks = torch.as_tensor(seq_model_tokens(np, cfg), device="cuda")
+    ls = SEQ_MODEL_LEN // n
+    rows = slice(d * ls, (d + 1) * ls)
+    positions = torch.arange(SEQ_MODEL_LEN, device="cuda")[rows][None]
+    keep = seq_rows(ls)
+    for key, dt in (("f32", torch.float32), ("bf16", cfg.dtype)):
+        c = dataclasses.replace(cfg, dtype=dt, attention="ring")
+        torch.cuda.synchronize()
+        _reset_counts()                              # the path starts
+        r0, s0 = rt.rounds, rt.sync_s
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg = seq_forward(Comm(AxisSpec()), c, params, toks[:, rows],
+                             positions)[0]
+        torch.cuda.synchronize()
+        res = dict(wall=time.perf_counter() - t0, counts=_counts(),
+                   rounds=rt.rounds - r0, sync_s=rt.sync_s - s0,
+                   finite=bool(torch.isfinite(lg).all()),
+                   argmax=lg.argmax(-1).cpu().numpy(),
+                   rows=lg[keep].float().cpu().numpy())
+        out["19b_" + key] = res
+        del lg
+    del params, toks
+    out["peak_qwen"] = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 19c: zamba2's long_500k decode through make_serve_steps, bf16 (the
+    # config's own dtype), then f32 compute at SEQ_F32_CELL's length
+    torch.cuda.reset_peak_memory_stats()
+    zparams = transformer.init_params(zamba_cfg, seed=0, device="cuda")
+    mconfig.SHAPES["seq_f32"] = SEQ_F32_CELL
+    for key, c, cell in (("bf16", zamba_cfg, "long_500k"),
+                         ("f32", dataclasses.replace(
+                             zamba_cfg, dtype=torch.float32), "seq_f32")):
+        _, decode, (cshapes, _), _, ss = build.make_serve_steps(c, rt.mesh,
+                                                                cell)
+        cache = transformer.map_params(lambda t: torch.zeros(
+            t.shape, dtype=t.dtype, device="cuda"), cshapes)
+        seq_fill_cache(torch, cache, d, n)
+        S = mconfig.SHAPES[cell]["seq_len"]
+        positions = seq_decode_positions(S)
+        tokens = seq_decode_tokens(np, c, len(positions))
+        s0 = rt.sync_s
+        lg, wall, rounds, counts = seq_decode_run(torch, decode, zparams,
+                                                  cache, tokens, positions,
+                                                  rt)
+        out["19c_" + key] = dict(seq_shards=ss, wall=wall, rounds=rounds,
+                                 counts=counts, logits=lg,
+                                 sync_s=(rt.sync_s - s0) / len(positions),
+                                 slots=cache["shared"][0]["k"].shape[1])
+        del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_zamba"] = torch.cuda.max_memory_allocated()
+    del zparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_shard(torch, np, serving, zamba, ra, ref, ops, gen, card) -> tuple:
+    """Phase 19: kernel 6 at the per-rank shapes of 19a and 19b against
+    its plain version, timed beside it and SDPA; one spawn of SEQ_RANKS
+    ranks (`seq_shard_rank`); then the 1x1 sides in this process, each
+    freed before the next, and the gates.  Returns each path's launch
+    counts summed over the ranks, and kernel 6's timed rows, each with
+    the launches of its shape on the path."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch import build
+    from repro_torch.models import transformer
+    from repro_torch.parallel.comm import Comm
+    from repro_torch.serve import step as sstep
+    cfg, run, zcfg = serving.CONFIG, serving.RING_RUN, zamba.CONFIG
+    n = SEQ_RANKS
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    ls_a, ls_b = run["seq_len"] // n, SEQ_MODEL_LEN // n
+    timing = []
+    for key, ls, dtype in (("19a", ls_a, "bfloat16"), ("19b_bf16", ls_b,
+                                                      "bfloat16"),
+                           ("19b_f32", ls_b, "float32")):
+        t = time_ring_partials(torch, ra, ref, gen, card, (
+            1, 1, cfg.n_heads, cfg.n_kv_heads, ls, ls, cfg.hd), dtype)
+        t.update(key=key, shape=f"{cfg.name} ring block per rank of "
+                 f"{n} (B 1, Hq {cfg.n_heads}, Hkv {cfg.n_kv_heads}, Lq = "
+                 f"Lk {ls}, D {cfg.hd}, {dtype}, causal, the diagonal "
+                 f"block; phase {key[:3]})")
+        timing.append(t)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = build.shard_mapped(seq_shard_rank, (n, 1),
+                             [(cfg, run, zcfg)] * n, device="cuda")
+    log(f"  19 the {n}-rank spawn: {time.perf_counter() - t0:.1f} s, spawn "
+        f"included; peak a rank (share of the card's {total_mem / 2**30:.1f}"
+        f" GiB): 19a-b "
+        + ", ".join(f"{r['peak_qwen'] / total_mem:.3f}" for r in res)
+        + "; 19c " + ", ".join(f"{r['peak_zamba'] / total_mem:.3f}"
+                               for r in res) + f" ({card})")
+
+    # 19a: the ring against kernel 4 over the gathered sequence
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    q, k, v, _ = seq_ring_qkv(torch, np, cfg, params, run, 0,
+                              run["seq_len"])
+    ops.attention(q, k, v, causal=True)              # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mono = ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    mono_wall = time.perf_counter() - t0
+    del q, k, v
+    want = {name: 0 for name in res[0]["19a"]["counts"]}
+    want.update(ring_attention=n, dma_copy=2 * 3 * (n - 1))
+    overs = []
+    for d, r in enumerate(res):
+        a = r["19a"]
+        overs.append(bf16_over(torch, a["out"].cuda(),
+                               mono[:, :, d * ls_a:(d + 1) * ls_a]))
+        if a["counts"] != want or a["rounds"] != 3 * (n - 1):
+            raise AssertionError(f"19a rank {d}: launches {a['counts']}, "
+                                 f"{a['rounds']} heap rounds; want {want}, "
+                                 f"{3 * (n - 1)}")
+    log(f"  19a ring over {n} ranks of {cfg.name} layer {run['layer']}'s q "
+        f"k v over {run['seq_len']} tokens ({ls_a} a rank, bf16, causal): "
+        f"err/limit vs kernel 4 on the gathered sequence "
+        + ", ".join(f"{o:.3f}" for o in overs)
+        + f" (limit max(2e-5, 1 bf16 step)); per rank {n} kernel-6 "
+        f"launches, {3 * (n - 1)} heap rounds (3 puts x {n - 1} rotations), "
+        f"{2 * 3 * (n - 1)} dma_copy; ring wall (host clock, rank 0) "
+        f"{res[0]['19a']['wall'] * 1e3:.3f} ms, its heap rounds' syncs "
+        f"{res[0]['19a']['sync_s'] * 1e3:.3f} ms; mono (kernel 4 over the "
+        f"gathered sequence, one process) {mono_wall * 1e3:.3f} ms ({card})")
+    if not max(overs) <= 1.0:
+        raise AssertionError(f"19a ring vs kernel 4: err/limit {overs}")
+    del mono
+    # 19a: the ring layer's gradient against the mono layer's, f32
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    x, w = seq_grad_inputs(torch, cfg)
+    _, gx, gp = seq_layer_grads(torch, cfg32, Comm(),
+                                params["layers"][0]["attn"], x, w,
+                                torch.arange(SEQ_GRAD_LEN,
+                                             device="cuda")[None])
+    gl = SEQ_GRAD_LEN // n
+    leaves = {"x": (torch.cat([r["19a"]["grad"]["gx"] for r in res], 1),
+                    gx.cpu())}
+    leaves.update({k_: (sum(r["19a"]["grad"]["gp"][k_] for r in res),
+                        g.cpu()) for k_, g in gp.items()})
+    worst = {}
+    for name, (got, want_) in leaves.items():
+        lim = SEQ_GRAD_RTOL * want_.abs() + SEQ_GRAD_ATOL \
+            * want_.abs().max()
+        worst[name] = float(((got - want_).abs() / lim).max())
+    log(f"  19a gradient of sum(w * ring layer) over {SEQ_GRAD_LEN} tokens "
+        f"({gl} a rank, f32; kernel 6's backward recomputes through the "
+        f"plain partials) vs the mono layer's, worst |diff| / (rtol "
+        f"{SEQ_GRAD_RTOL:g} |g| + atol {SEQ_GRAD_ATOL:g} max|g|): "
+        + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in worst.items()))
+    if not max(worst.values()) <= 1.0:
+        raise AssertionError(f"19a ring layer gradient: {worst}")
+    del x, w, gx, gp, leaves
+
+    # 19b: the 24 layers through the ring against the 1x1 mono forward
+    toks = torch.as_tensor(seq_model_tokens(np, cfg), device="cuda")
+    pos = torch.arange(SEQ_MODEL_LEN, device="cuda")[None]
+    keep = seq_rows(ls_b)
+    with torch.no_grad():
+        lg1 = seq_forward(Comm(), cfg32, params, toks, pos)[0]
+    f32_worst = 0.0
+    for d, r in enumerate(res):
+        b = r["19b_f32"]
+        for i, row in enumerate(keep):
+            w1 = lg1[d * ls_b + row].cpu().numpy()
+            err = float(np.abs(b["rows"][i] - w1).max())
+            lim = DECODE_TP_F32_RTOL * float(np.abs(w1).max())
+            f32_worst = max(f32_worst, err / lim)
+            if not (b["finite"] and err <= lim):
+                raise AssertionError(f"19b f32 rank {d} row {row}: "
+                                     f"max|diff| {err} (limit {lim})")
+    del lg1
+    with torch.no_grad():
+        lgb = seq_forward(Comm(), cfg, params, toks, pos)[0]
+    pick1 = lgb.argmax(-1).cpu().numpy()
+    ties, bdev = [], 0.0
+    for d, r in enumerate(res):
+        b = r["19b_bf16"]
+        if not b["finite"]:
+            raise AssertionError(f"19b bf16 rank {d}: logits not finite")
+        for i, row in enumerate(keep):
+            w1 = lgb[d * ls_b + row].float().cpu().numpy()
+            bdev = max(bdev, float(np.abs(b["rows"][i] - w1).max()
+                                   / np.abs(w1).max()))
+        for row in np.flatnonzero(b["argmax"] != pick1[d * ls_b:
+                                                      (d + 1) * ls_b]):
+            lg = lgb[d * ls_b + row].float().cpu().numpy()
+            gap = top2_gap(np, lg)
+            lim = PREFILL_LOGITS_RTOL * float(np.abs(lg).max())
+            ties.append((d, int(row), gap))
+            if not gap <= lim:
+                raise AssertionError(f"19b bf16 rank {d} row {row}: argmax "
+                                     f"{int(b['argmax'][row])}, 1x1's "
+                                     f"{int(pick1[d * ls_b + row])} at a "
+                                     f"top-2 gap of {gap} (bound {lim})")
+    del lgb, params, toks, pos
+    L_ = cfg.n_layers
+    for key in ("19b_f32", "19b_bf16"):
+        want = {name: 0 for name in res[0][key]["counts"]}
+        want.update(ring_attention=L_ * n, dma_copy=2 * 3 * (n - 1) * L_)
+        for d, r in enumerate(res):
+            b = r[key]
+            if b["counts"] != want or b["rounds"] != 3 * (n - 1) * L_:
+                raise AssertionError(f"19b {key} rank {d}: launches "
+                                     f"{b['counts']}, {b['rounds']} heap "
+                                     f"rounds; want {want}, "
+                                     f"{3 * (n - 1) * L_}")
+    log(f"  19b {cfg.name}'s {L_} layers with attention='ring' over "
+        f"{SEQ_MODEL_LEN} tokens ({ls_b} a rank, global positions): f32 "
+        f"logits of {len(keep)} rows a rank vs the 1x1 mono forward, worst "
+        f"max|diff| / limit {f32_worst:.4f} (limit {DECODE_TP_F32_RTOL:g} "
+        f"x max|logit|); bf16 (the config's own): finite, max|diff| / "
+        f"max|logit| vs 1x1 over those rows {bdev:.4f}, every row's argmax "
+        f"== 1x1's" + (f" but at {len(ties)} near ties of {SEQ_MODEL_LEN} "
+                       f"rows (1x1 top-2 gaps {min(t_[2] for t_ in ties)}"
+                       f"-{max(t_[2] for t_ in ties)}, the first (rank, row,"
+                       f" gap) {ties[:4]})" if ties else "")
+        + f"; per rank {L_ * n} kernel-6 launches, {3 * (n - 1) * L_} heap "
+        f"rounds a forward; walls (rank 0, host clock) f32 "
+        f"{res[0]['19b_f32']['wall'] * 1e3:.1f} ms, bf16 "
+        f"{res[0]['19b_bf16']['wall'] * 1e3:.1f} ms, the rounds' syncs "
+        f"{res[0]['19b_bf16']['sync_s'] * 1e3:.1f} ms ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 19c: the sequence-sharded decode against the 1x1 decode
+    n_shared = transformer.n_shared_blocks(zcfg)
+    stages = len(coll.allreduce_schedule(n).stages)
+    per_step = n_shared * 3 * stages
+    zparams = transformer.init_params(zcfg, seed=0, device="cuda")
+    for key, c, S in (("bf16", zcfg, 524288),
+                      ("f32", dataclasses.replace(zcfg, dtype=torch.float32),
+                       SEQ_F32_CELL["seq_len"])):
+        cache = transformer.init_cache(c, 1, 1, S, device="cuda")
+        seq_fill_cache(torch, cache, 0, 1)
+        positions = seq_decode_positions(S)
+        tokens = seq_decode_tokens(np, c, len(positions))
+        torch.cuda.reset_peak_memory_stats()
+        lg1, wall1, _, _ = seq_decode_run(torch, sstep.build_decode_step(c),
+                                          zparams, cache, tokens, positions)
+        peak1 = torch.cuda.max_memory_allocated()
+        del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        worst, ties = 0.0, []
+        for d, r in enumerate(res):
+            z = r["19c_" + key]
+            if z["seq_shards"] != n or z["slots"] != S // n:
+                raise AssertionError(f"19c {key} rank {d}: seq_shards "
+                                     f"{z['seq_shards']}, {z['slots']} slots")
+            want = {name: 0 for name in z["counts"]}
+            want.update(dma_copy=2 * per_step * len(positions),
+                        reduce_combine=per_step * len(positions))
+            if z["counts"] != want or z["rounds"] != [per_step] * len(
+                    positions):
+                raise AssertionError(f"19c {key} rank {d}: launches "
+                                     f"{z['counts']}, heap rounds "
+                                     f"{z['rounds']}; want {want}, "
+                                     f"{per_step} a step")
+            lg = z["logits"]
+            if not np.isfinite(lg).all():
+                raise AssertionError(f"19c {key} rank {d}: logits not finite")
+            for t in range(len(positions)):
+                top = float(np.abs(lg1[t]).max())
+                err = float(np.abs(lg[t] - lg1[t]).max())
+                if key == "f32":
+                    lim = DECODE_TP_F32_RTOL * top
+                    worst = max(worst, err / lim)
+                    if not err <= lim:
+                        raise AssertionError(f"19c f32 rank {d} step {t}: "
+                                             f"max|diff| {err} (limit {lim})")
+                    continue
+                worst = max(worst, err / top)
+                got_, want_ = int(lg[t].argmax()), int(lg1[t].argmax())
+                if got_ != want_:
+                    gap = top2_gap(np, lg1[t])
+                    ties.append((d, t, gap))
+                    if not gap <= PREFILL_LOGITS_RTOL * top:
+                        raise AssertionError(
+                            f"19c bf16 rank {d} step {t}: pick {got_}, "
+                            f"1x1's {want_} at a top-2 gap of {gap} (bound "
+                            f"{PREFILL_LOGITS_RTOL * top})")
+        z0 = res[0]["19c_" + key]
+        log(f"  19c {zcfg.name} decode, {key} compute, {S} slots "
+            f"(make_serve_steps at "
+            f"{'long_500k' if key == 'bf16' else 'a ' + str(S) + '-slot cell'}"
+            f": seq_shards {n}, {S // n} slots a rank in each of "
+            f"{n_shared} shared caches), positions {positions[0]}.."
+            f"{positions[SEQ_DECODE_STEPS - 1]} (shard {n - 1} writes) and "
+            f"{positions[SEQ_DECODE_STEPS]}..{positions[-1]} (shard 1): "
+            + (f"logits vs 1x1 worst max|diff| / limit {worst:.4f} (limit "
+               f"{DECODE_TP_F32_RTOL:g} x max|logit|)" if key == "f32" else
+               f"finite, picks == 1x1's"
+               + (f" but near ties (rank, step, gap) {ties}" if ties else "")
+               + f", max|diff| / max|logit| vs 1x1 {worst:.4f}")
+            + f"; {per_step} heap rounds a step a rank ({n_shared} layers x 3 "
+            f"allreduces x {stages} stages; 2 dma_copy a round, a combine a "
+            f"stage); step wall (rank 0) "
+            f"{z0['wall'] * 1e3:.1f} ms, its rounds' syncs "
+            f"{z0['sync_s'] * 1e3:.1f} ms, against 1x1 {wall1 * 1e3:.1f} ms "
+            f"(1x1 peak {peak1 / 2**30:.2f} GiB) ({card})")
+    del zparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = [{k_: sum(r[key]["counts"][k_] for r in res)
+              for k_ in res[0][key]["counts"]}
+             for key in ("19a", "19b_f32", "19b_bf16", "19c_bf16", "19c_f32")]
+    paths.append({k_: sum(r["19a"]["grad"]["counts"][k_] for r in res)
+                  for k_ in res[0]["19a"]["grad"]["counts"]})
+    for t in timing:
+        t["calls"] = sum(r[t["key"]]["counts"]["ring_attention"] for r in res)
+    return paths, timing
+
+
 def main() -> int:
     try:
         import torch
@@ -6484,11 +7066,21 @@ def main() -> int:
         t["calls"] = tp_fa[tp]                  # the measured count
     log(f"  phase 18 wall {time.perf_counter() - t18:.1f} s ({card})")
 
+    log(f"== phase 19: sequence sharding over {SEQ_RANKS} ranks (the ring's "
+        f"model path: {serving.CONFIG.name}'s layer and 24 layers; "
+        f"{zamba.CONFIG.name}'s long_500k decode, seq_shards {SEQ_RANKS})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    seq_paths, seq_timing = seq_shard(torch, np, serving, zamba, ra, ref,
+                                      ops, gen, card)
+    log(f"  phase 19 wall {time.perf_counter() - t19:.1f} s ({card})")
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
         + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths \
         + moe_paths + frontend_paths + service_paths + elastic_paths \
-        + spmd_paths + ep_paths + tp_paths
+        + spmd_paths + ep_paths + tp_paths + seq_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -6510,7 +7102,9 @@ def main() -> int:
         f"model) of 2x2, model of 1x8; 17b granite 1x4; 17c zamba2 2x2 "
         f"default, fused; 17d deepseek 2x2; summed over ranks) {ep_paths}, "
         f"tp (18a qwen2 engine 1x2, 18b zamba2 1x2, deepseek 1x2, 18a qwen2 "
-        f"engine 1x4, 18b granite 1x4; summed over ranks) {tp_paths}")
+        f"engine 1x4, 18b granite 1x4; summed over ranks) {tp_paths}, "
+        f"seq (19a ring, 19b f32, 19b bf16, 19c bf16, 19c f32, 19a "
+        f"gradient; summed over ranks) {seq_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]
@@ -6543,6 +7137,15 @@ def main() -> int:
                      bound_by=t["bound_by"], library_ms=t["library_ms"])
                 for t in dense_timing + moe_timing + frontend_timing
                 + ep_timing + tp_timing]
+    # kernel 6 at phase 19's per-rank shapes, each with its launches there
+    kernels += [dict(name="ring_attention", route="cuda",
+                     source="src/repro_torch/kernels/csrc/ring_attention.cu",
+                     replaces="src/repro/kernels/ring_attention.py:84",
+                     shape=t["shape"], launches=t["calls"],
+                     max_abs_err=t["max_abs_err"], ms=t["ms"],
+                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                     bound_by=t["bound_by"], library_ms=t["library_ms"])
+                for t in seq_timing]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")

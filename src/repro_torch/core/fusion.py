@@ -1,5 +1,6 @@
 """The fusion layer: schedule stages interleaved with kernel execution
-(port of `repro/core/fusion.py`, DESIGN.md §14), on the SIM backend.
+(port of `repro/core/fusion.py`, DESIGN.md §14), on the SIM and SPMD
+backends.
 
 ring_attention
     Sequence-sharded attention.  Each ring step's KV-block rotation is a
@@ -7,12 +8,15 @@ ring_attention
     pending-op queue, so unrelated traffic cannot drain it) before the
     flash partials of the block that arrived in the previous step are
     computed (kernel 6, kernels/ring_attention.py: one launch per step
-    for all PEs).  `fence()` orders the puts per ring neighbour;
+    for the net's PE rows).  `fence()` orders the puts per ring neighbour;
     `quiet(fk, fv, fp)` completes exactly this step's rotation before the
-    next step consumes it: the double-buffer slot protocol.  On the card
-    the rotation's put_copy launches and kernel 6 share one stream, so
-    they run in issue order and do not overlap (a side stream is later
-    perf work).
+    next step consumes it: the double-buffer slot protocol.  On the SIM
+    net a rotation is one put_copy launch over every PE; on the SPMD net
+    (one PE a rank process, `spmd_ctx`) it is a heap round: a dma_copy
+    store into the next rank's slot, a stream sync, a host barrier and a
+    dma_copy read.  Either way the rotation and kernel 6 share one
+    stream, so they run in issue order and do not overlap (a side stream
+    is later perf work).
 
 fused_rs_adam
     Ring reduce-scatter whose FINAL combine lands inside the k-ary
@@ -26,8 +30,9 @@ fused_rs_adam
 choose_attention / choose_grad_rs price the fused variants against the
 monolithic ones (abmodel.modeled_overlapped_time, the schedules' alpha-beta
 times); a measured tuner verdict (`tuner=`, core/tuner.py) wins over the
-model.  fused_rs_adam runs on both backends (SIM and SPMD: each PE row's
-owned chunk); ring attention on the SIM backend.
+model.  Both fused paths run on both backends: every array carries the
+net's leading axis of PE rows (all PEs under SIM, this rank's one row
+under SPMD).
 """
 from __future__ import annotations
 
@@ -38,13 +43,10 @@ from . import abmodel
 from . import collectives as coll
 from . import netops
 from .collectives import allgather_schedule, reduce_scatter_schedule
-from .netops import NetOps, SimNetOps, device_table
+from .netops import NetOps, SimNetOps, SpmdNetOps, device_table
 from .pattern import ring_pattern
 from ..kernels import ops
 from ..kernels import ring_attention as _ra
-
-_SLICE5 = "ring attention runs on the SIM backend; on the SPMD backend " \
-    "it comes with slice 5c-3b (sequence sharding)"
 
 
 # ---------------------------------------------------------------------------
@@ -54,22 +56,28 @@ _SLICE5 = "ring attention runs on the SIM backend; on the SPMD backend " \
 def ring_attention(ctx, q, k, v, q_pos, k_pos, *, causal: bool = True,
                    window: int | None = None, softcap: float | None = None,
                    sm_scale: float | None = None, out_dtype=None):
-    """Sequence-sharded attention over `ctx`'s PEs (a SIM context).
+    """Sequence-sharded attention over `ctx`'s PEs.
 
-    Each PE holds its query shard q (n, B, Hq, Lq_shard, D) with global
-    positions q_pos (n, Lq_shard), and its KV shard k/v (n, B, Hkv,
-    Lk_shard, D) with global positions k_pos (n, Lk_shard; -1 marks a
-    padded slot), all stacked on the leading PE axis.  The KV shard walks
-    the ring: at each step the NEXT block is issued with put_nbi on a
-    private context, then the partials of the CURRENT block are computed,
-    then quiet() completes the rotation.  The output (n, B, Hq, Lq_shard,
-    D) in `out_dtype` (default q's) matches monolithic flash attention
-    over the gathered sequence to f32 allclose: identical per-block
-    arithmetic, with a per-PE merge order that the online softmax absorbs
-    up to rounding."""
+    Each PE holds its query shard q (rows, B, Hq, Lq_shard, D) with global
+    positions q_pos (rows, Lq_shard), and its KV shard k/v (rows, B, Hkv,
+    Lk_shard, D) with global positions k_pos (rows, Lk_shard; -1 marks a
+    padded slot), on the net's leading axis of PE rows: all n PEs on a
+    SIM context, this rank's one row on an SPMD one (`spmd_ctx`), where
+    each step's partials are one kernel-6 launch of this PE alone (the
+    reference's `_lmap` calls its kernel once per PE) and each put a heap
+    round.  The KV shard walks the ring: at each step the NEXT block is
+    issued with put_nbi on a private context, then the partials of the
+    CURRENT block are computed, then quiet() completes the rotation.  The
+    output (rows, B, Hq, Lq_shard, D) in `out_dtype` (default q's), with
+    kernel 6's gradient where q, k or v require one (its backward
+    recomputes through the plain partials), matches monolithic flash
+    attention over the gathered sequence to f32 allclose: identical
+    per-block arithmetic, with a per-PE merge order that the online
+    softmax absorbs up to rounding."""
     net = ctx.net
-    if not isinstance(net, SimNetOps):
-        raise NotImplementedError(_SLICE5)
+    if not isinstance(net, (SimNetOps, SpmdNetOps)):
+        raise NotImplementedError(f"ring attention runs on the SIM and SPMD "
+                                  f"nets, not on {type(net).__name__}")
     n = net.n_pes
     kw = dict(causal=causal, window=window, softcap=softcap,
               sm_scale=sm_scale)

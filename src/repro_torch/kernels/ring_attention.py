@@ -41,6 +41,8 @@ bound by operations; a wholly masked block by bytes alone.
 
 A CPU tensor goes to the plain version (`ref.ring_partials_ref`); a CUDA
 tensor launches the kernel or raises.  `launches` counts the launches.
+The gradient, where one is asked for, recomputes the block through the
+plain version (`attn_block_partials`), on either device.
 """
 from __future__ import annotations
 
@@ -116,7 +118,10 @@ def attn_block_partials(q, k, v, q_pos, k_pos, *, causal: bool = True,
                         sm_scale: float | None = None):
     """Un-normalised flash partials (acc, m, l) of q against ONE KV block
     (module docstring for the shapes).  Merge with `merge_partials`, then
-    `finalize`."""
+    `finalize`.  Where q, k or v require a gradient the call is a
+    `torch.autograd.Function` whose backward recomputes through
+    `ref.ring_partials_ref` (kernel 4's rule, `ops.attention`); the
+    reference's ring differentiates its plain partials the same way."""
     if q.dim() == 4:
         acc, m, l = attn_block_partials(
             q[None], k[None], v[None], q_pos[None], k_pos[None],
@@ -124,8 +129,37 @@ def attn_block_partials(q, k, v, q_pos, k_pos, *, causal: bool = True,
             sm_scale=sm_scale)
         return acc[0], m[0], l[0]
     _check(q, k, v, q_pos, k_pos, window, softcap)
-    sm_scale = sm_scale if sm_scale is not None \
-        else 1.0 / math.sqrt(q.shape[-1])
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              sm_scale=sm_scale if sm_scale is not None
+              else 1.0 / math.sqrt(q.shape[-1]))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Partials.apply(q, k, v, q_pos, k_pos, kw)
+    return _partials(q, k, v, q_pos, k_pos, **kw)
+
+
+class _Partials(torch.autograd.Function):
+    """Kernel 6 forward, plain-recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, kw):
+        ctx.save_for_backward(q, k, v, q_pos, k_pos)
+        ctx.kw = kw
+        return _partials(q, k, v, q_pos, k_pos, **kw)
+
+    @staticmethod
+    def backward(ctx, g_acc, g_m, g_l):
+        q, k, v, q_pos, k_pos = ctx.saved_tensors
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            out = ref.ring_partials_ref(q, k, v, q_pos, k_pos, **ctx.kw)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), (g_acc, g_m, g_l),
+                                         allow_unused=True)
+        return dq, dk, dv, None, None, None
+
+
+def _partials(q, k, v, q_pos, k_pos, *, causal, window, softcap, sm_scale):
+    """The partials of checked (P, ...) inputs: the plain version for a
+    CPU tensor, one launch of the kernel for a CUDA one."""
     if q.device.type == "cpu":
         return ref.ring_partials_ref(q, k, v, q_pos, k_pos, causal=causal,
                                      window=window, softcap=softcap,

@@ -147,10 +147,12 @@ def make_init_fn(cfg: ModelConfig, mesh):
     return init, shapes, specs
 
 
-def local_batch(cfg: ModelConfig, batch: dict, mesh,
-                kind: str = "train") -> dict:
-    """This rank's slice of a GLOBAL batch, per `sharding.batch_specs`."""
-    specs = sharding.batch_specs(cfg, batch, mesh_axes(mesh, cfg), kind)
+def local_batch(cfg: ModelConfig, batch: dict, mesh, kind: str = "train",
+                seq_shards: int = 1) -> dict:
+    """This rank's slice of a GLOBAL batch, per `sharding.batch_specs`
+    (with `seq_shards` > 1 the whole batch: it is replicated)."""
+    specs = sharding.batch_specs(cfg, batch, mesh_axes(mesh, cfg), kind,
+                                 seq_shards)
     out = {}
     for k, v in batch.items():
         for dim, ax in enumerate(specs[k]):
@@ -203,8 +205,9 @@ def make_serve_steps(cfg: ModelConfig, mesh, shape_name: str,
     V_local), and with the cache (the rank's `init_cache` at the cell's
     length, its specs `sharding.cache_specs`) the decode step's.
     `cache_shapes` are meta tensors (None for a prefill cell).  A decode
-    cell whose batch is below the data size (the reference shards its
-    cache's sequence over `data`) raises, naming slice 5c-3b."""
+    cell whose batch is below the data size (the reference's long_500k)
+    shards its cache's sequence over `data`: seq_shards = dp, every rank
+    holds the whole batch and cache_len / dp slots of it."""
     cfg = dataclasses.replace(cfg, fsdp=False)
     _check_ported(cfg, mesh)
     dp, tp, pod = mesh_dims(mesh)
@@ -213,27 +216,27 @@ def make_serve_steps(cfg: ModelConfig, mesh, shape_name: str,
     s = SHAPES[shape_name]
     B, Lc = s["global_batch"], s["seq_len"]
     data_total = dp * (pod or 1)
-    if s["kind"] == "decode" and B < data_total:
-        raise NotImplementedError(
-            f"{shape_name}: a decode batch of {B} below the data size "
-            f"{data_total} shards the cache's sequence over data, which "
-            f"comes with slice 5c-3b")
     seq_shards = 1
+    if s["kind"] == "decode" and B < data_total:
+        # tiny-batch long-context: shard the cache sequence over data
+        seq_shards = dp
+    batch_local = B // data_total if seq_shards == 1 else B
     if s["kind"] == "decode":
-        cache_shapes = transformer.init_cache(cfg, tp, B // data_total, Lc,
-                                              device="meta")
-        cspecs = sharding.cache_specs(cfg, cache_shapes, mesh_axes(mesh))
+        cache_shapes = transformer.init_cache(cfg, tp, batch_local, Lc,
+                                              seq_shards, device="meta")
+        cspecs = sharding.cache_specs(cfg, cache_shapes, mesh_axes(mesh),
+                                      seq_shards)
     else:               # prefill / encoder forward: no decode cache exists
         cache_shapes, cspecs = None, None
     prefill_fn = sstep.build_prefill(cfg, axes, backend)
     decode_fn = sstep.build_decode_step(cfg, axes, backend, seq_shards)
 
-    def local(params, batch, kind):
+    def local(params, batch, kind, shards=1):
         """The rank's slice, on its parameters' device, ids as int64."""
         m = spmd.current().mesh if spmd.active() else mesh
         dev = params["final_norm"].device
         out = {}
-        for k, v in local_batch(cfg, batch, m, kind).items():
+        for k, v in local_batch(cfg, batch, m, kind, shards).items():
             v = torch.as_tensor(v, device=dev)
             out[k] = v if v.is_floating_point() else v.long()
         return out
@@ -242,7 +245,8 @@ def make_serve_steps(cfg: ModelConfig, mesh, shape_name: str,
         return prefill_fn(params, local(params, batch, "prefill"))
 
     def decode(params, cache, batch):
-        return decode_fn(params, cache, local(params, batch, "decode"))
+        return decode_fn(params, cache, local(params, batch, "decode",
+                                              seq_shards))
 
     return prefill, decode, (cache_shapes, cspecs), (shapes, pspecs), \
         seq_shards

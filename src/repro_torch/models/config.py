@@ -90,7 +90,7 @@ class ModelConfig:
     moment_dtype: str = "f32"    # f32 | bf16 | int8 (optimizer moments)
     # sharding (the reference's fields, same defaults)
     attention: str = "mono"      # mono | ring: "ring" runs sequence-sharded
-                                 # attention over `data` (slice 5c-3b)
+                                 # attention over `data` (layers.attention)
     fsdp: bool = False           # ZeRO-3: 2D block weights sharded over
                                  # data (slice 5c-3c)
     shard_strategy: str = "tp"   # tp | dp_only (replicate params, shard

@@ -19,8 +19,10 @@ replicated), and the MoE layer shards its experts over the EP group
 (`model`, or (data, model) under `ep_over_data`) with the paper's
 pairwise alltoall.  Every decode path runs at tp > 1 on the rank's
 shards; a replicated-KV cache stores only the distinct KV heads each
-device's q heads read (`kv_cache_plan`).  The sequence-sharded cache and
-the ring on a data axis of more than one PE raise, naming slice 5c-3b.
+device's q heads read (`kv_cache_plan`).  Over a data axis of more than
+one PE, `attention` runs the sequence-sharded ring (`attention="ring"`)
+and `attention_decode` a cache whose sequence is sharded over `data`
+(`seq_shards`), its softmax statistics combined by allreduces there.
 Weights are
 plain tensors in dicts, initialised from a `torch.Generator`.  The paged
 KV pool and the dense KV cache are updated in place (the JAX functions
@@ -294,21 +296,31 @@ def attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions, *,
     forward on the card, a reference-recompute backward) within the
     layer's window (`layer_window`), against their kv heads (gathered
     per q head when the KV projection is replicated); ghost heads are
-    zeroed before the output projection.  `cfg.attention == "ring"`
-    over a data axis of more than one PE (the reference's sequence-
-    sharded ring) raises, naming slice 5c-3b; on a data axis of one PE
-    the ring is this attention, as in the reference."""
-    if cfg.attention == "ring" and comm.axis_size(comm.axes.data) > 1:
-        raise NotImplementedError("attention='ring' over a data axis of "
-                                  "more than one PE (the sequence-sharded "
-                                  "ring on a mesh) comes with slice 5c-3b")
+    zeroed before the output projection.
+
+    `cfg.attention == "ring"` over a data axis of more than one PE is the
+    reference's sequence-sharded ring (DESIGN.md §14): the caller shards
+    x over `data` by sequence and `positions` are GLOBAL (shared across
+    the batch: row 0's are read), and this PE's query shard attends
+    against the KV ring of `core.fusion.ring_attention` on the data
+    axis's `spmd_ctx` (kernel 6 once a step, each rotation a put_nbi).
+    On a data axis of one PE the ring is this attention, as in the
+    reference."""
     tp = comm.axis_size(comm.axes.model)
     B, L, _ = x.shape
     q, k, v = attention_qkv(cfg, p, x, positions, tp)
     k, v = _local_kv(comm, cfg, k, v, tp)
-    o = kops.attention(q, k, v, causal=cfg.causal,
-                       window=layer_window(cfg, is_local_layer),
-                       softcap=cfg.softcap)
+    window = layer_window(cfg, is_local_layer)
+    if cfg.attention == "ring" and comm.axis_size(comm.axes.data) > 1:
+        from ..core import fusion, shmem
+        pos1 = positions[0].to(torch.int32)[None]     # shared across batch
+        o = fusion.ring_attention(
+            shmem.spmd_ctx(comm.axes.data), q[None], k[None], v[None], pos1,
+            pos1, causal=cfg.causal, window=window, softcap=cfg.softcap,
+            out_dtype=q.dtype)[0]
+    else:
+        o = kops.attention(q, k, v, causal=cfg.causal, window=window,
+                           softcap=cfg.softcap)
     o = _zero_ghosts(comm, cfg, tp, o, 1)
     o = o.transpose(1, 2).reshape(B, L, -1).to(cfg.dtype)
     return comm.allreduce(_dense(o, p["wo"]), comm.axes.model)
@@ -361,28 +373,47 @@ def attention_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache,
     heads attend against its cache (`init_attn_cache` at that tp: under
     the replicated-KV plan it stores the new row's `kv_cache_plan` heads
     and each q head reads its slot), the ghost heads are zeroed, and the
-    output projection ends in one allreduce over `model`.  The
-    sequence-sharded cache (seq_shards > 1) raises, naming slice
-    5c-3b."""
+    output projection ends in one allreduce over `model`.
+
+    With seq_shards > 1 the cache's sequence is sharded over `data` (the
+    long-context decode of a batch below the data size; `x` and
+    `position` are the same on every data PE): this PE's S slots hold
+    global rows [shard S, shard S + S), only the PE that owns the new row
+    writes it, a row is valid up to the position and within the window
+    (the ring of a windowed cache is not used here, as in the reference:
+    its min(cache_len / seq_shards, window) slots a PE cover positions
+    below seq_shards x window), and the partial softmax statistics are
+    combined over `data` (`_attend_mq`'s allreduces: a max, then two
+    sums)."""
     tp = comm.axis_size(comm.axes.model)
-    if seq_shards != 1:
-        raise NotImplementedError("the sequence-sharded decode cache "
-                                  "(seq_shards > 1) comes with slice 5c-3b")
     B = x.shape[0]
     q, k, v = (t.transpose(1, 2)                         # (B, 1, H, hd)
                for t in attention_qkv(cfg, p, x, position[:, None], tp))
     k, v, q2slot = _kv_slots(comm, cfg, tp, k, v)
     S = cache["k"].shape[1]
     window = layer_window(cfg, is_local_layer)
-    ring = window is not None and S <= window
-    # past the last slot the write lands in it, as dynamic_update_slice
-    # clamps its start
-    slot = position % S if ring else position.clamp(max=S - 1)
     rows = torch.arange(B, device=x.device)
-    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
     pos = position[:, None]
-    pos_idx = torch.arange(S, device=x.device)[None, :]
+    if seq_shards == 1:
+        ring = window is not None and S <= window
+        # past the last slot the write lands in it, as
+        # dynamic_update_slice clamps its start
+        slot = position % S if ring else position.clamp(max=S - 1)
+        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+        pos_idx = torch.arange(S, device=x.device)[None, :]
+        combine = None
+    else:
+        g_start = comm.axis_index(comm.axes.data) * S
+        slot = position - g_start
+        here = ((slot >= 0) & (slot < S))[:, None, None]
+        slot = slot.clamp(0, S - 1)
+        for name, new_row in (("k", k), ("v", v)):   # the owner writes
+            c = cache[name]
+            c[rows, slot] = torch.where(here, new_row[:, 0].to(c.dtype),
+                                        c[rows, slot])
+        pos_idx = g_start + torch.arange(S, device=x.device)[None, :]
+        ring, combine = False, comm
     if ring:
         age = pos - ((pos - pos_idx) % S)
         valid = (age >= 0) & (age <= pos)
@@ -390,19 +421,21 @@ def attention_decode(comm: Comm, cfg: ModelConfig, p: Params, x, cache,
         valid = pos_idx <= pos
         if window is not None:
             valid &= pos_idx > (pos - window)
-    out = _cache_attend(cfg, q, cache["k"], cache["v"], valid, q2slot)
+    out = _cache_attend(cfg, q, cache["k"], cache["v"], valid, q2slot,
+                        combine)
     out = _zero_ghosts(comm, cfg, tp, out, 2)
     out = out.reshape(B, 1, -1).to(cfg.dtype)
     y = _dense(out, p["wo"])
     return comm.allreduce(y, comm.axes.model), cache
 
 
-def _cache_attend(cfg, q, ck, cv, valid, q2slot=None):
+def _cache_attend(cfg, q, ck, cv, valid, q2slot=None, comm=None):
     """q: (B,1,Hq,hd); ck/cv: (B,S,K,hd); valid: (B,S) -> (B,1,Hq,hd):
     `repro.models.layers._cache_attend` in f32, grouped GQA, or with
-    `q2slot` the replicated-KV plan's slot of each q head (see
-    `_attend_mq`)."""
-    return _attend_mq(cfg, q, ck, cv, valid[:, None, :], q2slot)
+    `q2slot` the replicated-KV plan's slot of each q head; with `comm`,
+    the statistics of a cache sharded over its data axis combined there
+    (see `_attend_mq`)."""
+    return _attend_mq(cfg, q, ck, cv, valid[:, None, :], q2slot, comm)
 
 
 # ---------------------------------------------------------------------------
@@ -563,7 +596,7 @@ def paged_kv_gather(pool_leaf, page_table):
     return got.reshape((B, P * ps) + tuple(got.shape[3:]))
 
 
-def _attend_mq(cfg, q, ck, cv, valid, q2slot=None):
+def _attend_mq(cfg, q, ck, cv, valid, q2slot=None, comm=None):
     """Multi-query attention against a gathered cache, plain torch in f32.
 
     q: (B,L,Hq,hd); ck/cv: (B,S,K,hd); valid: (B,L,S) -> (B,L,Hq,hd).
@@ -574,7 +607,12 @@ def _attend_mq(cfg, q, ck, cv, valid, q2slot=None):
     head's slot first (`index_select`) gives the same products, since a
     one-hot contraction adds exact zeros.  Every op is per row, so a
     row's result does not depend on the other rows of the batch (the
-    engine's batched-vs-alone bit-identity)."""
+    engine's batched-vs-alone bit-identity).  With `comm` the cache is
+    one shard of a sequence split over `comm`'s data axis (flash-decode
+    on the shmem collectives, as the reference): the max of the logits
+    is allreduced ("max") there before the exponentials, then the
+    denominators and the weighted sums of v are summed there; a shard
+    with no valid row adds zeros."""
     if q2slot is not None:
         ck, cv = ck.index_select(2, q2slot), cv.index_select(2, q2slot)
     B, S, K = ck.shape[0], ck.shape[1], ck.shape[2]
@@ -588,10 +626,15 @@ def _attend_mq(cfg, q, ck, cv, valid, q2slot=None):
         logits = cfg.softcap * torch.tanh(logits / cfg.softcap)
     logits = torch.where(valid[:, :, None, :], logits, NEG_INF)
     m = logits.amax(-1, keepdim=True)
+    if comm is not None:
+        m = comm.allreduce(m, comm.axes.data, "max")
     p_ = torch.exp(logits - m)
     l_den = p_.sum(-1, keepdim=True)
     pg = p_.reshape(B, L, K, group, S)
     acc = torch.einsum("blkgs,bskd->blkgd", pg, vf).reshape(B, L, hq, hd)
+    if comm is not None:
+        l_den = comm.allreduce(l_den, comm.axes.data)
+        acc = comm.allreduce(acc, comm.axes.data)
     return acc / l_den.clamp_min(1e-30)
 
 
@@ -686,8 +729,23 @@ def init_mlp(gen, cfg: ModelConfig, tp: int, device,
     }
 
 
+def _silu(x):
+    """silu of the MLP and expert gates: `F.silu` on the card; on the CPU
+    x / (1 + exp(-x)), every element by the same arithmetic.  The CPU
+    build's vectorized `F.silu` (and `torch.sigmoid`) computes the tail
+    of a tensor whose size is not a multiple of its unrolled vector width
+    in a path of its own whose last bits differ, so a row's result would
+    depend on the rows beside it (an engine slot); exp and the division
+    have no such tail.  A 16-bit x is computed in f32 and rounded once,
+    as `F.silu` does."""
+    if x.device.type != "cpu":
+        return F.silu(x)
+    xf = x.float() if x.element_size() < 4 else x
+    return (xf / (1.0 + torch.exp(-xf))).to(x.dtype)
+
+
 def mlp(comm: Comm, cfg: ModelConfig, p: Params, x):
-    h = F.silu(_dense(x, p["w_gate"])) * _dense(x, p["w_up"])
+    h = _silu(_dense(x, p["w_gate"])) * _dense(x, p["w_up"])
     return comm.allreduce(_dense(h, p["w_down"]), comm.axes.model)
 
 
@@ -816,7 +874,7 @@ def moe(comm: Comm, cfg: ModelConfig, p: Params, x):
         .reshape(e_local, ep * cap, d)
 
     # 5. expert FFN
-    h = F.silu(torch.bmm(exp_in, p["w_gate"].to(x.dtype))) \
+    h = _silu(torch.bmm(exp_in, p["w_gate"].to(x.dtype))) \
         * torch.bmm(exp_in, p["w_up"].to(x.dtype))
     del exp_in, a2a
     y = torch.bmm(h, p["w_down"].to(x.dtype))

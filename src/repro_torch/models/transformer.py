@@ -28,6 +28,7 @@ embedded tokens.  An encoder has no decode step.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -283,16 +284,19 @@ def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
     KV pool (`init_kv_pool`) instead.  At `tp` > 1 the caches are one
     rank's: its kv heads (under the replicated-KV plan the distinct
     heads its q heads read, `layers.kv_cache_plan`) and its SSM heads and
-    conv channels; MLA's latent cache is replicated.  The audio encoder
-    has no decode cache and raises ValueError, as the reference's."""
+    conv channels; MLA's latent cache is replicated.  With `seq_shards`
+    > 1 (the sequence-sharded decode, `layers.attention_decode`) each
+    attention cache holds S = cache_len // seq_shards slots, a windowed
+    one min(S, window), and so does MLA's latent cache (whose decode
+    ignores the sharding, as the reference's `mla_decode` does); the
+    Mamba2 caches have no length.  The audio encoder has no decode cache
+    and raises ValueError, as the reference's."""
     _check_family(cfg, _DECODE_FAMILIES)
-    if seq_shards != 1:
-        raise NotImplementedError("sequence-sharded decode caches "
-                                  "(seq_shards > 1) come with slice 5c-3b")
     device = resolve_device(device)
+    S = cache_len // seq_shards
 
     def attn(is_local=False):
-        return L.init_attn_cache(cfg, tp, batch_local, cache_len, device,
+        return L.init_attn_cache(cfg, tp, batch_local, S, device,
                                  window_bound=L.layer_window(cfg, is_local))
 
     if cfg.family in ("dense", "vlm"):
@@ -301,7 +305,7 @@ def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
     if cfg.family == "moe":
         def one():
             if cfg.attn == "mla":
-                return L.init_mla_cache(cfg, batch_local, cache_len, device)
+                return L.init_mla_cache(cfg, batch_local, S, device)
             return attn()
         nd = cfg.moe.first_dense_layers
         out = {"layers": [one() for _ in range(cfg.n_layers - nd)]}
@@ -315,13 +319,15 @@ def init_cache(cfg: ModelConfig, tp: int, batch_local: int, cache_len: int,
     return cache
 
 
-def _attn_decode_block(comm, cfg, bp, x, cache, positions, is_local=False):
+def _attn_decode_block(comm, cfg, bp, x, cache, positions, is_local=False,
+                       seq_shards=1):
     h = L.rms_norm(x, bp["ln1"])
     if cfg.attn == "mla":
         a, cache = L.mla_decode(comm, cfg, bp["attn"], h, cache, positions)
     else:
         a, cache = L.attention_decode(comm, cfg, bp["attn"], h, cache,
-                                      positions, is_local_layer=is_local)
+                                      positions, is_local_layer=is_local,
+                                      seq_shards=seq_shards)
     x = x + a
     h = L.rms_norm(x, bp["ln2"])
     if "moe" in bp:
@@ -330,25 +336,27 @@ def _attn_decode_block(comm, cfg, bp, x, cache, positions, is_local=False):
 
 
 def decode_step(comm: Comm, cfg: ModelConfig, params: Params, cache: Params,
-                tokens, positions):
+                tokens, positions, *, seq_shards: int = 1):
     """One decode step against `init_cache`'s caches: tokens (B, 1),
     positions (B,) -> (logits (B, 1, vocab_local), new cache).  Attention
     caches are written in place and handed back; Mamba2 caches come back
-    as new tensors (a Mamba2 layer reads no position)."""
+    as new tensors (a Mamba2 layer reads no position).  `seq_shards` > 1:
+    the attention caches are sequence shards over `data`
+    (`init_cache(seq_shards)`, `layers.attention_decode`)."""
     _check_family(cfg, _DECODE_FAMILIES)
     x = _embed_scaled(comm, cfg, params, tokens)
+    blk = functools.partial(_attn_decode_block, seq_shards=seq_shards)
     if cfg.family == "moe":
         new = {}
         for group in ("dense_layers", "layers"):
             for bp, c in zip(params.get(group, []), cache.get(group, [])):
-                x, c = _attn_decode_block(comm, cfg, bp, x, c, positions)
+                x, c = blk(comm, cfg, bp, x, c, positions)
                 new.setdefault(group, []).append(c)
     else:
         new = {"layers": []}
         for i, (bp, c) in enumerate(zip(params["layers"], cache["layers"])):
             if cfg.family in ("dense", "vlm"):
-                x, c = _attn_decode_block(comm, cfg, bp, x, c, positions,
-                                          _is_local(cfg, i))
+                x, c = blk(comm, cfg, bp, x, c, positions, _is_local(cfg, i))
             else:
                 y, c = L.mamba2_decode(comm, cfg, bp["mamba"],
                                        L.rms_norm(x, bp["ln"]), c)
@@ -356,9 +364,8 @@ def decode_step(comm: Comm, cfg: ModelConfig, params: Params, cache: Params,
             new["layers"].append(c)
             if _shared_after(cfg, i):
                 shared = new.setdefault("shared", [])
-                x, c = _attn_decode_block(comm, cfg, params["shared_attn"],
-                                          x, cache["shared"][len(shared)],
-                                          positions)
+                x, c = blk(comm, cfg, params["shared_attn"], x,
+                           cache["shared"][len(shared)], positions)
                 shared.append(c)
     x = L.rms_norm(x, params["final_norm"])
     return L.lm_logits(comm, cfg, params["embed"], x), new

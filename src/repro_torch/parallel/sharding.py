@@ -132,16 +132,15 @@ def cache_specs(cfg: ModelConfig, cache, ax: MeshAxes, seq_shards: int = 1):
     one dict per layer): the batch over `data`; "k"/"v" (B, S, H, hd)
     their heads over `model`, "c_kv"/"k_rope" (B, S, r) replicated over
     it (MLA's latent cache), "conv" (B, w, channels) its channels and
-    "ssm" (B, H, P, N) its heads over `model`.  The sequence-sharded
-    cache (seq_shards > 1) raises, naming slice 5c-3b."""
-    if seq_shards != 1:
-        raise NotImplementedError("sequence-sharded decode caches "
-                                  "(seq_shards > 1) come with slice 5c-3b")
-    rules = {"k": (ax.data, None, ax.model, None),
-             "v": (ax.data, None, ax.model, None),
-             "c_kv": (ax.data, None, None), "k_rope": (ax.data, None, None),
-             "conv": (ax.data, None, ax.model),
-             "ssm": (ax.data, ax.model, None, None)}
+    "ssm" (B, H, P, N) its heads over `model`.  With seq_shards > 1 the
+    batch is replicated and the sequence dim S of "k", "v", "c_kv" and
+    "k_rope" is over `data` instead; "conv" and "ssm" are replicated
+    over it."""
+    bd = ax.data if seq_shards == 1 else None
+    sd = None if seq_shards == 1 else ax.data
+    rules = {"k": (bd, sd, ax.model, None), "v": (bd, sd, ax.model, None),
+             "c_kv": (bd, sd, None), "k_rope": (bd, sd, None),
+             "conv": (bd, None, ax.model), "ssm": (bd, ax.model, None, None)}
 
     def one(path, leaf):
         if path[-1] not in rules:

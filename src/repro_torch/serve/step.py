@@ -5,8 +5,10 @@ The builders compute no gradient.  As the reference's, they build the
 step's `Comm` from the tuning knobs (`allreduce_algo`, `topo`, `link`,
 `embedding`, `tuner`, `profile`), which steer its collectives over the
 rank mesh of `core.spmd` when the step runs in a rank process; on one
-device every axis has one PE and no collective consults them.  The
-sequence-sharded decode (seq_shards > 1) raises, naming slice 5c-3b."""
+device every axis has one PE and no collective consults them.  With
+seq_shards > 1 the decode step runs the sequence-sharded caches over
+`data` (the long-context decode): its softmax combines are allreduces
+over that axis, through the same Comm."""
 from __future__ import annotations
 
 import torch
@@ -44,10 +46,8 @@ def build_decode_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
                       embedding=None, tuner=None, profile=None):
     """fn(params, cache, batch) -> (logits (B, 1, vocab_local), new cache)
     for batch {"tokens": (B, 1), "positions": (B,)}, under
-    `torch.no_grad()`."""
-    if seq_shards != 1:
-        raise NotImplementedError("the sequence-sharded decode (seq_shards "
-                                  "> 1) comes with slice 5c-3b")
+    `torch.no_grad()`; `seq_shards` > 1: the cache of
+    `transformer.init_cache(seq_shards)`, its sequence over `data`."""
 
     @torch.no_grad()
     def fn(params, cache, batch):
@@ -55,7 +55,8 @@ def build_decode_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
                     link=link, embedding=embedding, tuner=tuner,
                     profile=profile)
         return transformer.decode_step(comm, cfg, params, cache,
-                                       batch["tokens"], batch["positions"])
+                                       batch["tokens"], batch["positions"],
+                                       seq_shards=seq_shards)
     return fn
 
 

@@ -326,7 +326,10 @@ def test_dense_cache_decode_is_the_ssm_familys():
     layer, since slice 4c-2 gemma2's pairs a ring of their local window
     on each local layer, and since slice 4c-4 vlm the dense family's
     caches, while the audio encoder, which has no decode step, raises
-    ValueError as the reference's init_cache does."""
+    ValueError as the reference's init_cache does.  The step builder
+    takes seq_shards (the sequence-sharded decode, slice 5c-3b): a
+    Mamba2 cache has no sequence, so mamba2's step with seq_shards 2 is
+    its unsharded step, bit for bit."""
     cfg = smoke_config("qwen2-0.5b")
     cache = T.init_cache(cfg, 1, 2, 8, device="cpu")
     assert [tuple(c["k"].shape) for c in cache["layers"]] \
@@ -341,8 +344,15 @@ def test_dense_cache_decode_is_the_ssm_familys():
         == [(2, 8, 1, 16)] * cfg.n_layers
     with pytest.raises(ValueError, match="audio"):
         T.init_cache(smoke_config("hubert-xlarge"), 1, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        sstep.build_decode_step(CFG, seq_shards=2)
+    params = T.init_params(CFG, seed=0, device="cpu")
+    batch = {"tokens": torch.ones(2, 1, dtype=torch.long),
+             "positions": torch.zeros(2, dtype=torch.long)}
+    (lg2, c2), (lg1, c1) = (sstep.build_decode_step(CFG, seq_shards=n)(
+        params, T.init_cache(CFG, 1, 2, 8, n, device="cpu"), batch)
+        for n in (2, 1))
+    assert torch.equal(lg2, lg1)
+    for a, b in zip(c2["layers"], c1["layers"]):
+        assert all(torch.equal(a[k], b[k]) for k in a)
     # the tuner and the profiler ride on the step's Comm, as the
     # reference's: accepted, and the one-device step is unchanged
     assert callable(sstep.build_prefill(CFG, tuner=Tuner(),

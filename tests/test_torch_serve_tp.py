@@ -18,8 +18,10 @@ cut or laid out wrong shows), carried to the reference by
     padded on ranks 0, 2 and 3, two ghost heads on rank 3): its page
     size and page count equal the reference engine's, its tokens equal,
     its captured logits (gathered over `model`) within rtol 1e-4 / atol
-    1e-5, batched equal to alone bit for bit, every rank's results equal
-    to rank 0's; a PE failure on a mesh raising, naming slice 5c-3c;
+    1e-5, batched equal to alone bit for bit (each request alone in slot
+    0, whatever its slot in the batch: fault C8's repair), every rank's
+    results equal to rank 0's; a PE failure on a mesh raising, naming
+    slice 5c-3c;
   * the cross-shard greedy tie-break of the reference's
     `test_spmd_engine_and_tiebreak` (3, 9, 0, 12) on 1x2;
   * `decode_step` on the dense cache at tp 2 for qwen2, mamba2, zamba2,
@@ -29,16 +31,17 @@ cut or laid out wrong shows), carried to the reference by
   * `sharding.cache_specs` equal to the reference's rules leaf by leaf;
   * `build.make_serve_steps` on a small decode cell patched into both
     SHAPES, on 2x2: the prefill's and every decode step's logits and
-    the cache's shapes and specs against the reference's; a decode cell
-    whose batch is below the data size raising, naming slice 5c-3b;
+    the cache's shapes and specs against the reference's; long_500k's
+    batch of 1 on a data axis of 2 sharding the cache's sequence
+    (seq_shards 2), its shapes and specs the reference's;
   * the serve launcher at --data 2 --model 2 (the dense-cache loop, the
     batch over `data`) token for token against the reference launcher,
     both on its seed-0 init;
   * fault C6: every option string of the reference's launchers accepted
     by the port's parser of the same name, --comm xla refused naming
-    slice 5d; fault C7: `attention="ring"` on a data axis of 2 PEs
-    raising, naming slice 5c-3b, and on a data axis of 1 the mono
-    attention.
+    slice 5d; fault C7's path: `attention="ring"` on a data axis of 2 PEs
+    (x sharded by sequence) against the reference's ring layer on 2x1,
+    and on a data axis of 1 the mono attention, bit for bit.
 """
 import contextlib
 import io
@@ -75,6 +78,7 @@ LAUNCH_ARGV = ["--arch", QWEN, "--smoke", "--data", "2", "--model", "2",
                "--batch", "4", "--prompt-len", "6", "--tokens", "4",
                "--cache-len", "16"]
 TOL = dict(rtol=1e-4, atol=1e-5)
+C7_SEED = 3                       # the ring layer's weights (C7's path)
 SLOT = 1 << 16                    # heap slot bytes: payloads cross in chunks
 
 
@@ -133,12 +137,14 @@ def _stacked_cache(cache):
 REF_SCRIPT = textwrap.dedent("""
     import os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import dataclasses
     import jax, jax.numpy as jnp, numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
     from repro.configs import smoke_config
     from repro.launch import build
     from repro.launch.mesh import make_mesh
     from repro.models import config as mconfig
+    from repro.models import layers as L
     from repro.models import transformer
     from repro.parallel.comm import AxisSpec, Comm
     from repro.serve.engine import ServeEngine
@@ -250,6 +256,22 @@ REF_SCRIPT = textwrap.dedent("""
                             for q in k)
             out["steps/spec/" + path] = np.asarray(repr(tuple(spec)))
         out["steps/seq_shards"] = np.asarray(ss)
+
+    # fault C7's path: the ring layer on 2x1, x sharded by sequence
+    ring = dataclasses.replace(smoke_config(QWEN, dtype=jnp.float32),
+                               attention="ring")
+    attn = jax.tree.map(lambda a: jnp.asarray(a)[0],
+                        unflat("c7/params")["layers"]["attn"])
+    x = jnp.asarray(inputs["c7/x"])
+    pos = jnp.broadcast_to(jnp.arange(x.shape[1], dtype=jnp.int32),
+                           x.shape[:2])
+    mesh = make_mesh(2, 1)
+    with jax.set_mesh(mesh):
+        out["c7/ring"] = np.asarray(jax.jit(build.shard_mapped(
+            lambda p, x, pos: L.attention(Comm(AxisSpec(), "shmem"), ring,
+                                          p, x, pos),
+            mesh, (P(), P(None, "data"), P(None, "data")),
+            P(None, "data")))(attn, x, pos))
     np.savez(sys.argv[1], **out)
     print("REF-OK")
 """)
@@ -304,6 +326,7 @@ def inputs():
                     rng.integers(1, cfg.vocab, size=(
                         CELL_SPEC["global_batch"], CELL_SPEC["seq_len"])
                     ).astype(np.int32))
+    out["c7/x"] = rng.normal(size=(2, 6, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -325,6 +348,10 @@ def ref_run(inputs, tmp_path_factory):
     gp, toks = inputs["steps"]
     _flat(convert.params_to_jax(gp, _cfg(QWEN)), "steps/params", arrs)
     arrs["steps/tokens"] = toks
+    _flat(convert.params_to_jax(transformer.init_params(
+        _cfg(QWEN), seed=C7_SEED, device="cpu"), _cfg(QWEN)), "c7/params",
+        arrs)
+    arrs["c7/x"] = inputs["c7/x"]
     np.savez(d / "inputs.npz", **arrs)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu")
@@ -389,14 +416,13 @@ def _task_tie(logits):
 
 def _task_engine(cfg, params, prompts):
     """The engine on this rank's shards: every prompt batched (request i
-    in slot i), then each alone on a second engine, in the slot it had:
-    i one-token requests ahead of it take the lower slots and finish at
-    their prefill, so its decode steps run with every other row
-    inactive.  (The same slot, because on the CPU PyTorch's vectorized
-    `F.silu` rounds the tail of a tensor whose size is not a multiple of
-    its unrolled vector width in a path of its own: at tp 2 the MLP's
-    48 columns over 3 rows put row 2's last 16 there, so a row's last
-    bits there depend on its slot; ROADMAP.md fault C8.)"""
+    in slot i: free slots fill in slot order), then each alone on a
+    second engine, drained between requests, so that each runs in slot 0
+    with every other row inactive.  (Fault C8: on the CPU PyTorch's
+    vectorized `F.silu` rounded the tail of a tensor whose size is not a
+    multiple of its unrolled vector width in a path of its own, so at tp
+    2 the MLP's 48 columns over 3 rows made row 2's last bits depend on
+    its slot; the MLP's silu on the CPU is now elementwise alike.)"""
     from repro_torch.serve.engine import ServeEngine
     eng = ServeEngine(cfg, _mesh(), params=params, capture_logits=True,
                       **ENGINE_KW)
@@ -405,9 +431,7 @@ def _task_engine(cfg, params, prompts):
     solo = ServeEngine(cfg, _mesh(), params=params, capture_logits=True,
                        **ENGINE_KW)
     alone = []
-    for i, p in enumerate(prompts):
-        for _ in range(i):
-            solo.submit(p[:1], 1)
+    for p in prompts:
         s = solo.submit(p, NEW)
         solo.run()
         assert solo.results[s].size == NEW
@@ -479,26 +503,29 @@ def _task_steps(params, tokens):
     return out
 
 
-def _task_c7(seed):
-    """Fault C7: attention="ring" on a 2x1 mesh raises naming 5c-3b; on
-    1x2 (a data axis of one PE) it is the mono attention, bit for bit."""
+def _task_c7(seed, x):
+    """Fault C7's path: attention="ring" on a 2x1 mesh, x (B, L, d)
+    sharded over `data` by sequence with its global positions: this
+    rank's rows of the ring layer; on 1x2 (a data axis of one PE) the
+    ring and the mono attention over the whole of x."""
     import dataclasses
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import layers as L
     from repro_torch.parallel.comm import AxisSpec, Comm
     cfg = _cfg(QWEN)
     ring = dataclasses.replace(cfg, attention="ring")
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.randn(2, 6, cfg.d_model, generator=gen)
-    pos = torch.arange(6).expand(2, 6)
+    x = torch.as_tensor(x)
+    B, Lg = x.shape[:2]
+    pos = torch.arange(Lg).expand(B, Lg)
     out = {}
-    make_mesh(2, 1)
+    mesh = make_mesh(2, 1)
+    ls, d = Lg // 2, mesh.axis_index("data")
+    rows = slice(d * ls, (d + 1) * ls)
     p = transformer.init_params(cfg, seed=seed, device="cpu")
-    try:
-        L.attention(Comm(AxisSpec()), ring, p["layers"][0]["attn"], x, pos)
-        out["data2"] = "ran"
-    except NotImplementedError as e:
-        out["data2"] = str(e)
+    with torch.no_grad():
+        out["data2"] = L.attention(Comm(AxisSpec()), ring,
+                                   p["layers"][0]["attn"], x[:, rows],
+                                   pos[:, rows])
     make_mesh(1, 2)
     p = transformer.init_params(cfg, seed=seed, device="cpu", tp=2)
     with torch.no_grad():
@@ -541,7 +568,7 @@ def port(inputs, ref_run):
                     gp, toks = inputs[f"dec/{arch}"]
                     tasks.append((arch, "decode", (arch, _local(
                         gp, _cfg(arch), (1, 2), r), toks)))
-                tasks.append(("c7", "c7", (3,)))
+                tasks.append(("c7", "c7", (C7_SEED, inputs["c7/x"])))
             else:
                 gp, toks = inputs["steps"]
                 tasks.append(("steps", "steps", (_local(
@@ -647,9 +674,9 @@ def test_engine_matches_the_reference_engine(ref, port, tag):
 
 @pytest.mark.parametrize("tag", [e[0] for e in ENGINES])
 def test_engine_ranks_agree_and_batched_equals_alone(port, tag):
-    """Every rank's results equal rank 0's; each request alone (in the
-    slot it had in the batch, every other row inactive) gives its
-    batched tokens and logits bit for bit."""
+    """Every rank's results equal rank 0's; each request alone (in slot
+    0, every other row inactive) gives its batched tokens and logits bit
+    for bit, whatever its slot in the batch."""
     ranks = _engine_ranks(port, tag)
     lead = ranks[0]["results"]
     for r, eng in enumerate(ranks):
@@ -661,6 +688,38 @@ def test_engine_ranks_agree_and_batched_equals_alone(port, tag):
                                           eng["logits"]):
             np.testing.assert_array_equal(a_tok, tok)
             np.testing.assert_array_equal(a_lg, lg)
+
+
+def test_request_alone_in_slot_0_equals_batched_in_slot_2_at_tp2(port):
+    """Fault C8: on the 1x2 engine (tp 2: the smoke MLP's 48 columns a
+    rank, 3 slots) request 2 runs in slot 2 of the batch and alone in
+    slot 0; its tokens and every step's logits are equal bit for bit on
+    every rank (with the CPU's vectorized `F.silu` its last bits
+    depended on its slot)."""
+    for r, eng in enumerate(_engine_ranks(port, "qwen2")):
+        a_tok, a_lg = eng["alone"][2]
+        np.testing.assert_array_equal(a_tok, eng["tokens"][2],
+                                      err_msg=f"rank {r}")
+        np.testing.assert_array_equal(a_lg, eng["logits"][2],
+                                      err_msg=f"rank {r}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 48), (5, 48), (3, 40), (4, 1000)])
+def test_mlp_silu_of_a_row_does_not_depend_on_the_rows_beside_it(shape,
+                                                                 dtype):
+    """Fault C8's repair: on the CPU the MLP's and experts' silu gives
+    each row of a batch bit for bit what it gives that row alone, and
+    stays within one rounding of `F.silu` (f32 compute for bf16)."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator().manual_seed(8)
+    x = (3 * torch.randn(shape, generator=gen)).to(dtype)
+    got = L._silu(x)
+    for r in range(shape[0]):
+        assert torch.equal(got[r], L._silu(x[r:r + 1])[0]), r
+    want = torch.nn.functional.silu(x.double()).to(dtype)
+    np.testing.assert_allclose(got.double().numpy(), want.double().numpy(),
+                               rtol=2 * torch.finfo(dtype).eps, atol=0)
 
 
 def test_engine_on_a_mesh_refuses_a_data_axis_and_a_pe_failure(port):
@@ -719,8 +778,19 @@ def test_cache_specs_equal_the_reference_rules(arch):
                 got += 1
     assert got == sum(len(layers[0]) * len(layers)
                       for layers in cache.values())
-    with pytest.raises(NotImplementedError, match="5c-3b"):
-        S.cache_specs(_cfg(arch), cache, S.MeshAxes(), seq_shards=2)
+    # the sequence-sharded cache: the batch replicated, the sequence over
+    # data (conv and ssm replicated there)
+    jshapes = jax.eval_shape(lambda: JT.init_cache(jcfg, 2, 1, 8, 2))
+    jspecs = JS.cache_specs(jcfg, jshapes, JS.MeshAxes(), 2)
+    cache = transformer.init_cache(_cfg(arch), 2, 1, 8, 2, device="meta")
+    specs = S.cache_specs(_cfg(arch), cache, S.MeshAxes(), seq_shards=2)
+    for group, layers in specs.items():
+        for spec in layers:
+            for leaf, s in spec.items():
+                assert s == tuple(jspecs[group][leaf])[1:], (group, leaf, s)
+    assert any(s[1] == "data" for layers in specs.values()
+               for spec in layers for s in spec.values()) \
+        == (arch != "mamba2-2.7b")
 
 
 def test_make_serve_steps_matches_the_reference(ref, port):
@@ -757,9 +827,29 @@ def test_make_serve_steps_matches_the_reference(ref, port):
 
 def test_make_serve_steps_refuses_a_batch_below_the_data_size():
     """long_500k's batch of 1 over a data axis of 2 shards the cache's
-    sequence in the reference: that is slice 5c-3b."""
-    with pytest.raises(NotImplementedError, match="5c-3b"):
-        build.make_serve_steps(_cfg(QWEN), build.mesh_of(2, 1), "long_500k")
+    sequence, as the reference's `make_serve_steps`: seq_shards 2, every
+    rank's cache of batch 1 and 524288 / 2 slots a layer, the reference's
+    `init_cache(seq_shards=2)` shapes and `cache_specs` rules; a prefill
+    cell has no cache."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import smoke_config as jsmoke
+    from repro.models import transformer as JT
+    from repro.parallel import sharding as JS
+    from repro_torch.models.config import SHAPES
+    _, _, (cshapes, cspecs), _, ss = build.make_serve_steps(
+        _cfg(QWEN), build.mesh_of(2, 1), "long_500k")
+    assert ss == 2
+    jcfg = jsmoke(QWEN, dtype=jnp.float32)
+    jshapes = jax.eval_shape(lambda: JT.init_cache(
+        jcfg, 1, 1, SHAPES["long_500k"]["seq_len"], 2))
+    jspecs = JS.cache_specs(jcfg, jshapes, JS.MeshAxes(), 2)
+    for i, (c, s) in enumerate(zip(cshapes["layers"], cspecs["layers"])):
+        for leaf in ("k", "v"):
+            assert tuple(c[leaf].shape) == jshapes["layers"][leaf].shape[1:]
+            assert c[leaf].shape[:2] == (1, 524288 // 2)
+            assert s[leaf] == tuple(jspecs["layers"][leaf])[1:] \
+                == (None, "data", "model", None)
     pre, dec, (cshapes, cspecs), _, ss = build.make_serve_steps(
         _cfg(QWEN), build.mesh_of(1, 2), "prefill_32k")
     assert cshapes is None and cspecs is None and ss == 1
@@ -824,12 +914,17 @@ def test_launchers_accept_every_reference_flag():
     assert err.getvalue().count("slice 5d") == 2
 
 
-def test_ring_attention_on_a_data_axis_names_its_slice(port):
-    """Fault C7: `attention="ring"` over a data axis of 2 PEs raises,
-    naming slice 5c-3b (the reference would treat x as
-    sequence-sharded); over a data axis of one PE it is the mono
+def test_ring_attention_on_a_data_axis_names_its_slice(ref, port):
+    """Fault C7's path: `attention="ring"` over a data axis of 2 PEs is
+    the reference's sequence-sharded ring: each rank's rows of x, at
+    their global positions, within RING_SPMD's 2e-5 of the reference's
+    ring layer on 2x1; over a data axis of one PE it is the mono
     attention, bit for bit, as in the reference."""
-    for got in port[2]:
+    want = ref["c7/ring"]
+    ls = want.shape[1] // 2
+    for r, got in enumerate(port[2]):
         res = got["c7"]
-        assert "5c-3b" in res["data2"], res["data2"]
+        err = np.abs(res["data2"].numpy()
+                     - want[:, r * ls:(r + 1) * ls]).max()
+        assert err < 2e-5, (r, err)
         assert torch.equal(res["ring"], res["mono"])

@@ -325,12 +325,31 @@ def test_decode_matches_forward(arch, dtype, tol):
 
 
 def test_multi_device_decode_names_slice_5():
-    cfg = smoke_config(DENSE)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        T.init_cache(cfg, 1, 2, 8, seq_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        L.attention_decode(Comm(), cfg, {}, torch.zeros(1, 1, cfg.d_model),
-                           {}, torch.zeros(1), seq_shards=2)
+    """The sequence-sharded cache (slice 5c-3b) on one device: each
+    attention cache holds cache_len / seq_shards slots, the rows of shard
+    0 of the data axis (one PE, so the softmax combine is the
+    identity); at positions inside it `attention_decode` with seq_shards
+    2 gives the unsharded decode on a cache of those slots, bit for bit,
+    and writes the same rows."""
+    cfg = smoke_config(DENSE, dtype=torch.float32)
+    sharded = T.init_cache(cfg, 1, 2, 8, seq_shards=2, device="cpu")
+    assert [tuple(c["k"].shape) for c in sharded["layers"]] \
+        == [(2, 4, cfg.n_kv_heads, cfg.hd)] * cfg.n_layers
+    whole = T.init_cache(cfg, 1, 2, 4, device="cpu")
+    p = T.init_params(cfg, seed=0, device="cpu")["layers"][0]["attn"]
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for t in range(4):
+            x = torch.randn(2, 1, cfg.d_model, generator=gen)
+            pos = torch.full((2,), t)
+            got, _ = L.attention_decode(Comm(), cfg, p, x,
+                                        sharded["layers"][0], pos,
+                                        seq_shards=2)
+            want, _ = L.attention_decode(Comm(), cfg, p, x,
+                                         whole["layers"][0], pos)
+            assert torch.equal(got, want), t
+    for k in ("k", "v"):
+        assert torch.equal(sharded["layers"][0][k], whole["layers"][0][k])
     # the replicated-KV plan at tp 2 (3 q heads over 1 kv head) is ported
     # with the serve engine at tp > 1 (slice 5c-3a): the cache stores the
     # one distinct kv head each rank's q heads read
