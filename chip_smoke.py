@@ -283,10 +283,12 @@ Phases; any failure exits non-zero before the result line is printed:
      (c) zamba2-1.2b at full width on 2x2 as 16b, each step's loss
      within its bound of the 1x1 launcher's, fused step 0 == default,
      exact kernel-7, -4 and -5 launches; (d) deepseek-v3 cut to 4
-     layers forward at full width on 2x2 (EP over (data, model), 64 of
-     256 experts a rank, MLA at 64 heads): its layer gate as (b), each
-     rank's loss within the reference's bound of the 1x1 loss, launches
-     and heap rounds equal to formulas;
+     layers forward at full width on 2x2 under its own config (EP over
+     (data, model), 64 of 256 experts a rank, MLA at 64 heads, fsdp: its
+     2-D block weights' rows halved over data, gathered in each block):
+     its layer gate as (b), each rank's loss within the reference's
+     bound of the 1x1 loss, launches and heap rounds equal to formulas
+     (fsdp's gathers included), its peak a rank;
  18. serving at tp > 1 — kernel 4 at the per-rank paged prefill shapes
      (Lq 128, Lk 256, D 64: 7 q heads over 1 kv head at tp 2, 4 over 4
      expanded kv heads at tp 4) against its plain version, timed beside
@@ -332,6 +334,22 @@ Phases; any failure exits non-zero before the result line is printed:
      and in f32 at 65536 slots (logits within 1e-3 x max|logit|), 42
      heap rounds a step a rank (7 layers x 3 allreduces x 2 stages);
      step walls, the rounds' host time and each rank's peak.
+ 20. fsdp, checkpoints and the engine's drain on a rank mesh — (a)
+     qwen2-0.5b with fsdp=True on 2x2 at 16b's shape, 3 default-sync
+     steps: every rank's losses equal, within 1e-5 of 16b's 1x1 loss at
+     step 0 and 3e-3 after, heap rounds and kernel 2-4 launches a step a
+     rank equal to `fsdp_step_formula` (each layer's gathers, again
+     under remat, and their backward deliveries), its step wall and peak
+     a rank beside 16b's; (b) the train launcher with fsdp on 2x2 killed
+     at step 2's batch fetch after its step-1 checkpoint landed: the
+     resumed losses equal to an uninterrupted run resumed from the same
+     checkpoint (rtol 1e-5, atol 1e-6), the checkpoint's bytes, and the
+     same checkpoint resumed on 1x2 (the elastic shrink) with a finite
+     loss; (c) qwen2's paged engine on 1x2 with phase 3's traffic, PE 1
+     lost at the third decode on both ranks: both drain alike (the live
+     rids requeued in slot order at the queue head, no page live), then
+     every request's tokens equal 18a's 1x2 tokens bit for bit, through
+     18a's kernel-4 launches plus 24 a re-prefill.
 
 The run fails if a process it started (a rank, nvcc, nvidia-smi, the
 resource tracker that spawning the ranks launches) is still alive or
@@ -4832,7 +4850,7 @@ def spmd_collectives(torch, np, card) -> list:
     return paths
 
 
-def mesh_train_rank(argv, fused_steps):
+def mesh_train_rank(argv, fused_steps, extra=None):
     """16b, 17c, one rank: the 1x1 launcher's seed-0 tree fitted to the
     mesh (`convert.fit_global`; every rank draws the same 1x1 tree, so
     none is handed it) and cut to this rank's shards; the launcher's
@@ -4840,7 +4858,8 @@ def mesh_train_rank(argv, fused_steps):
     them (updated in place), then `fused_steps` steps of
     build.make_train_step with grad_rs="fused" from the same shards; the
     launch counts, walls, peak memory, heap rounds and host time in the
-    syncs of each."""
+    syncs of each.  With `extra`, phase 20's 2x2 work follows in the same
+    (warm) ranks: `fsdp_rank4(*extra)`."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import spmd
@@ -4902,10 +4921,15 @@ def mesh_train_rank(argv, fused_steps):
                         sync_s=rt.sync_s - s0,
                         digest=[float(t.double().sum())
                                 for t in tree_flatten(params)[0]])
+    if extra is not None:
+        del params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["20"] = fsdp_rank4(*extra)
     return out
 
 
-def mesh_train(torch, np, cfg, run, tol, card, label) -> tuple:
+def mesh_train(torch, np, cfg, run, tol, card, label, extra=None) -> tuple:
     """16b and 17c: `cfg` at full width on a data x model mesh of rank
     processes on the card (`run`: steps, seq_len, batch, lr, data,
     model): the port's 1x1 launcher first, run's steps on run's batches
@@ -4923,7 +4947,9 @@ def mesh_train(torch, np, cfg, run, tol, card, label) -> tuple:
     an attention layer (the hybrid family's: an application of its
     shared block), kernel 7 twice a Mamba2 layer, and kernel 5 once a
     bucket a fused step.  Returns the launch counts of both runs, summed
-    over the ranks, and kernel 4's per rank."""
+    over the ranks, kernel 4's per rank, the 1x1 losses, and each rank's
+    result of `extra` (phase 20's 2x2 work, run in the same ranks after
+    both runs; None without)."""
     from repro_torch.launch import build
     from repro_torch.launch import train as train_mod
     from repro_torch.models import transformer
@@ -4946,9 +4972,10 @@ def mesh_train(torch, np, cfg, run, tol, card, label) -> tuple:
     # of stranding ~0.5-1 GiB a rank
     with mock.patch.dict("os.environ",
                          PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"):
-        res = build.shard_mapped(mesh_train_rank, dims,
-                                 [(mesh_argv, run["steps"])] * math.prod(dims),
-                                 device="cuda")
+        res = build.shard_mapped(
+            mesh_train_rank, dims,
+            [(mesh_argv, run["steps"], extra)] * math.prod(dims),
+            device="cuda")
     wall = time.perf_counter() - t0
     b_local = run["batch"] // dims[0]
     mb = max(1, min(cfg.microbatches, b_local))
@@ -5011,7 +5038,9 @@ def mesh_train(torch, np, cfg, run, tol, card, label) -> tuple:
     log(f"  {label} step-0 loss: 1x1 {l1[0]!r}, mesh {l2!r}, |diff| "
         f"{abs(l1[0] - l2):.3g} (the reference's bound 0.05 x max(1, |l1|) "
         f"= {0.05 * max(1.0, abs(l1[0])):.3g}); both mesh runs in one "
-        f"spawn: {wall:.1f} s ({card})")
+        f"spawn: {wall:.1f} s"
+        + (f", phase 20's 2x2 work {res[0]['20']['wall']:.1f} s of it"
+           if extra is not None else "") + f" ({card})")
     if not abs(l1[0] - l2) < 0.05 * max(1.0, abs(l1[0])):
         raise AssertionError(f"{label}: the mesh's loss {l2} is not the 1x1 "
                              f"loss {l1[0]}")
@@ -5027,7 +5056,8 @@ def mesh_train(torch, np, cfg, run, tol, card, label) -> tuple:
                              f"{res[0]['fused']['losses'][0]!r} is not the "
                              f"default one {l2!r} (the same forward)")
     return paths, sum(r_[k]["counts"]["flash_attention"]
-                      for r_ in res[:1] for k in ("default", "fused"))
+                      for r_ in res[:1] for k in ("default", "fused")), l1, \
+        [r_.get("20") for r_ in res]
 
 
 # ---------------------------------------------------------------------------
@@ -5247,7 +5277,10 @@ def tiled_global(cfg, local, dims):
     run on it sees the columns the mesh's loss does."""
     from repro_torch.parallel import sharding
     sizes = {"data": dims[0], "model": dims[1]}
-    specs = sharding.param_specs(cfg, local, sharding.MeshAxes(), dims[1])
+    # `local` is data-full (fsdp cuts its rows per rank, and the
+    # gathers give them back whole): fsdp adds no tiling
+    specs = sharding.param_specs(dataclasses.replace(cfg, fsdp=False),
+                                 local, sharding.MeshAxes(), dims[1])
 
     def reps(spec):
         return [math.prod(sizes[a] for a in (ax if isinstance(ax, tuple)
@@ -5586,34 +5619,63 @@ def ep_deepseek_rank(ds_cfg, batch):
     r0 = rt.rounds
     t0 = time.perf_counter()
     loss = forward()
+    dp, slot = mesh.sizes["data"], rt.heap.slot_bytes
     out.update(loss=loss, wall=time.perf_counter() - t0, counts=_counts(),
-               rounds=rt.rounds - r0, peak=torch.cuda.max_memory_allocated())
+               rounds=rt.rounds - r0, peak=torch.cuda.max_memory_allocated(),
+               gathers={k: fsdp_gathers(t, dp, slot) for k, t in (
+                   ("dense", params["dense_layers"][0]),
+                   ("moe", params["layers"][0]),
+                   ("mtp", params["mtp"]["block"]),
+                   ("proj", {"w": params["mtp"]["proj"]}))})
     t0 = time.perf_counter()            # once more, warm (not counted)
     out.update(loss2=forward(), wall2=time.perf_counter() - t0)
     return out
+
+
+def fsdp_gathers(tree, dp: int, slot_bytes: int) -> tuple[int, int]:
+    """(the leaves `transformer._fsdp_gather` gathers over `data` in a
+    block `tree` of a rank's fsdp shards: its 2-D leaves (an MoE block's
+    experts are 3-D), the heap rounds their gathers take): each leaf's
+    dp row blocks cross as one buffer of dp x its bytes, in ceil(dp x
+    bytes / slot) slot-sized chunks (recursive doubling over dp = 2: one
+    stage), and so does its backward's delivery."""
+    from repro_torch.core.heap import tree_flatten
+    two = [t for t in tree_flatten(tree)[0] if t.dim() == 2]
+    return len(two), sum(-(-dp * t.numel() * t.element_size() // slot_bytes)
+                         for t in two)
 
 
 def ep_deepseek(torch, np, ds_cfg, card) -> list:
     """17d: deepseek-v3 cut to the 4 layers of its SERVE_RUN (its 3
     dense MLA layers and its first MoE layer: every kind of layer at its
     published width, and the MTP head) forward at full width on a 2x2
-    mesh: EP over (data, model) = 4, 64 of 256 experts a rank, MLA at 64
-    of 128 heads.  Forward only: ~4.8 B bf16 parameters a rank, ~38 GB
-    over four; bf16 gradients would double that and leave no room for
-    activations on one card.  First the 1x1 side (the layer gate's 1x1
-    layer; the 1x1 loss of the ranks' tree at EP_DS's batch), its memory
-    freed before the ranks start; then 4 ranks: the layer gate, and the
-    train loss.  Gates: each rank's loss (the data-axis mean; each
+    mesh under its own config: EP over (data, model) = 4, 64 of 256
+    experts a rank, MLA at 64 of 128 heads, and fsdp (ZeRO-3 over data:
+    every 2-D block weight's rows halved over the 2 data PEs, gathered
+    inside its block).  Forward only: its bf16 parameters, gradients and
+    int8 moments come to ~6 bytes a parameter, ~95 GB for the 15.8 B of
+    the cut and its MTP block over the four ranks, more than the card.
+    First the 1x1 side (the layer gate's 1x1 layer; the 1x1 loss of the
+    ranks' tree at EP_DS's batch), its memory freed before the ranks
+    start; then 4 ranks: the layer gate, and the train loss.  Gates:
+    each rank's loss (the data-axis mean; each
     model rank adds its own aux) within the reference's 0.05 x max(1,
     |l1|) of the 1x1 loss, finite; per rank (nd dense layers of L, the
     MTP block after): kernel 4 L + 1, heap rounds 2nd + 9(L - nd) + 11
     (each dense layer's two allreduces over tp 2, 1 round each; an MoE
     layer's attention and shared-expert allreduces 1 + 1, two alltoalls
     over 4 PEs 3 + 3, the token allgather 1; the embedding 1, the loss's
-    3, the MTP head's embedding 1, block 2 and loss 3, the data mean 1),
-    kernel 2 twice a round plus 5(L - nd) block moves, kernel 3 2L + 11,
-    no kernel-1 launch.  Returns the path's launch counts, summed over
-    ranks, and kernel 4's per rank."""
+    3, the MTP head's embedding 1, block 2 and loss 3, the data mean 1)
+    plus the rounds of fsdp's gathers over the 2 data PEs (`fsdp_gathers`
+    on the rank's shards: a leaf's two row blocks cross as one buffer in
+    ceil(2 x bytes / slot) rounds; a dense block's 8 leaves: MLA's wq_a,
+    wq_b, wkv_a, wkv_b, wo and the MLP's three; an MoE block's 9: MLA's
+    five, the router, the shared expert's three; the MTP block's 8 and
+    the MTP projection); kernel 2 twice a round plus 5(L - nd) block
+    moves and one block move a gather, kernel 3 2L + 11, no kernel-1
+    launch.  Returns
+    the path's launch counts, summed over ranks, and kernel 4's per
+    rank."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import build
     dims = (2, 2)
@@ -5633,9 +5695,13 @@ def ep_deepseek(torch, np, ds_cfg, card) -> list:
     del want
     torch.cuda.empty_cache()
     L, nd = ds_cfg.n_layers, ds_cfg.moe.first_dense_layers
-    rounds = 2 * nd + 9 * (L - nd) + 11
+    g = res[0]["gathers"]
+    per = lambda i: (nd * g["dense"][i] + (L - nd) * g["moe"][i]
+                     + g["mtp"][i] + g["proj"][i])
+    gathers, g_rounds = per(0), per(1)
+    rounds = 2 * nd + 9 * (L - nd) + 11 + g_rounds
     formula = dict(flash_attention=L + 1, put_copy=0,
-                   dma_copy=2 * rounds + 5 * (L - nd),
+                   dma_copy=2 * rounds + 5 * (L - nd) + gathers,
                    reduce_combine=2 * L + 11, fused_update=0, ssd_scan=0,
                    ring_attention=0)
     for r_, p in enumerate(res):
@@ -5658,6 +5724,10 @@ def ep_deepseek(torch, np, ds_cfg, card) -> list:
         + ", warm " + ", ".join(f"{p['wall2'] * 1e3:.1f}" for p in res)
         + "; peak per rank GiB "
         + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in res)
+        + f" (12.574 without fsdp, PERF.md §6); fsdp gathers a rank "
+        f"{gathers} in {g_rounds} rounds ((leaves, rounds) a dense block "
+        f"{g['dense']}, an MoE block {g['moe']}, the MTP block "
+        f"{g['mtp']}, its projection {g['proj']})"
         + f"; per rank {rounds} heap rounds, launches (flash, dma, combine) "
         + ", ".join(str(formula[k]) for k in ("flash_attention", "dma_copy",
                                                 "reduce_combine"))
@@ -5910,7 +5980,8 @@ def decode_tp_run(torch, cfg, comm, params, prompt, tp, prefill=True):
 
 
 def decode_tp_cfg(arch, dtype=None):
-    """18b's config of `arch`: deepseek cut to its SERVE_RUN layers; its
+    """18b's config of `arch`, fsdp off as serving has it (the reference's
+    `make_serve_steps`): deepseek cut to its SERVE_RUN layers; its
     compute dtype `dtype`, f32 unless given: the logits are gated in f32,
     as phases 9 and 11 gate their models (in bf16 a random-weight stack
     amplifies each flipped rounding to tens of percent of the largest
@@ -5922,7 +5993,7 @@ def decode_tp_cfg(arch, dtype=None):
     slice and the 1x1 step would drop other picks."""
     import torch
     from repro_torch.configs import deepseek_v3_671b, get_config
-    cfg = dataclasses.replace(get_config(arch),
+    cfg = dataclasses.replace(get_config(arch), fsdp=False,  # serving
                               dtype=dtype or torch.float32)
     if arch == "deepseek-v3-671b":
         cfg = dataclasses.replace(
@@ -6138,24 +6209,26 @@ def decode_tp_check(np, arch, tp, res, want, card) -> dict:
 
 def serve_tp_rank(tasks):
     """18, one rank: each task of `tasks` in turn, each model freed
-    before the next."""
+    before the next (and phase 20's 1x2 work, `fsdp_rank2`, in the same
+    warm ranks)."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = []
-    for name, args in tasks:
-        out.append(serve_tp_engine(*args) if name == "engine"
-                   else decode_tp_rank(*args))
-    return out
+    run = {"engine": serve_tp_engine, "decode": decode_tp_rank,
+           "fsdp": fsdp_rank2}
+    return [run[name](*args) for name, args in tasks]
 
 
-def serve_tp(torch, np, serving, phase3, card) -> tuple:
+def serve_tp(torch, np, serving, phase3, card, fsdp_args=None) -> tuple:
     """Phase 18: the 1x1 sides in this process first (phase 3's traffic
     on a 1x1 engine that keeps every token's logits, on phase 3's tree:
     its tokens must be phase 3's; each 18b model's 1x1 path), each freed
     before the next; then one spawn of 2 ranks (qwen2's engine, zamba2,
     deepseek) and one of 4 (qwen2's engine, granite).  Returns the
     launch counts of each path, summed over the ranks, and kernel 4's
-    launches on 18a's engine path of each mesh, summed over its ranks."""
+    launches on 18a's engine path of each mesh, summed over its ranks,
+    each mesh's engine run (rank 0's tokens and kernel-4 launches), and
+    each rank's result of phase 20's 1x2 work (`fsdp_args`, run last in
+    the 2-rank spawn; None without)."""
     from repro_torch.launch import build
     from repro_torch.models import transformer
     cfg, engine_kw = serving.CONFIG, serving.SERVE_ENGINE
@@ -6178,11 +6251,13 @@ def serve_tp(torch, np, serving, phase3, card) -> tuple:
         f"{[a for a, _ in DECODE_TP]}'s paths in "
         f"{time.perf_counter() - t0:.1f} s; memory allocated as the ranks "
         f"start {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
-    paths, engine_fa = [], {}
+    paths, engine_fa, engines, fsdp2 = [], {}, {}, None
     for tp in SERVE_TP:
         tasks = [("engine", (cfg, engine_kw, prompts,
                              traffic["new_tokens"]))]
         tasks += [("decode", (a,)) for a, t in DECODE_TP if t == tp]
+        if tp == 2 and fsdp_args is not None:
+            tasks.append(("fsdp", fsdp_args))
         t0 = time.perf_counter()
         res = build.shard_mapped(serve_tp_rank, (1, tp), [(tasks,)] * tp,
                                  device="cuda")
@@ -6190,12 +6265,19 @@ def serve_tp(torch, np, serving, phase3, card) -> tuple:
         paths.append(serve_tp_check(np, serving, tp, [r[0] for r in res],
                                     phase3, logits1, card))
         engine_fa[tp] = paths[-1]["flash_attention"]
-        for i, (_, (arch,)) in enumerate(tasks[1:], 1):
-            paths.append(decode_tp_check(np, arch, tp, [r[i] for r in res],
-                                         want[arch], card))
+        engines[tp] = dict(tokens=res[0][0]["tokens"],
+                           flash_attention=res[0][0]["counts"][
+                               "flash_attention"])
+        for i, (name, args) in enumerate(tasks):
+            if name == "decode":
+                paths.append(decode_tp_check(np, args[0], tp,
+                                             [r[i] for r in res],
+                                             want[args[0]], card))
+            elif name == "fsdp":
+                fsdp2 = [r[i] for r in res]
         log(f"  18 the {tp}-rank spawn: {wall:.1f} s, spawn included "
             f"({card})")
-    return paths, engine_fa
+    return paths, engine_fa, engines, fsdp2
 
 
 def serve_tp_attention(torch, fa, ref, gen, card, serving) -> list:
@@ -6773,6 +6855,493 @@ def seq_shard(torch, np, serving, zamba, ra, ref, ops, gen, card) -> tuple:
     return paths, timing
 
 
+# ---------------------------------------------------------------------------
+# phase 20: fsdp, checkpoints and the engine's drain on a rank mesh
+# ---------------------------------------------------------------------------
+# 20a trains qwen2-0.5b with fsdp=True (ZeRO-3 over `data`: every 2-D
+# block weight's rows halved over the 2 data PEs, gathered inside its
+# block) on 2x2 at 16b's shape, through build.make_train_step's default
+# sync from the 1x1 seed-0 tree fitted to the mesh and cut to each
+# rank's rows (each rank draws it itself, as 16b).  20b runs the train
+# launcher on 2x2 with fsdp, killed at a step's batch fetch after a
+# checkpoint landed (`test_fault.py`'s FAULT_RESUME_SCRIPT), resumed
+# from a copy of that checkpoint, and an uninterrupted run resumed from
+# another copy; then the same checkpoint resumed on 1x2 (the elastic
+# shrink).  20c serves phase 3's traffic with qwen2's paged engine on
+# 1x2 with a PEFailure at the third step's decode on every rank.  No
+# spawn of its own: 20a and 20b's 2x2 runs follow 16b in its 4 ranks
+# (`mesh_train`'s `extra`), the shrink and 20c follow 18's work in its 2
+# ranks (`serve_tp`'s `fsdp_args`), both warm by then; phase 20 checks
+# their results after phase 19.  The launcher has no fsdp flag (nor has
+# the reference's): its rank bodies patch `configs.get_config` to the
+# config with fsdp=True.
+
+FSDP_TRAIN = dict(SPMD_TRAIN, steps=3)
+# 20b: the launcher's --steps, --ckpt-every and shape (a batch of one
+# row a data PE: one microbatch, so a step is a quarter of 20a's heap
+# rounds); the kill at step FSDP_KILL_AT's batch fetch, after step
+# FSDP_KILL_AT - 1's checkpoint
+FSDP_KILL = dict(steps=3, ckpt_every=1, seq_len=128, batch=2)
+FSDP_KILL_AT = 2
+FSDP_DIR = ROOT / "build" / "phase20"
+
+
+def fsdp_config(cfg):
+    return dataclasses.replace(cfg, fsdp=True)
+
+
+def fsdp_step_formula(torch, cfg, params, mb, dp, slot_bytes) -> dict:
+    """20a's launches and heap rounds a default-sync step a rank, of the
+    dense family on 2x2 with fsdp and remat, `params` the rank's shards.
+    Per microbatch: 7 rounds outside the layers (4 in the forward: the
+    embedding's allreduce over `model` and sharded_xent's three; 3 in
+    the backward), and a layer's 5 (its two allreduces over `model` in
+    the forward and again under remat, 1 in its backward) plus 3R (its
+    G 2-D leaves each gathered over `data` in the forward, again under
+    remat, and its backward's delivery, R rounds each time:
+    `fsdp_gathers`, 1 a leaf at qwen2's sizes); per step the loss's mean
+    over `data` (1) and the default sync's S rounds: each bucket of
+    fused_grad_sync's plan (the synced leaves: fsdp leaves are not) one
+    recursive-doubling stage, in ceil(bytes / slot) slot-sized chunks.
+    Kernel 2 twice a round, plus one block move each gather and each
+    gather's backward; kernel 3 a combine each round of an allreduce: 4
+    + 3L a microbatch and one a bucket and the loss's; kernel 4 twice a
+    layer a microbatch (remat).  Measured on the CPU against the port's
+    code at 2-3 layers, 1, 2 and 4 microbatches, with and without fsdp
+    (G = R = 0 without)."""
+    from repro_torch.core import heap
+    from repro_torch.core.heap import tree_flatten
+    from repro_torch.parallel import sharding
+    from repro_torch.train import step as tstep
+    L = cfg.n_layers
+    G, R = fsdp_gathers(params["layers"][0], dp, slot_bytes)
+    mask = tree_flatten(sharding.needs_data_sync(cfg, params))[0]
+    synced = [t for t, m in zip(tree_flatten(params)[0], mask) if m]
+    budget = tstep.BUCKET_BYTES // 4
+    buckets, cur, n = [], [], 0
+    for t in synced:
+        if cur and n + t.numel() > budget:
+            buckets.append(cur)
+            cur, n = [], 0
+        cur.append(t)
+        n += t.numel()
+    if cur:
+        buckets.append(cur)
+    nbytes = [heap.plan_pack(b, dtype=torch.float32).total * 4
+              for b in buckets]
+    S = sum(-(-b // slot_bytes) for b in nbytes)
+    rounds = 1 + S + mb * (7 + (5 + 3 * R) * L)
+    return dict(rounds=rounds, G=G, R=R, S=S, buckets=len(buckets),
+                counts=dict(flash_attention=2 * L * mb, put_copy=0,
+                            dma_copy=2 * rounds + 3 * G * L * mb,
+                            reduce_combine=1 + len(buckets)
+                            + mb * (4 + 3 * L),
+                            fused_update=0, ssd_scan=0, ring_attention=0))
+
+
+def fsdp_train_rank(argv):
+    """20a, one rank: the 1x1 seed-0 tree fitted to the mesh and cut to
+    this rank's fsdp rows; FSDP_TRAIN's steps of make_train_step's
+    default sync (in place); losses, walls, the path's launches and heap
+    rounds, peak, and the formulas'."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import spmd
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import build
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import convert, transformer
+    from repro_torch.train import optimizer as opt
+    rt = spmd.current()
+    args = train_mod.parse_args(argv)
+    cfg, mesh = fsdp_config(get_config(args.arch)), rt.mesh
+    params = transformer.map_params(torch.clone, convert.local_shards(
+        convert.fit_global(transformer.init_params(cfg, seed=0,
+                                                   device="cuda"),
+                           cfg, tp=mesh.sizes["model"],
+                           dp=mesh.sizes["data"]), cfg, mesh))
+    gc.collect()                 # no 1x1 leaf is kept
+    torch.cuda.empty_cache()
+    adamw = opt.AdamWConfig(lr=args.lr, moment_dtype=cfg.moment_dtype)
+    step, _, _ = build.make_train_step(cfg, mesh, adamw=adamw, donate=True)
+    state = opt.init_state(params, adamw)
+    b_local = args.batch // mesh.sizes["data"]
+    mb = max(1, min(cfg.microbatches, b_local))
+    while b_local % mb:
+        mb -= 1
+    formula = fsdp_step_formula(torch, cfg, params, mb, mesh.sizes["data"],
+                                rt.heap.slot_bytes)
+    pipe = SyntheticLM(cfg.vocab, args.seq_len, args.batch)
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                                    # the path starts
+    r0, s0 = rt.rounds, rt.sync_s
+    for s in range(args.steps):
+        t0 = time.perf_counter()
+        loss, params, state = step(params, state, pipe.batch(s))
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    out = dict(losses=losses, walls=walls, counts=_counts(),
+               rounds=rt.rounds - r0, sync_s=rt.sync_s - s0,
+               peak=torch.cuda.max_memory_allocated(), formula=formula,
+               mb=mb)
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_launcher(argv, params=None):
+    """The train launcher's loop in this rank on `argv`, its config with
+    fsdp=True."""
+    from repro_torch import configs
+    from repro_torch.launch import train as train_mod
+    real = configs.get_config
+    with mock.patch.object(configs, "get_config",
+                           lambda arch, **kw: fsdp_config(real(arch, **kw))):
+        return train_mod.train_loop(train_mod.parse_args(argv), params)
+
+
+def fsdp_kill_rank(argv, ckpt_dir):
+    """20b on 2x2, one rank: the launcher killed at step FSDP_KILL_AT's
+    batch fetch (every rank's fetch raises, so no rank waits at a heap
+    round), rank 0 waiting for the checkpoint before it to land and
+    copying it twice; the resumed run and the uninterrupted one resumed
+    from the other copy.  The path's launches and heap rounds, counted
+    from 0 before the kill and read after the second resume."""
+    import shutil
+
+    import torch
+    from repro_torch.ckpt import manager as ckpt
+    from repro_torch.core import spmd
+    from repro_torch.data import pipeline as data_mod
+    rt = spmd.current()
+    real = data_mod.SyntheticLM.batch
+
+    def dying_batch(self, step):
+        if step == FSDP_KILL_AT:
+            raise RuntimeError("injected PE failure: node lost")
+        return real(self, step)
+
+    run = argv + ["--steps", str(FSDP_KILL["steps"])]
+    torch.cuda.synchronize()
+    _reset_counts()                                    # the path starts
+    r0 = rt.rounds
+    t0 = time.perf_counter()
+    killed = ""
+    data_mod.SyntheticLM.batch = dying_batch
+    try:
+        fsdp_launcher(run + ["--ckpt-dir", ckpt_dir, "--ckpt-every",
+                             str(FSDP_KILL["ckpt_every"])])
+    except RuntimeError as e:
+        killed = str(e)
+    finally:
+        data_mod.SyntheticLM.batch = real
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_kill = time.perf_counter() - t0
+    if rt.rank == 0:
+        for _ in range(600):        # the async save may still be writing
+            if ckpt.latest_step(ckpt_dir) == FSDP_KILL_AT - 1:
+                break
+            time.sleep(0.1)
+        for tag in ("-resume", "-ref", "-shrink"):      # hard links
+            shutil.copytree(ckpt_dir, ckpt_dir + tag,
+                            copy_function=os.link)
+    rt.barrier()
+    latest = ckpt.latest_step(ckpt_dir)
+    out = dict(killed=killed, latest=latest, t_kill=t_kill)
+    for tag in ("-resume", "-ref"):
+        t0 = time.perf_counter()
+        res = fsdp_launcher(run + ["--ckpt-dir", ckpt_dir + tag,
+                                   "--resume", "auto", "--ckpt-every",
+                                   "100"])
+        out[tag] = dict(losses=res.losses, walls=res.step_s,
+                        wall=time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out.update(counts=_counts(), rounds=rt.rounds - r0)
+    return out
+
+
+def fsdp_rank4(train_argv, kill_argv, ckpt_dir):
+    """Phase 20's 2x2 work in a rank of 16b's spawn: 20a, then 20b's 2x2
+    runs; with its wall."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"20a": fsdp_train_rank(train_argv),
+           "20b": fsdp_kill_rank(kill_argv, ckpt_dir)}
+    return dict(out, wall=time.perf_counter() - t0)
+
+
+def fsdp_drain_rank(cfg, engine_kw, prompts, new_tokens):
+    """20c, one rank: phase 3's seed-0 tree fitted to 1x2 and cut to this
+    rank's shards (18a's); the engine on phase 3's traffic with a
+    PEFailure at the DRAIN_AT_DECODE-th decode, raised on every rank
+    (each counts its own calls: the ranks step in lockstep); the drained
+    step's result, the queue and live pages after it, the tokens, the
+    path's launches and heap rounds."""
+    import torch
+    from repro_torch.core import spmd
+    from repro_torch.core.fault import PEFailure
+    from repro_torch.models import convert, transformer
+    from repro_torch.serve.engine import ServeEngine
+    rt = spmd.current()
+    mesh = rt.mesh
+    params = transformer.map_params(torch.clone, convert.local_shards(
+        convert.fit_global(transformer.init_params(cfg, seed=0,
+                                                   device="cuda"),
+                           cfg, tp=mesh.sizes["model"]), cfg, mesh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServeEngine(cfg, mesh, params=params, **engine_kw)
+    real, seen = transformer.decode_step_paged, {"calls": 0, "live": None}
+
+    def dying(*a, **k):
+        seen["calls"] += 1
+        if seen["calls"] == DRAIN_AT_DECODE:
+            seen["live"] = [st.rid for st in eng.scheduler.slots
+                            if st is not None]
+            raise PEFailure("PE 1 lost in the decode", pe=1, step=eng.steps)
+        return real(*a, **k)
+
+    faulted = []
+
+    def check_drain(res):
+        if res.get("faulted"):
+            faulted.append(dict(res, queue=[r.rid for r in
+                                            eng.scheduler.queue],
+                                pages=eng.kv.pool.live_pages()))
+
+    torch.cuda.synchronize()
+    with mock.patch.object(transformer, "decode_step_paged", dying):
+        _reset_counts()                                # the path starts
+        r0 = rt.rounds
+        rids, ttft, gaps, wall = drive_engine(torch, eng, prompts,
+                                              new_tokens, check_drain)
+        counts = _counts()                             # the path ends
+    out = dict(faulted=faulted, live=seen["live"], counts=counts,
+               rounds=rt.rounds - r0, wall=wall, steps=eng.steps,
+               tokens=[eng.results[r] for r in rids], ttft=ttft, gaps=gaps)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_rank2(shrink_argv, drain_args):
+    """Phase 20's 1x2 work in a rank of 18's 2-rank spawn: 20b's shrink
+    (the 2x2 checkpoint resumed on 1x2), then 20c; with its wall."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import spmd
+    rt = spmd.current()
+    t_all = time.perf_counter()
+    torch.cuda.synchronize()
+    _reset_counts()                                    # the path starts
+    r0 = rt.rounds
+    t0 = time.perf_counter()
+    res = fsdp_launcher(shrink_argv)
+    shrink = dict(losses=res.losses, wall=time.perf_counter() - t0,
+                  counts=_counts(), rounds=rt.rounds - r0)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"shrink": shrink, "20c": fsdp_drain_rank(*drain_args)}
+    return dict(out, wall=time.perf_counter() - t_all)
+
+
+def fsdp_plan(serving) -> dict:
+    """Phase 20's runs: the arguments of 20a and 20b's 2x2 runs (to ride
+    in 16b's spawn: `mesh_train`'s `extra`) and of the shrink and 20c (in
+    18's 2-rank spawn: `serve_tp`'s `fsdp_args`); a fresh checkpoint
+    directory."""
+    import shutil
+    cfg = fsdp_config(serving.CONFIG)
+    run = dict(FSDP_TRAIN, lr=serving.TRAIN_RUN["lr"])
+    mesh = ["--data", str(run["data"]), "--model", str(run["model"])]
+    argv = ["--arch", cfg.name, "--seq-len", str(run["seq_len"]),
+            "--batch", str(run["batch"]), "--lr", str(run["lr"]),
+            "--device", "cuda"] + mesh
+    kill_argv = ["--arch", cfg.name, "--seq-len",
+                 str(FSDP_KILL["seq_len"]), "--batch",
+                 str(FSDP_KILL["batch"]), "--lr", str(run["lr"]),
+                 "--device", "cuda"]
+    shutil.rmtree(FSDP_DIR, ignore_errors=True)
+    FSDP_DIR.mkdir(parents=True)
+    ckpt_dir = str(FSDP_DIR / "ckpt")
+    import numpy as np
+    traffic = serving.SERVE_TRAFFIC
+    prompts = np.random.default_rng(0).integers(       # phase 3's
+        1, serving.CONFIG.vocab, size=(traffic["requests"],
+                                       traffic["prompt_len"]),
+        dtype=np.int32)
+    # one step on 1x2 from the step-1 checkpoint: its losses need only be
+    # finite (a per-layer leaf's rows are data rank 0's, tiled)
+    shrink_argv = kill_argv + ["--data", "1", "--model", "2", "--steps",
+                               str(FSDP_KILL_AT), "--ckpt-dir",
+                               ckpt_dir + "-shrink", "--resume", "auto",
+                               "--ckpt-every", "100"]
+    return dict(run=run, cfg=cfg, ckpt_dir=ckpt_dir,
+                rank4=(argv + ["--steps", str(run["steps"])],
+                       kill_argv + mesh, ckpt_dir),
+                rank2=(shrink_argv, (serving.CONFIG, serving.SERVE_ENGINE,
+                                     prompts, traffic["new_tokens"])))
+
+
+def fsdp_phase(torch, np, plan, res, res2, l1, engine_1x2, card) -> list:
+    """Phase 20's gates on the results of its work in 16b's spawn (`res`:
+    each rank's `fsdp_rank4`) and in 18's 2-rank spawn (`res2`: each
+    rank's `fsdp_rank2`).  `l1`: 16b's 1x1 launcher losses (the same
+    seed-0 tree, batches and lr); `engine_1x2`: 18a's 1x2 engine run
+    (rank 0's tokens and kernel-4 launches), the undisturbed run 20c is
+    held to.  Gates: 20a every rank's losses equal, the first within
+    SPMD_LOSS_TOL[0] of 16b's 1x1 first loss and the later ones within
+    theirs, launches of kernels 2-4 and heap rounds a rank equal to
+    `fsdp_step_formula`; 20b the kill fired and the checkpoint before it
+    landed, the resumed losses equal to the uninterrupted resumed run's
+    at rtol 1e-5 / atol 1e-6 (the reference test's allclose), the
+    shrink's finite; 20c one drained step on every rank alike (the live
+    rids in slot order requeued at the queue head, no page live), then
+    every request's tokens 18a's 1x2 tokens bit for bit, through 18a's
+    kernel-4 launches plus L a re-prefill.  Removes the checkpoints.
+    Returns the four paths' launch counts, summed over ranks."""
+    import shutil
+    cfg, run, ckpt_dir = plan["cfg"], plan["run"], plan["ckpt_dir"]
+    dims = (run["data"], run["model"])
+    paths = []
+
+    # 20a
+    per = [r_["20a"] for r_ in res]
+    losses = per[0]["losses"]
+    f = per[0]["formula"]
+    if any(p["losses"] != losses for p in per):
+        raise AssertionError("20a: ranks disagree on the loss")
+    diffs = [abs(a - b) for a, b in zip(losses, l1)]
+    if not np.isfinite(losses).all() or any(
+            not d <= t for d, t in zip(diffs, SPMD_LOSS_TOL)):
+        raise AssertionError(f"20a: the fsdp mesh's losses {losses} are not "
+                             f"16b's 1x1 losses {l1[:len(losses)]} within "
+                             f"{SPMD_LOSS_TOL}")
+    steps = run["steps"]
+    want = {k: v * steps for k, v in f["counts"].items()}
+    for r_, p in enumerate(per):
+        got = {k: p["counts"][k] for k in want}
+        if got != want or p["rounds"] != f["rounds"] * steps:
+            raise AssertionError(f"20a: rank {r_} launched {got} in "
+                                 f"{p['rounds']} heap rounds over {steps} "
+                                 f"steps; the formulas give {want} in "
+                                 f"{f['rounds'] * steps}")
+    walls = per[0]["walls"]
+    tok = run["seq_len"] * run["batch"]
+    log(f"  20a {cfg.name} fsdp=True on {dims[0]}x{dims[1]}, {steps} "
+        f"default-sync steps at seq {run['seq_len']} batch {run['batch']} "
+        f"({per[0]['mb']} microbatches a rank): losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + "; |diff| vs 16b's 1x1 "
+        + ", ".join(f"{d:.4g}" for d in diffs) + " (bound "
+        + ", ".join(f"{t:g}" for t in SPMD_LOSS_TOL[:steps])
+        + "); step wall ms (rank 0) "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+        + f"; {tok * (len(walls) - 1) / sum(walls[1:]):.1f} train tok/s "
+        f"(steps 2..{steps}); peak per rank GiB "
+        + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in per)
+        + " (16b without fsdp: 6.557, PERF.md §6); per step per rank "
+        f"{f['rounds']} heap rounds == 1 + S {f['S']} ({f['buckets']} sync "
+        f"buckets) + mb x (7 + (5 + 3 x R {f['R']}) x L) (G {f['G']} "
+        f"gathered leaves a layer), launches (flash, "
+        f"dma, combine) " + ", ".join(str(f["counts"][k]) for k in (
+            "flash_attention", "dma_copy", "reduce_combine"))
+        + " == the formulas; host time in the rounds' syncs a step (ranks) "
+        "ms " + ", ".join(f"{p['sync_s'] / steps * 1e3:.1f}" for p in per)
+        + f" ({card})")
+    paths.append({k: sum(p["counts"][k] for p in per)
+                  for k in per[0]["counts"]})
+
+    # 20b on 2x2
+    per = [r_["20b"] for r_ in res]
+    for r_, p in enumerate(per):
+        if "node lost" not in p["killed"] or \
+                p["latest"] != FSDP_KILL_AT - 1:
+            raise AssertionError(f"20b: rank {r_}: kill {p['killed']!r}, "
+                                 f"latest checkpoint {p['latest']}")
+    got, ref = per[0]["-resume"]["losses"], per[0]["-ref"]["losses"]
+    n_left = FSDP_KILL["steps"] - (FSDP_KILL_AT - 1)
+    if len(got) != n_left or not np.isfinite(got).all() or \
+            not np.allclose(got, ref, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"20b: resumed losses {got} vs the "
+                             f"uninterrupted resumed run's {ref}")
+    paths.append({k: sum(p["counts"][k] for p in per)
+                  for k in per[0]["counts"]})
+    ck = Path(ckpt_dir)
+    step_dir = sorted(ck.glob("step-*"))[-1]
+    ck_bytes = sum(x.stat().st_size for x in step_dir.iterdir())
+
+    shrink = res2[0]["shrink"]["losses"]
+    if len(shrink) != 1 or not np.isfinite(shrink).all():
+        raise AssertionError(f"20b: the 1x2 resume's losses {shrink}")
+    paths.append({k: sum(r_["shrink"]["counts"][k] for r_ in res2)
+                  for k in res2[0]["shrink"]["counts"]})
+    log(f"  20b the launcher on 2x2 with fsdp (seq "
+        f"{FSDP_KILL['seq_len']}, batch {FSDP_KILL['batch']}), killed at "
+        f"step {FSDP_KILL_AT}'s batch fetch ({per[0]['killed']!r}) after its "
+        f"step-{FSDP_KILL_AT - 1} checkpoint ({ck_bytes / 2**30:.3f} GiB "
+        f"on disk: the gathered tree, data rank 0's rows of each per-layer "
+        f"fsdp leaf, and its f32 moments) landed: resumed losses "
+        + ", ".join(f"{x:.6f}" for x in got) + " == the uninterrupted "
+        "resumed run's " + ", ".join(f"{x:.6f}" for x in ref)
+        + f" (rtol 1e-5, atol 1e-6); on 1x2 (the shrink) "
+        + ", ".join(f"{x:.6f}" for x in shrink)
+        + f", finite; walls s: kill run {per[0]['t_kill']:.1f}, resumes "
+        f"{per[0]['-resume']['wall']:.1f} and {per[0]['-ref']['wall']:.1f},"
+        f" shrink {res2[0]['shrink']['wall']:.1f}; 20a and 20b in 16b's "
+        f"ranks {res[0]['wall']:.1f} s ({card})")
+    shutil.rmtree(FSDP_DIR, ignore_errors=True)
+
+    # 20c
+    per = [r_["20c"] for r_ in res2]
+    lead = per[0]
+    live = lead["live"]
+    for r_, p in enumerate(per):
+        if len(p["faulted"]) != 1 or p["faulted"] != lead["faulted"] \
+                or p["live"] != live:
+            raise AssertionError(f"20c: rank {r_} drained {p['faulted']} "
+                                 f"(live {p['live']}), rank 0 "
+                                 f"{lead['faulted']} (live {live})")
+    (fl,) = lead["faulted"]
+    if fl["pe"] != 1 or not live or fl["requeued"] != live \
+            or fl["queue"][:len(live)] != live or fl["pages"] != 0:
+        raise AssertionError(f"20c: drain {fl}, live before it {live}")
+    for p in per:
+        for i, (a, b) in enumerate(zip(p["tokens"], engine_1x2["tokens"])):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"20c: request {i} after the drain "
+                                     f"{a.tolist()} != 18a's 1x2 "
+                                     f"{b.tolist()}")
+    want_fa = engine_1x2["flash_attention"] + cfg.n_layers * len(live)
+    if any(p["counts"]["flash_attention"] != want_fa for p in per):
+        raise AssertionError(f"20c: kernel-4 launches "
+                             f"{[p['counts']['flash_attention'] for p in per]}"
+                             f" a rank, want {want_fa}")
+    paths.append({k: sum(p["counts"][k] for p in per)
+                  for k in lead["counts"]})
+    log(f"  20c {cfg.name}'s engine on 1x2, PE 1 lost at the "
+        f"third step's decode on both ranks: both drained alike, requeued "
+        f"{fl['requeued']} (the live rids in slot order) at the queue head "
+        f"{fl['queue']}, 0 pages live; every request's tokens == 18a's 1x2 "
+        f"tokens bit for bit; kernel 4 {want_fa} a rank (18a's "
+        f"{engine_1x2['flash_attention']} + {cfg.n_layers} x {len(live)} "
+        f"re-prefills); {lead['steps']} engine steps, {lead['rounds']} heap "
+        f"rounds a rank, {lead['wall']:.3f} s, TTFT p50 "
+        f"{pct(lead['ttft'], 50) * 1e3:.2f} ms, per-token p50 "
+        f"{pct(lead['gaps'], 50) * 1e3:.3f} ms; the shrink and 20c in 18's "
+        f"2-rank spawn {res2[0]['wall']:.1f} s ({card})")
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -7007,9 +7576,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
     spmd_paths = spmd_collectives(torch, np, card)
-    got, _ = mesh_train(torch, np, serving.CONFIG,
-                        dict(SPMD_TRAIN, lr=serving.TRAIN_RUN["lr"]),
-                        SPMD_LOSS_TOL, card, "16b")
+    # phase 20's work rides in the warm ranks of 16b's and 18's spawns
+    plan20 = fsdp_plan(serving)
+    got, _, l1_16b, fsdp4 = mesh_train(
+        torch, np, serving.CONFIG,
+        dict(SPMD_TRAIN, lr=serving.TRAIN_RUN["lr"]), SPMD_LOSS_TOL, card,
+        "16b", extra=plan20["rank4"])
     spmd_paths += got
     log(f"  phase 16 wall {time.perf_counter() - t16:.1f} s ({card})")
 
@@ -7037,7 +7609,7 @@ def main() -> int:
     for run_ in (lambda: ep_granite(torch, np, granite, card),
                  lambda: mesh_train(torch, np, zamba.CONFIG,
                                     dict(EP_TRAIN, lr=3e-4, data=2, model=2),
-                                    EP_ZAMBA_LOSS_TOL, card, "17c"),
+                                    EP_ZAMBA_LOSS_TOL, card, "17c")[:2],
                  lambda: ep_deepseek(torch, np, ds_cfg, card)):
         gc.collect()
         torch.cuda.empty_cache()
@@ -7057,7 +7629,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     t18 = time.perf_counter()
     tp_timing = serve_tp_attention(torch, fa, ref, gen, card, serving)
-    tp_paths, tp_fa = serve_tp(torch, np, serving, served, card)
+    tp_paths, tp_fa, tp_engines, fsdp2 = serve_tp(
+        torch, np, serving, served, card, fsdp_args=plan20["rank2"])
     for t, tp in zip(tp_timing, SERVE_TP):
         if t["calls"] != tp_fa[tp]:
             raise AssertionError(f"18: kernel 4 at {t['shape']} launched "
@@ -7076,11 +7649,20 @@ def main() -> int:
                                       ops, gen, card)
     log(f"  phase 19 wall {time.perf_counter() - t19:.1f} s ({card})")
 
+    log(f"== phase 20: fsdp, checkpoints and the engine's drain on a rank "
+        f"mesh ({serving.CONFIG.name} trained with fsdp=True on 2x2, the "
+        f"launcher killed and resumed on 2x2 and on 1x2, the engine "
+        f"drained on 1x2; run in 16b's and 18's ranks)")
+    fsdp_paths = fsdp_phase(torch, np, plan20, fsdp4, fsdp2, l1_16b,
+                            tp_engines[2], card)
+    log(f"  phase 20 wall in those ranks {fsdp4[0]['wall']:.1f} + "
+        f"{fsdp2[0]['wall']:.1f} s ({card})")
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
         + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths \
         + moe_paths + frontend_paths + service_paths + elastic_paths \
-        + spmd_paths + ep_paths + tp_paths + seq_paths
+        + spmd_paths + ep_paths + tp_paths + seq_paths + fsdp_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -7104,7 +7686,9 @@ def main() -> int:
         f"tp (18a qwen2 engine 1x2, 18b zamba2 1x2, deepseek 1x2, 18a qwen2 "
         f"engine 1x4, 18b granite 1x4; summed over ranks) {tp_paths}, "
         f"seq (19a ring, 19b f32, 19b bf16, 19c bf16, 19c f32, 19a "
-        f"gradient; summed over ranks) {seq_paths}")
+        f"gradient; summed over ranks) {seq_paths}, fsdp (20a qwen2 2x2, "
+        f"20b 2x2 kill and resumes, 20b 1x2 shrink, 20c drained engine "
+        f"1x2; summed over ranks) {fsdp_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]

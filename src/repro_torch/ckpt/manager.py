@@ -8,7 +8,9 @@ numpy on disk).
   * restore(): loads into a template, on the template's devices and in
     its dtypes.  A leaf whose saved shape differs from the template's
     (an elastic shrink or grow) is resharded on the host from the saved
-    global array: tiled or sliced along each changed dim.
+    global array: tiled or sliced along each changed dim.  With
+    `shardings` (a spec tree), in a rank process, each leaf is then cut
+    to the rank's block.
   * A LATEST pointer at a deleted or partial dir falls back to the newest
     COMPLETE ``step-*`` dir; corruption surfaces as `CheckpointError`.
   * FaultToleranceManager: step-deadline straggler records, periodic
@@ -147,19 +149,32 @@ def restore(ckpt_dir: str | pathlib.Path, template: dict,
     """(step, state) restored into `template`, a tree of tensors (GLOBAL
     shapes): each leaf comes back in the template leaf's dtype, on its
     device, resharded (`_reshard`) where its saved shape differs.
-    `shardings` places leaves on a multi-device mesh, which comes with
-    the SPMD backend; only None is taken.  Raises CheckpointError when no
-    complete checkpoint exists or it lacks a leaf the template names."""
+    `shardings`, a spec tree of the template's structure (a
+    `parallel.sharding` spec a leaf: a tuple of None, axis names or
+    tuples of them), places the state on the rank mesh: the call is made
+    in a rank process of `core.spmd.run`, and each leaf comes back as
+    this rank's block of it under its spec (`models.convert.local_leaf`
+    at the rank's coordinates), as `jax.device_put(arr, NamedSharding)`
+    gives the reference's device its block.  Raises CheckpointError when
+    no complete checkpoint exists or it lacks a leaf the template
+    names."""
+    specs = None
     if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=) places leaves on a multi-device mesh: "
-            "not ported yet (slice 5's SPMD backend)")
+        from ..core import spmd
+        from ..parallel.sharding import spec_leaves
+        mesh = spmd.current().mesh if spmd.active() else None
+        if mesh is None:
+            raise RuntimeError("restore(shardings=) places leaves on the "
+                               "rank mesh: call it in a rank process, "
+                               "after launch.mesh.make_mesh")
+        from ..models.convert import local_leaf
+        specs = spec_leaves(template, shardings)
     d = _resolve_dir(ckpt_dir)
     manifest = json.loads((d / "manifest.json").read_text())
     by_name = {l["name"]: l for l in manifest["leaves"]}
     _, treedef = tree_flatten(template)
     out = []
-    for name, t in _leaf_paths(template):
+    for i, (name, t) in enumerate(_leaf_paths(template)):
         rec = by_name.get(name)
         if rec is None:
             have = ", ".join(sorted(by_name)[:8])
@@ -172,6 +187,8 @@ def restore(ckpt_dir: str | pathlib.Path, template: dict,
             leaf = leaf.view(torch.bfloat16)
         if tuple(leaf.shape) != tuple(t.shape):
             leaf = _reshard(leaf, tuple(t.shape), name).contiguous()
+        if specs is not None:
+            leaf = local_leaf(leaf, specs[i] or (), mesh)
         out.append(leaf.to(device=t.device, dtype=t.dtype))
     return manifest["step"], tree_unflatten(treedef, out)
 

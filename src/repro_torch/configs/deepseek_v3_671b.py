@@ -1,13 +1,11 @@
 """deepseek-v3-671b [moe]: 61L d7168 128H MLA, 1 shared + 256 routed
 top-8 experts (ff 2048), first 3 layers dense (ff 18432), MTP head,
-v129280.  EP over the full (data x model) mesh, int8 optimizer moments.
-[arXiv:2412.19437; hf]"""
+v129280.  EP over the full (data x model) mesh, ZeRO-3 fsdp for the
+dense trunk, int8 optimizer moments. [arXiv:2412.19437; hf]"""
 import torch
 
 from ..models.config import MLAConfig, ModelConfig, MoEConfig
 
-# the reference also sets fsdp=True (ZeRO-3 over data); the port's
-# ModelConfig has no fsdp field until the multi-device backend (slice 5)
 CONFIG = ModelConfig(
     name="deepseek-v3-671b", family="moe", n_layers=61, d_model=7168,
     n_heads=128, n_kv_heads=128, head_dim=128, d_ff=18432, vocab=129280,
@@ -16,7 +14,7 @@ CONFIG = ModelConfig(
                   qk_rope_dim=64, v_dim=128),
     moe=MoEConfig(n_experts=256, top_k=8, d_ff=2048, n_shared=1,
                   first_dense_layers=3, ep_over_data=True),
-    mtp=True, moment_dtype="int8", microbatches=16,
+    mtp=True, fsdp=True, moment_dtype="int8", microbatches=16,
     param_dtype=torch.bfloat16,   # 1.3 TB of experts: bf16 storage, f32
                                   # optimizer math (deepseek itself used fp8)
 )

@@ -141,7 +141,8 @@ def recover(ctx, dead_pes: Sequence[int], ckpt_dir, template,
       3. restore the last COMPLETE checkpoint
          (:func:`repro_torch.ckpt.manager.restore` — global arrays,
          resharded where a saved shape differs, on the template's
-         devices).
+         devices; with `shardings`, a spec tree, called in a rank
+         process, each leaf cut to the rank's block of it).
 
     Returns ``(step, state, degraded)``.  Recovery wall time lands on
     the attached profiler as ``fault.recovery_us`` plus an ``instant``

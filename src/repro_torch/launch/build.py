@@ -54,12 +54,9 @@ def mesh_axes(mesh, cfg=None) -> sharding.MeshAxes:
     return sharding.MeshAxes(pod=pod)
 
 
-def _check_ported(cfg: ModelConfig, mesh) -> None:
+def _check_ported(mesh) -> None:
     if mesh_dims(mesh)[2]:
         raise NotImplementedError("a pod axis comes with slice 5c-3d")
-    if cfg.shard_strategy != "tp":
-        raise NotImplementedError(f"shard_strategy {cfg.shard_strategy!r} "
-                                  f"comes with slice 5c-3c")
 
 
 def eff_tp(cfg: ModelConfig, mesh) -> int:
@@ -67,10 +64,12 @@ def eff_tp(cfg: ModelConfig, mesh) -> int:
 
 
 def abstract_params(cfg: ModelConfig, mesh):
-    """(local shapes: a tree of meta tensors, specs) of one rank."""
+    """(local shapes: a tree of meta tensors, specs) of one rank; with
+    cfg.fsdp the fsdp leaves hold 1/dp of their rows."""
     dp, _, _ = mesh_dims(mesh)
     tp = eff_tp(cfg, mesh)
     shapes = transformer.init_params(cfg, device="meta", tp=tp, dp=dp)
+    shapes = sharding.fsdp_localize(cfg, shapes, dp)
     return shapes, sharding.param_specs(cfg, shapes, mesh_axes(mesh, cfg),
                                         tp)
 
@@ -134,15 +133,21 @@ def shard_mapped(fn, dims: tuple[int, ...], per_rank_args=None, *,
 def make_init_fn(cfg: ModelConfig, mesh):
     """(init, shapes, specs): ``init(seed, device)`` in a rank gives its
     local shards; every rank draws from the same seed, so replicated
-    leaves are identical everywhere."""
-    _check_ported(cfg, mesh)
+    leaves are identical everywhere.  With cfg.fsdp each fsdp leaf is
+    drawn whole (model-local, data-full) and cut to the rank's rows
+    (`sharding.fsdp_shard_init`), as the reference's init."""
+    _check_ported(mesh)
     dp, _, _ = mesh_dims(mesh)
     tp = eff_tp(cfg, mesh)
     shapes, specs = abstract_params(cfg, mesh)
 
     def init(seed: int = 0, device=None):
-        return transformer.init_params(cfg, seed=seed, device=device, tp=tp,
-                                       dp=dp)
+        p = transformer.init_params(cfg, seed=seed, device=device, tp=tp,
+                                    dp=dp)
+        if cfg.fsdp:
+            m = spmd.current().mesh if spmd.active() else mesh
+            p = sharding.fsdp_shard_init(cfg, p, m.coords["data"], dp)
+        return p
 
     return init, shapes, specs
 
@@ -177,7 +182,7 @@ def make_train_step(cfg: ModelConfig, mesh, backend: str = "shmem",
     the global batch (numpy or tensors) -> (loss, params, opt_state);
     with `donate` it updates the trees it is given in place
     (`train/step.build_train_step`)."""
-    _check_ported(cfg, mesh)
+    _check_ported(mesh)
     shapes, pspecs = abstract_params(cfg, mesh)
     ocfg = adamw or opt.AdamWConfig(moment_dtype=cfg.moment_dtype)
     inner = tstep.build_train_step(
@@ -209,7 +214,7 @@ def make_serve_steps(cfg: ModelConfig, mesh, shape_name: str,
     shards its cache's sequence over `data`: seq_shards = dp, every rank
     holds the whole batch and cache_len / dp slots of it."""
     cfg = dataclasses.replace(cfg, fsdp=False)
-    _check_ported(cfg, mesh)
+    _check_ported(mesh)
     dp, tp, pod = mesh_dims(mesh)
     axes = axis_spec(mesh)
     shapes, pspecs = abstract_params(cfg, mesh)

@@ -57,6 +57,7 @@ or --data > 1, run the dense-cache decode loop with the batch over
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -193,6 +194,7 @@ def run(argv=None, *, params=None):
     from ..models import transformer
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = dataclasses.replace(cfg, fsdp=False)
     if cfg.is_encoder:
         raise SystemExit("encoder-only arch has no decode loop")
     device = resolve_device(args.device)

@@ -13,11 +13,14 @@ records.
 
 On a mesh every rank trains its local shards on its slice of the global
 batch (`launch/build.make_train_step`) and the launcher returns rank 0's
-losses; --ckpt-dir saves the GLOBAL tree gathered from the ranks (the
-model-sharded leaves allgathered over `model`), so a restore onto
-another mesh has what the reference's has.  --topo, --allreduce-algo,
---pipeline-chunks and --embedding steer the mesh's collectives as the
-reference's flags do.
+losses; --ckpt-dir saves the GLOBAL tree gathered from the ranks (each
+sharded leaf allgathered over the axes its spec names), so a restore
+onto another mesh has what the reference's has: with fsdp, data rank
+0's rows of each per-layer leaf, and int8 moments as rank 0 holds them
+(`train_loop`'s `state`).  --shard-strategy dp_only replicates the
+parameters and splits the batch over data x model.  --topo,
+--allreduce-algo, --pipeline-chunks and --embedding steer the mesh's
+collectives as the reference's flags do.
 
 The audio frontend trains on stub frames (B, L, d_model) and the vision
 one on stub frontend embeds (B, n_frontend_tokens, d_model) beside the
@@ -49,7 +52,6 @@ import numpy as np
 # the slice that brings the service)
 _UNPORTED = [
     ("pod", 0, "slice 5c-3d (a pod axis)"),
-    ("shard_strategy", None, "slice 5c-3c (sharding strategies)"),
     ("comm", "shmem", "slice 5d (the xla backend)"),
 ]
 
@@ -213,8 +215,9 @@ def run(argv=None, *, params=None) -> TrainRun:
 def _gather_global(comm, specs, tree):
     """The GLOBAL tree of a rank's local `tree` (params, or f32/bf16
     moments of the same structure): each sharded leaf allgathered along
-    its sharded dim over that dim's axis (`model`, or the EP group's
-    flattened (data, model) for the experts under `ep_over_data`)."""
+    its sharded dim over that dim's axis (`model`; the EP group's
+    flattened (data, model) for the experts under `ep_over_data`; fsdp's
+    (model, data) for an unstacked 2-D leaf, model-major)."""
     def walk(t, s):
         if isinstance(t, dict):
             return {k: walk(v, s[k]) for k, v in t.items()}
@@ -259,8 +262,13 @@ def train_loop(args, params=None, topo=None, tuner=None, *,
     device = resolve_device(args.device) if mesh is None \
         else spmd.current().device
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    over = {}
     if args.remat:
-        cfg = dataclasses.replace(cfg, remat=args.remat)
+        over["remat"] = args.remat
+    if args.shard_strategy:
+        over["shard_strategy"] = args.shard_strategy
+    if over:
+        cfg = dataclasses.replace(cfg, **over)
     pipe = SyntheticLM(cfg.vocab, args.seq_len, args.batch,
                        **frontend_kwargs(cfg))
     adamw = opt.AdamWConfig(lr=args.lr, moment_dtype=cfg.moment_dtype)
@@ -300,34 +308,46 @@ def train_loop(args, params=None, topo=None, tuner=None, *,
     if mesh is not None:
         comm = Comm(build.axis_spec(mesh, cfg))
         spec_leaves = sharding.spec_leaves(params, specs)
-        if args.ckpt_dir and len(opt_state["mv"]) != len(spec_leaves):
-            raise NotImplementedError("checkpoints of grouped (int8) "
-                                      "moments on a mesh come with slice "
-                                      "5c-3c")
+        # int8 moments are flat blocks over the rank's own leaves: the
+        # reference gives them the spec P(), so its checkpoint holds
+        # rank 0's and every rank resumes with those
+        grouped = adamw.moment_dtype == "int8"
 
     def state():
-        """The GLOBAL {"params", "opt"}."""
+        """The GLOBAL {"params", "opt"}: each leaf gathered over the axes
+        its spec names (`sharding.param_specs`, the reference's: a
+        per-layer fsdp leaf is gathered over `model` alone, so the tree
+        holds data rank 0's rows of it, as the reference's checkpoint
+        does); int8 moments as this rank holds them."""
         if mesh is None:
             return {"params": params, "opt": opt_state}
-        mv = [{k: _gather_global(comm, s, d[k]) for k in ("m", "v")}
-              for d, s in zip(opt_state["mv"], spec_leaves)]
+        mv = opt_state["mv"] if grouped else [
+            {k: _gather_global(comm, s, d[k]) for k in ("m", "v")}
+            for d, s in zip(opt_state["mv"], spec_leaves)]
         return {"params": _gather_global(comm, specs, params),
                 "opt": {"mv": mv, "step": opt_state["step"]}}
 
     def local(got):
-        """This rank's (params, opt_state) of a restored GLOBAL state."""
+        """This rank's (params, opt_state) of a restored GLOBAL state
+        (`state`'s layout): each leaf cut to the rank's block of its
+        spec."""
         if mesh is None:
             return got["params"], got["opt"]
+
+        def cut(g, s, like):
+            return convert.local_leaf(g, s, mesh).to(device=like.device,
+                                                     dtype=like.dtype)
+
         mv, mdef = tree_flatten(opt_state["mv"])
-        return (transformer.map_params(
-                    lambda t: t.to(device),
-                    convert.local_shards(got["params"], cfg, mesh)),
+        got_mv = tree_flatten(got["opt"]["mv"])[0]
+        mv_specs = [()] * len(mv) if grouped else \
+            [s for s in spec_leaves for _ in "mv"]
+        p, pdef = tree_flatten(params)
+        return (tree_unflatten(pdef, [
+                    cut(g, s, t) for g, s, t in zip(
+                        tree_flatten(got["params"])[0], spec_leaves, p)]),
                 {"mv": tree_unflatten(mdef, [
-                    convert.local_leaf(g, s, mesh).to(device=m.device,
-                                                      dtype=m.dtype)
-                    for g, m, s in zip(tree_flatten(got["opt"]["mv"])[0],
-                                       mv, [s for s in spec_leaves
-                                            for _ in "mv"])]),
+                    cut(g, s, m) for g, m, s in zip(got_mv, mv, mv_specs)]),
                  "step": got["opt"]["step"].to(device)})
 
     start = 0

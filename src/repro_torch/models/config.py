@@ -4,9 +4,8 @@ and the assigned input shapes (`SHAPES`, `shape_applicable`,
 
 Counterpart of `repro/models/config.py` with torch dtypes.  The fields
 are those the model code, the parameter count and the one-device trainer
-read (remat, microbatches, moment_dtype); the JAX package's sharding
-switches (fsdp, shard_strategy, attention="ring") belong to slices not
-yet ported.  `input_specs` gives tensors on the "meta" device, which
+read (remat, microbatches, moment_dtype) and the JAX package's sharding
+switches (attention="ring", fsdp, shard_strategy).  `input_specs` gives tensors on the "meta" device, which
 hold a shape and a dtype and allocate nothing: the port's stand-in for
 `jax.ShapeDtypeStruct`.
 """
@@ -92,9 +91,9 @@ class ModelConfig:
     attention: str = "mono"      # mono | ring: "ring" runs sequence-sharded
                                  # attention over `data` (layers.attention)
     fsdp: bool = False           # ZeRO-3: 2D block weights sharded over
-                                 # data (slice 5c-3c)
+                                 # data (parallel/sharding.py)
     shard_strategy: str = "tp"   # tp | dp_only (replicate params, shard
-                                 # the batch over data x model; 5c-3c)
+                                 # the batch over data x model)
 
     @property
     def hd(self) -> int:

@@ -2,6 +2,8 @@
 between a global tree and the local shards of each rank of a mesh."""
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -122,8 +124,14 @@ def _spec_slices(spec, shape, sizes: dict, coords: dict):
 
 
 def _specs(cfg: ModelConfig, params, tp: int):
+    """The layout of the GLOBAL tree (`sharding.layout_specs`): with
+    cfg.fsdp each fsdp leaf's rows split over data within each model
+    shard; under `dp_only` nothing over `model` (tp 1)."""
     from ..parallel import sharding
-    return sharding.param_specs(cfg, params, sharding.MeshAxes(), tp)
+    if cfg.shard_strategy == "dp_only":
+        return sharding.layout_specs(cfg, params,
+                                     sharding.MeshAxes(model=None), 1)
+    return sharding.layout_specs(cfg, params, sharding.MeshAxes(), tp)
 
 
 def _zip_specs(fn, tree, specs):
@@ -147,9 +155,12 @@ def local_leaf(leaf, spec, mesh):
 
 def local_shards(global_params, cfg: ModelConfig, mesh):
     """The rank's local shards of the port's GLOBAL tree (the port's
-    layout at global shapes): each leaf cut along the dims its spec
-    (`parallel.sharding.param_specs`) splits, at the rank's coordinates
-    on `mesh` (a `launch.mesh.RankMesh`)."""
+    layout at global shapes, every leaf whole over `data`): each leaf cut
+    along the dims its layout spec (`parallel.sharding.layout_specs`)
+    splits, at the rank's coordinates on `mesh` (a
+    `launch.mesh.RankMesh`); with cfg.fsdp an fsdp leaf's rows are cut
+    to the rank's block of its model shard, as the reference's
+    `fsdp_shard_init` cuts them."""
     specs = _specs(cfg, global_params, mesh.sizes.get("model", 1))
     return _zip_specs(lambda leaf, spec: local_leaf(leaf, spec, mesh),
                       global_params, specs)
@@ -159,8 +170,9 @@ def global_params(rank_trees, cfg: ModelConfig, mesh_shape, axis_names=(
         "data", "model")):
     """The GLOBAL tree from every rank's local tree (`rank_trees[r]` is
     rank r's, ranks row-major over `mesh_shape`): each region taken from
-    the first rank (in rank order) that holds it.  Parameters, or
-    gradients of the same structure."""
+    the first rank (in rank order) that holds it; with cfg.fsdp the
+    fsdp leaves' rows from every data PE (`local_shards`' inverse).
+    Parameters, or gradients of the same structure."""
     from ..launch.mesh import RankMesh
     meshes = [RankMesh(tuple(axis_names), tuple(mesh_shape), r)
               for r in range(len(rank_trees))]
@@ -246,11 +258,12 @@ def fit_global(params, cfg: ModelConfig, tp: int, dp: int = 1):
     from ..launch.mesh import RankMesh
     from .transformer import init_params
     sizes = RankMesh(("data", "model"), (dp, tp), 0).sizes
-    local = init_params(cfg, device="meta", tp=tp, dp=dp)
+    local = init_params(cfg, device="meta", tp=tp, dp=dp)   # data-full
+    plain = dataclasses.replace(cfg, fsdp=False)
     targets = _zip_specs(
         lambda leaf, spec: tuple(n * _axis_count(ax, sizes)
                                  for n, ax in zip(leaf.shape, spec)),
-        local, _specs(cfg, local, tp))
+        local, _specs(plain, local, tp))
 
     def fit(a, t):
         for ax in range(a.dim()):

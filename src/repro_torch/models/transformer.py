@@ -172,9 +172,25 @@ def init_kv_pool(cfg: ModelConfig, tp: int, num_pages: int, page_size: int,
             for name, t in flat.items()}
 
 
+def _fsdp_gather(comm: Comm, cfg: ModelConfig, bp):
+    """ZeRO-3: a block's weights live sharded over `data` (dim 0 of every
+    2-D leaf, `parallel.sharding.is_fsdp_leaf`); gather them just in
+    time inside the block, so a gathered layer is transient (and under
+    remat gathered again in the backward).  The gather's backward sends
+    each block's cotangent back to the PE that owns it, where they sum:
+    fsdp leaves arrive in the gradient tree already summed over `data`
+    (the train step does not sync them)."""
+    if not cfg.fsdp:
+        return bp
+    return map_params(lambda w: comm.allgather(w, comm.axes.data,
+                                               concat_axis=0)
+                      if w.dim() == 2 else w, bp)
+
+
 def _attn_block(comm, cfg, bp, x, positions, is_local=False):
     """-> (x, aux): aux is an MoE block's load-balance loss, None after
     an MLP."""
+    bp = _fsdp_gather(comm, cfg, bp)
     h = L.rms_norm(x, bp["ln1"])
     if cfg.attn == "mla":
         x = x + L.mla_attention(comm, cfg, bp["attn"], h, positions)
@@ -189,6 +205,7 @@ def _attn_block(comm, cfg, bp, x, positions, is_local=False):
 
 
 def _mamba_block(comm, cfg, bp, x):
+    bp = _fsdp_gather(comm, cfg, bp)
     return x + L.mamba2(comm, cfg, bp["mamba"], L.rms_norm(x, bp["ln"]))
 
 
@@ -386,8 +403,9 @@ def train_loss(comm: Comm, cfg: ModelConfig, params: Params, batch: dict):
     if cfg.mtp and "mtp" in params:
         mtp = params["mtp"]
         emb_next = L.embed(comm, cfg, params["embed"], targets)
+        proj = _fsdp_gather(comm, cfg, {"w": mtp["proj"]})["w"]
         hm = L._dense(torch.cat([L.rms_norm(h, mtp["ln"]), emb_next], -1),
-                      mtp["proj"])
+                      proj)
         B, seq = targets.shape
         positions = torch.arange(seq, device=h.device).expand(B, seq)
         hm, _ = _attn_block(comm, cfg, mtp["block"], hm, positions)

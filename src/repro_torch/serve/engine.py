@@ -173,6 +173,7 @@ class ServeEngine:
                  eos_id: int | None = None, init_seed: int = 0,
                  capture_logits: bool = False, tuner=None, profile=None,
                  metrics=None):
+        cfg = dataclasses.replace(cfg, fsdp=False)   # serving never fsdp
         if cfg.family not in transformer.paged_families():
             raise ValueError(
                 f"paged serving supports {transformer.paged_families()}, "
@@ -303,16 +304,14 @@ class ServeEngine:
         is preserved and — because greedy decode is bit-identical batched
         or alone — regenerated results match what the lost step would
         have produced.  The step then returns ``{"faulted": True,
-        "requeued": [...], ...}``.  On a rank mesh a PE failure raises
-        NotImplementedError instead, naming slice 5c-3c (the elastic
-        mirrors): one rank's drain alone would split the replicas."""
+        "requeued": [...], ...}``.  On a rank mesh every rank drains its
+        own scheduler replica: the replicas stay in lockstep when every
+        rank sees the failure at the same step, as a fault plan gives it
+        them (`SpmdNetOps.ppermute` checks the plan on the whole pattern
+        before any launch)."""
         try:
             return self._step_inner()
         except PEFailure as exc:
-            if self.mesh is not None:
-                raise NotImplementedError(
-                    "draining the engine after a PE failure on a rank mesh "
-                    "(the elastic mirrors) comes with slice 5c-3c") from exc
             return self._fault_drain(exc)
 
     def _fault_drain(self, exc: PEFailure) -> dict:

@@ -569,10 +569,12 @@ def test_train_launcher_loss_improves():
     ["--pipeline-chunks", "2"], ["--shard-strategy", "dp_only"]])
 def test_train_launcher_refuses_unported_flags(flags, capsys, tmp_path):
     if flags[0] in ("--data", "--model", "--embedding", "--allreduce-algo",
-                    "--pipeline-chunks"):
+                    "--pipeline-chunks", "--shard-strategy"):
         # ported with the SPMD backend: --data/--model run the step on a
         # mesh of rank processes (tests/test_torch_tp.py holds it to the
-        # reference), the rest steer the collectives
+        # reference), the rest steer the collectives; --shard-strategy
+        # dp_only replicates the parameters (on one device: the same
+        # step; tests/test_torch_fsdp.py holds it to the reference on 2x2)
         losses = train_mod.main(SMOKE + ["--steps", "1", "--seq-len", "16",
                                          "--batch", "2"] + flags)
         assert len(losses) == 1 and np.isfinite(losses).all()
