@@ -261,8 +261,8 @@ Phases; any failure exits non-zero before the result line is printed:
      against their plain sums and concatenations; the ranks' launches
      and the wall of one allreduce of a 64 MiB bucket over 4 ranks; (b)
      qwen2-0.5b at full width on a 2x2 (data x model) mesh of 4 ranks:
-     the port's 1x1 launcher's first step, then 4 steps at seq 512,
-     batch 8 through the launcher's rank loop (default sync) and 4 with
+     the port's 1x1 launcher's first step, then 3 steps at seq 512,
+     batch 8 through the launcher's rank loop (default sync) and 3 with
      the fused sync from the same global parameters and batches; every
      loss finite and equal on all ranks, the 2x2 first-step loss within
      the reference's bound (0.05 x max(1, |l1|)) of the 1x1 one,
@@ -277,7 +277,7 @@ Phases; any failure exits non-zero before the result line is printed:
      full width on 1x4 (EP 4, 10 of 40 experts a rank): one MoE layer in
      f32 at a no-drop capacity against the 1x1 layer (output and input
      gradient within 1e-5 of the largest, picks exactly), then the
-     launcher's loop, 3 steps at seq 512, batch 8, its step-0 loss
+     launcher's loop, 2 steps at seq 512, batch 8, its step-0 loss
      within the reference's bound of the 1x1 loss of the same tree, the
      ranks' launches and heap rounds equal to formulas from the code;
      (c) zamba2-1.2b at full width on 2x2 as 16b, each step's loss
@@ -335,7 +335,7 @@ Phases; any failure exits non-zero before the result line is printed:
      heap rounds a step a rank (7 layers x 3 allreduces x 2 stages);
      step walls, the rounds' host time and each rank's peak.
  20. fsdp, checkpoints and the engine's drain on a rank mesh — (a)
-     qwen2-0.5b with fsdp=True on 2x2 at 16b's shape, 3 default-sync
+     qwen2-0.5b with fsdp=True on 2x2 at 16b's shape, 2 default-sync
      steps: every rank's losses equal, within 1e-5 of 16b's 1x1 loss at
      step 0 and 3e-3 after, heap rounds and kernel 2-4 launches a step a
      rank equal to `fsdp_step_formula` (each layer's gathers, again
@@ -350,6 +350,20 @@ Phases; any failure exits non-zero before the result line is printed:
      rids requeued in slot order at the queue head, no page live), then
      every request's tokens equal 18a's 1x2 tokens bit for bit, through
      18a's kernel-4 launches plus 24 a re-prefill.
+ 21. the pod axis and pipeline parallelism, in 16b's ranks after phase
+     20's work — (a) the train launcher's loop at --pod 2 --data 1
+     --model 2 (a (2, 1, 2) rank mesh) at 16b's shape, 2 steps from 16b's
+     shards: every rank's losses equal 16b's default-sync losses bit for
+     bit, kernel 2-4 launches and heap rounds a step a rank equal 16b's;
+     (b) qwen2-0.5b's 24 layers as a GPipe of 2 stages of 12 over `pod`
+     at tp 2 (`parallel/pipeline.py`), batch 4 x 512 in 2 microbatches,
+     forward and backward from the same seed-0 tree cut by stage, and
+     the unpipelined loss and gradient on 2x2: the pipelined loss within
+     1e-4 x max(1, |ref|) of the unpipelined one, every rank's gradient
+     finite with sum |g| > 0, each stage's layer leaves within rtol 1e-4
+     / atol 1e-5 of the 2x2 gradients of those layers summed over
+     `data`, launches and heap rounds a rank equal to
+     `pipe_step_formula` and `unpipe_formula`; both walls and peaks.
 
 The run fails if a process it started (a rank, nvcc, nvidia-smi, the
 resource tracker that spawning the ranks launches) is still alive or
@@ -4681,7 +4695,7 @@ SPMD_COLLECTIVES = ("broadcast3", "broadcast5", "fcollect", "collect",
                     "alltoall", "sum", "max", "ring")
 SPMD_MOVES = ("broadcast3", "broadcast5", "fcollect", "collect", "alltoall")
 SPMD_BUCKET_ELEMS = 16 * 1024 * 1024        # 64 MiB of f32: one bucket
-SPMD_TRAIN = dict(steps=4, seq_len=512, batch=8, data=2, model=2)
+SPMD_TRAIN = dict(steps=3, seq_len=512, batch=8, data=2, model=2)
 # 16b: the largest |2x2 loss - 1x1 loss| allowed at each step.  On the
 # H100 the readings are 9.54e-07, 1.16e-3, 1.37e-3, 1.48e-3 for both
 # syncs, the same in every run (PERF.md § 6): the bounds leave 2-10x
@@ -4850,6 +4864,20 @@ def spmd_collectives(torch, np, card) -> list:
     return paths
 
 
+def seed0_shards(torch, cfg, mesh):
+    """This rank's shards of the 1x1 launcher's seed-0 tree fitted to
+    `mesh` (drawn here, as 16b's ranks draw it; no 1x1 leaf is kept)."""
+    from repro_torch.models import convert, transformer
+    shards = transformer.map_params(torch.clone, convert.local_shards(
+        convert.fit_global(transformer.init_params(cfg, seed=0,
+                                                   device="cuda"),
+                           cfg, tp=mesh.sizes["model"],
+                           dp=mesh.sizes["data"]), cfg, mesh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shards
+
+
 def mesh_train_rank(argv, fused_steps, extra=None):
     """16b, 17c, one rank: the 1x1 launcher's seed-0 tree fitted to the
     mesh (`convert.fit_global`; every rank draws the same 1x1 tree, so
@@ -4858,8 +4886,10 @@ def mesh_train_rank(argv, fused_steps, extra=None):
     them (updated in place), then `fused_steps` steps of
     build.make_train_step with grad_rs="fused" from the same shards; the
     launch counts, walls, peak memory, heap rounds and host time in the
-    syncs of each.  With `extra`, phase 20's 2x2 work follows in the same
-    (warm) ranks: `fsdp_rank4(*extra)`."""
+    syncs of each.  With `extra`, (key, function name, arguments) of
+    later phases' work, each follows in the same (warm) ranks, its
+    result under "extra" by key (phase 20's `fsdp_rank4`, 21's
+    `pod_rank4`)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import spmd
@@ -4867,7 +4897,7 @@ def mesh_train_rank(argv, fused_steps, extra=None):
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import build
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import convert, transformer
+    from repro_torch.models import transformer
     from repro_torch.train import optimizer as opt
     from repro_torch.train import step as tstep
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4875,13 +4905,7 @@ def mesh_train_rank(argv, fused_steps, extra=None):
     rt = spmd.current()
     args = train_mod.parse_args(argv)
     cfg, mesh = get_config(args.arch), rt.mesh
-    shards = transformer.map_params(torch.clone, convert.local_shards(
-        convert.fit_global(transformer.init_params(cfg, seed=0,
-                                                   device="cuda"),
-                           cfg, tp=mesh.sizes["model"],
-                           dp=mesh.sizes["data"]), cfg, mesh))
-    gc.collect()                 # no 1x1 leaf is kept
-    torch.cuda.empty_cache()
+    shards = seed0_shards(torch, cfg, mesh)
     out = {}
     own = transformer.map_params(torch.clone, shards)   # the default run's
     torch.cuda.synchronize()
@@ -4921,11 +4945,11 @@ def mesh_train_rank(argv, fused_steps, extra=None):
                         sync_s=rt.sync_s - s0,
                         digest=[float(t.double().sum())
                                 for t in tree_flatten(params)[0]])
-    if extra is not None:
+    if extra:
         del params, state, step
         gc.collect()
         torch.cuda.empty_cache()
-        out["20"] = fsdp_rank4(*extra)
+        out["extra"] = {key: globals()[fn](*args) for key, fn, args in extra}
     return out
 
 
@@ -4948,8 +4972,8 @@ def mesh_train(torch, np, cfg, run, tol, card, label, extra=None) -> tuple:
     shared block), kernel 7 twice a Mamba2 layer, and kernel 5 once a
     bucket a fused step.  Returns the launch counts of both runs, summed
     over the ranks, kernel 4's per rank, the 1x1 losses, and each rank's
-    result of `extra` (phase 20's 2x2 work, run in the same ranks after
-    both runs; None without)."""
+    results of `extra` (later phases' work, run in the same ranks after
+    both runs, by key) beside its default run's under "default"."""
     from repro_torch.launch import build
     from repro_torch.launch import train as train_mod
     from repro_torch.models import transformer
@@ -5039,8 +5063,9 @@ def mesh_train(torch, np, cfg, run, tol, card, label, extra=None) -> tuple:
         f"{abs(l1[0] - l2):.3g} (the reference's bound 0.05 x max(1, |l1|) "
         f"= {0.05 * max(1.0, abs(l1[0])):.3g}); both mesh runs in one "
         f"spawn: {wall:.1f} s"
-        + (f", phase 20's 2x2 work {res[0]['20']['wall']:.1f} s of it"
-           if extra is not None else "") + f" ({card})")
+        + "".join(f", phase {k}'s work {v['wall']:.1f} s of it"
+                  for k, v in res[0].get("extra", {}).items())
+        + f" ({card})")
     if not abs(l1[0] - l2) < 0.05 * max(1.0, abs(l1[0])):
         raise AssertionError(f"{label}: the mesh's loss {l2} is not the 1x1 "
                              f"loss {l1[0]}")
@@ -5057,7 +5082,7 @@ def mesh_train(torch, np, cfg, run, tol, card, label, extra=None) -> tuple:
                              f"default one {l2!r} (the same forward)")
     return paths, sum(r_[k]["counts"]["flash_attention"]
                       for r_ in res[:1] for k in ("default", "fused")), l1, \
-        [r_.get("20") for r_ in res]
+        [dict(r_.get("extra", {}), default=r_["default"]) for r_ in res]
 
 
 # ---------------------------------------------------------------------------
@@ -5084,7 +5109,7 @@ EP_A2A_ROWS = 512
 # 17b and 17c: the launcher's loop at this sequence length, global batch
 # and step count (the configs' own microbatches: granite 2, zamba2 8,
 # clamped to the local batch of 4 on 2x2)
-EP_TRAIN = dict(seq_len=512, batch=8, steps=3)
+EP_TRAIN = dict(seq_len=512, batch=8, steps=2)
 # 17d: deepseek-v3's forward at this global batch and length on 2x2
 EP_DS = dict(seq_len=512, batch=4)
 # the layer gates: one MoE layer in f32 compute at a no-drop capacity,
@@ -6876,7 +6901,7 @@ def seq_shard(torch, np, serving, zamba, ra, ref, ops, gen, card) -> tuple:
 # the reference's): its rank bodies patch `configs.get_config` to the
 # config with fsdp=True.
 
-FSDP_TRAIN = dict(SPMD_TRAIN, steps=3)
+FSDP_TRAIN = dict(SPMD_TRAIN, steps=2)
 # 20b: the launcher's --steps, --ckpt-every and shape (a batch of one
 # row a data PE: one microbatch, so a step is a quarter of 20a's heap
 # rounds); the kill at step FSDP_KILL_AT's batch fetch, after step
@@ -6950,18 +6975,11 @@ def fsdp_train_rank(argv):
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import build
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import convert, transformer
     from repro_torch.train import optimizer as opt
     rt = spmd.current()
     args = train_mod.parse_args(argv)
     cfg, mesh = fsdp_config(get_config(args.arch)), rt.mesh
-    params = transformer.map_params(torch.clone, convert.local_shards(
-        convert.fit_global(transformer.init_params(cfg, seed=0,
-                                                   device="cuda"),
-                           cfg, tp=mesh.sizes["model"],
-                           dp=mesh.sizes["data"]), cfg, mesh))
-    gc.collect()                 # no 1x1 leaf is kept
-    torch.cuda.empty_cache()
+    params = seed0_shards(torch, cfg, mesh)
     adamw = opt.AdamWConfig(lr=args.lr, moment_dtype=cfg.moment_dtype)
     step, _, _ = build.make_train_step(cfg, mesh, adamw=adamw, donate=True)
     state = opt.init_state(params, adamw)
@@ -7342,6 +7360,333 @@ def fsdp_phase(torch, np, plan, res, res2, l1, engine_1x2, card) -> list:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the pod axis and pipeline parallelism
+# ---------------------------------------------------------------------------
+# 21a runs the train launcher's loop with --pod 2 --data 1 --model 2 at
+# 16b's seq_len, batch and lr from 16b's shards (each rank fits the 1x1
+# seed-0 tree itself): the batch splits over (pod, data) as over `data`
+# at 2x2, the data allreduce has one PE and the pod allreduce runs 16b's
+# data allreduce's algorithm over 2 PEs, so its losses are 16b's default
+# losses bit for bit and its launches and heap rounds a step a rank
+# 16b's.  21b runs qwen2-0.5b's 24 layers as a GPipe of two 12-layer
+# stages over `pod` at tp 2 (`parallel/pipeline.py`) on a batch of 4 x
+# 512 in 2 microbatches (3 ticks), forward and backward, from the same
+# tree cut by stage, and the unpipelined loss and gradient of the same
+# tree and batch on 2x2 (`tests/test_pipeline.py`'s `fn`).  No spawn of
+# its own: it follows phase 20's work in 16b's 4 warm ranks, each run
+# on the mesh it makes (`launch.mesh.make_mesh`).
+
+POD_TRAIN_STEPS = 2
+PIPE_RUN = dict(batch=4, seq_len=512, n_micro=2, pod=2, model=2)
+# 21b's gradient gate, the CPU test's (`tests/test_torch_pipeline.py`):
+# a stage's layer leaf against the sum over the data ranks of the 2x2
+# gradient of the same layer
+PIPE_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def pipe_step_formula(n_layers, n_micro, stages) -> dict:
+    """21b's launches and heap rounds a rank for one pipelined forward +
+    backward under remat="full" at tp 2, T = n_micro + P - 1 ticks of Ls
+    = L/P layers.  A tick's forward: the embedding's allreduce over
+    `model`, 2 a layer, sharded_xent's 3, the put over `pod` (5 + 2Ls
+    rounds); its backward: each layer's 2 again in the recompute and 1,
+    the xent's and the embedding's 3, the put's (4 + 3Ls; the last
+    tick's put has none: its output is unread); the loss's and the
+    count's allreduces over `pod`, 1 of them again in the backward: T(9
+    + 5Ls) + 2.  Kernel 2 twice a round but once in a put's (a stage
+    only sends or only receives): 2 rounds - (2T - 1).  Kernel 3 one a
+    forward allreduce round and one a recompute's: T(4 + 3Ls) + 2.
+    Kernel 4 twice a layer a tick.  Measured on the CPU against the
+    port's code with counting wrappers at Ls 1 and 2, n_micro 1, 2, 4."""
+    T, Ls = n_micro + stages - 1, n_layers // stages
+    rounds = T * (9 + 5 * Ls) + 2
+    return dict(rounds=rounds, tick=9 + 5 * Ls, ticks=T,
+                counts=dict(flash_attention=2 * Ls * T, put_copy=0,
+                            dma_copy=2 * rounds - (2 * T - 1),
+                            reduce_combine=T * (4 + 3 * Ls) + 2,
+                            fused_update=0, ssd_scan=0, ring_attention=0))
+
+
+def unpipe_formula(n_layers) -> dict:
+    """The unpipelined loss's forward + backward on 2x2 a rank (remat
+    full): the embedding's 1, 2 a layer, the xent's 3 and the mean over
+    `data` in the forward; 3 a layer, the xent's 2, the embedding's and
+    the mean's in the backward: 9 + 5L rounds, kernel 2 twice each,
+    kernel 3 5 + 3L, kernel 4 2L.  Measured as `pipe_step_formula`."""
+    rounds = 9 + 5 * n_layers
+    return dict(rounds=rounds, counts=dict(
+        flash_attention=2 * n_layers, put_copy=0, dma_copy=2 * rounds,
+        reduce_combine=5 + 3 * n_layers, fused_update=0, ssd_scan=0,
+        ring_attention=0))
+
+
+def pod_train_rank(argv):
+    """21a, one rank: the launcher's loop on `argv` (--pod 2 --data 1
+    --model 2) from 16b's shards, in place; its losses, walls, launches,
+    heap rounds and their host time, peak."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import spmd
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    rt = spmd.current()
+    args = train_mod.parse_args(argv)
+    mesh = make_mesh(args.data, args.model, args.pod)
+    own = seed0_shards(torch, get_config(args.arch), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                                    # the path starts
+    r0, s0 = rt.rounds, rt.sync_s
+    res = train_mod.train_loop(args, shards=own)
+    torch.cuda.synchronize()
+    out = dict(losses=res.losses, walls=res.step_s, counts=_counts(),
+               rounds=rt.rounds - r0, sync_s=rt.sync_s - s0,
+               peak=torch.cuda.max_memory_allocated(),
+               mesh=tuple(mesh.shape))
+    del res, own
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _value_and_grad(torch, fn, params):
+    from repro_torch.core.heap import tree_flatten, tree_unflatten
+    leaves, treedef = tree_flatten(params)
+    req = [t.detach().requires_grad_() for t in leaves]
+    with torch.enable_grad():
+        loss = fn(tree_unflatten(treedef, req))
+        grads = torch.autograd.grad(loss, req, allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), tree_unflatten(treedef, list(grads))
+
+
+def pipe_rank(arch, run):
+    """21b, one rank: the pipelined loss and gradient of its stage on
+    (pod 2, data 1, model 2), then the unpipelined loss and gradient of
+    the same tree and batch on 2x2, each with its wall, launches, heap
+    rounds and peak; then (not counted: a comparison) the 2x2 layer
+    gradients summed over `data`, this stage's layers held to the
+    pipelined ones at PIPE_GRAD_TOL."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import spmd
+    from repro_torch.core.heap import tree_flatten
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.parallel import pipeline, sharding
+    from repro_torch.parallel.comm import AxisSpec, Comm
+    rt = spmd.current()
+    cfg = get_config(arch)
+    mesh = make_mesh(1, run["model"], run["pod"])
+    shards = seed0_shards(torch, cfg, mesh)
+    batch = SyntheticLM(cfg.vocab, run["seq_len"], run["batch"]).batch(0)
+    stage = mesh.coords["pod"]
+    out = {"stage": stage}
+
+    def timed(key, fn, params, m):
+        torch.cuda.synchronize()
+        rt.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()                                # the path starts
+        r0, s0 = rt.rounds, rt.sync_s
+        t0 = time.perf_counter()
+        loss, grads = _value_and_grad(torch, fn, params)
+        torch.cuda.synchronize()
+        out[key] = dict(loss=float(loss), wall=time.perf_counter() - t0,
+                        counts=_counts(), rounds=rt.rounds - r0,
+                        sync_s=rt.sync_s - s0,
+                        peak=torch.cuda.max_memory_allocated(),
+                        abs_sum=float(sum(g.double().abs().sum()
+                                          for g in tree_flatten(grads)[0])),
+                        mesh=tuple(m.shape))
+        return grads
+
+    tb = {k: torch.as_tensor(v, device="cuda").long()
+          for k, v in batch.items()}
+    comm = Comm(AxisSpec(pod="pod"))
+    pp = timed("pp", lambda p: pipeline.pipeline_train_loss(
+        comm, cfg, p, tb, n_micro=run["n_micro"]),
+        sharding.pipeline_stage(shards, stage, run["pod"]), mesh)
+    mesh2 = make_mesh(2, run["model"])
+    comm2 = Comm(AxisSpec())
+    lb = {k: torch.as_tensor(v, device="cuda").long()
+          for k, v in build.local_batch(cfg, batch, mesh2).items()}
+
+    def unpipelined(p):
+        loss = transformer.train_loss(comm2, cfg, p, lb)
+        return comm2.allreduce(loss, "data") / comm2.axis_size("data")
+
+    unpp = timed("unpp", unpipelined, shards, mesh2)
+    del shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the comparison: every rank allreduces every layer (the collectives
+    # must match on all ranks), then holds its own stage's layers
+    per = cfg.n_layers // run["pod"]
+    worst, n_leaves, ok = 0.0, 0, True
+    for li in range(cfg.n_layers):
+        leaves = tree_flatten(unpp["layers"][li])[0]
+        flat = comm2.allreduce(torch.cat([g.reshape(-1) for g in leaves]),
+                               "data")
+        if li // per != stage:
+            continue
+        got = torch.cat([g.reshape(-1) for g in
+                         tree_flatten(pp["layers"][li - stage * per])[0]])
+        d = (got - flat).abs()
+        worst = max(worst, float(d.max()))
+        ok &= bool((d <= PIPE_GRAD_TOL["atol"]
+                    + PIPE_GRAD_TOL["rtol"] * flat.abs()).all())
+        ok &= bool(torch.isfinite(got).all())
+        n_leaves += len(leaves)
+    out["grad_check"] = dict(max_abs_diff=worst, leaves=n_leaves, ok=ok)
+    del pp, unpp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pod_rank4(train_argv, arch, pipe_run):
+    """Phase 21's work in a rank of 16b's spawn, after phase 20's: 21a,
+    then 21b; with its wall."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"21a": pod_train_rank(train_argv),
+           "21b": pipe_rank(arch, pipe_run)}
+    return dict(out, wall=time.perf_counter() - t0)
+
+
+def pod_plan(serving) -> dict:
+    """Phase 21's arguments for 16b's ranks (`mesh_train`'s `extra`)."""
+    run = dict(SPMD_TRAIN, lr=serving.TRAIN_RUN["lr"])
+    argv = ["--arch", serving.CONFIG.name, "--seq-len", str(run["seq_len"]),
+            "--batch", str(run["batch"]), "--lr", str(run["lr"]),
+            "--device", "cuda", "--pod", "2", "--data", "1", "--model",
+            str(run["model"]), "--steps", str(POD_TRAIN_STEPS)]
+    return dict(run=run, pipe=PIPE_RUN,
+                rank4=(argv, serving.CONFIG.name, PIPE_RUN))
+
+
+def pod_phase(torch, np, cfg, plan, res, default16b, card) -> list:
+    """Phase 21's gates on each rank's `pod_rank4` result (`res`) and
+    16b's default-sync results a rank (`default16b`: losses, launches,
+    heap rounds over SPMD_TRAIN's steps).  21a: every rank's losses
+    equal, and 16b's first POD_TRAIN_STEPS losses bit for bit; launches
+    of kernels 2-4 and heap rounds a step a rank equal to 16b's.  21b:
+    every rank's pipelined loss equal, within 1e-4 x max(1, |ref|) of the
+    unpipelined 2x2 loss (the reference test's bound); every rank's
+    gradient finite with sum |g| > 0; each stage's layer leaves within
+    PIPE_GRAD_TOL of the 2x2 gradients summed over `data`; launches and
+    heap rounds a rank equal to `pipe_step_formula` and
+    `unpipe_formula`.  Returns the three runs' launch counts, summed
+    over the ranks."""
+    paths = []
+    run = plan["run"]
+    # 21a
+    per = [r_["21a"] for r_ in res]
+    losses = per[0]["losses"]
+    want = default16b[0]["losses"][:POD_TRAIN_STEPS]
+    if any(p["losses"] != losses for p in per) or losses != want:
+        raise AssertionError(f"21a: the losses on {per[0]['mesh']} "
+                             f"{[p['losses'] for p in per]} are not 16b's "
+                             f"default-sync losses {want} bit for bit")
+    keys = ("flash_attention", "dma_copy", "reduce_combine")
+    s16 = run["steps"]
+    for r_, (p, d) in enumerate(zip(per, default16b)):
+        a = {k: p["counts"][k] / POD_TRAIN_STEPS for k in keys}
+        b = {k: d["counts"][k] / s16 for k in keys}
+        if a != b or p["rounds"] / POD_TRAIN_STEPS != d["rounds"] / s16:
+            raise AssertionError(
+                f"21a: rank {r_} a step: launches {a}, heap rounds "
+                f"{p['rounds'] / POD_TRAIN_STEPS}; 16b's {b}, "
+                f"{d['rounds'] / s16}")
+    walls = per[0]["walls"]
+    log(f"  21a the launcher at --pod 2 --data 1 --model 2 "
+        f"({'x'.join(map(str, per[0]['mesh']))} ranks), "
+        f"{POD_TRAIN_STEPS} steps at seq {run['seq_len']} batch "
+        f"{run['batch']}: losses " + ", ".join(repr(x) for x in losses)
+        + " == 16b's default-sync losses bit for bit; a step a rank "
+        + ", ".join(f"{k} {per[0]['counts'][k] / POD_TRAIN_STEPS:g}"
+                    for k in keys)
+        + f", heap rounds {per[0]['rounds'] / POD_TRAIN_STEPS:g} (16b: "
+        + ", ".join(f"{default16b[0]['counts'][k] / s16:g}" for k in keys)
+        + f", {default16b[0]['rounds'] / s16:g}); step wall ms (rank 0) "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+        + "; host time in the rounds' syncs a step (ranks) ms "
+        + ", ".join(f"{p['sync_s'] / POD_TRAIN_STEPS * 1e3:.1f}"
+                    for p in per)
+        + "; peak per rank GiB "
+        + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in per) + f" ({card})")
+    paths.append({k: sum(p["counts"][k] for p in per)
+                  for k in per[0]["counts"]})
+
+    # 21b
+    per = [r_["21b"] for r_ in res]
+    pp = [p["pp"] for p in per]
+    unpp = [p["unpp"] for p in per]
+    loss = pp[0]["loss"]
+    ref = sum(u["loss"] for u in unpp) / len(unpp)
+    if any(p["loss"] != loss for p in pp) or \
+            any(u["loss"] != unpp[0]["loss"] for u in unpp):
+        raise AssertionError(f"21b: ranks disagree on the loss: pipelined "
+                             f"{[p['loss'] for p in pp]}, unpipelined "
+                             f"{[u['loss'] for u in unpp]}")
+    if not abs(loss - ref) < 1e-4 * max(1.0, abs(ref)):
+        raise AssertionError(f"21b: the pipelined loss {loss!r} is not the "
+                             f"unpipelined 2x2 loss {ref!r} within 1e-4 x "
+                             f"max(1, |ref|)")
+    for r_, p in enumerate(pp):
+        if not (np.isfinite(p["abs_sum"]) and p["abs_sum"] > 0):
+            raise AssertionError(f"21b: rank {r_}'s gradient sum |g| "
+                                 f"{p['abs_sum']}")
+    gc_ = [p["grad_check"] for p in per]
+    if not all(g["ok"] for g in gc_):
+        raise AssertionError(f"21b: a stage's layer gradient is not the 2x2 "
+                             f"gradient summed over data within "
+                             f"{PIPE_GRAD_TOL}: {gc_}")
+    pr = plan["pipe"]
+    f = pipe_step_formula(cfg.n_layers, pr["n_micro"], pr["pod"])
+    u = unpipe_formula(cfg.n_layers)
+    for name, runs, form in (("pipelined", pp, f), ("unpipelined", unpp, u)):
+        for r_, p in enumerate(runs):
+            got = {k: p["counts"][k] for k in form["counts"]}
+            if got != form["counts"] or p["rounds"] != form["rounds"]:
+                raise AssertionError(f"21b: {name} rank {r_} launched {got} "
+                                     f"in {p['rounds']} heap rounds; the "
+                                     f"formulas give {form['counts']} in "
+                                     f"{form['rounds']}")
+        paths.append({k: sum(p["counts"][k] for p in runs)
+                      for k in runs[0]["counts"]})
+    log(f"  21b {cfg.name}'s {cfg.n_layers} layers as a GPipe of "
+        f"{pr['pod']} stages of {cfg.n_layers // pr['pod']} over pod at tp "
+        f"{pr['model']}, batch {pr['batch']} x {pr['seq_len']} in "
+        f"{pr['n_micro']} microbatches ({f['ticks']} ticks): loss {loss!r} "
+        f"against the unpipelined 2x2 loss {ref!r}, |diff| "
+        f"{abs(loss - ref):.3g} (bound {1e-4 * max(1.0, abs(ref)):.3g}); "
+        f"sum |g| a rank " + ", ".join(f"{p['abs_sum']:.6g}" for p in pp)
+        + f"; each stage's {gc_[0]['leaves']} layer leaves == the 2x2 "
+        f"gradients summed over data within {PIPE_GRAD_TOL} (largest "
+        f"|diff| " + ", ".join(f"{g['max_abs_diff']:.3g}" for g in gc_)
+        + "); forward + backward wall ms (rank 0) pipelined "
+        f"{pp[0]['wall'] * 1e3:.1f}, unpipelined on 2x2 "
+        f"{unpp[0]['wall'] * 1e3:.1f}; heap rounds a rank {f['rounds']} == "
+        f"T x (9 + 5Ls) + 2 ({f['tick']} a tick) against {u['rounds']} == "
+        f"9 + 5L, their host time (ranks) ms "
+        + ", ".join(f"{p['sync_s'] * 1e3:.1f}" for p in pp) + " against "
+        + ", ".join(f"{p['sync_s'] * 1e3:.1f}" for p in unpp)
+        + "; launches a rank (flash, dma, combine) "
+        + ", ".join(str(f["counts"][k]) for k in keys) + " against "
+        + ", ".join(str(u["counts"][k]) for k in keys)
+        + " == the formulas; peak per rank GiB "
+        + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in pp) + " against "
+        + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in unpp) + f" ({card})")
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -7576,12 +7921,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
     spmd_paths = spmd_collectives(torch, np, card)
-    # phase 20's work rides in the warm ranks of 16b's and 18's spawns
-    plan20 = fsdp_plan(serving)
-    got, _, l1_16b, fsdp4 = mesh_train(
+    # phase 20's work rides in the warm ranks of 16b's and 18's spawns,
+    # phase 21's in 16b's after it
+    plan20, plan21 = fsdp_plan(serving), pod_plan(serving)
+    got, _, l1_16b, extra16b = mesh_train(
         torch, np, serving.CONFIG,
         dict(SPMD_TRAIN, lr=serving.TRAIN_RUN["lr"]), SPMD_LOSS_TOL, card,
-        "16b", extra=plan20["rank4"])
+        "16b", extra=(("20", "fsdp_rank4", plan20["rank4"]),
+                      ("21", "pod_rank4", plan21["rank4"])))
+    fsdp4 = [r_["20"] for r_ in extra16b]
     spmd_paths += got
     log(f"  phase 16 wall {time.perf_counter() - t16:.1f} s ({card})")
 
@@ -7658,11 +8006,23 @@ def main() -> int:
     log(f"  phase 20 wall in those ranks {fsdp4[0]['wall']:.1f} + "
         f"{fsdp2[0]['wall']:.1f} s ({card})")
 
+    log(f"== phase 21: the pod axis and pipeline parallelism "
+        f"({serving.CONFIG.name} trained by the launcher at --pod 2 --data 1 "
+        f"--model 2; its {serving.CONFIG.n_layers} layers as a GPipe of "
+        f"{PIPE_RUN['pod']} stages over pod at tp {PIPE_RUN['model']}; run "
+        f"in 16b's ranks)")
+    pod_paths = pod_phase(torch, np, serving.CONFIG, plan21,
+                          [r_["21"] for r_ in extra16b],
+                          [r_["default"] for r_ in extra16b], card)
+    log(f"  phase 21 wall in those ranks "
+        f"{extra16b[0]['21']['wall']:.1f} s ({card})")
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
         + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths \
         + moe_paths + frontend_paths + service_paths + elastic_paths \
-        + spmd_paths + ep_paths + tp_paths + seq_paths + fsdp_paths
+        + spmd_paths + ep_paths + tp_paths + seq_paths + fsdp_paths \
+        + pod_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -7688,7 +8048,9 @@ def main() -> int:
         f"seq (19a ring, 19b f32, 19b bf16, 19c bf16, 19c f32, 19a "
         f"gradient; summed over ranks) {seq_paths}, fsdp (20a qwen2 2x2, "
         f"20b 2x2 kill and resumes, 20b 1x2 shrink, 20c drained engine "
-        f"1x2; summed over ranks) {fsdp_paths}")
+        f"1x2; summed over ranks) {fsdp_paths}, pod (21a the launcher on "
+        f"2 x (1x2), 21b pipelined, 21b unpipelined 2x2; summed over "
+        f"ranks) {pod_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]

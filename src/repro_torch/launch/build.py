@@ -6,8 +6,8 @@ parameters and decode caches.
 The reference's `shard_mapped` wraps a function in shard_map; here it
 runs the function in every rank process of `core.spmd.run`, each on its
 own local shards, and returns every rank's result.  A mesh argument is a
-`launch.mesh.RankMesh` (in the parent, `mesh_of(data, model)` gives one
-seen from rank 0: only its axis names and sizes are read).
+`launch.mesh.RankMesh` (in the parent, `mesh_of(data, model, pod)` gives
+one seen from rank 0: only its axis names and sizes are read).
 """
 from __future__ import annotations
 
@@ -52,11 +52,6 @@ def mesh_axes(mesh, cfg=None) -> sharding.MeshAxes:
     if cfg is not None and cfg.shard_strategy == "dp_only":
         return sharding.MeshAxes(model=None, pod=pod)
     return sharding.MeshAxes(pod=pod)
-
-
-def _check_ported(mesh) -> None:
-    if mesh_dims(mesh)[2]:
-        raise NotImplementedError("a pod axis comes with slice 5c-3d")
 
 
 def eff_tp(cfg: ModelConfig, mesh) -> int:
@@ -119,8 +114,9 @@ def _in_mesh(fn, dims, per_rank_args):
 
 def shard_mapped(fn, dims: tuple[int, ...], per_rank_args=None, *,
                  device=None, slot_bytes: int | None = None) -> list:
-    """Run ``fn(*per_rank_args[r])`` in rank r of a data x model (`dims`)
-    mesh of rank processes on `device` (the card unless the caller asks
+    """Run ``fn(*per_rank_args[r])`` in rank r of a (pod,) data x model
+    mesh of rank processes (`dims`: `make_mesh`'s (data, model) or
+    (data, model, pod)) on `device` (the card unless the caller asks
     for the CPU), each holding its own local shards; returns every rank's
     result (rank 0's first).  `fn` must be a module-level function."""
     n = math.prod(dims)
@@ -136,7 +132,6 @@ def make_init_fn(cfg: ModelConfig, mesh):
     leaves are identical everywhere.  With cfg.fsdp each fsdp leaf is
     drawn whole (model-local, data-full) and cut to the rank's rows
     (`sharding.fsdp_shard_init`), as the reference's init."""
-    _check_ported(mesh)
     dp, _, _ = mesh_dims(mesh)
     tp = eff_tp(cfg, mesh)
     shapes, specs = abstract_params(cfg, mesh)
@@ -182,7 +177,6 @@ def make_train_step(cfg: ModelConfig, mesh, backend: str = "shmem",
     the global batch (numpy or tensors) -> (loss, params, opt_state);
     with `donate` it updates the trees it is given in place
     (`train/step.build_train_step`)."""
-    _check_ported(mesh)
     shapes, pspecs = abstract_params(cfg, mesh)
     ocfg = adamw or opt.AdamWConfig(moment_dtype=cfg.moment_dtype)
     inner = tstep.build_train_step(
@@ -206,15 +200,16 @@ def make_serve_steps(cfg: ModelConfig, mesh, shape_name: str,
     as the reference's (serving never runs fsdp).  ``prefill(params,
     batch)`` and ``decode(params, cache, batch)`` run in a rank on its
     local shards and its slice of the GLOBAL batch (numpy or tensors,
-    the batch over `data`): the last-position logits (B_local, 1,
-    V_local), and with the cache (the rank's `init_cache` at the cell's
-    length, its specs `sharding.cache_specs`) the decode step's.
-    `cache_shapes` are meta tensors (None for a prefill cell).  A decode
-    cell whose batch is below the data size (the reference's long_500k)
-    shards its cache's sequence over `data`: seq_shards = dp, every rank
-    holds the whole batch and cache_len / dp slots of it."""
+    the batch over (pod, data), pod-major): the last-position logits
+    (B_local, 1, V_local), and with the cache (the rank's `init_cache` at
+    the cell's length, its specs `sharding.cache_specs`: the batch over
+    `data` alone, as the reference's) the decode step's.  `cache_shapes`
+    are meta tensors (None for a prefill cell).  A decode cell whose
+    batch is below the data size dp x pod (the reference's long_500k)
+    shards its cache's sequence over `data`: seq_shards = dp (not dp x
+    pod: the reference's count, mirrored), every rank holds the whole
+    batch and cache_len / dp slots of it."""
     cfg = dataclasses.replace(cfg, fsdp=False)
-    _check_ported(mesh)
     dp, tp, pod = mesh_dims(mesh)
     axes = axis_spec(mesh)
     shapes, pspecs = abstract_params(cfg, mesh)

@@ -1,10 +1,11 @@
 """Training launcher: real steps on one device (the CUDA card, or the CPU
-with --device cpu), or on a --data x --model mesh of rank processes
-sharing that device (`core.spmd`), with checkpoint/restart and straggler
-records.
+with --device cpu), or on a (--pod x) --data x --model mesh of rank
+processes sharing that device (`core.spmd`), with checkpoint/restart and
+straggler records.
 
   python -m repro_torch.launch.train --arch qwen2-0.5b
   python -m repro_torch.launch.train --arch qwen2-0.5b --data 2 --model 2
+  python -m repro_torch.launch.train --arch qwen2-0.5b --pod 2 --model 2
   python -m repro_torch.launch.train --arch qwen2-0.5b --smoke --device cpu \\
          --steps 12 --ckpt-dir /tmp/ckpt --resume auto
   python -m repro_torch.launch.train --arch hubert-xlarge --smoke --device cpu
@@ -12,12 +13,13 @@ records.
          --device cpu
 
 On a mesh every rank trains its local shards on its slice of the global
-batch (`launch/build.make_train_step`) and the launcher returns rank 0's
-losses; --ckpt-dir saves the GLOBAL tree gathered from the ranks (each
-sharded leaf allgathered over the axes its spec names), so a restore
-onto another mesh has what the reference's has: with fsdp, data rank
-0's rows of each per-layer leaf, and int8 moments as rank 0 holds them
-(`train_loop`'s `state`).  --shard-strategy dp_only replicates the
+batch (`launch/build.make_train_step`; with --pod the batch splits over
+(pod, data), pod-major, and the gradient sync reduces over `data`, then
+across pods) and the launcher returns rank 0's losses; --ckpt-dir saves
+the GLOBAL tree gathered from the ranks (each sharded leaf allgathered
+over the axes its spec names), so a restore onto another mesh has what
+the reference's has: with fsdp, data rank 0's rows of each per-layer
+leaf, and int8 moments as rank 0 holds them (`train_loop`'s `state`).  --shard-strategy dp_only replicates the
 parameters and splits the batch over data x model.  --topo,
 --allreduce-algo, --pipeline-chunks and --embedding steer the mesh's
 collectives as the reference's flags do.
@@ -51,7 +53,6 @@ import numpy as np
 # reference flags refused here: (flag, value meaning "not asked for",
 # the slice that brings the service)
 _UNPORTED = [
-    ("pod", 0, "slice 5c-3d (a pod axis)"),
     ("comm", "shmem", "slice 5d (the xla backend)"),
 ]
 
@@ -83,7 +84,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="bucketed reduce-scatter + allgather gradient "
                          "sync; auto switches on above GRAD_RS_AUTO_BYTES "
                          "of synced gradient")
-    ap.add_argument("--remat", default=None, choices=[None, "none", "full"],
+    ap.add_argument("--remat", default=None,
+                    choices=[None, "none", "full", "selective"],
                     help="override the config's remat policy")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -129,7 +131,10 @@ def _parser() -> argparse.ArgumentParser:
 
 def _topology(args):
     """The data axis's MeshTopology from --topo, or the reference's
-    near-square guess when --embedding needs one; None otherwise."""
+    near-square guess when --embedding needs one; None otherwise.  With
+    --pod and no --topo, --embedding is dropped (set "off" in `args`)
+    with the reference's message: a guessed layout of the data axis
+    would also price the pod axis's collectives."""
     from ..core.topology import MeshTopology
     if args.topo:
         shape = tuple(int(p) for p in args.topo.lower().split("x"))
@@ -138,7 +143,11 @@ def _topology(args):
                              f"{int(np.prod(shape))} PEs but the data axis "
                              f"has {args.data}")
         return MeshTopology(shape, torus=(False,) * len(shape))
-    if args.embedding != "off":
+    if args.embedding != "off" and args.pod:
+        print("[train] --embedding ignored: with --pod, pass --topo to "
+              "state the data-axis layout explicitly")
+        args.embedding = "off"
+    elif args.embedding != "off":
         d, r = args.data, int(args.data ** 0.5)
         while r > 1 and d % r:
             r -= 1
@@ -203,11 +212,12 @@ def run(argv=None, *, params=None) -> TrainRun:
     device = resolve_device(args.device)
     topo = _topology(args)
     tuner = _tuner(args, topo, device)
-    n = args.data * args.model
+    dims = (args.data, args.model) + ((args.pod,) if args.pod else ())
+    n = int(np.prod(dims))
     if n == 1:
         return train_loop(args, params, topo, tuner)
     from . import build
-    return build.shard_mapped(train_loop, (args.data, args.model),
+    return build.shard_mapped(train_loop, dims,
                               [(args, params, topo, tuner)] * n,
                               device=device)[0]
 
@@ -233,17 +243,17 @@ def _gather_global(comm, specs, tree):
 def train_loop(args, params=None, topo=None, tuner=None, *,
                shards=None) -> TrainRun:
     """The launcher's loop on parsed `args`: in this process on one
-    device, or, called in each rank process of a --data x --model mesh
-    (`launch/build.shard_mapped`), on the rank's local shards of the
-    GLOBAL `params` (or on `shards`: this rank's local shards, cut
-    already and its own, so that no rank is handed the whole tree) and
-    its slice of the global batch.  Checkpoints hold the GLOBAL tree (on
-    a mesh every rank takes part in its gather); rank 0 writes them, the
-    log and the service documents.  On a mesh the result holds the
-    losses and walls only (the checkpoint holds the trained tree), and a
-    rank that owns its parameters (its own init, or `shards`) updates
-    them in place (`build_train_step`'s `donate`): the state is not held
-    twice."""
+    device, or, called in each rank process of a (--pod x) --data x
+    --model mesh (`launch/build.shard_mapped`), on the rank's local
+    shards of the GLOBAL `params` (or on `shards`: this rank's local
+    shards, cut already and its own, so that no rank is handed the whole
+    tree) and its slice of the global batch.  Checkpoints hold the
+    GLOBAL tree (on a mesh every rank takes part in its gather); rank 0
+    writes them, the log and the service documents.  On a mesh the
+    result holds the losses and walls only (the checkpoint holds the
+    trained tree), and a rank that owns its parameters (its own init, or
+    `shards`) updates them in place (`build_train_step`'s `donate`): the
+    state is not held twice."""
     from .. import resolve_device
     from ..ckpt import manager as ckpt
     from ..configs import get_config, smoke_config
@@ -365,11 +375,13 @@ def train_loop(args, params=None, topo=None, tuner=None, *,
             if lead:
                 print(f"[train] resumed from step {start}")
 
-    on = "" if mesh is None else f" on {args.data}x{args.model} ranks"
+    on = "" if mesh is None else \
+        f" on {'x'.join(map(str, mesh.shape))} ranks"
     losses, step_s = [], []
     for step in range(start, args.steps):
         t0 = time.perf_counter()
-        with (profiler.op("train_step", n_pes=args.data * args.model,
+        with (profiler.op("train_step",
+                          n_pes=1 if mesh is None else mesh.size,
                           device=device)
               if profiler is not None else contextlib.nullcontext()):
             loss, params, opt_state = step_fn(params, opt_state,

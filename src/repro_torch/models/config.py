@@ -83,8 +83,10 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32   # stored weights
     logit_dtype: torch.dtype = torch.float32
-    remat: str = "full"          # none | full: recompute each layer in the
-                                 # backward pass (torch.utils.checkpoint)
+    remat: str = "full"          # none | full | selective: recompute each
+                                 # layer in the backward pass
+                                 # (torch.utils.checkpoint; selective keeps
+                                 # its weight products' outputs)
     microbatches: int = 1        # grad-accumulation steps per train step
     moment_dtype: str = "f32"    # f32 | bf16 | int8 (optimizer moments)
     # sharding (the reference's fields, same defaults)

@@ -209,15 +209,36 @@ def _mamba_block(comm, cfg, bp, x):
     return x + L.mamba2(comm, cfg, bp["mamba"], L.rms_norm(x, bp["ln"]))
 
 
+# what remat="selective" keeps from the forward: the outputs of the
+# plain weight products, which have no batch dims (the reference's
+# `dots_with_no_batch_dims_saveable`); attention's batched products and
+# the elementwise chains are recomputed
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    return (torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+            if op in _SAVED_OPS
+            else torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _maybe_remat(cfg: ModelConfig, fn):
     """`fn` recomputed in the backward pass when ``cfg.remat == "full"``
-    (the reference's `jax.checkpoint`), else `fn`."""
+    (the reference's `jax.checkpoint`); under "selective" with the
+    outputs of its 2-D weight products saved and the rest recomputed
+    (`_selective_policy`); else `fn`."""
     if cfg.remat == "none":
         return fn
-    if cfg.remat != "full":
-        raise ValueError(f"remat={cfg.remat!r}: the port has none|full")
+    if cfg.remat == "full":
+        return lambda *a: torch.utils.checkpoint.checkpoint(
+            fn, *a, use_reentrant=False)
+    if cfg.remat != "selective":
+        raise ValueError(f"remat={cfg.remat!r}: none|full|selective")
+    ctx = functools.partial(
+        torch.utils.checkpoint.create_selective_checkpoint_contexts,
+        _selective_policy)
     return lambda *a: torch.utils.checkpoint.checkpoint(
-        fn, *a, use_reentrant=False)
+        fn, *a, use_reentrant=False, context_fn=ctx)
 
 
 def _embed_scaled(comm, cfg, params, tokens):

@@ -6,7 +6,9 @@ and call its collectives at the same places as in `repro`.  Axis roles:
   model  — tensor parallelism (activation allreduces, the vocab-sharded
            loss's reductions, the MoE expert alltoall)
   data   — data parallelism (the fused gradient buckets)
-  pod    — cross-pod; not ported (slice 5c-3d)
+  pod    — cross-pod: gradients reduce within a pod over `data` first,
+           then across pods (`grad_sync`, `grad_sync_bucketed`); the
+           pipeline's stage-to-stage puts (`parallel/pipeline.py`)
 
 Inside a rank process of `core.spmd.run` whose mesh `launch.mesh` made,
 axis sizes and indices are read from that mesh and every collective runs
@@ -243,19 +245,25 @@ class Comm:
             return x
         return self._net(axis, x.device).ppermute(x[None], perm)[0]
 
-    # -- gradient synchronization over the data axis -------------------------
-    def _data_net(self, device):
-        if self.axes.pod is not None and self.axis_size(self.axes.pod) > 1:
-            raise NotImplementedError("a pod axis comes with slice 5c-3d")
-        return self._net(self.axes.data, device)
+    # -- gradient synchronization (hierarchical over pod x data) -------------
+    def _pod_reduce(self, x):
+        """The cross-pod allreduce after the data phase (none without a
+        pod axis).  It runs over the pod axis's own net: a `topo` or
+        embedding given for the data axis reaches it only through
+        `_topo_for`, when it describes the pod's PE count."""
+        if self.axes.pod is None:
+            return x
+        return self.allreduce(x, self.axes.pod)
 
     def grad_sync(self, grads, *, mean: bool = True):
         """Average each gradient tensor (a list, or one tensor) over the
-        data axis: ring reduce-scatter + allgather with `grad_rs`, else
-        the allreduce of `allreduce_algo`."""
+        data (and pod) axes: within a pod ring reduce-scatter + allgather
+        with `grad_rs`, else the allreduce of `allreduce_algo`; then the
+        allreduce across pods, as the reference's (fewest, largest
+        messages on the slow links)."""
         def one(g):
             if self.grad_rs:
-                net = self._data_net(g.device)
+                net = self._net(self.axes.data, g.device)
                 team = coll.embedding_team(self._embedding_for(net),
                                            self._topo_for(net), net.n_pes,
                                            self.link)
@@ -264,6 +272,7 @@ class Comm:
                 out = coll.allgather_unpad(net, own, info, team=team)[0]
             else:
                 out = self.allreduce(g, self.axes.data)
+            out = self._pod_reduce(out)
             return out / self._scale() if mean else out
 
         if isinstance(grads, (list, tuple)):
@@ -272,12 +281,14 @@ class Comm:
 
     def grad_sync_bucketed(self, buckets, *, mean: bool = True):
         """Ring reduce-scatter of every flat bucket, then the allgathers
-        (two-phase issue, as the reference).  On a 2D+ `topo` with
-        allreduce_algo "auto"/"hier", a bucket whose hierarchical
-        schedule prices below the flat ring runs `allreduce_hier`."""
+        (two-phase issue, as the reference), over the data axis; with a
+        pod axis each bucket is then allreduced across pods.  On a 2D+
+        `topo` with allreduce_algo "auto"/"hier", a bucket whose
+        hierarchical schedule prices below the flat ring runs
+        `allreduce_hier`."""
         if not buckets:
             return []
-        net = self._data_net(buckets[0].device)
+        net = self._net(self.axes.data, buckets[0].device)
         topo = self._topo_for(net)
         part = self._partition_for(net) \
             if self.allreduce_algo in ("auto", "hier") else None
@@ -308,6 +319,7 @@ class Comm:
                                    embedding=emb)[0]
                if h else coll.allgather_unpad(net, *own, team=team)[0]
                for b, h, own in zip(buckets, hier, owned)]
+        out = [self._pod_reduce(b) for b in out]
         return [b / self._scale() for b in out] if mean else out
 
     def grad_sync_fused_update(self, g_bufs, p_bufs, moments, wd_masks,
@@ -330,7 +342,7 @@ class Comm:
             raise ValueError("grad_rs='fused' does not support a pod axis")
         if not g_bufs:
             return [], []
-        net = self._data_net(g_bufs[0].device)
+        net = self._net(self.axes.data, g_bufs[0].device)
         team = coll.embedding_team(self._embedding_for(net),
                                    self._topo_for(net), net.n_pes, self.link)
         scale = float(self._scale()) if mean else 1.0

@@ -56,6 +56,19 @@ def _is_stacked(path: tuple[str, ...]) -> bool:
     return any(p in _STACKED for p in path[:-1])
 
 
+def pipeline_stage(tree, stage: int, n_stages: int):
+    """Stage `stage`'s part of a parameter tree (or its spec tree) for
+    `parallel.pipeline`: under "layers" its L / n_stages consecutive
+    layers [stage L/P, (stage + 1) L/P), every other leaf whole.  The
+    port's cut of the reference's stacked dim sharded over `pod`."""
+    layers = tree["layers"]
+    if len(layers) % n_stages:
+        raise ValueError(f"{len(layers)} layers do not split into "
+                         f"{n_stages} pipeline stages")
+    k = len(layers) // n_stages
+    return dict(tree, layers=layers[stage * k:(stage + 1) * k])
+
+
 def _ep_over_data(cfg: ModelConfig) -> bool:
     return cfg.moe is not None and cfg.moe.ep_over_data
 

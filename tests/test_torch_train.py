@@ -352,16 +352,19 @@ def test_sharded_xent_and_its_gradient(softcap):
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "selective"])
 def test_train_loss_and_every_gradient_leaf_match_jax(remat):
     """The loss and each gradient leaf (the tied embedding's from the
     gather and the head, rope, the biases, the norms) against
-    `jax.value_and_grad(transformer.train_loss)`; with remat "full" the
-    port recomputes every layer in the backward pass."""
+    `jax.value_and_grad(transformer.train_loss)` under the same remat
+    policy; with remat "full" the port recomputes every layer in the
+    backward pass, with "selective" all of it but the outputs of the
+    weight products (the reference's `dots_with_no_batch_dims_saveable`)."""
     jp = jparams_np(1)
     batch = batch_np(1)
+    jcfg = dataclasses.replace(JCFG, remat=remat)
     jl, jg = jax.value_and_grad(lambda p: JT.train_loss(
-        jcomm(), JCFG, p, jax.tree.map(jnp.asarray, batch)))(
+        jcomm(), jcfg, p, jax.tree.map(jnp.asarray, batch)))(
         jax.tree.map(jnp.asarray, jp))
     cfg = dataclasses.replace(CFG, remat=remat)
     loss, grads = tstep.loss_and_grads(
@@ -369,6 +372,52 @@ def test_train_loss_and_every_gradient_leaf_match_jax(remat):
         tstep.batch_to_device(batch, "cpu"))
     np.testing.assert_allclose(float(loss), float(jl), **LOSS_TOL)
     assert_trees_close(params_to_jax(grads, CFG), jg, **LOSS_TOL)
+
+
+def test_selective_remat_gradients_equal_full_remat_bitwise():
+    """remat="selective" saves the weight products' outputs that "full"
+    recomputes; recomputation is deterministic, so every gradient leaf
+    and the loss are the same bits under both (two microbatches, so the
+    accumulation runs too)."""
+    params = params_from_jax(jparams_np(4), CFG)
+    batch = tstep.batch_to_device(batch_np(4), "cpu")
+    runs = {r: tstep.loss_and_grads(
+        Comm(), dataclasses.replace(CFG, remat=r), params, batch, 2)
+        for r in ("full", "selective")}
+    (lf, gf), (ls, gs) = runs["full"], runs["selective"]
+    assert torch.equal(lf, ls)
+    for a, b in zip(tree_flatten(gf)[0], tree_flatten(gs)[0]):
+        assert torch.equal(a, b)
+
+
+def test_selective_remat_saves_the_weight_products_only():
+    """Under "selective" the backward recomputes the block but for its
+    2-D weight products: counting aten.mm calls, the full policy runs
+    them again in the backward's recompute, the selective one does not."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.mm = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default):
+                self.mm += 1
+            return func(*args, **(kwargs or {}))
+
+    params = params_from_jax(jparams_np(4), CFG)
+    batch = tstep.batch_to_device(batch_np(4), "cpu")
+    counts = {}
+    for r in ("none", "full", "selective"):
+        with Count() as c:
+            tstep.loss_and_grads(Comm(), dataclasses.replace(CFG, remat=r),
+                                 params, batch)
+        counts[r] = c.mm
+    # full runs every layer's weight products again; selective reads them
+    assert counts["full"] > counts["none"] == counts["selective"]
+    assert (counts["full"] - counts["none"]) % CFG.n_layers == 0
 
 
 def _reference_step(jcfg, grad_rs, jp, batches):
@@ -566,15 +615,19 @@ def test_train_launcher_loss_improves():
     ["--embedding", "snake"], ["--autotune"], ["--tuning-db", "db.json"],
     ["--profile-out", "p.json"], ["--trace-out", "t.json"],
     ["--metrics-out", "m.json"], ["--allreduce-algo", "auto"],
-    ["--pipeline-chunks", "2"], ["--shard-strategy", "dp_only"]])
+    ["--pipeline-chunks", "2"], ["--shard-strategy", "dp_only"],
+    ["--remat", "selective"]])
 def test_train_launcher_refuses_unported_flags(flags, capsys, tmp_path):
-    if flags[0] in ("--data", "--model", "--embedding", "--allreduce-algo",
-                    "--pipeline-chunks", "--shard-strategy"):
-        # ported with the SPMD backend: --data/--model run the step on a
-        # mesh of rank processes (tests/test_torch_tp.py holds it to the
-        # reference), the rest steer the collectives; --shard-strategy
-        # dp_only replicates the parameters (on one device: the same
-        # step; tests/test_torch_fsdp.py holds it to the reference on 2x2)
+    if flags[0] in ("--data", "--model", "--pod", "--embedding",
+                    "--allreduce-algo", "--pipeline-chunks",
+                    "--shard-strategy", "--remat"):
+        # ported with the SPMD backend: --data/--model/--pod run the step
+        # on a mesh of rank processes (tests/test_torch_tp.py and
+        # tests/test_torch_pipeline.py hold it to the reference), the rest
+        # steer the collectives; --shard-strategy dp_only replicates the
+        # parameters (on one device: the same step;
+        # tests/test_torch_fsdp.py holds it to the reference on 2x2);
+        # --remat selective keeps the weight products' outputs
         losses = train_mod.main(SMOKE + ["--steps", "1", "--seq-len", "16",
                                          "--batch", "2"] + flags)
         assert len(losses) == 1 and np.isfinite(losses).all()
