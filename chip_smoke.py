@@ -261,8 +261,8 @@ Phases; any failure exits non-zero before the result line is printed:
      against their plain sums and concatenations; the ranks' launches
      and the wall of one allreduce of a 64 MiB bucket over 4 ranks; (b)
      qwen2-0.5b at full width on a 2x2 (data x model) mesh of 4 ranks:
-     the port's 1x1 launcher's first step, then 3 steps at seq 512,
-     batch 8 through the launcher's rank loop (default sync) and 3 with
+     the port's 1x1 launcher's first step, then 2 steps at seq 512,
+     batch 8 through the launcher's rank loop (default sync) and 2 with
      the fused sync from the same global parameters and batches; every
      loss finite and equal on all ranks, the 2x2 first-step loss within
      the reference's bound (0.05 x max(1, |l1|)) of the 1x1 one,
@@ -277,10 +277,10 @@ Phases; any failure exits non-zero before the result line is printed:
      full width on 1x4 (EP 4, 10 of 40 experts a rank): one MoE layer in
      f32 at a no-drop capacity against the 1x1 layer (output and input
      gradient within 1e-5 of the largest, picks exactly), then the
-     launcher's loop, 2 steps at seq 512, batch 8, its step-0 loss
+     launcher's loop, 1 step at seq 512, batch 8, its step-0 loss
      within the reference's bound of the 1x1 loss of the same tree, the
      ranks' launches and heap rounds equal to formulas from the code;
-     (c) zamba2-1.2b at full width on 2x2 as 16b, each step's loss
+     (c) zamba2-1.2b at full width on 2x2 as 16b (1 step), its loss
      within its bound of the 1x1 launcher's, fused step 0 == default,
      exact kernel-7, -4 and -5 launches; (d) deepseek-v3 cut to 4
      layers forward at full width on 2x2 under its own config (EP over
@@ -293,13 +293,14 @@ Phases; any failure exits non-zero before the result line is printed:
      (Lq 128, Lk 256, D 64: 7 q heads over 1 kv head at tp 2, 4 over 4
      expanded kv heads at tp 4) against its plain version, timed beside
      it and SDPA; (a) qwen2-0.5b's paged engine on 1x2 and 1x4 rank
-     meshes with phase 3's traffic on phase 3's seed-0 tree, fitted to
-     the mesh and cut by each rank: every rank's results equal rank 0's,
-     two requests alone equal the batch bit for bit, each request's
-     first-token logits within PREFILL_LOGITS_RTOL of the 1x1 engine's,
-     tokens equal phase 3's except after a near tie of phase 3's top two
-     logits, per rank kernel 4 24 layers x 8 prefills and (2L + 3)
-     log2(tp) heap rounds a prefill or decode step (kernel 2 twice a
+     meshes with phase 3's prompts (8 of its 32 new tokens each) on
+     phase 3's seed-0 tree, fitted to the mesh and cut by each rank:
+     every rank's results equal rank 0's, two requests alone equal the
+     batch bit for bit, each request's first-token logits within
+     PREFILL_LOGITS_RTOL of the 1x1 engine's, tokens equal phase 3's
+     first 8 except after a near tie of phase 3's top two logits, per
+     rank kernel 4 24 layers x 8 prefills and (2L + 3) log2(tp) heap
+     rounds a prefill or decode step (kernel 2 twice a
      round, kernel 3 once); TTFT p50, per-token p50 and tok/s beside
      phase 3's; (b) one dense-cache decode step after a prompt of 4 x 8
      (teacher-forced) for zamba2-1.2b on 1x2, deepseek-v3's 4-layer cut
@@ -335,9 +336,9 @@ Phases; any failure exits non-zero before the result line is printed:
      heap rounds a step a rank (7 layers x 3 allreduces x 2 stages);
      step walls, the rounds' host time and each rank's peak.
  20. fsdp, checkpoints and the engine's drain on a rank mesh — (a)
-     qwen2-0.5b with fsdp=True on 2x2 at 16b's shape, 2 default-sync
-     steps: every rank's losses equal, within 1e-5 of 16b's 1x1 loss at
-     step 0 and 3e-3 after, heap rounds and kernel 2-4 launches a step a
+     qwen2-0.5b with fsdp=True on 2x2 at 16b's shape, 1 default-sync
+     step: every rank's losses equal, within 1e-5 of 16b's 1x1 loss at
+     step 0, heap rounds and kernel 2-4 launches a step a
      rank equal to `fsdp_step_formula` (each layer's gathers, again
      under remat, and their backward deliveries), its step wall and peak
      a rank beside 16b's; (b) the train launcher with fsdp on 2x2 killed
@@ -345,8 +346,8 @@ Phases; any failure exits non-zero before the result line is printed:
      resumed losses equal to an uninterrupted run resumed from the same
      checkpoint (rtol 1e-5, atol 1e-6), the checkpoint's bytes, and the
      same checkpoint resumed on 1x2 (the elastic shrink) with a finite
-     loss; (c) qwen2's paged engine on 1x2 with phase 3's traffic, PE 1
-     lost at the third decode on both ranks: both drain alike (the live
+     loss; (c) qwen2's paged engine on 1x2 with phase 3's prompts
+     (18a's 8 tokens), PE 1 lost at the third decode on both ranks: both drain alike (the live
      rids requeued in slot order at the queue head, no page live), then
      every request's tokens equal 18a's 1x2 tokens bit for bit, through
      18a's kernel-4 launches plus 24 a re-prefill.
@@ -364,6 +365,24 @@ Phases; any failure exits non-zero before the result line is printed:
      / atol 1e-5 of the 2x2 gradients of those layers summed over
      `data`, launches and heap rounds a rank equal to
      `pipe_step_formula` and `unpipe_formula`; both walls and peaks.
+ 22. the library-collective backend, `Comm(backend="xla")` over gloo,
+     beside the paper's runtime, in ranks that earlier phases spawned —
+     (a) in 16b's ranks: allreduce at 8 B and 64 MiB a PE, allgather,
+     alltoall and broadcast on 4 ranks, grad_sync on 2x2, under both
+     backends: the xla output equal to the shmem output (movement bit
+     for bit, sums within rtol 1e-4 / atol 1e-5) with no heap round and
+     no kernel 1-3 launch, and both backends' walls; (b) qwen2-0.5b by
+     the train launcher at --data 2 --model 2 --comm xla, 2 steps at
+     16b's shape from 16b's tree: every rank's losses equal, step 0
+     within 1e-5 of 16b's 1x1 loss, step 1 within 1e-4 of 16b's
+     default-sync step 1, no heap round, no kernel 1-3 launch, kernel 4
+     16b's launches a step; step wall, host time in the gloo calls and
+     peak a rank beside 16b's; (c) in 17b's ranks granite-moe's MoE
+     layer gate under xla: picks equal to the shmem gate's, output and
+     input gradient within its 1e-5 x the largest; (d) in 18's 2-rank
+     spawn the serve launcher's path at --model 2 --comm xla on phase
+     3's prompts: the dense-cache loop (not the paged engine), tokens
+     equal to the 1x1 loop's but after a near tie of the 1x1 logits.
 
 The run fails if a process it started (a rank, nvcc, nvidia-smi, the
 resource tracker that spawning the ranks launches) is still alive or
@@ -4695,7 +4714,9 @@ SPMD_COLLECTIVES = ("broadcast3", "broadcast5", "fcollect", "collect",
                     "alltoall", "sum", "max", "ring")
 SPMD_MOVES = ("broadcast3", "broadcast5", "fcollect", "collect", "alltoall")
 SPMD_BUCKET_ELEMS = 16 * 1024 * 1024        # 64 MiB of f32: one bucket
-SPMD_TRAIN = dict(steps=3, seq_len=512, batch=8, data=2, model=2)
+# 16b's steps: 2 since phase 22 joined the run (3 at PR 29, 4 before),
+# enough for a step after the first update; every gate is kept
+SPMD_TRAIN = dict(steps=2, seq_len=512, batch=8, data=2, model=2)
 # 16b: the largest |2x2 loss - 1x1 loss| allowed at each step.  On the
 # H100 the readings are 9.54e-07, 1.16e-3, 1.37e-3, 1.48e-3 for both
 # syncs, the same in every run (PERF.md § 6): the bounds leave 2-10x
@@ -4862,6 +4883,15 @@ def spmd_collectives(torch, np, card) -> list:
             f"within the f32 bound gamma_3 sum|x| (max abs err "
             f"{max(e for e, _ in errs):.3g})")
     return paths
+
+
+def tok_s_text(tok: int, walls) -> str:
+    """Train tok/s over the steps after the first (whose wall holds the
+    ranks' warm-up), or over the one step when a run takes one."""
+    if len(walls) > 1:
+        return (f"{tok * (len(walls) - 1) / sum(walls[1:]):.1f} train tok/s "
+                f"(steps 2..{len(walls)})")
+    return f"{tok / walls[0]:.1f} train tok/s (its one step, warm-up in it)"
 
 
 def seed0_shards(torch, cfg, mesh):
@@ -5041,8 +5071,7 @@ def mesh_train(torch, np, cfg, run, tol, card, label, extra=None) -> tuple:
             + ", ".join(f"{x:.5f}" for x in losses)
             + "; step wall ms (rank 0) "
             + ", ".join(f"{w * 1e3:.1f}" for w in walls)
-            + f"; {tok * (len(walls) - 1) / sum(walls[1:]):.1f} train tok/s "
-            f"(steps 2..{run['steps']}); peak per rank GiB "
+            + f"; {tok_s_text(tok, walls)}; peak per rank GiB "
             + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in per)
             + "; launches per step per rank (flash, ssd, put, dma, combine, "
             "fused): " + ", ".join(
@@ -5108,8 +5137,9 @@ EP_EXCHANGES = (((1, 4), "model"), ((2, 2), ("data", "model")),
 EP_A2A_ROWS = 512
 # 17b and 17c: the launcher's loop at this sequence length, global batch
 # and step count (the configs' own microbatches: granite 2, zamba2 8,
-# clamped to the local batch of 4 on 2x2)
-EP_TRAIN = dict(seq_len=512, batch=8, steps=2)
+# clamped to the local batch of 4 on 2x2).  One step since phase 22
+# joined the run (2 at PR 29, 3 before); every gate is kept
+EP_TRAIN = dict(seq_len=512, batch=8, steps=1)
 # 17d: deepseek-v3's forward at this global batch and length on 2x2
 EP_DS = dict(seq_len=512, batch=4)
 # the layer gates: one MoE layer in f32 compute at a no-drop capacity,
@@ -5397,14 +5427,16 @@ def ep_gate_layer(torch, cfg, comm, p, x, w):
     return out.detach(), tope, u.grad, bool(keep.all())
 
 
-def ep_gate_rank(arch):
+def ep_gate_rank(arch, backend="shmem"):
     """A rank's half of a layer gate: its experts' weights and its data
-    row's input, the layer on the rank mesh."""
+    row's input, the layer on the rank mesh, its collectives on
+    `backend`; the layer's launches, heap rounds and library calls."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import spmd
     from repro_torch.parallel.comm import AxisSpec, Comm
     torch.backends.cuda.matmul.allow_tf32 = False
+    rt = spmd.current()
     cfg = ep_gate_cfg(get_config(arch))
     mesh = spmd.current().mesh
     dp, tp = mesh.sizes["data"], mesh.sizes["model"]
@@ -5419,11 +5451,18 @@ def ep_gate_rank(arch):
     p = ep_gate_params(torch, cfg, experts, mesh.axis_index("model"), tp)
     x, w = ep_gate_inputs(torch, cfg, dp)
     d = mesh.axis_index("data")
-    out, tope, grad, kept = ep_gate_layer(torch, cfg, Comm(AxisSpec()), p,
+    torch.cuda.synchronize()
+    _reset_counts()
+    r0, c0 = rt.rounds, rt.lib_calls
+    out, tope, grad, kept = ep_gate_layer(torch, cfg,
+                                          Comm(AxisSpec(), backend), p,
                                           x[d], w[d])
+    torch.cuda.synchronize()
+    counts = _counts()
     del p
     torch.cuda.empty_cache()
-    return dict(out=out, tope=tope, grad=grad, kept=kept)
+    return dict(out=out, tope=tope, grad=grad, kept=kept, counts=counts,
+                rounds=rt.rounds - r0, lib_calls=rt.lib_calls - c0)
 
 
 def ep_gate_reference(torch, cfg):
@@ -5509,7 +5548,8 @@ def ep_granite_rank(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     rt = spmd.current()
     args = train_mod.parse_args(argv)
-    out = {"gate": ep_gate_rank(args.arch)}
+    out = {"gate": ep_gate_rank(args.arch),
+           "gate_xla": ep_gate_rank(args.arch, "xla")}    # phase 22c
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()                                    # the path starts
@@ -5522,7 +5562,7 @@ def ep_granite_rank(argv):
     return out
 
 
-def ep_granite(torch, np, granite, card) -> list:
+def ep_granite(torch, np, granite, card, phase22=None) -> list:
     """17b: granite-moe-3b-a800m at full width on a 1x4 mesh (EP 4 over
     `model`: 10 of 40 experts, 6 of 24 q heads and 2 of 8 KV heads a
     rank).  Why not 2x2: its 3.37 B parameters take 16 B each as f32
@@ -5543,8 +5583,10 @@ def ep_granite(torch, np, granite, card) -> list:
     stabiliser's max, 10L + 6), kernel 2 twice a round plus 15L block
     moves (5 a layer's exchange per pass), kernel 3 4L + 8 (one a stage
     of each sum and max allreduce in the forward and the recompute),
-    no kernel-1 launch.  Returns the path's launch counts, summed over
-    ranks, and kernel 4's per rank."""
+    no kernel-1 launch.  Each rank also runs the gate under the xla
+    backend (phase 22c: its results, and the shmem gate's, under
+    `phase22`).  Returns the path's launch counts, summed over ranks, and
+    kernel 4's per rank."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import build
     cfg, run = granite.CONFIG, EP_TRAIN
@@ -5566,6 +5608,9 @@ def ep_granite(torch, np, granite, card) -> list:
     wall = time.perf_counter() - t0
     ep_gate_check(torch, cfg, want, [r["gate"] for r in res], dims)
     del want
+    if phase22 is not None:
+        phase22["22c"] = [dict(shmem=r.pop("gate"), xla=r.pop("gate_xla"))
+                          for r in res]
     torch.cuda.empty_cache()
     L, mb = cfg.n_layers, min(cfg.microbatches, run["batch"])
     n = mb * run["steps"]
@@ -5595,8 +5640,7 @@ def ep_granite(torch, np, granite, card) -> list:
         f"{abs(losses[0] - l1):.4g} (the reference's bound "
         f"{0.05 * max(1.0, abs(l1)):.3g}); step wall ms (rank 0) "
         + ", ".join(f"{w * 1e3:.1f}" for w in walls)
-        + f"; {tok * (len(walls) - 1) / sum(walls[1:]):.1f} train tok/s "
-        f"(steps 2..{run['steps']}); peak per rank GiB "
+        + f"; {tok_s_text(tok, walls)}; peak per rank GiB "
         + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in res)
         + f"; per step per rank: {res[0]['rounds'] / run['steps']:g} heap "
         f"rounds,"
@@ -5780,6 +5824,12 @@ def ep_deepseek(torch, np, ds_cfg, card) -> list:
 # engine and granite, each model freed before the next.
 
 SERVE_TP = (2, 4)
+# 18a and 20c: new tokens a request on the mesh engines, of phase 3's
+# traffic (phase 3's prompts; greedy tokens are a prefix of phase 3's 32,
+# batched == alone bit for bit).  Cut from phase 3's 32 to keep the whole
+# run inside its limit once phase 22 joined: the engine passes of 18a
+# took ~90 s of phase 18 at 32 (run T4, PERF.md § 6)
+SERVE_TP_TOKENS = 8
 # 18b: (arch, tp) of each decode step, and its prompt: B sequences of P
 # tokens fed, teacher-forced, through P dense-cache decode steps; then
 # the step itself at position P on their greedy pick, and the prefill
@@ -5898,6 +5948,7 @@ def serve_tp_check(np, serving, tp, res, phase3, logits1, card):
                                  f"{lead['tokens'][i].tolist()}")
     first, worst, ties, upto, n_cmp = 0.0, 0.0, [], [], 0
     for i, (got, want) in enumerate(zip(lead["tokens"], phase3["tokens"])):
+        want = want[:len(got)]                    # SERVE_TP_TOKENS of 32
         if not np.array_equal(lead["cap_tokens"][i], got):
             raise AssertionError(f"18a 1x{tp}: request {i} on the "
                                  f"capturing engine "
@@ -6239,11 +6290,12 @@ def serve_tp_rank(tasks):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     run = {"engine": serve_tp_engine, "decode": decode_tp_rank,
-           "fsdp": fsdp_rank2}
+           "fsdp": fsdp_rank2, "xla": xla_serve_rank}
     return [run[name](*args) for name, args in tasks]
 
 
-def serve_tp(torch, np, serving, phase3, card, fsdp_args=None) -> tuple:
+def serve_tp(torch, np, serving, phase3, card, fsdp_args=None,
+             phase22=None) -> tuple:
     """Phase 18: the 1x1 sides in this process first (phase 3's traffic
     on a 1x1 engine that keeps every token's logits, on phase 3's tree:
     its tokens must be phase 3's; each 18b model's 1x1 path), each freed
@@ -6253,7 +6305,9 @@ def serve_tp(torch, np, serving, phase3, card, fsdp_args=None) -> tuple:
     launches on 18a's engine path of each mesh, summed over its ranks,
     each mesh's engine run (rank 0's tokens and kernel-4 launches), and
     each rank's result of phase 20's 1x2 work (`fsdp_args`, run last in
-    the 2-rank spawn; None without)."""
+    the 2-rank spawn; None without).  With `phase22`, the serve launcher
+    at --model 2 --comm xla follows in the 2-rank spawn (22d), and its
+    1x1 side runs here first: both go under `phase22`."""
     from repro_torch.launch import build
     from repro_torch.models import transformer
     cfg, engine_kw = serving.CONFIG, serving.SERVE_ENGINE
@@ -6265,24 +6319,27 @@ def serve_tp(torch, np, serving, phase3, card, fsdp_args=None) -> tuple:
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device="cuda")
     tokens1, logits1 = engine_1x1_logits(torch, cfg, engine_kw, params,
-                                         prompts, traffic["new_tokens"])
+                                         prompts, SERVE_TP_TOKENS)
     del params
-    if any(not np.array_equal(a, b) for a, b in zip(tokens1,
-                                                     phase3["tokens"])):
+    if any(not np.array_equal(a, b[:SERVE_TP_TOKENS])
+           for a, b in zip(tokens1, phase3["tokens"])):
         raise AssertionError("18: the 1x1 engine that keeps its logits "
                              "did not give phase 3's tokens")
     want = {a: decode_tp_reference(torch, np, a, tp) for a, tp in DECODE_TP}
+    if phase22 is not None:
+        phase22["22d_1x1"] = xla_serve_1x1(torch, cfg)
     log(f"  18 1x1 sides: phase 3's tokens and logits and "
         f"{[a for a, _ in DECODE_TP]}'s paths in "
         f"{time.perf_counter() - t0:.1f} s; memory allocated as the ranks "
         f"start {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     paths, engine_fa, engines, fsdp2 = [], {}, {}, None
     for tp in SERVE_TP:
-        tasks = [("engine", (cfg, engine_kw, prompts,
-                             traffic["new_tokens"]))]
+        tasks = [("engine", (cfg, engine_kw, prompts, SERVE_TP_TOKENS))]
         tasks += [("decode", (a,)) for a, t in DECODE_TP if t == tp]
         if tp == 2 and fsdp_args is not None:
             tasks.append(("fsdp", fsdp_args))
+        if tp == 2 and phase22 is not None:
+            tasks.append(("xla", (xla_serve_argv(cfg) + ["--model", "2"],)))
         t0 = time.perf_counter()
         res = build.shard_mapped(serve_tp_rank, (1, tp), [(tasks,)] * tp,
                                  device="cuda")
@@ -6300,6 +6357,8 @@ def serve_tp(torch, np, serving, phase3, card, fsdp_args=None) -> tuple:
                                              want[args[0]], card))
             elif name == "fsdp":
                 fsdp2 = [r[i] for r in res]
+            elif name == "xla":
+                phase22["22d"] = [r[i] for r in res]
         log(f"  18 the {tp}-rank spawn: {wall:.1f} s, spawn included "
             f"({card})")
     return paths, engine_fa, engines, fsdp2
@@ -6901,7 +6960,9 @@ def seq_shard(torch, np, serving, zamba, ra, ref, ops, gen, card) -> tuple:
 # the reference's): its rank bodies patch `configs.get_config` to the
 # config with fsdp=True.
 
-FSDP_TRAIN = dict(SPMD_TRAIN, steps=2)
+# 20a's steps: one since phase 22 joined the run (2 at PR 29); every
+# gate is kept
+FSDP_TRAIN = dict(SPMD_TRAIN, steps=1)
 # 20b: the launcher's --steps, --ckpt-every and shape (a batch of one
 # row a data PE: one microbatch, so a step is a quarter of 20a's heap
 # rounds); the kill at step FSDP_KILL_AT's batch fetch, after step
@@ -7208,7 +7269,7 @@ def fsdp_plan(serving) -> dict:
                 rank4=(argv + ["--steps", str(run["steps"])],
                        kill_argv + mesh, ckpt_dir),
                 rank2=(shrink_argv, (serving.CONFIG, serving.SERVE_ENGINE,
-                                     prompts, traffic["new_tokens"])))
+                                     prompts, SERVE_TP_TOKENS)))
 
 
 def fsdp_phase(torch, np, plan, res, res2, l1, engine_1x2, card) -> list:
@@ -7264,8 +7325,7 @@ def fsdp_phase(torch, np, plan, res, res2, l1, engine_1x2, card) -> list:
         + ", ".join(f"{t:g}" for t in SPMD_LOSS_TOL[:steps])
         + "); step wall ms (rank 0) "
         + ", ".join(f"{w * 1e3:.1f}" for w in walls)
-        + f"; {tok * (len(walls) - 1) / sum(walls[1:]):.1f} train tok/s "
-        f"(steps 2..{steps}); peak per rank GiB "
+        + f"; {tok_s_text(tok, walls)}; peak per rank GiB "
         + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in per)
         + " (16b without fsdp: 6.557, PERF.md §6); per step per rank "
         f"{f['rounds']} heap rounds == 1 + S {f['S']} ({f['buckets']} sync "
@@ -7687,6 +7747,407 @@ def pod_phase(torch, np, cfg, plan, res, default16b, card) -> list:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the library-collective backend, Comm(backend="xla")
+# ---------------------------------------------------------------------------
+# The reference's substrate switch: every collective of the model and the
+# trainer runs on the paper's runtime (shmem: heap rounds through kernels
+# 2 and 3) or on the vendor library (xla: here torch.distributed over
+# gloo, `parallel/libcoll.py`; NCCL refuses two ranks of one card).  The
+# phase spawns nothing of its own: 22a (the collectives under both
+# backends) and 22b (qwen2-0.5b's steps under --comm xla) ride in 16b's
+# warm ranks after phase 21's work, 22c (granite's MoE layer gate) in
+# 17b's, 22d (the serve launcher at --model 2 --comm xla) in 18's 2-rank
+# spawn; `xla_phase` checks them all after phase 21.
+
+XLA_COLL_ITERS = 3          # 22a: timed calls a collective, after a warm-up
+XLA_TRAIN_STEPS = 2         # 22b: launcher steps under --comm xla
+# 22b: the largest |step-1 loss - 16b's default-sync step-1 loss|.  The
+# two backends sum the same values over 2 PEs (a + b either way), so the
+# prediction is equality; the bound stays 10x below 16b's own 2x2 gap to
+# 1x1 after a step (1.16e-3), which a dropped or doubled sync exceeds
+XLA_STEP1_TOL = 1e-4
+# 22d: phase 3's prompts (np.random.default_rng(0), 8 x 100 tokens, as the
+# launcher draws them), 8 greedy tokens each
+XLA_SERVE = dict(batch=8, prompt_len=100, tokens=8)
+XLA_SUM_TOL = dict(rtol=1e-4, atol=1e-5)
+XLA_MOVES = ("allgather", "alltoall", "broadcast")
+XLA_RUNTIME = ("put_copy", "dma_copy", "reduce_combine")
+
+
+def xla_collectives_rank():
+    """22a, one rank of 16b's spawn: each collective under both backends,
+    on a (4,) mesh (grad_sync on 2x2, over `data`): a warm-up call, then
+    XLA_COLL_ITERS timed ones (the stream synchronised and the ranks met
+    at a barrier before each, the stream synchronised after); the xla
+    output against the shmem one (movement bit for bit, sums within
+    XLA_SUM_TOL); under xla the heap rounds, kernel 1-3 launches and
+    library calls of the timed calls."""
+    import torch
+    from repro_torch.core import spmd
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.parallel.comm import AxisSpec, Comm
+    rt = spmd.current()
+    r = rt.rank
+    x, x2 = _spmd_inputs(torch, 4)
+    big = _spmd_bucket(torch, r)[0]
+    small = x[r, :2].clone()                              # 8 B a PE
+    cases = (("allreduce 8 B", lambda c: c.allreduce(small, "pe")),
+             ("allreduce 64 MiB", lambda c: c.allreduce(big, "pe")),
+             ("allgather", lambda c: c.allgather(x[r], "pe")),
+             ("alltoall", lambda c: c.alltoall(x2[r], "pe")),
+             ("broadcast", lambda c: c.broadcast(x[r], "pe", root=3)),
+             ("grad_sync 2x2", lambda c: c.grad_sync(big)))
+    out = {}
+    for name, fn in cases:
+        if name.endswith("2x2"):
+            make_rank_mesh((2, 2), ("data", "model"))
+            axes = AxisSpec()
+        else:
+            make_rank_mesh((4,), ("pe",))
+            axes = AxisSpec(data="pe", model=None)
+        got, res = {}, {}
+        for backend in ("shmem", "xla"):
+            comm = Comm(axes, backend)
+            walls = []
+            for i in range(1 + XLA_COLL_ITERS):
+                torch.cuda.synchronize()
+                rt.barrier()
+                if i == 1:                          # the timed calls start
+                    _reset_counts()
+                    r0, c0 = rt.rounds, rt.lib_calls
+                t0 = time.perf_counter()
+                y = fn(comm)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            got[backend] = y
+            res[backend] = dict(walls=walls[1:], counts=_counts(),
+                                rounds=rt.rounds - r0,
+                                lib_calls=rt.lib_calls - c0)
+        a, b = got["xla"], got["shmem"]
+        res["err"] = float((a.float() - b.float()).abs().max())
+        res["ok"] = (torch.equal(a, b) if name in XLA_MOVES else
+                     bool(torch.allclose(a, b, **XLA_SUM_TOL)))
+        res["bytes"] = a.numel() * a.element_size()
+        out[name] = res
+        del got, a, b, y
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
+def xla_train_rank(argv):
+    """22b, one rank of 16b's spawn: the launcher's loop on `argv`
+    (--data 2 --model 2 --comm xla) from 16b's shards, in place; its
+    losses, walls, launches, heap rounds, library calls and their host
+    time, peak."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import spmd
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    rt = spmd.current()
+    args = train_mod.parse_args(argv)
+    mesh = make_mesh(args.data, args.model)
+    own = seed0_shards(torch, get_config(args.arch), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                                    # the path starts
+    r0, c0, l0 = rt.rounds, rt.lib_calls, rt.lib_s
+    res = train_mod.train_loop(args, shards=own)
+    torch.cuda.synchronize()
+    out = dict(losses=res.losses, walls=res.step_s, counts=_counts(),
+               rounds=rt.rounds - r0, lib_calls=rt.lib_calls - c0,
+               lib_s=rt.lib_s - l0, peak=torch.cuda.max_memory_allocated())
+    del res, own
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def xla_rank4(train_argv):
+    """Phase 22's work in a rank of 16b's spawn, after phase 21's: 22a,
+    then 22b; with its wall."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"22a": xla_collectives_rank(), "22b": xla_train_rank(train_argv)}
+    return dict(out, wall=time.perf_counter() - t0)
+
+
+def xla_plan(serving) -> dict:
+    """Phase 22's arguments for 16b's ranks (`mesh_train`'s `extra`)."""
+    run = dict(SPMD_TRAIN, lr=serving.TRAIN_RUN["lr"])
+    argv = ["--arch", serving.CONFIG.name, "--seq-len", str(run["seq_len"]),
+            "--batch", str(run["batch"]), "--lr", str(run["lr"]),
+            "--device", "cuda", "--data", str(run["data"]), "--model",
+            str(run["model"]), "--steps", str(XLA_TRAIN_STEPS), "--comm",
+            "xla"]
+    return dict(run=run, rank4=(argv,))
+
+
+def xla_serve_argv(cfg) -> list:
+    """22d's serve launcher flags (the 1x1 side's; the mesh adds
+    --model 2)."""
+    return ["--arch", cfg.name, "--device", "cuda", "--comm", "xla",
+            "--batch", str(XLA_SERVE["batch"]), "--prompt-len",
+            str(XLA_SERVE["prompt_len"]), "--tokens",
+            str(XLA_SERVE["tokens"])]
+
+
+def xla_serve_1x1(torch, cfg) -> dict:
+    """22d's 1x1 side: the serve launcher's dense-cache loop on one device
+    (its seed-0 tree) at `xla_serve_argv`, with the top-2 gap and the
+    largest |logit| of every row `sample_greedy` picks from."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import step as sstep
+    real, seen = sstep.sample_greedy, []
+
+    def noting(comm, logits):
+        lg = logits.float()
+        top = lg.topk(2, -1).values
+        seen.append(((top[..., 0] - top[..., 1]).cpu().numpy(),
+                     lg.abs().amax(-1).cpu().numpy()))
+        return real(comm, logits)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(sstep, "sample_greedy", noting):
+        tokens = serve_mod.run(xla_serve_argv(cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(tokens=tokens, seen=seen, wall=time.perf_counter() - t0)
+
+
+def xla_serve_rank(argv):
+    """22d, one rank of 18's 2-rank spawn: the serve launcher's path on
+    `argv` (--model 2 --comm xla) as its spawned ranks run it
+    (`launch.serve._serve`), on this rank's shards of the seed-0 tree
+    fitted to the mesh: whether it took the paged engine, the tokens,
+    the wall, launches, heap rounds, library calls and their host
+    time."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import spmd
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import convert, transformer
+    rt = spmd.current()
+    mesh = rt.mesh
+    args = serve_mod._parser().parse_args(argv)
+    cfg = dataclasses.replace(get_config(args.arch), fsdp=False)
+    paged = serve_mod._paged(cfg, args)
+    params = transformer.map_params(torch.clone, convert.local_shards(
+        convert.fit_global(transformer.init_params(cfg, seed=0,
+                                                   device="cuda"),
+                           cfg, tp=mesh.sizes["model"]), cfg, mesh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _reset_counts()                                    # the path starts
+    r0, c0, l0 = rt.rounds, rt.lib_calls, rt.lib_s
+    t0 = time.perf_counter()
+    tokens = serve_mod._serve(args, cfg, rt.device, paged, params, mesh)
+    torch.cuda.synchronize()
+    out = dict(paged=paged, tokens=tokens, wall=time.perf_counter() - t0,
+               counts=_counts(), rounds=rt.rounds - r0,
+               lib_calls=rt.lib_calls - c0, lib_s=rt.lib_s - l0)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _no_runtime(counts) -> bool:
+    return all(counts[k] == 0 for k in XLA_RUNTIME)
+
+
+def xla_phase(torch, np, cfg, plan, res, default16b, l1_16b, got,
+              card) -> list:
+    """Phase 22's gates.  22a (`res`: each rank's `xla_rank4`): every
+    collective's xla output equal to its shmem output (movement bit for
+    bit, sums within XLA_SUM_TOL) on every rank, with no heap round and
+    no kernel 1-3 launch under xla; the walls of both backends.  22b:
+    every rank's losses equal; step 0 within 16b's bound
+    (SPMD_LOSS_TOL[0]) of the 1x1 loss, step 1 within XLA_STEP1_TOL of
+    16b's default-sync step 1; no heap round and no kernel 1-3 launch;
+    kernel 4 16b's launches a step a rank.  22c (`got["22c"]`): the xla
+    gate's picks equal to the shmem gate's, its output and input
+    gradient within EP_GATE_RTOL x the largest of the shmem gate's, no
+    drop, no heap round, no kernel 1-3 launch.  22d (`got["22d"]`,
+    `got["22d_1x1"]`): the launcher on the dense-cache loop (not the
+    paged engine), every rank's tokens rank 0's, each request's tokens
+    the 1x1 loop's up to a near tie of the 1x1 logits (phase 18's rule:
+    the top-2 gap within PREFILL_LOGITS_RTOL x the largest |logit|, the
+    request not compared after it), no heap round, no kernel 1-3
+    launch.  Returns the xla paths' launch counts, summed over ranks."""
+    paths = []
+    # 22a
+    per = [r_["22a"] for r_ in res]
+    rows = []
+    for name in per[0]:
+        cs = [p[name] for p in per]
+        bad = [r_ for r_, c in enumerate(cs) if not c["ok"]]
+        if bad:
+            raise AssertionError(f"22a {name}: the xla output differs from "
+                                 f"the shmem one on ranks {bad} (max|diff| "
+                                 f"{[c['err'] for c in cs]})")
+        for r_, c in enumerate(cs):
+            x = c["xla"]
+            if x["rounds"] or not _no_runtime(x["counts"]) \
+                    or not x["lib_calls"]:
+                raise AssertionError(f"22a {name}: rank {r_} under xla took "
+                                     f"{x['rounds']} heap rounds, "
+                                     f"{x['lib_calls']} library calls, "
+                                     f"launched {x['counts']}")
+        walls = {b: max(min(c[b]["walls"]) for c in cs)
+                 for b in ("shmem", "xla")}
+        rows.append(f"{name} ({cs[0]['bytes']} B a PE) shmem "
+                    f"{walls['shmem'] * 1e3:.3f} / xla "
+                    f"{walls['xla'] * 1e3:.3f} ms (x"
+                    f"{walls['xla'] / walls['shmem']:.2f}; max|diff| "
+                    f"{max(c['err'] for c in cs):.3g}; heap rounds a shmem "
+                    f"call {cs[0]['shmem']['rounds'] // XLA_COLL_ITERS}, "
+                    f"library calls an xla call "
+                    f"{cs[0]['xla']['lib_calls'] // XLA_COLL_ITERS})")
+    paths.append({k: sum(c["xla"]["counts"][k] for p in per
+                         for c in p.values())
+                  for k in XLA_RUNTIME + ("flash_attention",)})
+    log(f"  22a the collectives on 4 ranks (grad_sync on 2x2), each "
+        f"backend's wall (best of {XLA_COLL_ITERS} after a warm-up, slowest "
+        f"rank): " + "; ".join(rows) + "; xla output == shmem output on "
+        f"every rank (moves bit for bit, sums within {XLA_SUM_TOL}), no "
+        f"heap round and no kernel 1-3 launch under xla ({card})")
+
+    # 22b
+    per = [r_["22b"] for r_ in res]
+    losses = per[0]["losses"]
+    want16 = default16b[0]["losses"]
+    s16 = plan["run"]["steps"]
+    if any(p["losses"] != losses for p in per) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"22b: the ranks' losses "
+                             f"{[p['losses'] for p in per]}")
+    d0, d1 = abs(losses[0] - l1_16b[0]), abs(losses[1] - want16[1])
+    if not (d0 <= SPMD_LOSS_TOL[0] and d1 <= XLA_STEP1_TOL):
+        raise AssertionError(f"22b: losses {losses}: step 0 {d0} from the "
+                             f"1x1 loss (bound {SPMD_LOSS_TOL[0]}), step 1 "
+                             f"{d1} from 16b's default sync (bound "
+                             f"{XLA_STEP1_TOL})")
+    for r_, (p, d) in enumerate(zip(per, default16b)):
+        fa_step = d["counts"]["flash_attention"] / s16
+        if p["rounds"] or not _no_runtime(p["counts"]) or \
+                p["counts"]["flash_attention"] / XLA_TRAIN_STEPS != fa_step:
+            raise AssertionError(f"22b: rank {r_} took {p['rounds']} heap "
+                                 f"rounds, launched {p['counts']} (kernel 4 "
+                                 f"a step: 16b's {fa_step:g})")
+    walls = per[0]["walls"]
+    log(f"  22b {cfg.name} by the launcher at --data 2 --model 2 --comm xla,"
+        f" {XLA_TRAIN_STEPS} steps at seq {plan['run']['seq_len']} batch "
+        f"{plan['run']['batch']} from 16b's tree: losses "
+        + ", ".join(repr(x) for x in losses) + f" (1x1 step 0 "
+        f"{l1_16b[0]!r}: |diff| {d0:.3g}, bound {SPMD_LOSS_TOL[0]:g}; 16b "
+        f"default step 1 {want16[1]!r}: |diff| {d1:.3g}, bound "
+        f"{XLA_STEP1_TOL:g}); step wall ms (rank 0) "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls) + " against 16b's "
+        + ", ".join(f"{w * 1e3:.1f}" for w in default16b[0]["walls"])
+        + "; a step a rank: heap rounds 0 (16b "
+        f"{default16b[0]['rounds'] / s16:g}), library calls "
+        f"{per[0]['lib_calls'] / XLA_TRAIN_STEPS:g}, host time in them ms "
+        + ", ".join(f"{p['lib_s'] / XLA_TRAIN_STEPS * 1e3:.1f}" for p in per)
+        + " (16b's in its rounds' syncs "
+        + ", ".join(f"{d['sync_s'] / s16 * 1e3:.1f}" for d in default16b)
+        + "), kernel 4 "
+        + f"{per[0]['counts']['flash_attention'] / XLA_TRAIN_STEPS:g}"
+        + ", kernels 1-3 0; peak per rank GiB "
+        + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in per) + " (16b "
+        + ", ".join(f"{d['peak'] / 2**30:.3f}" for d in default16b)
+        + f") ({card})")
+    paths.append({k: sum(p["counts"][k] for p in per)
+                  for k in per[0]["counts"]})
+
+    # 22c
+    per = got["22c"]
+    lim_o = EP_GATE_RTOL * max(p["shmem"]["out"].abs().max().item()
+                               for p in per)
+    lim_g = EP_GATE_RTOL * max(p["shmem"]["grad"].abs().max().item()
+                               for p in per)
+    worst_o = worst_g = 0.0
+    exact = True
+    for r_, p in enumerate(per):
+        s_, x = p["shmem"], p["xla"]
+        if not torch.equal(x["tope"], s_["tope"]) or not x["kept"]:
+            raise AssertionError(f"22c: rank {r_}'s xla picks differ from "
+                                 f"the shmem gate's (or dropped)")
+        if x["rounds"] or not _no_runtime(x["counts"]) or not x["lib_calls"]:
+            raise AssertionError(f"22c: rank {r_} under xla took "
+                                 f"{x['rounds']} heap rounds, "
+                                 f"{x['lib_calls']} library calls, launched "
+                                 f"{x['counts']}")
+        worst_o = max(worst_o, (x["out"] - s_["out"]).abs().max().item())
+        worst_g = max(worst_g, (x["grad"] - s_["grad"]).abs().max().item())
+        exact = exact and torch.equal(x["out"], s_["out"])
+    if not (worst_o <= lim_o and worst_g <= lim_g):
+        raise AssertionError(f"22c: the xla gate is off the shmem gate by "
+                             f"{worst_o} (out, limit {lim_o}), {worst_g} "
+                             f"(grad, limit {lim_g})")
+    log(f"  22c granite-moe-3b-a800m's MoE layer gate on 1x4 under xla (its "
+        f"alltoalls and allgather through gloo): picks == the shmem gate's "
+        f"on every rank, none dropped; max|out - shmem| {worst_o:.3e} "
+        f"(limit {lim_o:.3e}; output bit for bit: {exact}), max|grad - "
+        f"shmem| {worst_g:.3e} (limit {lim_g:.3e}); library calls a rank "
+        f"{per[0]['xla']['lib_calls']} against {per[0]['shmem']['rounds']} "
+        f"heap rounds under shmem; no heap round and no kernel 1-3 launch "
+        f"under xla ({card})")
+    paths.append({k: sum(p["xla"]["counts"][k] for p in per)
+                  for k in per[0]["xla"]["counts"]})
+
+    # 22d
+    per, one = got["22d"], got["22d_1x1"]
+    P, B = XLA_SERVE["prompt_len"], XLA_SERVE["batch"]
+    if any(p["paged"] for p in per):
+        raise AssertionError("22d: the serve launcher at --comm xla chose "
+                             "the paged engine")
+    for r_, p in enumerate(per):
+        if not np.array_equal(p["tokens"], per[0]["tokens"]):
+            raise AssertionError(f"22d: rank {r_}'s tokens differ from rank "
+                                 f"0's")
+        if p["rounds"] or not _no_runtime(p["counts"]) or not p["lib_calls"]:
+            raise AssertionError(f"22d: rank {r_} took {p['rounds']} heap "
+                                 f"rounds, {p['lib_calls']} library calls, "
+                                 f"launched {p['counts']}")
+    toks, want = per[0]["tokens"], one["tokens"]
+    if toks.shape != (B, XLA_SERVE["tokens"]) or want.shape != toks.shape:
+        raise AssertionError(f"22d: tokens {toks.shape}, 1x1 {want.shape}")
+    ties, upto = [], []
+    for i in range(B):
+        diff = np.flatnonzero(toks[i] != want[i])
+        upto.append(int(diff[0]) if diff.size else None)
+        if not diff.size:
+            continue
+        gap, big = (a[i] for a in one["seen"][P - 1 + int(diff[0])])
+        lim = PREFILL_LOGITS_RTOL * float(big)
+        ties.append((i, int(diff[0]), float(gap), lim))
+        if not gap <= lim:
+            raise AssertionError(f"22d: request {i}'s token {int(diff[0])} "
+                                 f"differs from the 1x1 loop's at a top-2 "
+                                 f"gap of {gap} (near-tie bound {lim})")
+    n_tok, wall = toks.size, per[0]["wall"]
+    log(f"  22d the serve launcher at --model 2 --comm xla on phase 3's "
+        f"prompts ({B} x {P} tokens, {XLA_SERVE['tokens']} new): the "
+        f"dense-cache loop, every rank's tokens == rank 0's; first token "
+        f"differing from the 1x1 loop's, each request: {upto} (None: none)"
+        + (f", at near ties (request, token, top-2 gap, bound) {ties}"
+           if ties else "") + f"; {n_tok} tokens in {wall:.3f} s "
+        f"({n_tok / wall:.1f} tok/s; the 1x1 loop {one['wall']:.3f} s, "
+        f"build included), {per[0]['lib_calls']} library calls a rank "
+        f"({per[0]['lib_calls'] / (P + XLA_SERVE['tokens'] - 1):g} a step), "
+        f"host time in them " + ", ".join(f"{p['lib_s']:.3f}" for p in per)
+        + f" s (ranks); no heap round and no kernel 1-3 launch ({card})")
+    paths.append({k: sum(p["counts"][k] for p in per)
+                  for k in per[0]["counts"]})
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -7922,13 +8383,15 @@ def main() -> int:
     t16 = time.perf_counter()
     spmd_paths = spmd_collectives(torch, np, card)
     # phase 20's work rides in the warm ranks of 16b's and 18's spawns,
-    # phase 21's in 16b's after it
+    # phase 21's in 16b's after it, phase 22's in 16b's, 17b's and 18's
     plan20, plan21 = fsdp_plan(serving), pod_plan(serving)
+    plan22, phase22 = xla_plan(serving), {}
     got, _, l1_16b, extra16b = mesh_train(
         torch, np, serving.CONFIG,
         dict(SPMD_TRAIN, lr=serving.TRAIN_RUN["lr"]), SPMD_LOSS_TOL, card,
         "16b", extra=(("20", "fsdp_rank4", plan20["rank4"]),
-                      ("21", "pod_rank4", plan21["rank4"])))
+                      ("21", "pod_rank4", plan21["rank4"]),
+                      ("22", "xla_rank4", plan22["rank4"])))
     fsdp4 = [r_["20"] for r_ in extra16b]
     spmd_paths += got
     log(f"  phase 16 wall {time.perf_counter() - t16:.1f} s ({card})")
@@ -7954,7 +8417,7 @@ def main() -> int:
               zs.expand * zamba.CONFIG.d_model // zs.head_dim // 2,
               zs.head_dim, zs.state, zs.n_groups, zs.chunk))
     fa_ranks = []
-    for run_ in (lambda: ep_granite(torch, np, granite, card),
+    for run_ in (lambda: ep_granite(torch, np, granite, card, phase22),
                  lambda: mesh_train(torch, np, zamba.CONFIG,
                                     dict(EP_TRAIN, lr=3e-4, data=2, model=2),
                                     EP_ZAMBA_LOSS_TOL, card, "17c")[:2],
@@ -7978,7 +8441,8 @@ def main() -> int:
     t18 = time.perf_counter()
     tp_timing = serve_tp_attention(torch, fa, ref, gen, card, serving)
     tp_paths, tp_fa, tp_engines, fsdp2 = serve_tp(
-        torch, np, serving, served, card, fsdp_args=plan20["rank2"])
+        torch, np, serving, served, card, fsdp_args=plan20["rank2"],
+        phase22=phase22)
     for t, tp in zip(tp_timing, SERVE_TP):
         if t["calls"] != tp_fa[tp]:
             raise AssertionError(f"18: kernel 4 at {t['shape']} launched "
@@ -8017,12 +8481,24 @@ def main() -> int:
     log(f"  phase 21 wall in those ranks "
         f"{extra16b[0]['21']['wall']:.1f} s ({card})")
 
+    log(f"== phase 22: the library-collective backend, Comm(backend="
+        f"\"xla\") over gloo (the collectives under both backends and "
+        f"{serving.CONFIG.name} trained under --comm xla, in 16b's ranks; "
+        f"granite's MoE layer in 17b's; the serve launcher at --model 2 "
+        f"--comm xla in 18's)")
+    xla_paths = xla_phase(torch, np, serving.CONFIG, plan22,
+                          [r_["22"] for r_ in extra16b],
+                          [r_["default"] for r_ in extra16b], l1_16b,
+                          phase22, card)
+    log(f"  phase 22 wall in 16b's ranks {extra16b[0]['22']['wall']:.1f} s, "
+        f"22d in 18's {phase22['22d'][0]['wall']:.1f} s ({card})")
+
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \
         + [mamba_launches] + ring_launches + [zamba_launches] + dense_paths \
         + moe_paths + frontend_paths + service_paths + elastic_paths \
         + spmd_paths + ep_paths + tp_paths + seq_paths + fsdp_paths \
-        + pod_paths
+        + pod_paths + xla_paths
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
@@ -8050,7 +8526,9 @@ def main() -> int:
         f"20b 2x2 kill and resumes, 20b 1x2 shrink, 20c drained engine "
         f"1x2; summed over ranks) {fsdp_paths}, pod (21a the launcher on "
         f"2 x (1x2), 21b pipelined, 21b unpipelined 2x2; summed over "
-        f"ranks) {pod_paths}")
+        f"ranks) {pod_paths}, xla (22a the collectives under xla, 22b "
+        f"qwen2 2x2, 22c granite's gate 1x4, 22d the serve launcher 1x2; "
+        f"summed over ranks) {xla_paths}")
     rows = [("flash_attention", "src/repro_torch/kernels/csrc/"
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:79",
              timing)]

@@ -15,11 +15,16 @@ into the destination PE's slot of a heap every process maps:
   * `run(fn, n, ...)` — spawns `n` rank processes (`torch.multiprocessing`,
     the spawn context), gives each its rank, the heap and a gloo process
     group, runs ``fn(*args)`` in each and returns the ranks' results.
-    Gloo carries host rendezvous and barriers only, never a payload.
+    Under the paper's runtime gloo carries host rendezvous and barriers
+    only, never a payload; the library backend (`Comm(backend="xla")`)
+    runs its collectives over gloo groups of the mesh's axes.
     A rank that raises makes `run` raise (the other ranks are ended).
     No process that `run` started outlives it.
   * `current()` — inside a rank process: its `RankContext` (rank, world
-    size, heap, device, the rank mesh `launch.mesh.make_mesh` set up).
+    size, heap, device, the rank mesh `launch.mesh.make_mesh` set up,
+    and the torch.distributed groups of the mesh's axes that the
+    library backend, `Comm(backend="xla")`, runs its collectives over:
+    `RankContext.axis_group`).
 
 A delivery round (`netops.SpmdNetOps.ppermute`) is: every source stores
 its payload into its destination's slot of the current bank; then the
@@ -103,6 +108,9 @@ class RankContext:
     mesh: object = None
     rounds: int = 0            # delivery rounds so far: the bank counter
     sync_s: float = 0.0        # host seconds spent in `barrier` so far
+    lib_calls: int = 0         # library collectives so far (`lib_call`)
+    lib_s: float = 0.0         # host seconds spent in them so far
+    groups: dict = dataclasses.field(default_factory=dict)
 
     def next_bank(self) -> int:
         """The bank of the next delivery round (alternating)."""
@@ -120,6 +128,69 @@ class RankContext:
             torch.cuda.current_stream().synchronize()
         torch.distributed.barrier()
         self.sync_s += time.perf_counter() - t0
+
+    def axis_group(self, mesh, axis) -> "AxisGroup":
+        """This rank's torch.distributed group over `axis` (a name, or a
+        tuple flattened as `mesh.group` flattens it) of `mesh`, made once
+        per rank and cached by the mesh's shape and the axis.  Making a
+        group is collective over the whole world (`new_group`), so the
+        first call makes every group of the axis's partition, in one
+        order on every rank; the SPMD program reaches that call on every
+        rank at the same point."""
+        axs = tuple(axis) if isinstance(axis, tuple) else (axis,)
+        key = (mesh.axis_names, mesh.shape, axs)
+        got = self.groups.get(key)
+        if got is None:
+            parts = sorted({dataclasses.replace(mesh, rank=r).group(axs)
+                            for r in range(self.world)},
+                           key=lambda g: sorted(g))
+            mine = mesh.group(axs)
+            for ranks in parts:
+                pg = torch.distributed.new_group(sorted(ranks))
+                if ranks == mine:
+                    got = AxisGroup(pg, mine)
+            self.groups[key] = got
+        return got
+
+    def lib_call(self, fn):
+        """Run `fn()`, one library collective that waits on its work, and
+        count it and its host time (`lib_calls`, `lib_s`)."""
+        t0 = time.perf_counter()
+        fn()
+        self.lib_s += time.perf_counter() - t0
+        self.lib_calls += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """A mesh axis's torch.distributed group seen from one rank.
+    `ranks` are its world ranks in PE order (entry i has PE id i on the
+    axis); torch numbers a group's members by ascending world rank, so
+    `order[g]` is the PE id of group rank g and `index[i]` the group rank
+    of PE i.  For a tuple axis whose flattened order is not ascending
+    world rank (("model", "data") of a data x model mesh) the two differ,
+    and a gather's blocks and an exchange's routes are mapped through
+    them."""
+    pg: object
+    ranks: tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def order(self) -> list[int]:
+        return sorted(range(self.size), key=lambda i: self.ranks[i])
+
+    @property
+    def index(self) -> list[int]:
+        srt = sorted(self.ranks)
+        return [srt.index(r) for r in self.ranks]
+
+    @property
+    def in_order(self) -> bool:
+        """Whether group rank and PE id agree."""
+        return list(self.ranks) == sorted(self.ranks)
 
 
 _CURRENT: RankContext | None = None

@@ -126,12 +126,14 @@ def shard_mapped(fn, dims: tuple[int, ...], per_rank_args=None, *,
                     device=device, slot_bytes=slot_bytes)
 
 
-def make_init_fn(cfg: ModelConfig, mesh):
+def make_init_fn(cfg: ModelConfig, mesh, backend: str = "shmem"):
     """(init, shapes, specs): ``init(seed, device)`` in a rank gives its
     local shards; every rank draws from the same seed, so replicated
     leaves are identical everywhere.  With cfg.fsdp each fsdp leaf is
     drawn whole (model-local, data-full) and cut to the rank's rows
-    (`sharding.fsdp_shard_init`), as the reference's init."""
+    (`sharding.fsdp_shard_init`), as the reference's init.  The init
+    runs no collective: `backend` is taken, as the reference's, and
+    changes nothing."""
     dp, _, _ = mesh_dims(mesh)
     tp = eff_tp(cfg, mesh)
     shapes, specs = abstract_params(cfg, mesh)

@@ -44,13 +44,15 @@ through `_decode_loop`.
 --data and --model lay the run out on a data x model mesh of rank
 processes sharing the device (`core.spmd`), as the reference's flags lay
 it on devices, with the reference's choice of path: the dense and vlm
-families at --data 1 run the paged engine on the (1, model) mesh (every
-rank its own replica of the scheduler, in lockstep); the other families,
-or --data > 1, run the dense-cache decode loop with the batch over
-`data`.  On a mesh rank 0 prints the result and writes the documents.
---comm shmem is the paper's runtime; --comm xla comes with slice 5d.
+families at --data 1 under --comm shmem run the paged engine on the (1,
+model) mesh (every rank its own replica of the scheduler, in lockstep);
+the other families, --data > 1 or --comm xla run the dense-cache decode
+loop with the batch over `data`.  On a mesh rank 0 prints the result and
+writes the documents.  --comm shmem is the paper's runtime; --comm xla
+runs the collectives as the library's over gloo (`parallel/libcoll.py`).
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b --model 2
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --model 2 --comm xla
   python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke --device cpu \\
       --data 2 --model 2
 """
@@ -64,7 +66,8 @@ import numpy as np
 import torch
 
 
-def _decode_loop(cfg, device, args, params=None, mesh=None):
+def _decode_loop(cfg, device, args, params=None, mesh=None,
+                 backend: str = "shmem"):
     """The reference's `_legacy_decode_loop`: seeded weights (or
     `params`: this process's tree, on a mesh its local shards), dense
     decode caches of --cache-len slots, --prompt-len prompt tokens fed
@@ -72,6 +75,7 @@ def _decode_loop(cfg, device, args, params=None, mesh=None):
     the lowest index of the largest logit over the whole vocabulary).
     On a data x model `mesh` each rank decodes its slice of the batch
     over `data` on its shards and the tokens are gathered over `data`.
+    The step's collectives run on `backend` (the launcher's --comm).
     Returns the (batch, tokens) generated ids."""
     from ..models import transformer
     from ..parallel.comm import Comm
@@ -94,8 +98,8 @@ def _decode_loop(cfg, device, args, params=None, mesh=None):
     b_local = prompt.shape[0]
     cache = transformer.init_cache(cfg, tp, b_local, args.cache_len,
                                    device=device)
-    decode = sstep.build_decode_step(cfg)
-    comm = Comm()
+    decode = sstep.build_decode_step(cfg, backend=backend)
+    comm = Comm(backend=backend)
     prompt_d = torch.as_tensor(prompt, device=device).long()
     t0 = time.perf_counter()
     tok = prompt_d[:, :1]
@@ -134,8 +138,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--model", type=int, default=1,
                     help="tensor-parallel ranks")
     ap.add_argument("--comm", default="shmem", choices=["shmem", "xla"],
-                    help="the collectives' backend (xla comes with slice "
-                         "5d)")
+                    help="the collectives' backend: the paper's runtime "
+                         "or the library collectives (the dense-cache "
+                         "loop)")
     ap.add_argument("--batch", type=int, default=4,
                     help="number of requests (batch mode) / arrival batch")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -178,6 +183,15 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _paged(cfg, args) -> bool:
+    """The reference's choice of path: the paged engine for the dense and
+    vlm families at --data 1 under --comm shmem, else the dense-cache
+    decode loop."""
+    from ..models import transformer
+    return (cfg.family in transformer.paged_families() and args.data == 1
+            and args.comm == "shmem")
+
+
 def run(argv=None, *, params=None):
     """Parse `argv` and serve; returns the generated tokens (rank 0's
     on a mesh).  `params`, when given, is the GLOBAL parameter tree (the
@@ -185,20 +199,16 @@ def run(argv=None, *, params=None):
     rank serves its local shards of it."""
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.comm != "shmem":
-        ap.error("--comm xla is not ported yet: it comes with slice 5d "
-                 "(the xla backend)")
 
     from .. import resolve_device
     from ..configs import get_config, smoke_config
-    from ..models import transformer
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, fsdp=False)
     if cfg.is_encoder:
         raise SystemExit("encoder-only arch has no decode loop")
     device = resolve_device(args.device)
-    paged = cfg.family in transformer.paged_families() and args.data == 1
+    paged = _paged(cfg, args)
     if not paged:
         if cfg.family != "ssm" and cfg.window is None \
                 and args.prompt_len + args.tokens - 1 > args.cache_len:
@@ -239,7 +249,7 @@ def _serve(args, cfg, device, paged, params=None, mesh=None):
     if not paged:
         params = None if params is None else transformer.map_params(
             lambda t: t.to(device), params)
-        return _decode_loop(cfg, device, args, params, mesh)
+        return _decode_loop(cfg, device, args, params, mesh, args.comm)
     lead = mesh is None or mesh.rank == 0
     profiler = None
     if args.trace_out:

@@ -22,7 +22,10 @@ the reference's has: with fsdp, data rank 0's rows of each per-layer
 leaf, and int8 moments as rank 0 holds them (`train_loop`'s `state`).  --shard-strategy dp_only replicates the
 parameters and splits the batch over data x model.  --topo,
 --allreduce-algo, --pipeline-chunks and --embedding steer the mesh's
-collectives as the reference's flags do.
+collectives as the reference's flags do; --comm xla runs them as the
+library collectives over gloo instead of the paper's runtime
+(`parallel/libcoll.py`; --grad-rs is then the reference's per-bucket
+sync).
 
 The audio frontend trains on stub frames (B, L, d_model) and the vision
 one on stub frontend embeds (B, n_frontend_tokens, d_model) beside the
@@ -36,9 +39,6 @@ per-step wall-time histogram and the loss gauge; --autotune/--tuning-db
 hand the step a measured tuner (on one device no collective consults
 it; on a data axis of more than one PE --autotune first calibrates with
 the reference's small SIM sweep, once, before the ranks start).
-
-The flags of the reference launcher whose services are not ported yet
-are accepted and refused with the slice that brings them.
 """
 from __future__ import annotations
 
@@ -49,13 +49,6 @@ import sys
 import time
 
 import numpy as np
-
-# reference flags refused here: (flag, value meaning "not asked for",
-# the slice that brings the service)
-_UNPORTED = [
-    ("comm", "shmem", "slice 5d (the xla backend)"),
-]
-
 
 @dataclasses.dataclass
 class TrainRun:
@@ -100,8 +93,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--pod", type=int, default=0)
     ap.add_argument("--comm", default="shmem", choices=["shmem", "xla"],
-                    help="the collectives' backend (xla comes with slice "
-                         "5d)")
+                    help="the collectives' backend: the paper's runtime "
+                         "or the library collectives")
     ap.add_argument("--topo", default=None)
     ap.add_argument("--embedding", default="off",
                     choices=["off", "auto", "snake"])
@@ -165,15 +158,9 @@ def _chunks(args):
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The launcher's flags; those not ported yet end the parse with an
-    error naming their slice."""
-    ap = _parser()
-    args = ap.parse_args(sys.argv[1:] if argv is None else list(argv))
-    for name, unset, slice_ in _UNPORTED:
-        if getattr(args, name) != unset:
-            ap.error(f"--{name.replace('_', '-')} is not ported yet: it "
-                     f"comes with {slice_}")
-    return args
+    """The launcher's flags."""
+    return _parser().parse_args(sys.argv[1:] if argv is None
+                                else list(argv))
 
 
 def _tuner(args, topo, device):
@@ -300,23 +287,23 @@ def train_loop(args, params=None, topo=None, tuner=None, *,
         embedding=None if args.embedding == "off" else args.embedding,
         autotune=tuner if args.autotune else None, profile=profiler)
     if mesh is None:
-        step_fn = tstep.build_train_step(cfg, **knobs)
+        step_fn = tstep.build_train_step(cfg, backend=args.comm, **knobs)
         if params is None:
             params = transformer.init_params(cfg, seed=0, device=device)
     else:
         owned = params is None          # its own init, or `shards`
         step_fn, (_, specs), _ = build.make_train_step(
-            cfg, mesh, donate=owned, **knobs)
+            cfg, mesh, args.comm, donate=owned, **knobs)
         if shards is not None:
             params = shards
         elif owned:
-            params = build.make_init_fn(cfg, mesh)[0](0, device)
+            params = build.make_init_fn(cfg, mesh, args.comm)[0](0, device)
         else:
             params = convert.local_shards(params, cfg, mesh)
     params = transformer.map_params(lambda t: t.to(device), params)
     opt_state = opt.init_state(params, adamw, cfg.local_global_period)
     if mesh is not None:
-        comm = Comm(build.axis_spec(mesh, cfg))
+        comm = Comm(build.axis_spec(mesh, cfg), args.comm)
         spec_leaves = sharding.spec_leaves(params, specs)
         # int8 moments are flat blocks over the rank's own leaves: the
         # reference gives them the spec P(), so its checkpoint holds

@@ -20,9 +20,10 @@ replicated), and the MoE layer shards its experts over the EP group
 pairwise alltoall.  Every decode path runs at tp > 1 on the rank's
 shards; a replicated-KV cache stores only the distinct KV heads each
 device's q heads read (`kv_cache_plan`).  Over a data axis of more than
-one PE, `attention` runs the sequence-sharded ring (`attention="ring"`)
-and `attention_decode` a cache whose sequence is sharded over `data`
-(`seq_shards`), its softmax statistics combined by allreduces there.
+one PE, `attention` runs the sequence-sharded ring (`attention="ring"`,
+on the shmem backend) and `attention_decode` a cache whose sequence is
+sharded over `data` (`seq_shards`), its softmax statistics combined by
+allreduces there.
 Weights are
 plain tensors in dicts, initialised from a `torch.Generator`.  The paged
 KV pool and the dense KV cache are updated in place (the JAX functions
@@ -304,14 +305,15 @@ def attention(comm: Comm, cfg: ModelConfig, p: Params, x, positions, *,
     the batch: row 0's are read), and this PE's query shard attends
     against the KV ring of `core.fusion.ring_attention` on the data
     axis's `spmd_ctx` (kernel 6 once a step, each rotation a put_nbi).
-    On a data axis of one PE the ring is this attention, as in the
-    reference."""
+    On a data axis of one PE, or on the xla backend, each PE attends its
+    own shard, as in the reference."""
     tp = comm.axis_size(comm.axes.model)
     B, L, _ = x.shape
     q, k, v = attention_qkv(cfg, p, x, positions, tp)
     k, v = _local_kv(comm, cfg, k, v, tp)
     window = layer_window(cfg, is_local_layer)
-    if cfg.attention == "ring" and comm.axis_size(comm.axes.data) > 1:
+    if (cfg.attention == "ring" and comm.backend == "shmem"
+            and comm.axis_size(comm.axes.data) > 1):
         from ..core import fusion, shmem
         pos1 = positions[0].to(torch.int32)[None]     # shared across batch
         o = fusion.ring_attention(

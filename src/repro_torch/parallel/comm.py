@@ -10,28 +10,42 @@ and call its collectives at the same places as in `repro`.  Axis roles:
            then across pods (`grad_sync`, `grad_sync_bucketed`); the
            pipeline's stage-to-stage puts (`parallel/pipeline.py`)
 
-Inside a rank process of `core.spmd.run` whose mesh `launch.mesh` made,
-axis sizes and indices are read from that mesh and every collective runs
-the paper's algorithms (`core/collectives.py`, `core/fusion.py`) over the
-axis's `SpmdNetOps`: each PE's local tensor viewed with a leading PE row
-of one.  Outside a rank process the mesh is one device: every axis has
-size 1, the allreduces are the identity, and the bucketed gradient
-syncs run the same collectives on `SimNetOps(1)`; inside a rank process
-a Comm needs the rank mesh and raises without one.  All collectives are
-differentiable (compositions of the SPMD ppermute Function, the block
-moves and the sum combine), so the manual-TP backward is the reversed
-communication schedule, as the reference gets it from the transpose of
-lax.ppermute.
+Two backends, as the reference's substrate switch (`--comm shmem|xla`):
+
+  shmem — the paper's runtime.  Inside a rank process of `core.spmd.run`
+          whose mesh `launch.mesh` made, axis sizes and indices are read
+          from that mesh and every collective runs the paper's
+          algorithms (`core/collectives.py`, `core/fusion.py`) over the
+          axis's `SpmdNetOps`: each PE's local tensor viewed with a
+          leading PE row of one.  All collectives are differentiable
+          (compositions of the SPMD ppermute Function, the block moves
+          and the sum combine), so the manual-TP backward is the
+          reversed communication schedule, as the reference gets it from
+          the transpose of lax.ppermute.
+  xla   — the vendor-library baseline (the reference's lax collectives):
+          each collective is one torch.distributed call over the axis's
+          process group (`parallel/libcoll.py`); the gradient sync is
+          one allreduce over pod x data.  `ppermute` (the pipeline's
+          stage puts) stays the heap round on both backends, as the
+          reference's is lax.ppermute on both.
+
+Outside a rank process the mesh is one device: every axis has size 1,
+the collectives are the identity, and the bucketed gradient syncs of
+shmem run on `SimNetOps(1)`; inside a rank process a Comm needs the rank
+mesh and raises without one.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from ..core import collectives as coll
 from ..core import fusion
 from ..core import spmd
 from ..core import team as team_mod
 from ..core.netops import SimNetOps, SpmdNetOps, tree_map
+from . import libcoll
 
 _UNSET = object()
 
@@ -56,7 +70,9 @@ class AxisSpec:
 class Comm:
     """Substrate-neutral collective surface used by models and training.
 
-    backend: "shmem" (the paper's runtime; "xla" is not ported).
+    backend: "shmem" (the paper's runtime) or "xla" (the library
+    collectives, `parallel/libcoll.py`); the tuning knobs steer shmem's
+    collectives only.
     tuning (as the reference's):
       allreduce_algo : "paper" (dissemination for pow2 / ring otherwise,
                        §3.6 verbatim), "auto" (cost-model selection on
@@ -81,9 +97,8 @@ class Comm:
                  allreduce_algo: str = "paper", grad_rs: bool = False,
                  topo=None, link=None, pipeline_chunks=None, embedding=None,
                  tuner=None, profile=None):
-        if backend != "shmem":
-            raise NotImplementedError(f"backend {backend!r}: only the shmem "
-                                      f"backend is ported")
+        if backend not in ("shmem", "xla"):
+            raise ValueError(f"backend {backend!r}")
         if allreduce_algo not in ("paper", "auto", "rd", "ring", "ring_emb",
                                   "hier"):
             raise ValueError(f"allreduce_algo {allreduce_algo!r}")
@@ -122,6 +137,11 @@ class Comm:
         if got is None:
             got = self._nets[key] = SpmdNetOps(axis, self.mesh)
         return got
+
+    def _group(self, axis):
+        """The axis's library process group (an axis of more than one
+        PE: so a rank process with its mesh)."""
+        return spmd.current().axis_group(self.mesh, axis)
 
     def _topo_for(self, net):
         """The configured topology, only when it describes this axis's
@@ -170,6 +190,11 @@ class Comm:
     def allreduce(self, x, axis, op: str = "sum"):
         if self.axis_size(axis) == 1:
             return x
+        if self.backend == "xla":
+            group = self._group(axis)
+            if op == "sum":
+                return tree_map(lambda v: libcoll.psum(v, group), x)
+            return tree_map(lambda v: libcoll.all_reduce(v, group, op), x)
         algo = None if self.allreduce_algo == "paper" else self.allreduce_algo
 
         def one(v):
@@ -190,6 +215,8 @@ class Comm:
     def allgather(self, x, axis, *, concat_axis: int = 0):
         if self.axis_size(axis) == 1:
             return x
+        if self.backend == "xla":
+            return libcoll.gather(x, self._group(axis), concat_axis)
         net = self._net(axis, x.device)
         return coll.fcollect(net, x[None], axis=concat_axis,
                              topo=self._topo_for(net), link=self.link,
@@ -203,6 +230,10 @@ class Comm:
         n = self.axis_size(axis)
         if n == 1:
             return x
+        if self.backend == "xla":
+            if op != "sum":
+                raise NotImplementedError(op)
+            return libcoll.psum_scatter(x, self._group(axis), scatter_axis)
         net = self._net(axis, x.device)
         moved = x.movedim(scatter_axis, 0)
         if moved.shape[0] % n:
@@ -221,10 +252,15 @@ class Comm:
         flattened into one PE space): block j of `split_axis` goes to PE
         j, and the block from PE i lands at block i (the paper's pairwise
         exchange, `coll.alltoall`).  In place, so it splits and
-        concatenates along one axis.  Its gradient is the inverse
-        exchange, from the delivery Function's backward."""
+        concatenates along one axis; the xla backend's (all_to_all,
+        tiled) also along two.  Its gradient is the inverse exchange."""
         if axis is None or axis == ():
             return x
+        if self.backend == "xla":
+            if self.axis_size(axis) == 1:
+                return x
+            return libcoll.exchange(x, self._group(axis), split_axis,
+                                    concat_axis)
         if split_axis != concat_axis:
             raise ValueError("shmem alltoall is in-place ragged: "
                              "split_axis must equal concat_axis")
@@ -237,6 +273,15 @@ class Comm:
     def broadcast(self, x, axis, root: int = 0):
         if self.axis_size(axis) == 1:
             return x
+        if self.backend == "xla":
+            # the reference's emulation: root's value, zeros elsewhere,
+            # then the psum (values and gradient follow it; every rank
+            # keeps `v` in its graph, so every rank runs the backward's
+            # psum)
+            keep = self.axis_index(axis) == root
+            return self.allreduce(tree_map(lambda v: torch.where(
+                torch.tensor(keep, device=v.device), v,
+                torch.zeros_like(v)), x), axis)
         return coll.broadcast(self._net(axis, x.device), x[None], root,
                               profile=self._prof(), tuner=self._sel)[0]
 
@@ -257,11 +302,15 @@ class Comm:
 
     def grad_sync(self, grads, *, mean: bool = True):
         """Average each gradient tensor (a list, or one tensor) over the
-        data (and pod) axes: within a pod ring reduce-scatter + allgather
-        with `grad_rs`, else the allreduce of `allreduce_algo`; then the
-        allreduce across pods, as the reference's (fewest, largest
-        messages on the slow links)."""
+        data (and pod) axes.  shmem: within a pod ring reduce-scatter +
+        allgather with `grad_rs`, else the allreduce of `allreduce_algo`;
+        then the allreduce across pods, as the reference's (fewest,
+        largest messages on the slow links).  xla: one allreduce over the
+        flattened pod x data group."""
         def one(g):
+            if self.backend == "xla":
+                out = self.allreduce(g, self.axes.grad_axes())
+                return out / self._scale() if mean else out
             if self.grad_rs:
                 net = self._net(self.axes.data, g.device)
                 team = coll.embedding_team(self._embedding_for(net),
@@ -285,9 +334,13 @@ class Comm:
         pod axis each bucket is then allreduced across pods.  On a 2D+
         `topo` with allreduce_algo "auto"/"hier", a bucket whose
         hierarchical schedule prices below the flat ring runs
-        `allreduce_hier`."""
+        `allreduce_hier`.  xla: one allreduce of each bucket over the
+        flattened pod x data group."""
         if not buckets:
             return []
+        if self.backend == "xla":
+            out = [self.allreduce(b, self.axes.grad_axes()) for b in buckets]
+            return [b / self._scale() for b in out] if mean else out
         net = self._net(self.axes.data, buckets[0].device)
         topo = self._topo_for(net)
         part = self._partition_for(net) \
@@ -337,7 +390,11 @@ class Comm:
         per-bucket int8 weight-decay masks; c1/c2: ``1 - beta**t``;
         out_dtypes: per-bucket param dtypes.  Returns (updated full param
         buckets, updated moment chunks), bit for bit equal to
-        grad_sync_bucketed then apply_updates (f32 moments)."""
+        grad_sync_bucketed then apply_updates (f32 moments).  shmem only,
+        as the reference's."""
+        if self.backend != "shmem":
+            raise ValueError("grad_rs='fused' runs on the shmem backend "
+                             "only")
         if self.axes.pod is not None:
             raise ValueError("grad_rs='fused' does not support a pod axis")
         if not g_bufs:

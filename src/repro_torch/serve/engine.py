@@ -164,15 +164,16 @@ class ServeEngine:
     heads.  `capture_logits` keeps each emitted token's logits over the
     whole vocabulary (on a mesh gathered over `model`).
     `profile`/`metrics` attach the observability layer (module
-    docstring); `tuner` rides on the engine's `Comm` (on one device
-    every axis has size 1, so no collective consults it)."""
+    docstring); `backend` ("shmem" or "xla") and `tuner` ride on the
+    engine's `Comm` (on one device every axis has size 1, so no
+    collective consults them)."""
 
     def __init__(self, cfg, mesh=None, *, params=None, device=None,
                  max_slots: int = 4, page_size: int = 8, max_seq: int = 64,
                  prompt_bucket: int = 32, kv_heap_bytes: int | None = None,
                  eos_id: int | None = None, init_seed: int = 0,
-                 capture_logits: bool = False, tuner=None, profile=None,
-                 metrics=None):
+                 capture_logits: bool = False, backend: str = "shmem",
+                 tuner=None, profile=None, metrics=None):
         cfg = dataclasses.replace(cfg, fsdp=False)   # serving never fsdp
         if cfg.family not in transformer.paged_families():
             raise ValueError(
@@ -202,7 +203,7 @@ class ServeEngine:
         self.max_slots = int(max_slots)
         self.eos_id = eos_id
         self.capture_logits = capture_logits
-        self.comm = Comm(AxisSpec(), tuner=tuner, profile=profile)
+        self.comm = Comm(AxisSpec(), backend, tuner=tuner, profile=profile)
         self.profile = profile
         self.metrics = metrics
         self._trace = profile if isinstance(profile, Tracer) else None

@@ -133,7 +133,8 @@ def fused_grad_sync(comm: Comm, grads, sync_mask, *, fuse: bool = True,
     that are data-replicated; others pass through untouched.  With `fuse`
     the leaves are packed onto flat buckets of `bucket_bytes`: one
     collective per bucket (with comm.grad_rs, the bucketed reduce-scatter
-    + allgather of all buckets) instead of one per tensor."""
+    + allgather of all buckets) instead of one per tensor; on the xla
+    backend one grad_sync per bucket, as the reference's."""
     if not comm.grad_rs and comm._scale() == 1:
         return grads        # one data PE: the mean is g / 1, bit for bit
     leaves, treedef = tree_flatten(grads)
@@ -154,7 +155,7 @@ def fused_grad_sync(comm: Comm, grads, sync_mask, *, fuse: bool = True,
             buckets.append(cur)
         specs = [heap.plan_pack(b, dtype=torch.float32) for b in buckets]
         bufs = [heap.pack(b, s) for b, s in zip(buckets, specs)]
-        if comm.grad_rs:
+        if comm.grad_rs and comm.backend == "shmem":
             outs = comm.grad_sync_bucketed(bufs, mean=True)
         else:
             outs = [comm.grad_sync(buf, mean=True) for buf in bufs]
@@ -226,7 +227,9 @@ def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
     sync, False one allreduce per bucket, "auto" switches it on above
     GRAD_RS_AUTO_BYTES of synced gradient, and "fused" fuses the sync
     into the optimizer (opt_state from init_fused_opt_state, f32
-    moments).  allreduce_algo, pipeline_chunks, topo, link and embedding
+    moments; shmem only: on the xla backend "fused" syncs each bucket
+    with one grad_sync and the optimizer runs apart, as the
+    reference's).  allreduce_algo, pipeline_chunks, topo, link and embedding
     are the step `Comm`'s (see there); on a one-PE data axis every sync
     but the bucketed and fused forms is the identity, whatever they say.
     `autotune` (a core.tuner.Tuner or TunedSelector) and `profile` (a
@@ -258,7 +261,7 @@ def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
         loss, grads = loss_and_grads(comm, cfg, params, batch, mb)
         for a in axes.grad_axes():
             loss = comm.allreduce(loss, a) / comm.axis_size(a)
-        if rs == "fused":
+        if rs == "fused" and backend == "shmem":
             new_params, new_state = fused_adam_sync(
                 comm, params, grads, opt_state, adamw, mask)
             return loss, new_params, new_state
