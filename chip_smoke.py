@@ -140,9 +140,10 @@ Phases; any failure exits non-zero before the result line is printed:
      weights) over one 32768-token prompt: exactly 42 kernel-4 launches,
      21 with window 4096 (counts set to 0 just before, read just after),
      finite logits, wall, tok/s, peak; the same prefill with kernel 4
-     held to the blockwise plain version on every query row of all 42
-     calls, each checked as it happens; the f32 prefill over its first
-     8192 tokens through both, logits within 1e-2 of the largest;
+     held to the blockwise plain version on every query row of 12 of its
+     42 calls (calls i with i % 8 < 2, both its window kinds:
+     PREFILL_HELD), each checked as it happens; the f32 prefill over its
+     first 8192 tokens through both, logits within 1e-2 of the largest;
      `launch.serve --arch gemma2-9b` through main(): (4, 16) tokens from
      the paged engine sized max(--cache-len, prompt + tokens), and one
      request's prefill logits through the kernel against the plain
@@ -152,8 +153,8 @@ Phases; any failure exits non-zero before the result line is printed:
      logits, each global cache changed only at slot 32767 and each ring
      only at 4095, checked against each cache regenerated from its seed
      one at a time, the wall of a step and the peak; (d) the same
-     prefill and launcher for h2o-danube-3-4b (24 launches, all held)
-     and internlm2-20b (bf16 weights; 48 launches, all held);
+     prefill and launcher for h2o-danube-3-4b (24 launches, 6 held)
+     and internlm2-20b (bf16 weights; 48 launches, 12 held);
  11. serve the moe family at full width (phase 10's models freed first)
      — (a) kernel 4 at granite-moe-3b-a800m's calls (Hq 24 over Hkv 8, D
      64) and deepseek-v3's MLA (Hq = Hkv = 128, D 192 against a v head
@@ -165,8 +166,9 @@ Phases; any failure exits non-zero before the result line is printed:
      and 40 routed experts, top-8, f32 weights) over one 32768-token
      prompt: exactly 32 kernel-4 launches (counts set to 0 just before,
      read just after), finite logits, walls, tok/s, peak; the same
-     prefill with every call held to the blockwise plain version; the
-     f32 prefill over its first 8192 tokens through kernel 4 and through
+     prefill with a quarter of its calls held to the blockwise plain
+     version (PREFILL_HELD); the f32 prefill over its first 8192 tokens
+     through kernel 4 and through
      that version with each layer's routes (top-k experts, kept flags)
      recorded: where every layer's routes agree, logits within 1e-2 of
      the largest, else each layer's differing picks printed, the layer
@@ -189,8 +191,8 @@ Phases; any failure exits non-zero before the result line is printed:
      weights) over SERVE_RUN's frames (1, 32768, 1280) from input_specs:
      exactly 48 non-causal kernel-4 launches (counts set to 0 just
      before, read just after), finite logits, walls, frames/s, peak;
-     every call held to the blockwise plain version; forward in f32
-     compute over the first 8192 frames through kernel 4 and that
+     12 of its calls held to the blockwise plain version; forward
+     in f32 compute over the first 8192 frames through kernel 4 and that
      version: the hidden state at every position and the logits within
      1e-2 of their largest; (d) `launch.serve --arch hubert-xlarge`
      raises the reference's SystemExit with no launch and no memory;
@@ -198,7 +200,7 @@ Phases; any failure exits non-zero before the result line is printed:
      calls (Hq = Hkv = 32, D 96, causal) as 12a-b, SDPA causal; (c)
      build_prefill (32 layers, d 3072, f32 weights) over a 32768-token
      prompt with frontend embeds (1, 576, 3072) from input_specs: exactly
-     32 launches, each held; the f32 gate over 8192 tokens with the
+     32 launches, 8 held; the f32 gate over 8192 tokens with the
      embeds (logits within 1e-2), whose logits without the embeds must
      differ by more than that; (d) `launch.serve --arch phi-3-vision-
      4.2b` through the paged engine at the reference's defaults, one
@@ -383,6 +385,17 @@ Phases; any failure exits non-zero before the result line is printed:
      spawn the serve launcher's path at --model 2 --comm xla on phase
      3's prompts: the dense-cache loop (not the paged engine), tokens
      equal to the 1x1 loop's but after a near tie of the 1x1 logits.
+ 23. the dry run against the card (`launch/dryrun.py`; no rank spawned,
+     no step added) — before 16b spawns, the parent traces qwen2-0.5b's
+     train step on rank 0 of a 2x2 meta rank (`core.spmd.meta_rank`,
+     `dryrun.trace_step`: every kernel on its meta path) at 16b's shape
+     under shmem and at 22b's under xla; then every rank of 16b's default
+     run and of 22b must have taken exactly the trace's heap rounds,
+     kernel 2-5 launches and library calls a step, and its parameters
+     plus optimizer state, as `torch.cuda.memory_allocated` reads them,
+     the trace's argument bytes less the batch within the allocator's
+     512-byte rounding a tensor; the trace's peak is printed beside each
+     run's `torch.cuda.max_memory_allocated`.
 
 The run fails if a process it started (a rank, nvcc, nvidia-smi, the
 resource tracker that spawning the ranks launches) is still alive or
@@ -1702,9 +1715,14 @@ def _reset_counts():
     fu.launches = ks.launches = ra.launches = 0
 
 
+# 6c trains this many steps a sync at TRAIN_RUN's shape, not the config's
+# 12, for the time limit (the loss falls by a quarter in 6)
+TRAIN_STEPS = 6
+
+
 def train(torch, np, serving) -> dict:
-    """6c: qwen2-0.5b at full width, TRAIN_RUN's steps through the
-    launcher (default sync: apply_updates) and as many through
+    """6c: qwen2-0.5b at full width, TRAIN_STEPS steps at TRAIN_RUN's shape
+    through the launcher (default sync: apply_updates) and as many through
     build_train_step(grad_rs="fused") from the same seed-0 weights.
     Returns the launch counts of both runs and what 6d needs."""
     from repro_torch.core.heap import tree_flatten
@@ -1714,7 +1732,7 @@ def train(torch, np, serving) -> dict:
     from repro_torch.train import optimizer as opt
     from repro_torch.train import step as tstep
     cfg, run = serving.CONFIG, serving.TRAIN_RUN
-    steps, tokens = run["steps"], run["seq_len"] * run["batch"]
+    steps, tokens = TRAIN_STEPS, run["seq_len"] * run["batch"]
     per_step_fa = 2 * cfg.n_layers * cfg.microbatches
 
     def report(label, losses, walls, peak, counts):
@@ -2822,6 +2840,13 @@ ZAMBA_F32_LOGITS_RTOL = MAMBA_F32_LOGITS_RTOL
 # f32 logits of all rows at once would be 137 GB at zamba2's 32 heads,
 # those of one block of rows at most 4.3 GB
 PLAIN_ROWS = 1024
+# the full-width prefills of phases 10-13 hold kernel 4 to the blockwise
+# plain version on the calls i with i % 8 in (0, 1): a layer's attention
+# shape repeats through the stack, and gemma2's local and global layers
+# alternate, so both of its shapes are held; a quarter of the plain
+# version's cost (0.12-2.3 s a call), to leave room for phase 23's traces
+# under the time limit
+PREFILL_HELD = (8, 2)
 # kernel 4 at zamba2's attention shape (B, heads, L, D): 32 q heads over
 # 32 KV heads (a group of 1), bf16, causal; held at 4096 tokens, timed at
 # the prefill's 32768
@@ -3402,8 +3427,9 @@ def prefill_dense(torch, np, mod, ops, ref, ra, cfg=None):
     of a second prefill too (the first call in a
     process carries one-time start-up: `tools/profile_prefill` read 8.8
     s for danube's, then 0.75); then the same prefill with kernel 4 held
-    to `blockwise_attention` on every query row of each call, each
-    checked as it happens, the plain output carried on.
+    to `blockwise_attention` on every query row of the calls
+    `PREFILL_HELD` picks, each checked as it happens, the plain output
+    carried on (the kernel's on the other calls).
     Returns (params, the launch counts of the path)."""
     from repro_torch.core.heap import tree_flatten
     from repro_torch.models import transformer
@@ -3461,10 +3487,14 @@ def prefill_dense(torch, np, mod, ops, ref, ra, cfg=None):
             or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
                              f"{bool(torch.isfinite(logits).all())}")
-    over = []
+    over, calls = [], [0]
+    every, held = PREFILL_HELD
 
     def attn_both(q, k, v, **kw):
         got = kernel(q, k, v, **kw)
+        calls[0] += 1
+        if (calls[0] - 1) % every >= held:
+            return got
         want = blockwise_attention(torch, ref, ra, q, k, v, **kw)
         over.append(attention_over(torch, got, want, q.dtype)[1])
         return want
@@ -3477,16 +3507,19 @@ def prefill_dense(torch, np, mod, ops, ref, ra, cfg=None):
     err = (logits - plain).abs().max().item()
     scale = plain.abs().max().item()
     log(f"  in the bf16 prefill, on each call's inputs: kernel 4 vs the "
-        f"blockwise plain version on every query row of all {len(over)} "
-        f"calls, worst err/limit {max(over):.3f} (per call: "
+        f"blockwise plain version on every query row of {len(over)} of "
+        f"the {calls[0]} calls (i % {every} < {held}), worst err/limit "
+        f"{max(over):.3f} (per call: "
         + " ".join(f"{x:.3f}" for x in over)
         + f"); plain + kernel prefill wall {both_wall:.3f} s; bf16 logits "
         f"kernel path vs that path (not gated, see MAMBA_F32_LOGITS_RTOL): "
         f"max|err| {err:.4e}, max|logit| {scale:.4f}; argmax "
         f"{int(logits.argmax())} vs {int(plain.argmax())}")
-    if len(over) != cfg.n_layers or not max(over) <= 1.0:
-        raise AssertionError(f"kernel 4 in the prefill's calls: err/limit "
-                             f"{over}")
+    n_held = sum(i % every < held for i in range(cfg.n_layers))
+    if calls[0] != cfg.n_layers or len(over) != n_held \
+            or not max(over) <= 1.0:
+        raise AssertionError(f"kernel 4 in the prefill's {calls[0]} calls: "
+                             f"err/limit {over}")
     del logits, plain, batch
     torch.cuda.empty_cache()
     return params, counts
@@ -4937,17 +4970,29 @@ def mesh_train_rank(argv, fused_steps, extra=None):
     cfg, mesh = get_config(args.arch), rt.mesh
     shards = seed0_shards(torch, cfg, mesh)
     out = {}
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
     own = transformer.map_params(torch.clone, shards)   # the default run's
+    # phase 23: the bytes of a rank's parameters and optimizer state (the
+    # launcher's: f32 moments and the step), as the allocator reads them
+    ostate = opt.init_state(own, opt.AdamWConfig(
+        moment_dtype=cfg.moment_dtype), cfg.local_global_period)
+    torch.cuda.synchronize()
+    state_alloc = (torch.cuda.memory_allocated() - a0,
+                   len(tree_flatten((own, ostate))[0]))
+    del ostate
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()                                   # path (i) starts
-    r0, s0 = rt.rounds, rt.sync_s
+    r0, s0, c0 = rt.rounds, rt.sync_s, rt.lib_calls
     res = train_mod.train_loop(args, shards=own)
     torch.cuda.synchronize()
     out["default"] = dict(losses=res.losses, walls=res.step_s,
                           counts=_counts(),
                           peak=torch.cuda.max_memory_allocated(),
-                          rounds=rt.rounds - r0, sync_s=rt.sync_s - s0)
+                          rounds=rt.rounds - r0, sync_s=rt.sync_s - s0,
+                          lib_calls=rt.lib_calls - c0,
+                          state_alloc=state_alloc)
     del res, own
     torch.cuda.empty_cache()
     adamw = opt.AdamWConfig(lr=args.lr, moment_dtype=cfg.moment_dtype)
@@ -8148,6 +8193,94 @@ def xla_phase(torch, np, cfg, plan, res, default16b, l1_16b, got,
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the dry run against the card
+# ---------------------------------------------------------------------------
+# `launch/dryrun.py` traces one rank's step on the meta device; here its
+# counts are held to those of the ranks 16b and 22b run on the card.
+
+# the kernels whose launches a step of 16b and 22b the trace must equal
+DRYRUN_KERNELS = ("dma_copy", "reduce_combine", "flash_attention",
+                  "fused_update")
+ALLOC_ROUND = 512           # the caching allocator's rounding a tensor
+
+
+def dryrun_plan(torch, serving, card) -> dict:
+    """23, before 16b spawns: qwen2-0.5b's train step (the launcher's:
+    default sync, its parameters updated in place) traced on rank 0 of a
+    2x2 meta rank (`launch.dryrun.trace_step`) at 16b's shape under
+    shmem and at 22b's under xla, with the card's heap slots.  Nothing
+    is spawned and the card is not touched."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import RankMesh
+    run = SPMD_TRAIN
+    mesh = RankMesh(("data", "model"), (run["data"], run["model"]), 0)
+    batch = {k: torch.empty((run["batch"], run["seq_len"]),
+                            dtype=torch.int32, device="meta")
+             for k in ("tokens", "targets")}
+    out = {}
+    for comm in ("shmem", "xla"):
+        t0 = time.perf_counter()
+        got = dryrun.trace_step(serving.CONFIG, "train_4k", mesh, comm,
+                                batch=batch)
+        out[comm] = dict(got, wall=time.perf_counter() - t0)
+        log(f"  23 trace of {serving.CONFIG.name}'s step on rank 0 of a "
+            f"{run['data']}x{run['model']} meta rank under {comm} (batch "
+            f"{run['batch']} x {run['seq_len']}): {got['heap_rounds']} heap "
+            f"rounds, {got['lib_calls']} library calls, launches "
+            f"{got['kernel_launches']}, memory {got['memory']}, "
+            f"collectives {got['collectives']['counts']}, "
+            f"{out[comm]['wall']:.1f} s of host (no card: {card})")
+    return out
+
+
+def dryrun_phase(plan, default16b, xla22b) -> None:
+    """23: every rank of 16b's default run and of 22b took the trace's
+    heap rounds, kernel 2-5 launches and library calls a step exactly;
+    its parameters and optimizer state hold the trace's argument bytes
+    less the batch, within the allocator's rounding a tensor; the peaks
+    side by side."""
+    run = SPMD_TRAIN
+    batch_bytes = 2 * (run["batch"] // run["data"]) * run["seq_len"] * 4
+    for comm, per, steps in (("shmem", default16b, run["steps"]),
+                             ("xla", xla22b, XLA_TRAIN_STEPS)):
+        want = plan[comm]
+        exp = dict({k: want["kernel_launches"].get(k, 0)
+                    for k in DRYRUN_KERNELS},
+                   heap_rounds=want["heap_rounds"],
+                   lib_calls=want["lib_calls"])
+        for r, p in enumerate(per):
+            got = dict({k: p["counts"][k] / steps for k in DRYRUN_KERNELS},
+                       heap_rounds=p["rounds"] / steps,
+                       lib_calls=p["lib_calls"] / steps)
+            if got != exp:
+                raise AssertionError(f"23 {comm}: rank {r} took {got} a "
+                                     f"step, the dry run {exp}")
+        peaks = ", ".join(f"{p['peak'] / 2**30:.3f}" for p in per)
+        log(f"  23 {comm}: every rank's step took the dry run's counts "
+            f"exactly: {exp}; peak a rank: dry run "
+            f"{want['memory']['peak_bytes'] / 2**30:.3f} GiB (no bound), "
+            f"torch.cuda.max_memory_allocated {peaks} GiB"
+            + (" (16b's ranks also hold the shards they copied)"
+               if comm == "shmem" else ""))
+    mem = plan["shmem"]["memory"]
+    want = mem["argument_bytes"] - batch_bytes
+    if want != mem["alias_bytes"]:
+        raise AssertionError(f"23: argument bytes less the batch {want} "
+                             f"are not the donated {mem['alias_bytes']}")
+    for r, p in enumerate(default16b):
+        alloc, n = p["state_alloc"]
+        if not 0 <= alloc - want <= ALLOC_ROUND * n:
+            raise AssertionError(f"23: rank {r}'s parameters and optimizer "
+                                 f"state take {alloc} B allocated, the dry "
+                                 f"run {want} B ({n} tensors)")
+    log(f"  23 parameters + optimizer state a rank: dry run {want} B; "
+        f"memory_allocated " + ", ".join(str(p["state_alloc"][0])
+                                         for p in default16b)
+        + f" B ({default16b[0]['state_alloc'][1]} tensors, at most "
+        f"{ALLOC_ROUND} B of rounding each)")
+
+
 def main() -> int:
     try:
         import torch
@@ -8386,6 +8519,7 @@ def main() -> int:
     # phase 21's in 16b's after it, phase 22's in 16b's, 17b's and 18's
     plan20, plan21 = fsdp_plan(serving), pod_plan(serving)
     plan22, phase22 = xla_plan(serving), {}
+    plan23 = dryrun_plan(torch, serving, card)   # phase 23's traces
     got, _, l1_16b, extra16b = mesh_train(
         torch, np, serving.CONFIG,
         dict(SPMD_TRAIN, lr=serving.TRAIN_RUN["lr"]), SPMD_LOSS_TOL, card,
@@ -8492,6 +8626,13 @@ def main() -> int:
                           phase22, card)
     log(f"  phase 22 wall in 16b's ranks {extra16b[0]['22']['wall']:.1f} s, "
         f"22d in 18's {phase22['22d'][0]['wall']:.1f} s ({card})")
+
+    log(f"== phase 23: the dry run against the card ({serving.CONFIG.name}'s "
+        f"step traced on a 2x2 meta rank, held to 16b's and 22b's ranks)")
+    dryrun_phase(plan23, [r_["default"] for r_ in extra16b],
+                 [r_["22"]["22b"] for r_ in extra16b])
+    log(f"  phase 23 wall: the traces "
+        f"{sum(p['wall'] for p in plan23.values()):.1f} s of host ({card})")
 
     # each path's counts, set to 0 just before it and read just after
     paths = [launches, rt_launches, bucket_launches] + trained_counts \

@@ -17,6 +17,9 @@ cached source-row table; on the CPU it is the kernel's plain version.
     ppermute edge is a store by the sending rank's DMA kernel into the
     destination rank's slot of the symmetric heap, one round per set of
     unique sources (`CommPattern.unique_src_rounds`).
+  * ``MetaNetOps``   — the same rounds of one rank traced on the "meta"
+    device (`spmd.meta_rank`): counted, not passed (`rank_net` picks
+    it).
 
 Every net's arrays carry a leading axis of `rows` PE rows: all `n_pes`
 under SIM, this PE's one row under SPMD, so the collectives, written for
@@ -367,6 +370,38 @@ class SpmdNetOps(NetOps):
     def axis_psum(self, x):
         from . import collectives as coll
         return coll.allreduce(self, x, "sum")
+
+
+@dataclasses.dataclass(eq=False)
+class MetaNetOps(SpmdNetOps):
+    """`SpmdNetOps` of a meta rank (`spmd.meta_rank`): the same rounds of
+    `unique_src_rounds`, chunk by chunk of the heap's slots, each counted
+    as one heap round (`RankContext.rounds`) and one "collective-permute"
+    carrying the chunk's bytes; the DMA kernel's store (where this PE
+    sends) and read (where it receives) are counted on the kernel's meta
+    path (`put_copy.dma_copy_meta`) and the rounds' combine runs on its
+    own, so every launch counts as on the card.  The result is a meta
+    tensor of x's shape.  No host value of a tensor is read: `my_pe` is
+    a meta tensor, and `select` picks by this rank's PE id."""
+
+    def _round(self, v: torch.Tensor, r: CommPattern) -> torch.Tensor:
+        rt, slot = self.runtime, self.heap.slot_bytes
+        nbytes = v.numel() * v.element_size()
+        sends, recv = bool(r.src_mask[self.pe]), bool(r.dst_mask[self.pe])
+        for lo in range(0, nbytes, slot):
+            chunk = min(slot, nbytes - lo)
+            rt.next_bank()
+            rt.note("collective-permute", chunk)
+            for _ in range(sends + recv):
+                _pc.dma_copy_meta(chunk)
+        return torch.empty(v.shape, dtype=v.dtype, device=v.device)
+
+
+def rank_net(axis, mesh=None) -> SpmdNetOps:
+    """The net of this rank's PE over mesh `axis`: `MetaNetOps` in a
+    meta rank, else `SpmdNetOps`."""
+    cls = MetaNetOps if spmd.current().is_meta else SpmdNetOps
+    return cls(axis, mesh)
 
 
 def _copy_bytes(src: torch.Tensor, dst: torch.Tensor) -> None:

@@ -47,7 +47,7 @@ from . import team as team_mod
 from . import tuner as tuner_mod
 from .fault import DeadlineExceeded, LinkFailure
 from .heap import tree_flatten
-from .netops import NetOps, NocSimNetOps, SimNetOps, SpmdNetOps
+from .netops import NetOps, NocSimNetOps, SimNetOps, SpmdNetOps, rank_net
 from .pattern import CommPattern, PatternLike, as_pattern
 from .profile import Profiler, trace_clean, wait_device
 from .topology import MeshTopology
@@ -719,7 +719,7 @@ def spmd_ctx(axis, topo=None, **kw) -> ShmemContext:
     """This rank's PE of the group over mesh `axis` (inside a rank process
     of `core.spmd.run`, after `launch.mesh.make_mesh`): arrays carry this
     PE's one row on their leading axis."""
-    return ShmemContext(SpmdNetOps(axis), topo, **kw)
+    return ShmemContext(rank_net(axis), topo, **kw)
 
 
 def sim_ctx(n_pes: int, topo=None, noc: bool = False, device=None,

@@ -25,6 +25,12 @@ into the destination PE's slot of a heap every process maps:
     and the torch.distributed groups of the mesh's axes that the
     library backend, `Comm(backend="xla")`, runs its collectives over:
     `RankContext.axis_group`).
+  * `meta_rank(mesh)` — one rank of `mesh` in this process, on PyTorch's
+    "meta" device (shapes and dtypes, no storage): no process is
+    spawned, no barrier is passed and no library call is made, but every
+    heap round and library collective the rank's program issues is
+    counted as the rank would count it (`MetaRank`).  `launch/dryrun.py`
+    traces one rank's step of a production mesh this way.
 
 A delivery round (`netops.SpmdNetOps.ppermute`) is: every source stores
 its payload into its destination's slot of the current bank; then the
@@ -37,6 +43,7 @@ slots, so a barrier over one axis group would not order them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -152,13 +159,57 @@ class RankContext:
             self.groups[key] = got
         return got
 
-    def lib_call(self, fn):
+    def lib_call(self, fn, kind: str = "", nbytes: int = 0):
         """Run `fn()`, one library collective that waits on its work, and
-        count it and its host time (`lib_calls`, `lib_s`)."""
+        count it and its host time (`lib_calls`, `lib_s`); `kind` and
+        `nbytes` (its output's bytes) are for a meta rank's tally."""
         t0 = time.perf_counter()
         fn()
         self.lib_s += time.perf_counter() - t0
         self.lib_calls += 1
+
+    @property
+    def is_meta(self) -> bool:
+        return self.device.type == "meta"
+
+
+# The collective kinds a meta rank tallies: the reference dry run's names
+# for the ops it counts in the compiled HLO.
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+@dataclasses.dataclass
+class MetaRank(RankContext):
+    """One rank of `mesh` traced on the "meta" device (`meta_rank`).  Its
+    heap is meta slots of `slot_bytes` (no storage), so a heap round
+    (`netops.MetaNetOps`) is counted chunk by chunk as the rank's would
+    be, with its DMA stores and reads on the kernels' meta paths; there is
+    no barrier.  A library collective is not called but counted
+    (`lib_calls`); each heap round counts as a "collective-permute" (the
+    reference's shmem backend lowers its rounds to ppermutes) and each
+    library call under its own kind, with its output's bytes, in
+    `coll_bytes` and `coll_counts`."""
+    coll_bytes: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVE_KINDS, 0))
+    coll_counts: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVE_KINDS, 0))
+
+    def barrier(self) -> None:
+        pass
+
+    def axis_group(self, mesh, axis) -> "AxisGroup":
+        axs = tuple(axis) if isinstance(axis, tuple) else (axis,)
+        return AxisGroup(None, mesh.group(axs))
+
+    def lib_call(self, fn, kind: str = "", nbytes: int = 0):
+        self.lib_calls += 1
+        self.note(kind, nbytes)
+
+    def note(self, kind: str, nbytes: int) -> None:
+        """One collective of `kind` whose output has `nbytes`."""
+        self.coll_bytes[kind] += int(nbytes)
+        self.coll_counts[kind] += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,8 +256,28 @@ def current() -> RankContext:
 
 
 def active() -> bool:
-    """Whether this process is a rank of `run`."""
+    """Whether this process is a rank of `run` (or inside `meta_rank`)."""
     return _CURRENT is not None
+
+
+@contextlib.contextmanager
+def meta_rank(mesh, slot_bytes: int = SLOT_BYTES):
+    """Run the body as rank `mesh.rank` of `mesh` (a `launch.mesh.
+    RankMesh`) on the "meta" device: `active()` is true, `current()` is a
+    `MetaRank` with the mesh and a heap of meta slots of `slot_bytes`
+    (the card's default; `CPU_SLOT_BYTES` to count as CPU ranks do).
+    Yields the context, whose counters the body's program advances."""
+    global _CURRENT
+    if _CURRENT is not None:
+        raise RuntimeError("meta_rank inside a rank: one rank a process")
+    heap = SymmetricHeap(torch.empty((mesh.size, 2, slot_bytes),
+                                     dtype=torch.uint8, device="meta"))
+    _CURRENT = MetaRank(mesh.rank, mesh.size, heap, torch.device("meta"),
+                        mesh=mesh)
+    try:
+        yield _CURRENT
+    finally:
+        _CURRENT = None
 
 
 def _to_cpu(tree):

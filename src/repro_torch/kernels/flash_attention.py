@@ -17,7 +17,9 @@ does ~30 MFLOP of products, so it is bound by bytes (~0.16 us at
 3.35 TB/s); at 32768 tokens by the products (1.95 ms at the bf16 rate).
 
 A CPU tensor goes to the plain version (`ref.attention_ref`); a CUDA
-tensor launches the kernel or raises.  `launches` counts the launches.
+tensor launches the kernel or raises; a meta tensor takes the meta path
+(`_meta`: the launch counted, kept pairs x 2(D + Dv) operations a head).
+`launches` counts the launches.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import math
 
 import torch
 
-from . import _build, ref
+from . import _build, _meta, ref
 
 BQ = 64            # query rows per block: Lq must be a multiple
 BK = 64            # keys per K/V tile: Lk must be a multiple
@@ -98,6 +100,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap, sm_scale=sm_scale,
                                  lk_valid=lk_valid)
+    global launches
+    if q.device.type == "meta":
+        out = _meta.empty((b, hq, lq, v.shape[3]), q.dtype)
+        pairs = _meta.kept_pairs(lq, k.shape[2], bool(causal), window,
+                                 lk_valid)
+        _meta.note("flash_attention", 2 * (d + v.shape[3]) * pairs * b * hq,
+                   _meta.nbytes(q, k, v, out))
+        launches += 1
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     lib = _library()
@@ -113,7 +124,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if err:
         raise RuntimeError("flash_attention launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
-    global launches
     launches += 1
     return out
 

@@ -12,8 +12,9 @@ the fused path is bit for bit equal to the unfused one.
 Bound by bytes: per element (4k + 13) bytes read and 12 written (the CUDA
 source describes the design).  The TPU kernel padded to (32, 128) tiles;
 this one takes any length.  A CPU tensor goes to the plain version
-(`ref.fused_adam_ref`); a CUDA tensor launches the kernel or raises.
-`launches` counts the launches.
+(`ref.fused_adam_ref`); a CUDA tensor launches the kernel or raises; a
+meta tensor takes the meta path (`_meta`: the bytes above, k - 1 + 13
+operations an element).  `launches` counts the launches.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import ctypes
 
 import torch
 
-from . import _build, ref
+from . import _build, _meta, ref
 from . import reduce_combine as _rc
 from .put_copy import row_stride
 
@@ -94,6 +95,16 @@ def fused_adam(g_bufs, p, m, v, wd_mask, c1, c2, *, lr: float, b1: float,
     if p.device.type == "cpu":
         return ref.fused_adam_ref(g_bufs, p, m, v, wd_mask, c1, c2,
                                   out_dtype=out_dtype, **kw)
+    global launches
+    if p.device.type == "meta":
+        new_p = _meta.empty(p.shape, out_dtype)
+        new_m, new_v = _meta.empty(m.shape, m.dtype), \
+            _meta.empty(v.shape, v.dtype)
+        _meta.note("fused_update", (len(g_bufs) + 12) * p.numel(),
+                   _meta.nbytes(*g_bufs, p, m, v, wd_mask, new_p, new_m,
+                                new_v))
+        launches += 1
+        return new_p, new_m, new_v
     if p.device.type != "cuda":
         raise ValueError(f"no kernel for device {p.device}")
     rows, cols = (1, p.shape[0]) if p.dim() == 1 else tuple(p.shape)
@@ -126,6 +137,5 @@ def fused_adam(g_bufs, p, m, v, wd_mask, c1, c2, *, lr: float, b1: float,
     if err:
         raise RuntimeError("fused_adam launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
-    global launches
     launches += 1
     return new_p, new_m, new_v

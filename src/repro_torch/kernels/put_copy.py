@@ -13,8 +13,9 @@ engine's 2D strides) and generalises it to a batch of descriptors
 Both are bound by bytes: each byte read once and written once (the CUDA
 source describes the design).  A CPU tensor goes to the plain version
 (`ref.put_copy_ref`, `ref.dma_copy_ref`); a CUDA tensor launches the
-kernel or raises.  `launches` counts put_copy launches, `dma_launches`
-dma_copy launches.
+kernel or raises; a meta tensor takes the meta path (`_meta`: the bytes
+moved, read and written).  `launches` counts put_copy launches,
+`dma_launches` dma_copy launches.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import _build, ref
+from . import _build, _meta, ref
 
 SEG_BYTES = 16 * 1024    # bytes per work item (kSeg in the CUDA source)
 
@@ -89,15 +90,21 @@ def put_copy(src: torch.Tensor, rows: torch.Tensor | None = None
             raise TypeError("rows must be a 1-D int32 tensor")
         if rows.device != src.device:
             raise ValueError(f"rows on {rows.device}, src on {src.device}")
+    global launches
     if src.device.type == "cpu":
         return ref.put_copy_ref(src, rows)
-    _check_cuda(src)
+    if src.device.type != "meta":
+        _check_cuda(src)
     n_out = src.shape[0] if rows is None else rows.shape[0]
     out = torch.empty((n_out,) + tuple(src.shape[1:]), dtype=src.dtype,
                       device=src.device)
     row_bytes = (src[0].numel() if src.shape[0] else 0) * src.element_size()
     if n_out == 0 or row_bytes == 0:
         return out                      # nothing to move: no launch
+    if src.device.type == "meta":
+        _meta.note("put_copy", 0, 2 * n_out * row_bytes)
+        launches += 1
+        return out
     stride = row_stride(src)
     if stride is None:
         src = src.contiguous()
@@ -110,9 +117,18 @@ def put_copy(src: torch.Tensor, rows: torch.Tensor | None = None
             stride * src.element_size(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "put_copy")
-    global launches
     launches += 1
     return out
+
+
+def dma_copy_meta(nbytes: int) -> None:
+    """The meta path of one `dma_copy` launch moving `nbytes`: the launch
+    counted, its bytes read and written noted (`_meta`).  A meta rank's
+    heap rounds (`core.netops.MetaNetOps`) count their byte copies here
+    without building the tensors."""
+    global dma_launches
+    _meta.note("dma_copy", 0, 2 * nbytes)
+    dma_launches += 1
 
 
 class DmaPlan:
@@ -163,8 +179,13 @@ def dma_copy(src: torch.Tensor, dst: torch.Tensor, plan: DmaPlan
                          f"got {tuple(src.shape)} -> {tuple(dst.shape)}")
     if src.dtype != dst.dtype:
         raise TypeError(f"dtypes differ: {src.dtype} vs {dst.dtype}")
+    global dma_launches
     if src.device.type == "cpu" and dst.device.type == "cpu":
         return ref.dma_copy_ref(src, dst, plan.descs)
+    if src.device.type == "meta" and dst.device.type == "meta":
+        dma_copy_meta(int((plan.descs[:, 4] * plan.descs[:, 5]).sum())
+                      * src.element_size())
+        return dst
     _check_cuda(src, dst)
     s_ld, d_ld = row_stride(src), row_stride(dst)
     if s_ld is None:
@@ -184,6 +205,5 @@ def dma_copy(src: torch.Tensor, dst: torch.Tensor, plan: DmaPlan
             len(plan), max_items, elem, s_ld, d_ld,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "dma_copy")
-    global dma_launches
     dma_launches += 1
     return dst

@@ -9,7 +9,8 @@ the card (`core/collectives.OPS`) and the fold of `NocSimNetOps`' waves.
 Bound by bytes: k buffers read once, one written (the CUDA source
 describes the design).  A CPU tensor goes to the plain version
 (`ref.reduce_combine_ref`); a CUDA tensor launches the kernel or raises,
-also for a dtype the kernel lacks.  `launches` counts the launches.
+also for a dtype the kernel lacks; a meta tensor takes the meta path
+(`_meta`: k - 1 operations an element).  `launches` counts the launches.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import ctypes
 
 import torch
 
-from . import _build, ref
+from . import _build, _meta, ref
 from .put_copy import row_stride
 
 OPS = {"sum": 0, "prod": 1, "max": 2, "min": 3}
@@ -53,9 +54,15 @@ def _launch(bufs, op: str, rows: int, cols: int) -> torch.Tensor:
             ld = row_stride(b)
         keep.append(b)
         lds.append(ld)
+    global launches
     first = keep[0]
     out = torch.empty(bufs[0].shape, dtype=first.dtype, device=first.device)
     k = len(keep)
+    if first.device.type == "meta":
+        _meta.note("reduce_combine", (k - 1) * out.numel(),
+                   (k + 1) * _meta.nbytes(out))
+        launches += 1
+        return out
     lib = _library()
     with torch.cuda.device(first.device):
         err = lib.repro_reduce_combine(
@@ -66,7 +73,6 @@ def _launch(bufs, op: str, rows: int, cols: int) -> torch.Tensor:
     if err:
         raise RuntimeError("reduce_combine launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
-    global launches
     launches += 1
     return out
 
@@ -90,7 +96,7 @@ def reduce_combine(bufs, op: str = "sum") -> torch.Tensor:
                              f"{b0.device}")
     if b0.device.type == "cpu":
         return ref.reduce_combine_ref(bufs, op)
-    if b0.device.type != "cuda":
+    if b0.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {b0.device}")
     if b0.dtype not in DTYPES:
         raise TypeError(f"reduce_combine has no kernel for {b0.dtype}")

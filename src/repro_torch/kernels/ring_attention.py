@@ -51,7 +51,7 @@ import math
 
 import torch
 
-from . import _build, ref
+from . import _build, _meta, ref
 
 BK = 64            # keys per K/V tile of the kernel
 MAX_HEAD_DIM = 256
@@ -164,9 +164,20 @@ def _partials(q, k, v, q_pos, k_pos, *, causal, window, softcap, sm_scale):
         return ref.ring_partials_ref(q, k, v, q_pos, k_pos, causal=causal,
                                      window=window, softcap=softcap,
                                      sm_scale=sm_scale)
+    global launches
+    p, b, hq, lq, d = q.shape
+    if q.device.type == "meta":
+        # the positions have no values on meta: every pair counts (the
+        # most the block can keep)
+        acc = _meta.empty(q.shape, torch.float32)
+        m = _meta.empty(q.shape[:-1], torch.float32)
+        l = _meta.empty(q.shape[:-1], torch.float32)
+        _meta.note("ring_attention", 4 * d * lq * k.shape[3] * p * b * hq,
+                   _meta.nbytes(q, k, v, q_pos, k_pos, acc, m, l))
+        launches += 1
+        return acc, m, l
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    p, b, hq, lq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     q_pos, k_pos = q_pos.contiguous(), k_pos.contiguous()
     lib = _library()
@@ -191,7 +202,6 @@ def _partials(q, k, v, q_pos, k_pos, *, causal, window, softcap, sm_scale):
     if err:
         raise RuntimeError("ring_attention launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
-    global launches
     launches += 1
     return acc, m, l
 

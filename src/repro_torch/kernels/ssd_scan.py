@@ -16,12 +16,14 @@ once per group, are 108 GFLOP (0.11 ms at the bf16 tensor-core rate): it
 is bound by bytes.
 
 A CPU tensor goes to the plain version (`ref.ssd_chunked_ref`); a CUDA
-tensor launches the kernel or raises.  x, B and C may be views with any
-batch and step strides whose head (group) rows are contiguous, as the
-slices of `mamba2`'s fused projection are; other layouts are copied to
-contiguous first.  The wrapper allocates the kernel's scratch: the
-chunks' states (Bt, L/chunk, H, P, N) f32 (671 MB at the prefill) and
-their cumsums (Bt, L/chunk, H, chunk) f32, freed after the call.
+tensor launches the kernel or raises; a meta tensor takes the meta path
+(`_meta`: the bytes above and the kept pairs' products, `work`).  x, B
+and C may be views with any batch and step strides whose head (group)
+rows are contiguous, as the slices of `mamba2`'s fused projection are;
+other layouts are copied to contiguous first.  The wrapper allocates
+the kernel's scratch: the chunks' states (Bt, L/chunk, H, P, N) f32 (671
+MB at the prefill) and their cumsums (Bt, L/chunk, H, chunk) f32, freed
+after the call.
 `launches` counts the entries (one per call, whatever it launches).
 """
 from __future__ import annotations
@@ -30,7 +32,7 @@ import ctypes
 
 import torch
 
-from . import _build, ref
+from . import _build, _meta, ref
 
 DEFAULT_CHUNK = 128
 MAX_CHUNK = 128            # the kernel's warp scan holds 4 steps a lane
@@ -99,6 +101,15 @@ def _rows(t):
     return t.contiguous()
 
 
+def work(bsz, length, h, p, n, g, chunk) -> int:
+    """The products of one entry: per chunk the kept pairs u <= t of C
+    B^T once per group, and per head the intra-chunk term, C @ state^T
+    and the state update."""
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = 2 * n * pairs * g + h * (2 * p * pairs + 4 * chunk * n * p)
+    return bsz * (length // chunk) * per_chunk
+
+
 def _aligned(t):
     """`t` contiguous with a 16-byte aligned start (the kernel's float4
     reads of h0)."""
@@ -109,9 +120,19 @@ def _aligned(t):
 def _launch(x, dt, a_log, b_mat, c_mat, h0, chunk, phases):
     """One entry of the kernel on CUDA tensors: (y, final state, states,
     s), with `states` and `s` the scratch after `phases` phases."""
+    global launches
     bsz, length, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     nc = length // chunk
+    if x.device.type == "meta":
+        y = _meta.empty((bsz, length, h, p), x.dtype)
+        hout = _meta.empty((bsz, h, p, n), torch.float32)
+        states = _meta.empty((bsz, nc, h, p, n), torch.float32)
+        s = _meta.empty((bsz, nc, h, chunk), torch.float32)
+        _meta.note("ssd_scan", work(bsz, length, h, p, n, g, chunk),
+                   _meta.nbytes(x, dt, a_log, b_mat, c_mat, h0, y, hout))
+        launches += 1
+        return y, hout, states, s
     lib = _library()
     x, b_mat, c_mat = _rows(x), _rows(b_mat), _rows(c_mat)
     dt, a_log = dt.contiguous(), a_log.contiguous()
@@ -133,7 +154,6 @@ def _launch(x, dt, a_log, b_mat, c_mat, h0, chunk, phases):
     if err:
         raise RuntimeError("ssd_scan launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
-    global launches
     launches += 1
     return y, hout, states, s
 
@@ -148,7 +168,7 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, h0=None, *,
     if x.device.type == "cpu":
         return ref.ssd_chunked_ref(x, dt, a_log, b_mat, c_mat, h0,
                                    chunk=chunk)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {x.device}")
     y, hout, _, _ = _launch(x, dt, a_log, b_mat, c_mat, h0, chunk, 3)
     return y, hout
@@ -171,7 +191,7 @@ def ssd_scan_phases(x, dt, a_log, b_mat, c_mat, h0=None, *,
                                       chunk)
         return dict(s=s, chunk_states=local, entering=entering, y=y,
                     final=final)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {x.device}")
     _, _, local, s = _launch(x, dt, a_log, b_mat, c_mat, h0, chunk, 1)
     y, final, entering, _ = _launch(x, dt, a_log, b_mat, c_mat, h0, chunk, 3)

@@ -8,7 +8,8 @@ tuple of axes, flattened row-major as shard_map flattens them) the group
 of ranks that share every other coordinate — the PE space a collective
 over that axis runs in.  `AxisSpec` names (parallel/comm.py) resolve
 against it.  Ranks are laid out row-major over the axes, as
-`jax.make_mesh` lays out devices.
+`jax.make_mesh` lays out devices.  `make_production_mesh` gives the
+reference's 16x16 and 2x16x16 production meshes as shapes only.
 """
 from __future__ import annotations
 
@@ -105,3 +106,15 @@ def make_mesh(data: int, model: int, pod: int | None = None) -> RankMesh:
     if pod:
         return make_rank_mesh((pod, data, model), ("pod", "data", "model"))
     return make_rank_mesh((data, model), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: int = 0) -> RankMesh:
+    """The 16x16 ("data", "model") mesh of one pod (256 ranks), or the
+    2x16x16 ("pod", "data", "model") mesh of two (512), seen from rank
+    `rank`.  It spawns no process: it is a mesh shape, for the shapes and
+    specs of a rank (`launch/build.py`) and for tracing one rank's step on
+    the meta device (`core.spmd.meta_rank`, `launch/dryrun.py`)."""
+    if multi_pod:
+        return RankMesh(("pod", "data", "model"), (2, 16, 16), rank)
+    return RankMesh(("data", "model"), (16, 16), rank)

@@ -26,13 +26,14 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu"):
     ({"attn", "moe", "ln1", "ln2"}) under "layers"; its MTP head, under
     "mtp" ({"proj", "block": one dense block, "ln"}), is unstacked.
     Returns the port's parameters on `device`: one dict per layer, leaves
-    of two or more dims in `cfg.param_dtype`, the rest in f32."""
+    of two or more dims in `cfg.param_dtype`, and so a stacked layer's
+    vectors (two dims in the stacked tree), the rest in f32."""
     _check_family(cfg)
     device = torch.device(device)
 
-    def leaf(a):
+    def leaf(a, stacked=False):
         t = torch.tensor(np.asarray(a, np.float32), device=device)
-        return t.to(cfg.param_dtype) if t.dim() >= 2 else t
+        return t.to(cfg.param_dtype) if t.dim() + stacked >= 2 else t
 
     def unstack(stack, n):
         def pick(j):
@@ -42,8 +43,8 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu"):
                                      f"no leading dim of {n} layers")
                 return a[j]
             return one
-        return [map_params(leaf, map_params(pick(j), stack))
-                for j in range(n)]
+        return [map_params(lambda a: leaf(a, True),
+                           map_params(pick(j), stack)) for j in range(n)]
 
     out = {"embed": map_params(leaf, tree["embed"]),
            "final_norm": leaf(tree["final_norm"])}

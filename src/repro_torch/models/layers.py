@@ -831,9 +831,12 @@ def moe(comm: Comm, cfg: ModelConfig, p: Params, x):
     Capacity is per call: cap = max(1, int(capacity_factor * T * top_k /
     n_experts)) over this call's T tokens, so a decode step of B tokens
     routes at capacity max(1, ...) and drops most picks, as the reference
-    does.  The kept picks are assigned into the (E, C, d) dispatch buffer
-    (each kept (expert, slot) holds exactly one token, so the assignment
-    is deterministic and equals the reference's scatter-add), exchanged
+    does.  The picks are assigned into the (E, C, d) dispatch buffer by a
+    scatter of fixed shape (every pick has a row: a kept one its (expert,
+    slot) row, which holds exactly one token, so the assignment is
+    deterministic and equals the reference's scatter-add; a dropped one a
+    sink row past the buffer, sliced off), so no shape depends on the
+    routes and the host never waits on them; then exchanged
     by `Comm.alltoall` over the EP group, run through the
     experts as batched products in the activation dtype, and combined in
     f32 as an in-order sum over k of each pick's rows times its weight;
@@ -865,8 +868,9 @@ def moe(comm: Comm, cfg: ModelConfig, p: Params, x):
     e_flat = tope.reshape(-1)
     tok_idx = torch.arange(t_local, device=x.device).repeat_interleave(
         mo.top_k)
-    disp = x.new_zeros((e_pad, cap, d))
-    disp[e_flat[keep], slot[keep]] = xs[tok_idx[keep]]
+    rows = torch.where(keep, e_flat * cap + slot, e_pad * cap)
+    disp = x.new_zeros((e_pad * cap + 1, d)).index_put(
+        (rows,), xs[tok_idx])[:-1].reshape(e_pad, cap, d)
 
     # 4. alltoall over the EP group: (E_pad, C, d) -> (e_local, ep*C, d)
     a2a = comm.alltoall(disp.reshape(ep, e_local * cap, d), ep_axes,
@@ -906,7 +910,8 @@ def moe(comm: Comm, cfg: ModelConfig, p: Params, x):
         out = out + mlp(comm, cfg, p["shared"], x)
     # load-balance aux loss (training)
     me = gates.mean(0)
-    ce = torch.bincount(e_flat, minlength=mo.n_experts).float() / t_local
+    ce = torch.zeros(mo.n_experts, dtype=torch.int64, device=x.device) \
+        .index_add_(0, e_flat, torch.ones_like(e_flat)).float() / t_local
     aux = mo.n_experts * (me * ce).sum()
     return out, aux
 

@@ -81,8 +81,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, tp: int = 1,
     On the meta device it gives the shapes and dtypes alone.  Each weight of two or more dims is drawn in f32
     and cast to `cfg.param_dtype` as soon as it is made (as `repro` casts
     its f32 tree), so no f32 copy of the whole tree exists; vectors stay
-    f32.  gemma2's layers are made in the list's order, pair by pair; the
-    moe family's dense layers, then its MoE layers, then the MTP head.
+    f32, but those of a layer the reference stacks ("layers",
+    "dense_layers"), which have two dims in its stacked tree and so take
+    its cast (`_stacked_layer`).  gemma2's layers are made in the list's
+    order, pair by pair; the moe family's dense layers, then its MoE
+    layers, then the MTP head.
     deepseek-v3's expert leaves are drawn whole: (256, 7168, 2048) in f32
     is 15 GiB for an instant, beside the bf16 leaves made before it."""
     _check_family(cfg)
@@ -119,7 +122,21 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, tp: int = 1,
             for _ in range(cfg.n_layers)]
     if cfg.family == "hybrid":
         p["shared_attn"] = _init_attn_block(gen, cfg, tp, device)
+    for key in ("layers", "dense_layers"):
+        if key in p:
+            p[key] = [_stacked_layer(cfg, layer) for layer in p[key]]
     return p
+
+
+def _stacked_layer(cfg: ModelConfig, layer: Params) -> Params:
+    """A layer of a list the reference stacks, its vectors cast to
+    `cfg.param_dtype`: the reference casts each leaf of two or more dims
+    of its tree, and a stacked vector has two (a mirrored quirk: a
+    bf16 config keeps its layer norms in bf16)."""
+    if cfg.param_dtype == torch.float32:
+        return layer
+    return map_params(lambda t: t.to(cfg.param_dtype) if t.dim() == 1
+                      else t, layer)
 
 
 def _init_attn_block(gen, cfg, tp, device, moe: bool = False,

@@ -44,7 +44,7 @@ from ..core import collectives as coll
 from ..core import fusion
 from ..core import spmd
 from ..core import team as team_mod
-from ..core.netops import SimNetOps, SpmdNetOps, tree_map
+from ..core.netops import SimNetOps, rank_net, tree_map
 from . import libcoll
 
 _UNSET = object()
@@ -135,7 +135,7 @@ class Comm:
         key = axis
         got = self._nets.get(key)
         if got is None:
-            got = self._nets[key] = SpmdNetOps(axis, self.mesh)
+            got = self._nets[key] = rank_net(axis, self.mesh)
         return got
 
     def _group(self, axis):
@@ -231,8 +231,8 @@ class Comm:
         if n == 1:
             return x
         if self.backend == "xla":
-            if op != "sum":
-                raise NotImplementedError(op)
+            # the reference takes psum_scatter whatever the op
+            # (a mirrored quirk)
             return libcoll.psum_scatter(x, self._group(axis), scatter_axis)
         net = self._net(axis, x.device)
         moved = x.movedim(scatter_axis, 0)

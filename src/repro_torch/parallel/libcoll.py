@@ -30,6 +30,10 @@ The sum collectives are differentiable, with the transposes the
 reference gets under shard_map(check_vma=False): psum <-> psum,
 all_gather <-> psum_scatter, all_to_all <-> the inverse all_to_all.
 max and min carry no gradient (no path differentiates them).
+
+In a meta rank (`core.spmd.meta_rank`) the tensors are meta tensors: a
+call is not made but counted, by kind and its output's bytes
+(`spmd.MetaRank.lib_call`), and returns its output's shape.
 """
 from __future__ import annotations
 
@@ -42,6 +46,10 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """The `op` reduction of `x` over the group's PEs (a new tensor)."""
     if op not in _OPS:
@@ -49,7 +57,8 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     out = x.detach().contiguous().clone()
     flat = out.view(-1)
     spmd.current().lib_call(lambda: dist.all_reduce(
-        flat, _OPS[op], group=group.pg, async_op=True).wait())
+        flat, _OPS[op], group=group.pg, async_op=True).wait(),
+        "all-reduce", _nbytes(out))
     return out
 
 
@@ -58,7 +67,8 @@ def all_gather(x: torch.Tensor, group, concat_axis: int = 0):
     x = x.detach().contiguous()
     buf = x.new_empty((group.size,) + tuple(x.shape))
     spmd.current().lib_call(lambda: dist.all_gather_into_tensor(
-        buf.view(-1), x.view(-1), group=group.pg, async_op=True).wait())
+        buf.view(-1), x.view(-1), group=group.pg, async_op=True).wait(),
+        "all-gather", _nbytes(buf))
     if not group.in_order:
         buf = buf[group.index]
     return torch.cat(buf.unbind(0), dim=concat_axis)
@@ -84,7 +94,7 @@ def reduce_scatter(x: torch.Tensor, group, scatter_axis: int = 0):
     out = blocks.new_empty(blocks.shape[1:])
     spmd.current().lib_call(lambda: dist.reduce_scatter_tensor(
         out.view(-1), blocks.view(-1), group=group.pg,
-        async_op=True).wait())
+        async_op=True).wait(), "reduce-scatter", _nbytes(out))
     return out.movedim(0, scatter_axis)
 
 
@@ -99,7 +109,7 @@ def all_to_all(x: torch.Tensor, group, split_axis: int = 0,
     got = torch.empty_like(blocks)
     spmd.current().lib_call(lambda: dist.all_to_all_single(
         got.view(-1), blocks.view(-1), group=group.pg,
-        async_op=True).wait())
+        async_op=True).wait(), "all-to-all", _nbytes(got))
     if not group.in_order:
         got = got[group.index]
     return torch.cat([b.movedim(0, split_axis) for b in got.unbind(0)],

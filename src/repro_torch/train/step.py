@@ -179,6 +179,15 @@ def batch_to_device(batch: dict, device) -> dict:
     return out
 
 
+def microbatches_of(cfg: ModelConfig, b_local: int) -> int:
+    """The step's gradient accumulation: cfg.microbatches clamped to the
+    local batch, then lowered until it divides it."""
+    mb = max(1, min(cfg.microbatches, b_local))
+    while b_local % mb:
+        mb -= 1
+    return mb
+
+
 def loss_and_grads(comm: Comm, cfg: ModelConfig, params, batch: dict,
                    mb: int = 1):
     """(mean loss, gradient tree) of `batch` over `mb` microbatches: f32
@@ -253,11 +262,7 @@ def build_train_step(cfg: ModelConfig, axes: AxisSpec = AxisSpec(),
                     grad_rs=rs, topo=topo, link=link,
                     pipeline_chunks=pipeline_chunks, embedding=embedding,
                     tuner=autotune, profile=profile)
-        # clamp grad accumulation to the local batch
-        b_local = next(iter(batch.values())).shape[0]
-        mb = max(1, min(cfg.microbatches, b_local))
-        while b_local % mb:
-            mb -= 1
+        mb = microbatches_of(cfg, next(iter(batch.values())).shape[0])
         loss, grads = loss_and_grads(comm, cfg, params, batch, mb)
         for a in axes.grad_axes():
             loss = comm.allreduce(loss, a) / comm.axis_size(a)

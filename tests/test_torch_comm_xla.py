@@ -136,7 +136,8 @@ REF_SCRIPT = textwrap.dedent("""
             ag_md=c.allgather(v, md, concat_axis=0),
             a2a_md=c.alltoall(v2, md, split_axis=1, concat_axis=0),
             rs_md=c.reduce_scatter(v2, md, scatter_axis=1),
-            ar_md=c.allreduce(v, md))
+            ar_md=c.allreduce(v, md),
+            rs_max=c.reduce_scatter(v, "model", op="max", scatter_axis=0))
         fs = dict(
             g_ar=lambda u: c.allreduce(u, "model"),
             g_ag=lambda u: c.allgather(u, "model", concat_axis=1),
@@ -386,7 +387,7 @@ def ref_run(inputs, tmp_path_factory):
                JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     script = (f"QWEN = {QWEN!r}\nGRANITE = {GRANITE!r}\n"
-              f"KEYS = {MOVES + SUMS + GRADS!r}\n" + REF_SCRIPT)
+              f"KEYS = {MOVES + SUMS + GRADS + ['rs_max']!r}\n" + REF_SCRIPT)
     launch = (f"QWEN = {QWEN!r}\nTRAIN_ARGV = {TRAIN_ARGV!r}\n"
               f"SERVE_ARGV = {SERVE_ARGV!r}\n" + LAUNCH_REF)
     procs = [subprocess.Popen(
@@ -458,7 +459,8 @@ def _task_coll(inp):
         ag_md=c.allgather(v, md, concat_axis=0),
         a2a_md=c.alltoall(v2, md, split_axis=1, concat_axis=0),
         rs_md=c.reduce_scatter(v2, md, scatter_axis=1),
-        ar_md=c.allreduce(v, md))
+        ar_md=c.allreduce(v, md),
+        rs_max=c.reduce_scatter(v, "model", op="max", scatter_axis=0))
     fs = dict(
         g_ar=(v, lambda u: c.allreduce(u, "model")),
         g_ag=(v, lambda u: c.allgather(u, "model", concat_axis=1)),
@@ -666,6 +668,17 @@ def test_reductions_match_reference(ref, port8, name):
     got = _stacked(port8, name)
     np.testing.assert_allclose(got, ref["coll/" + name].reshape(got.shape),
                                **TOL)
+
+
+def test_reduce_scatter_of_any_op_is_the_reference_psum_scatter(ref,
+                                                                port8):
+    """`reduce_scatter(op="max")` under xla sums, as the reference's
+    `lax.psum_scatter` does whatever the op (a mirrored quirk): the
+    reference's result, and the port's own sum."""
+    got = _stacked(port8, "rs_max")
+    np.testing.assert_allclose(got, ref["coll/rs_max"].reshape(got.shape),
+                               **TOL)
+    np.testing.assert_array_equal(got, _stacked(port8, "rs0"))
 
 
 @pytest.mark.parametrize("name", GRADS)

@@ -607,25 +607,40 @@ def test_embedding_scale_rounds_like_the_reference():
         L.embed(Comm(), plain, params["embed"], t(tokens).long()))
 
 
+def _stacked_dims(tree):
+    """Each leaf's dims in the reference's layout, in tree_flatten order:
+    a leaf of a stacked list ("layers", "dense_layers") has one more."""
+    return [l.dim() + (1 if k in ("layers", "dense_layers") else 0)
+            for k in sorted(tree) for l in tree_flatten(tree[k])[0]]
+
+
 def _cast_at_the_end(cfg, seed):
     """The f32 tree of `cfg` cast to its param_dtype afterwards (the rule
-    `repro` applies to its whole tree)."""
+    `repro` applies to its whole stacked tree: leaves of two or more
+    dims there)."""
     f32 = T.init_params(dataclasses.replace(cfg, param_dtype=torch.float32),
                         seed=seed, device="cpu")
-    return T.map_params(
-        lambda w: w.to(cfg.param_dtype) if w.dim() >= 2 else w, f32)
+    leaves, treedef = tree_flatten(f32)
+    return tree_unflatten(treedef, [
+        w.to(cfg.param_dtype) if nd >= 2 else w
+        for w, nd in zip(leaves, _stacked_dims(f32))])
 
 
 @pytest.mark.parametrize("arch", ["internlm2-20b", "gemma2-9b"])
 def test_bf16_init_equals_f32_then_cast(arch):
+    """bf16 everywhere the reference's cast reaches: weights, and the
+    vectors of stacked layers (its layer norms); f32 elsewhere."""
     cfg = smoke_config(arch, param_dtype=torch.bfloat16)
-    got, _ = tree_flatten(T.init_params(cfg, seed=5, device="cpu"))
+    tree = T.init_params(cfg, seed=5, device="cpu")
+    got, _ = tree_flatten(tree)
     want, _ = tree_flatten(_cast_at_the_end(cfg, 5))
     assert len(got) == len(want)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype == (torch.bfloat16 if a.dim() >= 2
+    for a, b, nd in zip(got, want, _stacked_dims(tree)):
+        assert a.dtype == b.dtype == (torch.bfloat16 if nd >= 2
                                       else torch.float32)
         assert torch.equal(a, b)
+    assert tree["layers"][0]["ln1"].dtype == torch.bfloat16
+    assert tree["final_norm"].dtype == torch.float32
 
 
 def test_init_params_casts_each_leaf_before_the_next_is_made():
@@ -653,13 +668,14 @@ def test_init_params_casts_each_leaf_before_the_next_is_made():
 
 # sha256 (first 16 hex digits) of each seed-0 smoke tree's leaves, shapes
 # and dtypes in tree_flatten order, as `init_params` made them when it
-# cast the whole f32 tree at its end
+# cast the whole f32 tree at its end (the bf16 trees with their stacked
+# layers' vectors in bf16, the reference's cast of its stacked tree)
 SEEDED = {("qwen2-0.5b", "f32"): "fcf6de3419279467",
-          ("qwen2-0.5b", "bf16"): "29a2161ebc04eecd",
+          ("qwen2-0.5b", "bf16"): "bfa26118a60e3eff",
           ("mamba2-2.7b", "f32"): "c0453b817c1e2b54",
-          ("mamba2-2.7b", "bf16"): "e608ab9f7b12ec46",
+          ("mamba2-2.7b", "bf16"): "457cd6768be0165e",
           ("zamba2-1.2b", "f32"): "f9d952bfb2a393ee",
-          ("zamba2-1.2b", "bf16"): "99c7df9671cd21a6"}
+          ("zamba2-1.2b", "bf16"): "1dbf4ff7fc15eac6"}
 
 
 @pytest.mark.parametrize("arch,dtype", list(SEEDED))

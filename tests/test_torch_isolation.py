@@ -1,7 +1,7 @@
-"""The port stands alone: no file of `src/repro_torch/` and not
-`chip_smoke.py` imports jax or the JAX package, and the serving path, the
-runtime and the training path run in a process where neither can be
-imported."""
+"""The port stands alone: no file of `src/repro_torch/`, not
+`chip_smoke.py` and no `examples/pt_*.py` imports jax or the JAX package,
+and the serving path, the runtime and the training path run in a process
+where neither can be imported."""
 import ast
 import os
 import subprocess
@@ -13,8 +13,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
+PT_FILES = sorted((ROOT / "examples").glob("pt_*.py"))
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + PT_FILES + [
+    ROOT / "examples" / "run_pt_examples.py"]
 
 
 def _imported_roots(path: Path):
@@ -29,6 +31,10 @@ def _imported_roots(path: Path):
 
 def test_port_files_exist():
     assert len(FILES) > 15
+    assert [p.stem for p in PT_FILES] == [
+        "pt_collectives_showcase", "pt_hierarchical_allreduce",
+        "pt_quickstart", "pt_serve_batched", "pt_trace_serve",
+        "pt_train_100m"]
     for name in ("flash_attention", "put_copy", "reduce_combine",
                  "fused_update", "ring_attention", "ssd_scan"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"

@@ -36,6 +36,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import put_copy as pc
 from repro_torch.kernels import ring_attention as ra
 from repro_torch.models import layers as L
+from torch_elsewhere import elsewhere as _elsewhere
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 RING_ATOL = 2e-5                      # tests/test_fused.py's bound
@@ -319,9 +320,19 @@ def test_ring_attention_on_another_net_raises():
 
 
 def test_partials_on_another_device_raise():
+    """On the meta device the partials take kernel 6's meta path (the
+    launch counted, (acc, m, l) of their shapes, no plain version run);
+    on a device with neither a kernel nor a meta path they raise."""
     a = [x.to("meta") for x in map(t, _block(0, 1, 2, 2, 8, 8, 16))]
+    before = ra.launches
+    with mock.patch.object(ref, "ring_partials_ref",
+                           side_effect=AssertionError):
+        acc, m, l = ra.attn_block_partials(*a)
+    assert ra.launches == before + 1
+    assert acc.device.type == "meta" and acc.shape == a[0].shape
+    assert m.shape == l.shape == a[0].shape[:-1]
     with pytest.raises(ValueError, match="no kernel"):
-        ra.attn_block_partials(*a)
+        ra.attn_block_partials(*map(_elsewhere, a))
 
 
 @pytest.mark.parametrize("change,exc", [

@@ -7,6 +7,8 @@ test_kernels.py does.  The batched forms (a source-row table, a batch of
 descriptors) are held to the reference's SimNetOps.ppermute and
 collectives._take_blocks on the same stacked arrays.  Also here: the
 heap's tree packing against `repro.core.heap`."""
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from repro_torch.core.topology import epiphany3
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import put_copy as pc
 from repro_torch.kernels import reduce_combine as rc
+from torch_elsewhere import elsewhere as _elsewhere
 
 RNG = np.random.RandomState(0)
 
@@ -225,15 +228,29 @@ def test_reduce_combine_nan_and_strided_rows():
 
 def test_wrappers_refuse_devices_without_a_kernel():
     """A tensor that is neither on the CPU nor on CUDA has no kernel and
-    no plain-version fallback."""
+    no plain-version fallback: on the meta device each wrapper takes its
+    meta path (the launch counted, outputs of the kernel's shapes, no
+    plain version run), on any other it raises."""
     m = torch.empty((4, 8), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        pc.put_copy(m)
-    with pytest.raises(ValueError, match="no kernel"):
-        rc.reduce_combine([m, m], "sum")
+    before = (pc.launches, pc.dma_launches, rc.launches)
     plan = pc.DmaPlan([[0, 0, 0, 0, 2, 2]], (4, 8), (4, 8))
+    with mock.patch.object(ref, "put_copy_ref", side_effect=AssertionError), \
+            mock.patch.object(ref, "dma_copy_ref",
+                              side_effect=AssertionError), \
+            mock.patch.object(ref, "reduce_combine_ref",
+                              side_effect=AssertionError):
+        out = [pc.put_copy(m), rc.reduce_combine([m, m], "sum"),
+               pc.dma_copy(m, torch.empty((4, 8), device="meta"), plan)]
+    assert all(o.device.type == "meta" and o.shape == (4, 8) for o in out)
+    assert (pc.launches, pc.dma_launches, rc.launches) == \
+        tuple(b + 1 for b in before)
+    e = _elsewhere(m)
     with pytest.raises(ValueError, match="no kernel"):
-        pc.dma_copy(m, torch.empty((4, 8), device="meta"), plan)
+        pc.put_copy(e)
+    with pytest.raises(ValueError, match="no kernel"):
+        rc.reduce_combine([e, e], "sum")
+    with pytest.raises(ValueError, match="no kernel"):
+        pc.dma_copy(e, _elsewhere(m), plan)
 
 
 def test_stage_combines_go_through_the_kernel_wrapper(monkeypatch):

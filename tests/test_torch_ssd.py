@@ -8,6 +8,8 @@ The port is held to `repro.kernels.ref.ssd_ref` (the sequential scan) at
 states, state passing, chunk outputs), whose entering states are held
 to the reference's final state over each prefix of chunks.  The reference's Pallas interpret path is not used: it is red under
 this JAX (no `pl.load`)."""
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as kssd
+from torch_elsewhere import elsewhere as _elsewhere
 
 SCAN_TOL = dict(atol=2e-4)
 CHUNK_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -180,10 +183,21 @@ def test_cpu_path_does_not_count_launches():
 
 
 def test_wrapper_refuses_devices_without_a_kernel():
+    """On the meta device the wrapper takes kernel 7's meta path (the
+    entry counted, y and the final state of their shapes, no plain
+    version run); on a device with neither a kernel nor a meta path it
+    raises."""
     x, dt, al, b, c, _ = (t.to("meta") if t is not None else None
                           for t in map(_t, _inputs(11, 1, 16, 2, 8, 4, 1)))
+    before = kssd.launches
+    with mock.patch.object(ref, "ssd_chunked_ref",
+                           side_effect=AssertionError):
+        y, h = kssd.ssd_scan(x, dt, al, b, c, chunk=8)
+    assert kssd.launches == before + 1
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert h.shape == (x.shape[0], x.shape[2], x.shape[3], b.shape[3])
     with pytest.raises(ValueError, match="no kernel"):
-        kssd.ssd_scan(x, dt, al, b, c, chunk=8)
+        kssd.ssd_scan(*map(_elsewhere, (x, dt, al, b, c)), chunk=8)
 
 
 def _args(**change):
