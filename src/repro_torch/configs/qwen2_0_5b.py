@@ -9,9 +9,10 @@ CONFIG = ModelConfig(
     qkv_bias=True, tie_embeddings=True, rope_theta=1e6, microbatches=4,
 )
 
-# The serving run the port is checked and profiled at on the card
-# (chip_smoke.py, repro_torch.tools.profile_serve): the engine's settings
-# and the traffic.
+# The serving run the port is checked at on the card (chip_smoke.py): the
+# engine's settings and the traffic.  Where a served step's time goes is
+# read by the benchmark's traced run, `python3 ptbench/run.py --workload
+# <cell> --seed <n> --seconds 51 --trace 1`.
 SERVE_ENGINE = dict(max_slots=4, page_size=16, max_seq=256, prompt_bucket=128)
 SERVE_TRAFFIC = dict(requests=8, prompt_len=100, new_tokens=32)
 

@@ -27,6 +27,9 @@
   * ``to_json()``/``dump(path)`` export the aggregate counters and the
     timeline in one machine-readable document (the reference's schema);
     ``add_sink(fn)`` streams every committed sample to observers.
+  * ``tally(key, n)`` keeps counts of the port's own (the serving
+    engine's padding) apart from the counters, read by ``tallies()``, so
+    that the counters and the exported documents stay the reference's.
 """
 from __future__ import annotations
 
@@ -170,6 +173,7 @@ class Profiler:
         self.sink_errors = 0
         self.sinks_dropped = 0
         self._counters: dict[str, dict[str, float]] = {}
+        self._tallies: dict[str, int] = {}
         self._sinks: list[Callable[[OpSample], None]] = []
         self._sink_fails: dict[int, int] = {}
         self._lock = threading.Lock()
@@ -191,6 +195,7 @@ class Profiler:
         with self._lock:
             self.samples = []
             self._counters = {}
+            self._tallies = {}
             self.dropped = 0
             self._epoch = time.perf_counter()
 
@@ -308,6 +313,15 @@ class Profiler:
             c["count"] += n
             c["total_bytes"] += float(nbytes)
 
+    def tally(self, key: str, n: int) -> None:
+        """Add `n` to the program's own count `key` (the serving engine's
+        padding counts).  Kept apart from :meth:`counters`, whose keys and
+        export are the reference's, and read by :meth:`tallies`."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._tallies[key] = self._tallies.get(key, 0) + int(n)
+
     def record_rma(self, op: str, nbytes: float, pattern=None,
                    n_pes: int = 0) -> None:
         """One non-blocking RMA issue (put_nbi/get_nbi) — counters always,
@@ -389,6 +403,10 @@ class Profiler:
     def counters(self) -> dict[str, dict[str, float]]:
         with self._lock:
             return {k: dict(v) for k, v in self._counters.items()}
+
+    def tallies(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._tallies)
 
     def timeline(self) -> list[dict]:
         with self._lock:

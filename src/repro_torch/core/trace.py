@@ -29,6 +29,13 @@ additionally renders:
   * a **NoC link heatmap**: every noted schedule with a topology
     accumulates ``stage.nbytes x link multiplicity`` per physical link,
     exported by :meth:`Tracer.heatmap` and embedded in the document.
+  * **ranges on the device trace's clock**: :meth:`Tracer.region` (and
+    the module's :func:`region`, for code that holds a profile that may
+    be None) opens a ``torch.profiler.record_function`` range while a
+    torch profiler records, so that the profiler's device trace shows
+    the program's phases (the serving engine's and the paged model's)
+    around the kernels they launch.  A range waits for nothing and
+    writes no Chrome event; every :meth:`Tracer.span` opens one too.
 
 Levels extend ``shmem_pcontrol``: 0 off, 1 counters, 2 counters +
 timeline + host-track events, >= 3 additionally per-PE stage spans and
@@ -43,12 +50,26 @@ import contextlib
 import json
 import time
 
+import torch
+
 from .profile import OpSample, Profiler
 
 PID_PE = 0          # the PE-grid process: tid k = PE k
 PID_HOST = 1        # the host runtime process: tid 0 = ops track
 
 LEVEL_FULL = 3      # pcontrol level that adds stage spans + flow links
+
+# what a range costs when nothing records it: one shared context
+_OFF = contextlib.nullcontext()
+
+
+def region(profile, name: str):
+    """``profile.region(name)`` when `profile` is an enabled
+    :class:`Tracer`, else a shared do-nothing context: with no profile
+    attached a range costs one ``is None`` test."""
+    if profile is None or not isinstance(profile, Tracer):
+        return _OFF
+    return profile.region(name)
 
 
 class Tracer(Profiler):
@@ -96,15 +117,29 @@ class Tracer(Profiler):
             self._link_bytes = {}
 
     # -- direct span / instant / async APIs ----------------------------------
+    def region(self, name: str):
+        """A ``torch.profiler.record_function`` range named `name` while
+        this tracer is enabled and a torch profiler records; otherwise a
+        shared do-nothing context (no range is constructed: an idle
+        ``record_function`` costs microseconds).  It waits for no device
+        and records no sample or Chrome event: it names the kernels
+        launched inside it, and the device's idle time while it is
+        open, on the profiler's own clock."""
+        if not self.enabled or not torch.autograd._profiler_enabled():
+            return _OFF
+        return torch.profiler.record_function(name)
+
     @contextlib.contextmanager
     def span(self, name: str, nbytes: float = 0.0, n_pes: int = 0, *,
              device=None, **meta):
         """An arbitrary nested host-track span, timed like any op (it IS
         an op sample of kind "span", so it lands in the timeline and the
         chrome track both; a CUDA `device` makes it device-inclusive).
-        `meta` becomes the event's args."""
-        with self.op(name, nbytes=nbytes, n_pes=n_pes, kind="span",
-                     device=device) as s:
+        `meta` becomes the event's args.  The span is also a
+        :meth:`region` of its name, its waits included."""
+        with self.region(name), \
+                self.op(name, nbytes=nbytes, n_pes=n_pes, kind="span",
+                        device=device) as s:
             if s is not None and meta:
                 s.meta = dict(meta)
             yield s

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.trace import region
 from ..kernels import ops as kops
 from ..kernels.ref import NEG_INF
 from ..parallel.comm import Comm
@@ -677,39 +678,46 @@ def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
     B, L, d = x.shape
     hd = cfg.hd
     nq_local, nkv_store, _ = _gqa_dims(cfg, tp)
-    q = _dense(x, p["wq"], p.get("bq")).reshape(B, L, nq_local, hd)
-    k = _dense(x, p["wk"], p.get("bk")).reshape(B, L, nkv_store, hd)
-    v = _dense(x, p["wv"], p.get("bv")).reshape(B, L, nkv_store, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    k, v, q2slot = _kv_slots(comm, cfg, tp, k, v)
+    prof = comm.profile
+    with region(prof, "layer.attn.qkv"):
+        q = _dense(x, p["wq"], p.get("bq")).reshape(B, L, nq_local, hd)
+        k = _dense(x, p["wk"], p.get("bk")).reshape(B, L, nkv_store, hd)
+        v = _dense(x, p["wv"], p.get("bv")).reshape(B, L, nkv_store, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        k, v, q2slot = _kv_slots(comm, cfg, tp, k, v)
 
-    paged_kv_update(pool["k"], page_table, k, positions, page_size)
-    paged_kv_update(pool["v"], page_table, v, positions, page_size)
-    ck = paged_kv_gather(pool["k"], page_table)              # (B,S_max,K,hd)
-    cv = paged_kv_gather(pool["v"], page_table)
+    with region(prof, "layer.attn.kv"):
+        paged_kv_update(pool["k"], page_table, k, positions, page_size)
+        paged_kv_update(pool["v"], page_table, v, positions, page_size)
+        ck = paged_kv_gather(pool["k"], page_table)          # (B,S_max,K,hd)
+        cv = paged_kv_gather(pool["v"], page_table)
 
-    window = layer_window(cfg, is_local_layer)
-    if L > 1:
-        if not positions_checked:
-            check_prefill_positions(positions)
-        if q2slot is not None:          # one kv head per local q head
-            ck, cv = ck.index_select(2, q2slot), cv.index_select(2, q2slot)
-        out = kops.attention(
-            q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
-            causal=True, window=window, softcap=cfg.softcap,
-            sm_scale=1.0 / math.sqrt(hd)).transpose(1, 2)
-    else:
-        S_max = ck.shape[1]
-        kv_pos = torch.arange(S_max, device=x.device)[None, None, :]
-        valid = kv_pos <= positions[:, :, None]
-        if window is not None:
-            valid &= kv_pos > (positions[:, :, None] - window)
-        out = _attend_mq(cfg, q, ck, cv, valid, q2slot)
-    out = _zero_ghosts(comm, cfg, tp, out, 2)
-    out = out.reshape(B, L, nq_local * hd).to(cfg.dtype)
-    y = _dense(out, p["wo"])
-    return comm.allreduce(y, comm.axes.model), pool
+    with region(prof, "layer.attn.core"):
+        window = layer_window(cfg, is_local_layer)
+        if L > 1:
+            if not positions_checked:
+                check_prefill_positions(positions)
+            if q2slot is not None:      # one kv head per local q head
+                ck = ck.index_select(2, q2slot)
+                cv = cv.index_select(2, q2slot)
+            out = kops.attention(
+                q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
+                causal=True, window=window, softcap=cfg.softcap,
+                sm_scale=1.0 / math.sqrt(hd)).transpose(1, 2)
+        else:
+            S_max = ck.shape[1]
+            kv_pos = torch.arange(S_max, device=x.device)[None, None, :]
+            valid = kv_pos <= positions[:, :, None]
+            if window is not None:
+                valid &= kv_pos > (positions[:, :, None] - window)
+            out = _attend_mq(cfg, q, ck, cv, valid, q2slot)
+
+    with region(prof, "layer.attn.out"):
+        out = _zero_ghosts(comm, cfg, tp, out, 2)
+        out = out.reshape(B, L, nq_local * hd).to(cfg.dtype)
+        y = _dense(out, p["wo"])
+        return comm.allreduce(y, comm.axes.model), pool
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ import torch
 import torch.utils.checkpoint
 
 from .. import resolve_device
+from ..core.trace import region
 from ..parallel.comm import Comm
 from . import layers as L
 from .config import ModelConfig
@@ -462,9 +463,10 @@ def _attn_block_paged(comm, cfg, bp, x, pool, page_table, positions,
                              positions, page_size=page_size,
                              is_local_layer=is_local,
                              positions_checked=positions_checked)
-    x = x + a
-    h = L.rms_norm(x, bp["ln2"])
-    return x + L.mlp(comm, cfg, bp["mlp"], h)
+    with region(comm.profile, "layer.mlp"):
+        x = x + a
+        h = L.rms_norm(x, bp["ln2"])
+        return x + L.mlp(comm, cfg, bp["mlp"], h)
 
 
 def _paged_stack(comm, cfg, params, pool, page_table, x, positions,
@@ -481,6 +483,27 @@ def _paged_stack(comm, cfg, params, pool, page_table, x, positions,
     return x, pool
 
 
+def _paged_model(comm, cfg, params, pool, page_table, tokens, positions,
+                 page_size, prefill):
+    """Embedding (a prefill's positions checked first), the paged layer
+    stack and the LM head, each a range of the tracer on `comm`
+    (`core.trace.region`): ``model.embed``, ``model.layers`` (each
+    layer's first norm outside its own ranges) and ``model.head`` (the
+    final norm and the logits)."""
+    prof = comm.profile
+    with region(prof, "model.embed"):
+        if prefill:
+            L.check_prefill_positions(positions)
+        x = _embed_scaled(comm, cfg, params, tokens)
+    with region(prof, "model.layers"):
+        x, pool = _paged_stack(comm, cfg, params, pool, page_table, x,
+                               positions, page_size,
+                               positions_checked=prefill)
+    with region(prof, "model.head"):
+        x = L.rms_norm(x, params["final_norm"])
+        return L.lm_logits(comm, cfg, params["embed"], x), pool
+
+
 def prefill_paged(comm: Comm, cfg: ModelConfig, params: Params, pool: Params,
                   page_table, tokens, positions, *, page_size: int):
     """One forward pass over the whole prompt bucket that also fills the
@@ -490,12 +513,8 @@ def prefill_paged(comm: Comm, cfg: ModelConfig, params: Params, pool: Params,
     pages; decode overwrites each position before the causal mask can
     expose it.  positions must be arange(L) in every row; that is checked
     once here, not in every layer."""
-    L.check_prefill_positions(positions)
-    x = _embed_scaled(comm, cfg, params, tokens)
-    x, pool = _paged_stack(comm, cfg, params, pool, page_table, x,
-                           positions, page_size, positions_checked=True)
-    x = L.rms_norm(x, params["final_norm"])
-    return L.lm_logits(comm, cfg, params["embed"], x), pool
+    return _paged_model(comm, cfg, params, pool, page_table, tokens,
+                        positions, page_size, prefill=True)
 
 
 def decode_step_paged(comm: Comm, cfg: ModelConfig, params: Params,
@@ -503,8 +522,5 @@ def decode_step_paged(comm: Comm, cfg: ModelConfig, params: Params,
                       page_size: int):
     """One paged decode step: tokens (B,1), positions (B,) -> (logits
     (B,1,vocab_local), pool)."""
-    x = _embed_scaled(comm, cfg, params, tokens)
-    x, pool = _paged_stack(comm, cfg, params, pool, page_table, x,
-                           positions[:, None], page_size)
-    x = L.rms_norm(x, params["final_norm"])
-    return L.lm_logits(comm, cfg, params["embed"], x), pool
+    return _paged_model(comm, cfg, params, pool, page_table, tokens,
+                        positions[:, None], page_size, prefill=False)

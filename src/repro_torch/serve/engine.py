@@ -32,7 +32,19 @@ request lifecycle (submit, admit, first token, decode steps, evict,
 admission backpressure); a `Profiler` or `Tracer` (`profile=`) times
 ``serve.step``/``serve.prefill``/``serve.decode`` spans that wait for the
 card, and a tracer also draws each request on its async track (begin,
-``admit``, ``first_token``, end).  Both default to None: zero cost.
+``admit``, ``first_token``, end).  While a torch profiler records, a
+tracer also opens ranges (`core.trace.region`) on the profiler's clock:
+the three spans, and inside them ``serve.schedule`` (evict and admit),
+``serve.batch`` (the host arrays and their copies to the card),
+``serve.sample`` (greedy sampling and its host read) and ``serve.emit``,
+and in the model ``model.embed``, ``model.layers`` (each layer's
+``layer.attn.qkv``, ``layer.attn.kv``, ``layer.attn.core``,
+``layer.attn.out`` and ``layer.mlp``) and ``model.head``.  A profile
+also tallies the padding (`Profiler.tallies`): per decode step
+``serve.decode.kv_positions_live`` (the active slots' contexts) and
+``serve.decode.kv_positions_read`` (every slot's pages to `max_seq`, as
+the gather reads them), per prefill ``serve.prefill.prompt_tokens`` and
+``serve.prefill.bucket_tokens``.  Both default to None: zero cost.
 """
 from __future__ import annotations
 
@@ -48,7 +60,7 @@ from .. import resolve_device
 from ..core import spmd
 from ..core.fault import PEFailure, fault_event
 from ..core.heap import SymmetricHeap
-from ..core.trace import Tracer
+from ..core.trace import Tracer, region
 from ..models import transformer
 from ..parallel.comm import AxisSpec, Comm
 from . import step as sstep
@@ -349,70 +361,92 @@ class ServeEngine:
     @torch.no_grad()
     def _step_inner(self) -> dict:
         sched, cfg = self.scheduler, self.cfg
-        metrics = self.metrics
+        metrics, prof = self.metrics, self.profile
         with self._span("serve.step", n_pes=0):
-            evicted = []
-            for slot, st in sched.step_evict():
-                self.results[st.rid] = np.asarray(st.out, np.int32)
-                evicted.append(st.rid)
-                if metrics is not None:
-                    metrics.on_evict(st.rid)
-                self._req_event("evict", st.rid, n_tokens=len(st.out))
+            with region(prof, "serve.schedule"):
+                evicted = []
+                for slot, st in sched.step_evict():
+                    self.results[st.rid] = np.asarray(st.out, np.int32)
+                    evicted.append(st.rid)
+                    if metrics is not None:
+                        metrics.on_evict(st.rid)
+                    self._req_event("evict", st.rid, n_tokens=len(st.out))
+                admits = sched.step_admit()
+                if metrics is not None and sched.queue \
+                        and any(s is None for s in sched.slots):
+                    # free slot + waiting head = page backpressure, the
+                    # only reason FIFO admission stalls
+                    metrics.on_backpressure()
 
             admitted = []
-            admits = sched.step_admit()
-            if metrics is not None and sched.queue \
-                    and any(s is None for s in sched.slots):
-                # free slot + waiting head = page backpressure, the only
-                # reason FIFO admission stalls
-                metrics.on_backpressure()
             for slot, st in admits:
                 if metrics is not None:
                     metrics.on_admit(st.rid)
                 self._req_event("admit", st.rid, slot=slot)
                 Lb = self.prompt_bucket
-                toks = np.zeros((1, Lb), np.int64)
-                toks[0, :len(st.prompt)] = st.prompt
-                positions = torch.arange(Lb, device=self.device).expand(1, Lb)
+                with region(prof, "serve.batch"):
+                    toks = np.zeros((1, Lb), np.int64)
+                    toks[0, :len(st.prompt)] = st.prompt
+                    positions = torch.arange(Lb, device=self.device) \
+                        .expand(1, Lb)
+                if prof is not None:
+                    prof.tally("serve.prefill.prompt_tokens", len(st.prompt))
+                    prof.tally("serve.prefill.bucket_tokens", Lb)
                 with self._span("serve.prefill", nbytes=float(Lb * 4)):
+                    with region(prof, "serve.batch"):
+                        table = self._tensor(self.kv.table[slot:slot + 1])
+                        toks_d = self._tensor(toks)
                     logits, self.pool = transformer.prefill_paged(
-                        self.comm, cfg, self.params, self.pool,
-                        self._tensor(self.kv.table[slot:slot + 1]),
-                        self._tensor(toks), positions,
-                        page_size=self.page_size)
-                    lg = logits[:, len(st.prompt) - 1]            # (1, V)
-                    tok = int(sstep.sample_greedy(self.comm, lg)[0])
-                    lg = self._captured(lg)
-                self._emit(st, tok, None if lg is None else lg[0])
-                if metrics is not None:
-                    metrics.on_first_token(st.rid)
-                self._req_event("first_token", st.rid)
+                        self.comm, cfg, self.params, self.pool, table,
+                        toks_d, positions, page_size=self.page_size)
+                    with region(prof, "serve.sample"):
+                        lg = logits[:, len(st.prompt) - 1]        # (1, V)
+                        tok = int(sstep.sample_greedy(self.comm, lg)[0])
+                        lg = self._captured(lg)
+                with region(prof, "serve.emit"):
+                    self._emit(st, tok, None if lg is None else lg[0])
+                    if metrics is not None:
+                        metrics.on_first_token(st.rid)
+                    self._req_event("first_token", st.rid)
                 admitted.append(st.rid)
 
             active = sched.active_slots()
             if active:
-                toks = np.zeros((self.max_slots, 1), np.int64)
-                poss = np.zeros((self.max_slots,), np.int64)
-                for i in active:
-                    st = sched.slots[i]
-                    toks[i, 0] = st.out[-1]
-                    poss[i] = st.pos
+                with region(prof, "serve.batch"):
+                    toks = np.zeros((self.max_slots, 1), np.int64)
+                    poss = np.zeros((self.max_slots,), np.int64)
+                    for i in active:
+                        st = sched.slots[i]
+                        toks[i, 0] = st.out[-1]
+                        poss[i] = st.pos
+                if prof is not None:
+                    prof.tally("serve.decode.kv_positions_live",
+                               int(poss.sum()) + len(active))
+                    prof.tally("serve.decode.kv_positions_read",
+                               self.max_slots * self.kv.max_pages
+                               * self.page_size)
                 t0 = time.perf_counter()
                 with self._span("serve.decode", n_pes=len(active)):
+                    with region(prof, "serve.batch"):
+                        table = self._tensor(self.kv.table)
+                        toks_d, poss_d = self._tensor(toks), \
+                            self._tensor(poss)
                     logits, self.pool = transformer.decode_step_paged(
-                        self.comm, cfg, self.params, self.pool,
-                        self._tensor(self.kv.table), self._tensor(toks),
-                        self._tensor(poss), page_size=self.page_size)
-                    lg = logits[:, 0]
-                    tok = sstep.sample_greedy(self.comm, lg).cpu().numpy()
-                    lg = self._captured(lg)
+                        self.comm, cfg, self.params, self.pool, table,
+                        toks_d, poss_d, page_size=self.page_size)
+                    with region(prof, "serve.sample"):
+                        lg = logits[:, 0]
+                        tok = sstep.sample_greedy(self.comm, lg) \
+                            .cpu().numpy()
+                        lg = self._captured(lg)
                 if metrics is not None:
                     metrics.on_decode_step(len(active),
                                            time.perf_counter() - t0)
-                for i in active:
-                    st = sched.slots[i]
-                    st.pos += 1
-                    self._emit(st, tok[i], None if lg is None else lg[i])
+                with region(prof, "serve.emit"):
+                    for i in active:
+                        st = sched.slots[i]
+                        st.pos += 1
+                        self._emit(st, tok[i], None if lg is None else lg[i])
         self.steps += 1
         if metrics is not None:
             metrics.sample_engine(self)

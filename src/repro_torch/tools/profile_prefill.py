@@ -22,15 +22,49 @@ rows against `long_cache_len` slots), the same for one
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import importlib
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
 
-from .profile_serve import trace_steps, wall_ms
+
+def trace_steps(fn, n: int) -> dict:
+    """Profile `n` calls of fn; device events summed by name (a sum, not
+    the union of overlapping events)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    count = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            count += 1
+    busy_us = sum(by_name.values())
+    return {"device_busy_ms_per_step": busy_us / n / 1e3,
+            "device_ops_per_step": count / n,
+            "top_kernels_ms_per_step": [
+                (name[:90], us / n / 1e3)
+                for name, us in by_name.most_common(12)]}
+
+
+def wall_ms(fn, n: int) -> float:
+    """Host wall of `n` calls of fn, from one device wait to another."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
 
 
 def _phase(fn, label: str) -> dict:

@@ -20,7 +20,7 @@ import subprocess
 
 import torch
 
-from .profile_serve import trace_steps, wall_ms
+from .profile_prefill import trace_steps, wall_ms
 
 STEPS = 3
 
