@@ -18,13 +18,26 @@ Phases; any failure exits non-zero before the result line is printed:
      against the plain version evaluated in f64); bf16 at head dims that
      are multiples of 8 must take the tensor cores; then timed at the
      serving and training shapes beside its plain version and one
-     PyTorch library call (a yardstick the port never calls);
+     PyTorch library call (a yardstick the port never calls); then the
+     paged decode-attention kernel (kernel 8, csrc/paged_decode.cu)
+     against its plain version at the zoo's decode heads (the chat
+     cells' internlm2-20b and phi-3-vision, qwen2, gemma2, danube), with
+     softcap, window and the replicated-KV map, pages of 8 and 16, f32
+     and bf16, on the edge rows (position 0, a page's first and last
+     row, max_seq - 1, the null page) and rows of thousands of positions,
+     one row alone against the same row in a batch of 64 and two runs,
+     bit for bit; timed at the chat cells' decode steps, with one
+     step's decode_rows as the engine's layers share them, beside its
+     byte bound and its plain version, and again with the host queued
+     ahead (device time alone), with the wrapper's host time a call;
   3. serve — qwen2-0.5b at full width (24 layers, vocab 151936) with
      seeded random weights: 8 requests of 100 prompt tokens (bucket 128),
      32 new tokens each, 4 slots, page size 16, max_seq 256 (the run
      `repro_torch/configs/qwen2_0_5b.py` names).  Every
      launch count is set to 0 just before this run and read just after;
-     the run must have gone through every kernel of the path.  Then two
+     the run must have gone through every kernel of the path: kernel 4
+     once a layer a prefill, kernel 8 once a layer a decode step (a
+     count every later serving path is held to as well).  Then two
      requests served alone must give the batched run's tokens bit for
      bit, and one request's prefill logits through the kernel must match
      those through the plain version;
@@ -402,9 +415,11 @@ resource tracker that spawning the ranks launches) is still alive or
 unreaped before the result is printed.
 
 The last lines are one JSON object per kernel run ({"kernels": [...]}:
-the seven kernels, then one flash_attention row per prefill shape of
-phases 10-13 and per-rank shape of phases 17 and 18, and one
-ring_attention row per per-rank shape of phase 19, with a "shape" key),
+the eight kernels, then one flash_attention row per prefill shape of
+phases 10-13 and per-rank shape of phases 17 and 18, kernel 8 at
+phi-3-vision's chat decode step (with the launches of phi-3-vision's
+heads in phase 13's launcher), and one ring_attention row per
+per-rank shape of phase 19, with a "shape" key),
 the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.
 """
@@ -426,7 +441,7 @@ from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 KERNELS = ["flash_attention", "put_copy", "reduce_combine",
-           "fused_update", "ssd_scan", "ring_attention"]
+           "fused_update", "ssd_scan", "ring_attention", "paged_decode"]
 
 # published peaks of one H100 SXM (dense): bytes over 3.35 TB/s, products
 # over the tensor-core rate of their type (bf16) or the f32 CUDA-core rate
@@ -842,12 +857,219 @@ def time_attention_at(torch, F, fa, ref, gen, card, b, hq, hkv, lq, lk,
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the paged decode-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# The kernel sums in another order than the plain version (each split of a
+# row's pages, then the splits combined; the plain version's einsums over
+# all max_seq positions): within PAGED_RTOL of the largest |value| plus
+# PAGED_ATOL, in f32 and over bf16 K/V alike (both widen the same bf16
+# values exactly)
+PAGED_RTOL, PAGED_ATOL = 1e-4, 1e-5
+# (label, group, hd, page_size): the chat cells' decode heads (internlm2-20b,
+# phi-3-vision-4.2b), qwen2-0.5b's, gemma2's and danube's
+PAGED_HEADS = [("internlm2", 6, 128, 8), ("phi3v", 1, 96, 8),
+               ("qwen2", 7, 64, 16), ("gemma2", 2, 256, 16),
+               ("danube", 4, 120, 8)]
+PAGED_VARIANTS = [dict(), dict(softcap=50.0), dict(window=13),
+                  dict(q2slot=True),
+                  dict(softcap=50.0, window=13, q2slot=True)]
+# the chat cells' decode step (ptbench/traffic/chat.json): 64 slots, pages
+# of 8, max_seq 1792; (B, Hq, Hkv, hd), contexts spread evenly over
+# 64..906 positions, the mean of ~485 that the cells' traced steps read
+PAGED_TIMED = {"internlm2-20b.chat": (64, 48, 8, 128),
+               "phi-3-vision-4.2b.chat": (64, 32, 32, 96)}
+PAGED_MAX_PAGES = 224
+
+
+def paged_inputs(torch, gen, hq, hkv, hd, ps, max_pages, positions, dt,
+                 q2slot=False):
+    """q, pools, page table and positions of a decode step: each row owns
+    the pages up to its position, drawn from a shuffled pool; one more
+    row on the null page only (table all 0, position 0).  Under q2slot
+    the q heads read the stored heads in a random map."""
+    b = len(positions) + 1
+    num_pages = 1 + len(positions) * max_pages
+
+    def rnd(scale, *shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dt)
+    pool_k, pool_v = (rnd(1.0, num_pages, ps, hkv, hd) for _ in range(2))
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    table = torch.zeros((b, max_pages), dtype=torch.long, device="cuda")
+    for r, pos in enumerate(positions):
+        n = pos // ps + 1
+        table[r, :n] = perm[r * max_pages:r * max_pages + n]
+    slots = torch.randint(0, hkv, (hq,), generator=gen, device="cuda") \
+        if q2slot else None
+    pos_t = torch.tensor(list(positions) + [0], device="cuda")
+    return dict(q=rnd(2.0, b, hq, hd), pool_k=pool_k, pool_v=pool_v,
+                page_table=table, positions=pos_t, q2slot=slots)
+
+
+def paged_over(torch, got, want) -> tuple[float, float]:
+    """(max|err|, err over its limit) of the kernel against the plain
+    version."""
+    err = (got - want).abs().max().item()
+    return err, err / (PAGED_RTOL * want.abs().max().item() + PAGED_ATOL)
+
+
+def check_paged_decode(torch, kpd, ref, gen) -> None:
+    """The kernel against its plain version at the zoo's decode heads, with
+    and without softcap, window and the replicated-KV map, pages of 8 and
+    16, f32 and bf16, on rows at position 0, a page's first and last row,
+    max_seq - 1 and the null page; rows of thousands of positions (many
+    splits); one row alone and in a batch of 64 bit for bit, and two runs
+    bit for bit."""
+    for label, group, hd, ps in PAGED_HEADS:
+        for dtype in ("float32", "bfloat16"):
+            worst = 0.0
+            for variant in PAGED_VARIANTS:
+                q2slot = variant.get("q2slot", False)
+                hkv = 3 if q2slot else 2
+                hq = group + 1 if q2slot else group * hkv
+                last = 8 * ps - 1
+                c = paged_inputs(torch, gen, hq, hkv, hd, ps, 8,
+                                 [0, 2 * ps, 3 * ps - 1, last, 5, last - 9],
+                                 getattr(torch, dtype), q2slot)
+                kw = dict(page_size=ps, window=variant.get("window"),
+                          softcap=variant.get("softcap"))
+                got = kpd.paged_decode_attention(**c, **kw)
+                want = ref.paged_decode_ref(**c, **kw)
+                torch.cuda.synchronize()
+                err, over = paged_over(torch, got, want)
+                if not over <= 1.0:
+                    raise AssertionError(f"paged decode {label} {dtype} "
+                                         f"{variant}: max|err| {err}, "
+                                         f"err/limit {over}")
+                worst = max(worst, over)
+            log(f"  paged decode {label:9s} {dtype:8s} group {group} hd {hd} "
+                f"pages of {ps}, {len(PAGED_VARIANTS)} variants: worst "
+                f"err/limit {worst:.3f}")
+    c = paged_inputs(torch, gen, 48, 8, 128, 8, 512,
+                     [4095, 2048, 1000, 257, 255, 256], torch.bfloat16)
+    got = kpd.paged_decode_attention(**c, page_size=8)
+    err, over = paged_over(torch, got,
+                           ref.paged_decode_ref(**c, page_size=8))
+    if not over <= 1.0:
+        raise AssertionError(f"paged decode long rows: err/limit {over}")
+    g = torch.Generator().manual_seed(5)
+    rows = torch.randint(0, 8 * PAGED_MAX_PAGES, (63,), generator=g)
+    c = paged_inputs(torch, gen, 48, 8, 128, 8, PAGED_MAX_PAGES,
+                     rows.tolist(), torch.bfloat16)
+    batched = kpd.paged_decode_attention(**c, page_size=8)
+    if not torch.equal(batched, kpd.paged_decode_attention(**c,
+                                                           page_size=8)):
+        raise AssertionError("paged decode: two runs differ")
+    for r in (0, 17, 62, 63):
+        one = {k: v[r:r + 1] for k, v in c.items() if k not in
+               ("pool_k", "pool_v", "q2slot")}
+        alone = kpd.paged_decode_attention(
+            pool_k=c["pool_k"], pool_v=c["pool_v"], **one, page_size=8)
+        if not torch.equal(alone[0], batched[r]):
+            raise AssertionError(f"paged decode: row {r} alone differs "
+                                 f"from the same row in a batch of 64")
+    log(f"  paged decode: rows of up to 4096 positions err/limit "
+        f"{over:.3f}; rows alone == in a batch of 64 and run == run, bit "
+        f"for bit")
+
+
+def device_ms(torch, fn, iters: int = 200, warmup: int = 10,
+              sleep_cycles: int = 2 * 10**8) -> float:
+    """Mean device time of `fn` over back-to-back calls queued while the
+    card sleeps (~0.1 s of cycles): the host's time a call is hidden
+    where it is longer than the call's device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_paged_decode(torch, kpd, ref, gen, card) -> dict:
+    """The kernel (its wrapper, back to back, with one step's
+    `decode_rows` as the engine's layers share them) and the plain
+    version at the chat cells' decode steps (PAGED_TIMED), bf16, beside
+    the bound: the K and V rows of the live positions read once, q read
+    and the f32 output written once; 4 hd operations a position and q
+    head at the f32 rate.  Beside it the kernel's device time with the
+    host queued ahead (`device_ms`) and the wrapper's host time a call.
+    Returns the internlm2 shape's numbers, the phi-3-vision shape's
+    under "phi3v"."""
+    got = {}
+    for cell, (b, hq, hkv, hd) in PAGED_TIMED.items():
+        positions = [round(64 + i * (906 - 64) / (b - 2))
+                     for i in range(b - 1)]
+        c = paged_inputs(torch, gen, hq, hkv, hd, 8, PAGED_MAX_PAGES,
+                         positions, torch.bfloat16)
+        rows = kpd.decode_rows(c["page_table"], c["positions"], page_size=8)
+        run = lambda: kpd.paged_decode_attention(  # noqa: E731
+            **c, page_size=8, rows=rows)
+        plain = lambda: ref.paged_decode_ref(**c, page_size=8)  # noqa: E731
+        err, over = paged_over(torch, run(), plain())
+        kernel_ms = time_ms(run)
+        dev_ms = device_ms(torch, run)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2 * 10**8)          # the host alone is timed
+        t0 = time.perf_counter()
+        for _ in range(200):
+            run()
+        host_ms = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        plain_ms = time_ms(plain, iters=20, warmup=2)
+        live = sum(p + 1 for p in positions) + 1         # + the null row
+        nbytes = 2 * live * hkv * hd * 2 + b * hq * hd * (2 + 4)
+        ops_count = 4 * hd * hq * live
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_count / PEAK_OPS_PER_S["torch.float32"] * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"  paged decode at {cell}'s step (B{b} Hq{hq} Hkv{hkv} hd{hd} "
+            f"bf16, {live} live positions, {card}): kernel {kernel_ms:.5f} "
+            f"ms back to back ({100 * bound / kernel_ms:.1f}% of the "
+            f"bound), {dev_ms:.5f} ms with the host queued ahead "
+            f"({100 * bound / dev_ms:.1f}%), the wrapper's host time "
+            f"{host_ms:.5f} ms a call; plain {plain_ms:.5f} ms; bound "
+            f"{bound:.6f} ms ({nbytes} B, {ops_count} f32 ops); max|err| "
+            f"{err:.3e} (err/limit {over:.3f})")
+        if not over <= 1.0:
+            raise AssertionError(f"paged decode at {cell}: err/limit {over}")
+        got[cell] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                         bound_ms=bound, library_ms=None,
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations", shape=cell)
+    return dict(got["internlm2-20b.chat"],
+                phi3v=got["phi-3-vision-4.2b.chat"])
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serve
 # ---------------------------------------------------------------------------
 
 def pct(xs, q):
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
+
+
+def counting_decodes():
+    """A patch of `transformer.decode_step_paged` that counts the decode
+    steps it runs to their end under ["steps"]; kernel 8 launches once a
+    layer in each.  Returns (the patch, the count)."""
+    from repro_torch.models import transformer
+    real, seen = transformer.decode_step_paged, {"steps": 0}
+
+    def counted(*a, **k):
+        out = real(*a, **k)
+        seen["steps"] += 1
+        return out
+
+    return mock.patch.object(transformer, "decode_step_paged", counted), seen
 
 
 def drive_engine(torch, eng, prompts, new_tokens, on_step=None):
@@ -880,6 +1102,7 @@ def drive_engine(torch, eng, prompts, new_tokens, on_step=None):
 
 
 def serve(torch, np, fa, serving, ServeEngine):
+    from repro_torch.kernels import paged_decode as kpd
     cfg, engine_kw = serving.CONFIG, serving.SERVE_ENGINE
     n_requests, prompt_len, new_tokens = (
         serving.SERVE_TRAFFIC[k] for k in ("requests", "prompt_len",
@@ -891,9 +1114,13 @@ def serve(torch, np, fa, serving, ServeEngine):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.launches = 0                                  # main path starts
-    rids, ttft, gaps, wall = drive_engine(torch, eng, prompts, new_tokens)
-    launches = {"flash_attention": fa.launches}      # main path ends
+    decode_steps = []
+    fa.launches = kpd.launches = 0                   # main path starts
+    rids, ttft, gaps, wall = drive_engine(
+        torch, eng, prompts, new_tokens,
+        lambda res: decode_steps.append(res["decoded"] > 0))
+    launches = {"flash_attention": fa.launches,      # main path ends
+                "paged_decode": kpd.launches}
     peak = torch.cuda.max_memory_allocated()
 
     n_prefill = eng.scheduler.n_admitted
@@ -901,6 +1128,11 @@ def serve(torch, np, fa, serving, ServeEngine):
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} times, want "
                              f"{cfg.n_layers} x {n_prefill} prefills")
+    if launches["paged_decode"] != cfg.n_layers * sum(decode_steps):
+        raise AssertionError(f"paged_decode launched "
+                             f"{launches['paged_decode']} times, want "
+                             f"{cfg.n_layers} x {sum(decode_steps)} decode "
+                             f"steps")
     for rid in rids:
         if len(eng.results[rid]) != new_tokens:
             raise AssertionError(f"request {rid}: {len(eng.results[rid])} "
@@ -911,8 +1143,8 @@ def serve(torch, np, fa, serving, ServeEngine):
         f"{pct(ttft, 50) * 1e3:.2f} ms (submit to the end of the admitting "
         f"step), per-token p50 {pct(gaps, 50) * 1e3:.3f} ms, peak memory "
         f"{peak / 2**30:.3f} GiB, {eng.steps} engine steps, "
-        f"{n_prefill} prefills, flash_attention launches "
-        f"{launches['flash_attention']}")
+        f"{n_prefill} prefills, {sum(decode_steps)} decode steps; launches "
+        f"{launches}")
 
     # two requests alone: tokens bit-identical to the batched run
     solo = ServeEngine(cfg, params=eng.params, device="cuda", **engine_kw)
@@ -1694,6 +1926,7 @@ def fused_bucket(torch, np) -> dict:
 def _counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import paged_decode as kpd
     from repro_torch.kernels import put_copy as pc
     from repro_torch.kernels import reduce_combine as rc
     from repro_torch.kernels import ring_attention as ra
@@ -1701,18 +1934,19 @@ def _counts():
     return {"flash_attention": fa.launches, "put_copy": pc.launches,
             "dma_copy": pc.dma_launches, "reduce_combine": rc.launches,
             "fused_update": fu.launches, "ssd_scan": ks.launches,
-            "ring_attention": ra.launches}
+            "ring_attention": ra.launches, "paged_decode": kpd.launches}
 
 
 def _reset_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import paged_decode as kpd
     from repro_torch.kernels import put_copy as pc
     from repro_torch.kernels import reduce_combine as rc
     from repro_torch.kernels import ring_attention as ra
     from repro_torch.kernels import ssd_scan as ks
     fa.launches = pc.launches = pc.dma_launches = rc.launches = 0
-    fu.launches = ks.launches = ra.launches = 0
+    fu.launches = ks.launches = ra.launches = kpd.launches = 0
 
 
 # 6c trains this many steps a sync at TRAIN_RUN's shape, not the config's
@@ -2661,7 +2895,7 @@ def ring_path(torch, np, serving, ra, ref, ops, fa, card) -> list:
         want = {"flash_attention": 0, "put_copy": 3 * (n - 1),
                 "dma_copy": 0, "fused_update": 0, "ssd_scan": 0,
                 "reduce_combine": 3 * (n - 1) if noc and waves > 1 else 0,
-                "ring_attention": n}
+                "ring_attention": n, "paged_decode": 0}
         if got != want:
             raise AssertionError(f"ring noc={noc} {kw}: launches {got}, the "
                                  f"code implies {want}")
@@ -3675,8 +3909,9 @@ def launch_dense(torch, np, mod, ref, layers, logits_check=False) -> dict:
     """10b, 10d, 13d: `python -m repro_torch.launch.serve --arch <arch>`
     through its main() at the reference's defaults (the paged engine, batch 4,
     prompt 32, 16 tokens, max_seq max(--cache-len 128, 48)): (4, 16)
-    tokens and one paged prefill of kernel-4 launches per layer per
-    request (counts set to 0 just before, read just after).  With
+    tokens, one paged prefill of kernel-4 launches per layer per
+    request and one kernel-8 launch per layer per decode step (counts
+    set to 0 just before, read just after).  With
     `logits_check`, one request's prefill logits through the kernel
     against those through the plain version (phase 3's rule,
     PREFILL_LOGITS_RTOL of the largest) on the engine's weights.  Returns
@@ -3693,7 +3928,9 @@ def launch_dense(torch, np, mod, ref, layers, logits_check=False) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with mock.patch.object(serve_engine, "ServeEngine", Recording):
+    decoding, decodes = counting_decodes()
+    with mock.patch.object(serve_engine, "ServeEngine", Recording), \
+            decoding:
         _reset_counts()                              # path starts
         t0 = time.perf_counter()
         gen = launch_serve.main(["--arch", cfg.name])
@@ -3708,11 +3945,14 @@ def launch_dense(torch, np, mod, ref, layers, logits_check=False) -> dict:
         f"tokens, max_seq {eng.max_seq}, {eng.kv.pool.num_pages} pages of "
         f"{eng.page_size}): tokens {gen.shape}, wall {wall:.3f} s with the "
         f"weights' init, {gen.size / wall:.1f} tok/s, peak memory "
-        f"{peak / 2**30:.3f} GiB, {eng.steps} engine steps, launches "
-        f"{counts}; first row {gen[0].tolist()}")
+        f"{peak / 2**30:.3f} GiB, {eng.steps} engine steps, "
+        f"{decodes['steps']} decode steps, launches {counts}; first row "
+        f"{gen[0].tolist()}")
     want_counts = dict({name: 0 for name in counts},
-                       flash_attention=cfg.n_layers * run["batch"])
+                       flash_attention=cfg.n_layers * run["batch"],
+                       paged_decode=cfg.n_layers * decodes["steps"])
     if gen.shape != want or counts != want_counts \
+            or decodes["steps"] < run["new_tokens"] - 1 \
             or eng.max_seq != max(run["cache_len"],
                                   run["prompt_len"] + run["new_tokens"]):
         raise AssertionError(f"launcher gave {gen.shape}, launches {counts}"
@@ -4181,7 +4421,8 @@ def services_engine(torch, np, serving, ServeEngine, served) -> dict:
     Tracer and ServeMetrics: tokens identical to phase 3's, both
     documents valid, exact request/token/page counts, and the registry's
     TTFT and per-token p50 beside phase 3's measures of this run, of an
-    untraced run right after and of phase 3's run.  Returns the traced
+    untraced run right after and of phase 3's run; kernel 4 once a layer
+    a request, kernel 8 once a layer a decode step.  Returns the traced
     run's launches (counts set to 0 just before, read just after)."""
     from repro_torch.core.trace import LEVEL_FULL, Tracer
     from repro_torch.serve.metrics import ServeMetrics
@@ -4197,8 +4438,11 @@ def services_engine(torch, np, serving, ServeEngine, served) -> dict:
                       metrics=metrics, **engine_kw)
     prompts = np.random.default_rng(0).integers(
         1, cfg.vocab, size=(n_req, prompt_len), dtype=np.int32)
+    decodes = []
     _reset_counts()                                     # path starts
-    rids, ttft, gaps, _ = drive_engine(torch, eng, prompts, new_tokens)
+    rids, ttft, gaps, _ = drive_engine(
+        torch, eng, prompts, new_tokens,
+        lambda res: decodes.append(res["decoded"] > 0))
     got = _counts()                                     # path ends
     for rid, want in zip(rids, served["tokens"]):
         if not np.array_equal(eng.results[rid], want):
@@ -4216,8 +4460,10 @@ def services_engine(torch, np, serving, ServeEngine, served) -> dict:
     if errs or counts != want:
         raise AssertionError(f"traced engine: schema errors {errs}, counts "
                              f"{counts} (want {want})")
-    if got["flash_attention"] != cfg.n_layers * n_req:
-        raise AssertionError(f"traced engine: {got} launches")
+    if got["flash_attention"] != cfg.n_layers * n_req \
+            or got["paged_decode"] != cfg.n_layers * sum(decodes):
+        raise AssertionError(f"traced engine: {got} launches, "
+                             f"{sum(decodes)} decode steps")
     n_events = len(tracer._events)
     # the same traffic untraced, right after: the host-bound engine's
     # per-token time moves by more between runs than the tracer costs
@@ -4240,7 +4486,9 @@ def services_engine(torch, np, serving, ServeEngine, served) -> dict:
 
 def services_launcher(torch) -> dict:
     """14e: `launch.serve --arch qwen2-0.5b --trace-out --metrics-out` on
-    the card writes documents that validate.  Returns its launches."""
+    the card writes documents that validate; kernel 8 once a layer a
+    decode step.  Returns its launches."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_launch
     from repro_torch.tools.tracereport import (validate_metrics,
                                                validate_trace)
@@ -4248,17 +4496,23 @@ def services_launcher(torch) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     tpath, mpath = out / "trace.json", out / "metrics.json"
     torch.cuda.synchronize()
-    _reset_counts()                                     # path starts
-    gen = serve_launch.main(["--arch", "qwen2-0.5b", "--trace-out",
-                             str(tpath), "--metrics-out", str(mpath)])
-    torch.cuda.synchronize()
-    got = _counts()                                     # path ends
+    decoding, decodes = counting_decodes()
+    with decoding:
+        _reset_counts()                                 # path starts
+        gen = serve_launch.main(["--arch", "qwen2-0.5b", "--trace-out",
+                                 str(tpath), "--metrics-out", str(mpath)])
+        torch.cuda.synchronize()
+        got = _counts()                                 # path ends
     tdoc, mdoc = json.loads(tpath.read_text()), json.loads(mpath.read_text())
     errs = validate_trace(tdoc) + validate_metrics(mdoc)
     done = mdoc["metrics"]["serve.requests_completed"]["value"]
-    if errs or done != gen.shape[0] or got["flash_attention"] < 1:
+    n_layers = get_config("qwen2-0.5b").n_layers
+    if errs or done != gen.shape[0] or got["flash_attention"] < 1 \
+            or not decodes["steps"] \
+            or got["paged_decode"] != n_layers * decodes["steps"]:
         raise AssertionError(f"launcher documents: {errs}, completed "
-                             f"{done} of {gen.shape[0]}, launches {got}")
+                             f"{done} of {gen.shape[0]}, launches {got}, "
+                             f"{decodes['steps']} decode steps")
     log(f"  launch.serve --trace-out --metrics-out: {gen.shape} tokens, "
         f"{len(tdoc['traceEvents'])} trace events, both documents valid; "
         f"launches {got}")
@@ -4480,7 +4734,7 @@ def elastic_pgas(torch, np, card) -> dict:
     peak = torch.cuda.max_memory_allocated()
     want = {"put_copy": 3 * (n - 1), "dma_copy": 0, "reduce_combine": 0,
             "fused_update": 0, "flash_attention": 0, "ssd_scan": 0,
-            "ring_attention": 0}
+            "ring_attention": 0, "paged_decode": 0}
     if n_rot != 3 * (n - 1) or got != want:
         raise AssertionError(f"pgas begin: {n_rot} rotations, launches "
                              f"{got} (want {want})")
@@ -4660,8 +4914,9 @@ def elastic_serve(torch, np, serving, ServeEngine, served, phase3) -> dict:
     order requeued at the queue head, no page live, pe_failures 1 and
     requests_requeued n in the metrics), then run() regenerates phase 3's
     tokens exactly, through phase 3's kernel-4 launches plus one layer
-    stack per re-prefill.  Returns its launches (counts set to 0 just
-    before, read just after)."""
+    stack per re-prefill, and kernel 8 once a layer a decode step that
+    ran (every call but the faulted one).  Returns its launches (counts
+    set to 0 just before, read just after)."""
     from repro_torch.core.fault import PEFailure
     from repro_torch.models import transformer
     from repro_torch.serve.metrics import ServeMetrics
@@ -4717,9 +4972,12 @@ def elastic_serve(torch, np, serving, ServeEngine, served, phase3) -> dict:
                                  f"{eng.results[rid].tolist()} != phase "
                                  f"3's {want.tolist()}")
     want_fa = phase3["flash_attention"] + cfg.n_layers * len(live)
-    if got["flash_attention"] != want_fa:
+    want_pd = cfg.n_layers * (seen["calls"] - 1)
+    if got["flash_attention"] != want_fa or got["paged_decode"] != want_pd:
         raise AssertionError(f"drained engine: {got['flash_attention']} "
-                             f"kernel-4 launches, want {want_fa}")
+                             f"kernel-4 launches, want {want_fa}; "
+                             f"{got['paged_decode']} kernel-8, want "
+                             f"{want_pd}")
     log(f"  15d {cfg.name} engine, PE 1 lost at the third step's decode: "
         f"the step drained on PE {f['pe']}, requeued {f['requeued']} (the "
         f"live rids in slot order) at the queue head {f['queue']}, 0 pages "
@@ -5662,7 +5920,7 @@ def ep_granite(torch, np, granite, card, phase22=None) -> list:
     formula = dict(flash_attention=2 * L * n, put_copy=0,
                    dma_copy=(2 * (30 * L + 14) + 15 * L) * n,
                    reduce_combine=(4 * L + 8) * n, fused_update=0,
-                   ssd_scan=0, ring_attention=0)
+                   ssd_scan=0, ring_attention=0, paged_decode=0)
     for r_, p in enumerate(res):
         if not np.isfinite(p["losses"]).all():
             raise AssertionError(f"17b: rank {r_} non-finite loss "
@@ -5817,7 +6075,7 @@ def ep_deepseek(torch, np, ds_cfg, card) -> list:
     formula = dict(flash_attention=L + 1, put_copy=0,
                    dma_copy=2 * rounds + 5 * (L - nd) + gathers,
                    reduce_combine=2 * L + 11, fused_update=0, ssd_scan=0,
-                   ring_attention=0)
+                   ring_attention=0, paged_decode=0)
     for r_, p in enumerate(res):
         if p["counts"] != formula or p["rounds"] != rounds:
             raise AssertionError(f"17d: rank {r_} launched {p['counts']} in "
@@ -5973,7 +6231,8 @@ def serve_tp_check(np, serving, tp, res, phase3, logits1, card):
     3's gap between its top two logits there is within that bound (a
     near tie), and the request not compared after it; per rank 8
     prefills (phase 3's requests, each admitted once), kernel 4 L x
-    prefills launches and (2L + 3) log2(tp) heap rounds a prefill and a
+    prefills launches, kernel 8 L x decode steps, and (2L + 3) log2(tp)
+    heap rounds a prefill and a
     decode step (the embedding's, two a layer, sample_greedy's max and
     min; one round a stage of the recursive doubling), two kernel-2
     launches and one kernel-3 launch a round.  Returns the path's launch
@@ -6036,7 +6295,8 @@ def serve_tp_check(np, serving, tp, res, phase3, logits1, card):
         rounds = passes * (2 * L + 3) * stages
         want = dict(flash_attention=L * n_req, put_copy=0,
                     dma_copy=2 * rounds, reduce_combine=rounds,
-                    fused_update=0, ssd_scan=0, ring_attention=0)
+                    fused_update=0, ssd_scan=0, ring_attention=0,
+                    paged_decode=L * got["n_decode"])
         if got["counts"] != want or got["rounds"] != rounds:
             raise AssertionError(f"18a 1x{tp}: rank {r_} launched "
                                  f"{got['counts']} in {got['rounds']} heap "
@@ -7067,7 +7327,8 @@ def fsdp_step_formula(torch, cfg, params, mb, dp, slot_bytes) -> dict:
                             dma_copy=2 * rounds + 3 * G * L * mb,
                             reduce_combine=1 + len(buckets)
                             + mb * (4 + 3 * L),
-                            fused_update=0, ssd_scan=0, ring_attention=0))
+                            fused_update=0, ssd_scan=0, ring_attention=0,
+                            paged_decode=0))
 
 
 def fsdp_train_rank(argv):
@@ -7248,6 +7509,7 @@ def fsdp_drain_rank(cfg, engine_kw, prompts, new_tokens):
                                               new_tokens, check_drain)
         counts = _counts()                             # the path ends
     out = dict(faulted=faulted, live=seen["live"], counts=counts,
+               decodes=seen["calls"] - 1,
                rounds=rt.rounds - r0, wall=wall, steps=eng.steps,
                tokens=[eng.results[r] for r in rids], ttft=ttft, gaps=gaps)
     del eng, params
@@ -7449,6 +7711,12 @@ def fsdp_phase(torch, np, plan, res, res2, l1, engine_1x2, card) -> list:
         raise AssertionError(f"20c: kernel-4 launches "
                              f"{[p['counts']['flash_attention'] for p in per]}"
                              f" a rank, want {want_fa}")
+    if any(p["counts"]["paged_decode"] != cfg.n_layers * p["decodes"]
+           for p in per):
+        raise AssertionError(f"20c: kernel-8 launches "
+                             f"{[p['counts']['paged_decode'] for p in per]}"
+                             f" a rank, want {cfg.n_layers} x "
+                             f"{[p['decodes'] for p in per]} decode steps")
     paths.append({k: sum(p["counts"][k] for p in per)
                   for k in lead["counts"]})
     log(f"  20c {cfg.name}'s engine on 1x2, PE 1 lost at the "
@@ -7510,7 +7778,8 @@ def pipe_step_formula(n_layers, n_micro, stages) -> dict:
                 counts=dict(flash_attention=2 * Ls * T, put_copy=0,
                             dma_copy=2 * rounds - (2 * T - 1),
                             reduce_combine=T * (4 + 3 * Ls) + 2,
-                            fused_update=0, ssd_scan=0, ring_attention=0))
+                            fused_update=0, ssd_scan=0, ring_attention=0,
+                            paged_decode=0))
 
 
 def unpipe_formula(n_layers) -> dict:
@@ -7523,7 +7792,7 @@ def unpipe_formula(n_layers) -> dict:
     return dict(rounds=rounds, counts=dict(
         flash_attention=2 * n_layers, put_copy=0, dma_copy=2 * rounds,
         reduce_combine=5 + 3 * n_layers, fused_update=0, ssd_scan=0,
-        ring_attention=0))
+        ring_attention=0, paged_decode=0))
 
 
 def pod_train_rank(argv):
@@ -8156,7 +8425,8 @@ def xla_phase(torch, np, cfg, plan, res, default16b, l1_16b, got,
         if not np.array_equal(p["tokens"], per[0]["tokens"]):
             raise AssertionError(f"22d: rank {r_}'s tokens differ from rank "
                                  f"0's")
-        if p["rounds"] or not _no_runtime(p["counts"]) or not p["lib_calls"]:
+        if p["rounds"] or not _no_runtime(p["counts"]) \
+                or p["counts"]["paged_decode"] or not p["lib_calls"]:
             raise AssertionError(f"22d: rank {r_} took {p['rounds']} heap "
                                  f"rounds, {p['lib_calls']} library calls, "
                                  f"launched {p['counts']}")
@@ -8306,6 +8576,7 @@ def main() -> int:
     from repro_torch.configs import zamba2_1_2b as zamba
     from repro_torch.kernels import _build, ref, ops
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as kpd
     from repro_torch.kernels import ring_attention as ra
     from repro_torch.kernels import ssd_scan as kssd
     from repro_torch.models import layers
@@ -8335,6 +8606,10 @@ def main() -> int:
     check_attention_edges(torch, fa, ref, gen)
     torch.cuda.empty_cache()
     timing = time_attention(torch, fa, ref, gen, card)
+    check_paged_decode(torch, kpd, ref, gen)
+    torch.cuda.empty_cache()
+    paged_timing = time_paged_decode(torch, kpd, ref, gen, card)
+    torch.cuda.empty_cache()
 
     log(f"== phase 3: serve {serving.CONFIG.name} at full width")
     eng, prompts, launches, served = serve(torch, np, fa, serving,
@@ -8480,9 +8755,9 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    frontend_paths = [hubert_launches, phi_launches,
-                      launch_dense(torch, np, phi3v, ref, layers,
-                                   logits_check=True)]
+    phi3v_launcher = launch_dense(torch, np, phi3v, ref, layers,
+                                  logits_check=True)
+    frontend_paths = [hubert_launches, phi_launches, phi3v_launcher]
 
     log("== phase 14: the measurement services on the card (profiler, "
         "tuner, choose_attention, traced engine, launcher)")
@@ -8643,7 +8918,7 @@ def main() -> int:
     total = {name: sum(c.get(name, 0) for c in paths)
              for name in ("flash_attention", "put_copy", "dma_copy",
                           "reduce_combine", "fused_update", "ssd_scan",
-                          "ring_attention")}
+                          "ring_attention", "paged_decode")}
     log(f"  launches on the main paths: serve {launches}, runtime "
         f"{rt_launches}, fused bucket {bucket_launches}, train "
         f"{trained_counts}, mamba2 prefill {mamba_launches}, ring "
@@ -8685,6 +8960,10 @@ def main() -> int:
                  ring_timing))
     rows.append(("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:86", ssd_timing))
+    # kernel 8 replaces no TPU kernel: the reference's paged decode is jnp
+    rows.append(("paged_decode", "src/repro_torch/kernels/csrc/"
+                 "paged_decode.cu", "none (repro/models/layers.py "
+                 "attention_paged's decode, plain jnp)", paged_timing))
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=total[name],
                     max_abs_err=t["max_abs_err"], ms=t["ms"],
@@ -8702,6 +8981,17 @@ def main() -> int:
                      bound_by=t["bound_by"], library_ms=t["library_ms"])
                 for t in dense_timing + moe_timing + frontend_timing
                 + ep_timing + tp_timing]
+    # kernel 8 at phi-3-vision-4.2b's chat decode step, with the launches
+    # of phi-3-vision's heads (Hq = Hkv 32, hd 96) in phase 13's launcher
+    # (its batch of 4; the timed step is the benchmark cell's batch of 64)
+    kernels.append(dict(name="paged_decode", route="cuda",
+                        source="src/repro_torch/kernels/csrc/paged_decode.cu",
+                        replaces="none (repro/models/layers.py "
+                        "attention_paged's decode, plain jnp)",
+                        launches=phi3v_launcher["paged_decode"],
+                        **{k: paged_timing["phi3v"][k] for k in (
+                            "shape", "max_abs_err", "ms", "plain_ms",
+                            "bound_ms", "bound_by", "library_ms")}))
     # kernel 6 at phase 19's per-rank shapes, each with its launches there
     kernels += [dict(name="ring_attention", route="cuda",
                      source="src/repro_torch/kernels/csrc/ring_attention.cu",

@@ -87,6 +87,75 @@ def ring_partials_ref(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     return acc, m, l
 
 
+def mq_attention_ref(q, ck, cv, valid, *, softcap=None, q2slot=None,
+                     allreduce=None):
+    """Multi-query attention against a gathered cache, in f32 (the
+    reference's `_attend_mq`): q (B, L, Hq, hd); ck, cv (B, S, K, hd);
+    valid (B, L, S) -> (B, L, Hq, hd) f32.
+
+    Grouped GQA (Hq = K x group), or with `q2slot` (Hq,) the
+    replicated-KV plan: q head j reads stored head q2slot[j].  The
+    reference contracts each q head against all K stored heads and then
+    selects its slot by a one-hot (Hq, K) map in f32; gathering each q
+    head's slot first (`index_select`) gives the same products, since a
+    one-hot contraction adds exact zeros.  Every op is per row, so a
+    row's result does not depend on the other rows of the batch.
+    `allreduce(t, op)`, where given, combines over the shards of a cache
+    whose sequence is split: the max of the logits before the
+    exponentials, then the denominators and the weighted sums of v."""
+    if q2slot is not None:
+        ck, cv = ck.index_select(2, q2slot), cv.index_select(2, q2slot)
+    B, S, K = ck.shape[0], ck.shape[1], ck.shape[2]
+    L, hq, hd = q.shape[1], q.shape[2], q.shape[3]
+    group = hq // K
+    qf = q.float() / math.sqrt(hd)
+    kf, vf = ck.float(), cv.float()
+    qg = qf.reshape(B, L, K, group, hd)
+    logits = torch.einsum("blkgd,bskd->blkgs", qg, kf).reshape(B, L, hq, S)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = torch.where(valid[:, :, None, :], logits, NEG_INF)
+    m = logits.amax(-1, keepdim=True)
+    if allreduce is not None:
+        m = allreduce(m, "max")
+    p_ = torch.exp(logits - m)
+    l_den = p_.sum(-1, keepdim=True)
+    pg = p_.reshape(B, L, K, group, S)
+    acc = torch.einsum("blkgs,bskd->blkgd", pg, vf).reshape(B, L, hq, hd)
+    if allreduce is not None:
+        l_den = allreduce(l_den, "sum")
+        acc = allreduce(acc, "sum")
+    return acc / l_den.clamp_min(1e-30)
+
+
+def paged_kv_gather(pool_leaf, page_table):
+    """Gather a sequence-contiguous (B, S_max, ...) copy of each row's
+    pages (S_max = max_pages * page_size).  Unassigned entries point at
+    the null page; the attention mask excludes them."""
+    got = pool_leaf[page_table]                     # (B, P, ps, ...)
+    B, P, ps = got.shape[0], got.shape[1], got.shape[2]
+    return got.reshape((B, P * ps) + tuple(got.shape[3:]))
+
+
+def paged_decode_ref(q, pool_k, pool_v, page_table, positions, *,
+                     page_size, window=None, softcap=None, q2slot=None):
+    """One decode token a row against a paged KV pool, the plain way: every
+    row's pages gathered sequence-contiguous out to max_pages x page_size
+    (`paged_kv_gather`), then `mq_attention_ref` with the positions
+    [pos - window + 1, pos] valid.  q (B, Hq, hd); pools (num_pages,
+    page_size, K, hd); page_table (B, max_pages); positions (B,) ->
+    (B, Hq, hd) f32."""
+    ck = paged_kv_gather(pool_k, page_table)
+    cv = paged_kv_gather(pool_v, page_table)
+    kv_pos = torch.arange(ck.shape[1], device=q.device)[None, None, :]
+    pos = positions[:, None, None]
+    valid = kv_pos <= pos
+    if window is not None:
+        valid &= kv_pos > (pos - window)
+    return mq_attention_ref(q[:, None], ck, cv, valid, softcap=softcap,
+                            q2slot=q2slot)[:, 0]
+
+
 def put_copy_ref(src, rows=None):
     """Output row i = ``src[rows[i]]``, zeros where ``rows[i]`` is -1;
     ``rows=None`` is the identity copy (`repro.kernels.ref.put_copy_ref`)."""

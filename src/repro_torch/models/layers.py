@@ -42,7 +42,9 @@ import torch.nn.functional as F
 
 from ..core.trace import region
 from ..kernels import ops as kops
-from ..kernels.ref import NEG_INF
+from ..kernels import paged_decode as kpd
+from ..kernels import ref as kref
+from ..kernels.ref import NEG_INF, paged_kv_gather
 from ..parallel.comm import Comm
 from .config import ModelConfig
 
@@ -590,55 +592,23 @@ def paged_kv_update(pool_leaf, page_table, new, positions, page_size: int):
     return pool_leaf
 
 
-def paged_kv_gather(pool_leaf, page_table):
-    """Gather a sequence-contiguous (B, S_max, ...) copy of each row's
-    pages (S_max = max_pages * page_size).  Unassigned entries point at
-    the null page; the attention mask excludes them."""
-    got = pool_leaf[page_table]                     # (B, P, ps, ...)
-    B, P, ps = got.shape[0], got.shape[1], got.shape[2]
-    return got.reshape((B, P * ps) + tuple(got.shape[3:]))
-
-
 def _attend_mq(cfg, q, ck, cv, valid, q2slot=None, comm=None):
-    """Multi-query attention against a gathered cache, plain torch in f32.
+    """Multi-query attention against a gathered cache, plain torch in f32
+    (`kernels.ref.mq_attention_ref`, the reference's arithmetic).
 
     q: (B,L,Hq,hd); ck/cv: (B,S,K,hd); valid: (B,L,S) -> (B,L,Hq,hd).
-    Grouped GQA (Hq = K x group), or with `q2slot` (Hq,) the
-    replicated-KV plan: q head j reads stored head q2slot[j].  The
-    reference contracts each q head against all K stored heads and then
-    selects its slot by a one-hot (Hq, K) map in f32; gathering each q
-    head's slot first (`index_select`) gives the same products, since a
-    one-hot contraction adds exact zeros.  Every op is per row, so a
-    row's result does not depend on the other rows of the batch (the
-    engine's batched-vs-alone bit-identity).  With `comm` the cache is
-    one shard of a sequence split over `comm`'s data axis (flash-decode
-    on the shmem collectives, as the reference): the max of the logits
-    is allreduced ("max") there before the exponentials, then the
-    denominators and the weighted sums of v are summed there; a shard
+    Grouped GQA, or with `q2slot` (Hq,) the replicated-KV plan.  Every op
+    is per row, so a row's result does not depend on the other rows of
+    the batch (the engine's batched-vs-alone bit-identity).  With `comm`
+    the cache is one shard of a sequence split over `comm`'s data axis
+    (flash-decode on the shmem collectives, as the reference): the max of
+    the logits is allreduced ("max") there before the exponentials, then
+    the denominators and the weighted sums of v are summed there; a shard
     with no valid row adds zeros."""
-    if q2slot is not None:
-        ck, cv = ck.index_select(2, q2slot), cv.index_select(2, q2slot)
-    B, S, K = ck.shape[0], ck.shape[1], ck.shape[2]
-    L, hq, hd = q.shape[1], q.shape[2], cfg.hd
-    group = hq // K
-    qf = q.float() / math.sqrt(hd)
-    kf, vf = ck.float(), cv.float()
-    qg = qf.reshape(B, L, K, group, hd)
-    logits = torch.einsum("blkgd,bskd->blkgs", qg, kf).reshape(B, L, hq, S)
-    if cfg.softcap is not None:
-        logits = cfg.softcap * torch.tanh(logits / cfg.softcap)
-    logits = torch.where(valid[:, :, None, :], logits, NEG_INF)
-    m = logits.amax(-1, keepdim=True)
-    if comm is not None:
-        m = comm.allreduce(m, comm.axes.data, "max")
-    p_ = torch.exp(logits - m)
-    l_den = p_.sum(-1, keepdim=True)
-    pg = p_.reshape(B, L, K, group, S)
-    acc = torch.einsum("blkgs,bskd->blkgd", pg, vf).reshape(B, L, hq, hd)
-    if comm is not None:
-        l_den = comm.allreduce(l_den, comm.axes.data)
-        acc = comm.allreduce(acc, comm.axes.data)
-    return acc / l_den.clamp_min(1e-30)
+    allreduce = None if comm is None else \
+        (lambda t, op: comm.allreduce(t, comm.axes.data, op))
+    return kref.mq_attention_ref(q, ck, cv, valid, softcap=cfg.softcap,
+                                 q2slot=q2slot, allreduce=allreduce)
 
 
 def check_prefill_positions(positions):
@@ -654,26 +624,31 @@ def check_prefill_positions(positions):
 def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
                     page_table, positions, *, page_size: int,
                     is_local_layer: bool = False,
-                    positions_checked: bool = False):
+                    positions_checked: bool = False, decode_rows=None):
     """GQA attention against a paged KV pool, for prefill (x: (B, L, d),
     L = prompt bucket) and decode (L = 1).
 
     pool: {"k","v"} (num_pages, page_size, K, hd), updated in place;
     page_table: (B, max_pages) physical page ids.  K/V rows of every
-    position are scattered into the owning page, then each row's pages
-    are gathered back sequence-contiguous.  Prefill must come with
-    positions = arange(L) in every row: its causal(+window) mask, the
-    window `layer_window`'s, is then the flash kernel's `k_pos <= q_pos`,
-    and it attends through `ops.attention`.  The positions are checked
-    here unless the caller has checked them (`positions_checked`, as
-    `prefill_paged` does once for the whole stack).  Decode attends
-    through `_attend_mq`.  At tp > 1 the pool holds this device's kv
-    heads (`init_attn_cache` at that tp); under the replicated-KV plan
-    it stores `kv_cache_plan`'s heads, and the prefill hands the kernel
-    K and V expanded to one head per local q head through q2slot (group
-    1, as `_local_kv` does in training) while the decode reads each q
-    head's slot; the ghost heads are zeroed and the output projection
-    ends in one allreduce over `model`."""
+    position are scattered into the owning page (`layer.attn.kv`).
+    Prefill gathers each row's pages back sequence-contiguous and must
+    come with positions = arange(L) in every row: its causal(+window)
+    mask, the window `layer_window`'s, is then the flash kernel's
+    `k_pos <= q_pos`, and it attends through `ops.attention`.  The
+    positions are checked here unless the caller has checked them
+    (`positions_checked`, as `prefill_paged` does once for the whole
+    stack).  Decode attends through `kernels.paged_decode`, which reads
+    each row's live pages in place on the card (on the CPU its plain
+    version gathers them and attends as the reference's `_attend_mq`),
+    with the step's `decode_rows` where the caller made them once for
+    the stack (`paged_decode.decode_rows`, as `_paged_model` does).
+    At tp > 1 the pool holds this device's kv heads (`init_attn_cache`
+    at that tp); under the replicated-KV plan it stores
+    `kv_cache_plan`'s heads, and the prefill hands the kernel K and V
+    expanded to one head per local q head through q2slot (group 1, as
+    `_local_kv` does in training) while the decode reads each q head's
+    slot; the ghost heads are zeroed and the output projection ends in
+    one allreduce over `model`."""
     tp = comm.axis_size(comm.axes.model)
     B, L, d = x.shape
     hd = cfg.hd
@@ -690,8 +665,9 @@ def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
     with region(prof, "layer.attn.kv"):
         paged_kv_update(pool["k"], page_table, k, positions, page_size)
         paged_kv_update(pool["v"], page_table, v, positions, page_size)
-        ck = paged_kv_gather(pool["k"], page_table)          # (B,S_max,K,hd)
-        cv = paged_kv_gather(pool["v"], page_table)
+        if L > 1:
+            ck = paged_kv_gather(pool["k"], page_table)      # (B,S_max,K,hd)
+            cv = paged_kv_gather(pool["v"], page_table)
 
     with region(prof, "layer.attn.core"):
         window = layer_window(cfg, is_local_layer)
@@ -706,12 +682,10 @@ def attention_paged(comm: Comm, cfg: ModelConfig, p: Params, x, pool,
                 causal=True, window=window, softcap=cfg.softcap,
                 sm_scale=1.0 / math.sqrt(hd)).transpose(1, 2)
         else:
-            S_max = ck.shape[1]
-            kv_pos = torch.arange(S_max, device=x.device)[None, None, :]
-            valid = kv_pos <= positions[:, :, None]
-            if window is not None:
-                valid &= kv_pos > (positions[:, :, None] - window)
-            out = _attend_mq(cfg, q, ck, cv, valid, q2slot)
+            out = kpd.paged_decode_attention(
+                q[:, 0], pool["k"], pool["v"], page_table, positions[:, 0],
+                page_size=page_size, window=window, softcap=cfg.softcap,
+                q2slot=q2slot, rows=decode_rows)[:, None]
 
     with region(prof, "layer.attn.out"):
         out = _zero_ghosts(comm, cfg, tp, out, 2)

@@ -36,6 +36,7 @@ import torch.utils.checkpoint
 
 from .. import resolve_device
 from ..core.trace import region
+from ..kernels import paged_decode as kpd
 from ..parallel.comm import Comm
 from . import layers as L
 from .config import ModelConfig
@@ -457,12 +458,14 @@ def train_loss(comm: Comm, cfg: ModelConfig, params: Params, batch: dict):
 
 
 def _attn_block_paged(comm, cfg, bp, x, pool, page_table, positions,
-                      page_size, positions_checked, is_local=False):
+                      page_size, positions_checked, is_local=False,
+                      decode_rows=None):
     h = L.rms_norm(x, bp["ln1"])
     a, _ = L.attention_paged(comm, cfg, bp["attn"], h, pool, page_table,
                              positions, page_size=page_size,
                              is_local_layer=is_local,
-                             positions_checked=positions_checked)
+                             positions_checked=positions_checked,
+                             decode_rows=decode_rows)
     with region(comm.profile, "layer.mlp"):
         x = x + a
         h = L.rms_norm(x, bp["ln2"])
@@ -470,35 +473,41 @@ def _attn_block_paged(comm, cfg, bp, x, pool, page_table, positions,
 
 
 def _paged_stack(comm, cfg, params, pool, page_table, x, positions,
-                 page_size, positions_checked=False):
+                 page_size, positions_checked=False, decode_rows=None):
     """Run the layer stack against the paged KV pools, updating them in
     place.  One code path for prefill (L = prompt bucket) and decode
-    (L = 1).  A local layer's window is a mask only: every layer's pool
-    keeps the whole sequence, as in the reference."""
+    (L = 1, every layer sharing the step's `decode_rows`).  A local
+    layer's window is a mask only: every layer's pool keeps the whole
+    sequence, as in the reference."""
     for i, bp in enumerate(params["layers"]):
         layer_pool = {"k": pool["k"][i], "v": pool["v"][i]}
         x = _attn_block_paged(comm, cfg, bp, x, layer_pool, page_table,
                               positions, page_size, positions_checked,
-                              _is_local(cfg, i))
+                              _is_local(cfg, i), decode_rows)
     return x, pool
 
 
 def _paged_model(comm, cfg, params, pool, page_table, tokens, positions,
                  page_size, prefill):
-    """Embedding (a prefill's positions checked first), the paged layer
-    stack and the LM head, each a range of the tracer on `comm`
-    (`core.trace.region`): ``model.embed``, ``model.layers`` (each
-    layer's first norm outside its own ranges) and ``model.head`` (the
-    final norm and the logits)."""
+    """Embedding (a prefill's positions checked first, a decode's page
+    table and positions made once into the `decode_rows` every layer's
+    attention shares), the paged layer stack and the LM head, each a
+    range of the tracer on `comm` (`core.trace.region`): ``model.embed``,
+    ``model.layers`` (each layer's first norm outside its own ranges)
+    and ``model.head`` (the final norm and the logits)."""
     prof = comm.profile
+    rows = None
     with region(prof, "model.embed"):
         if prefill:
             L.check_prefill_positions(positions)
+        else:
+            rows = kpd.decode_rows(page_table, positions[:, 0],
+                                   page_size=page_size)
         x = _embed_scaled(comm, cfg, params, tokens)
     with region(prof, "model.layers"):
         x, pool = _paged_stack(comm, cfg, params, pool, page_table, x,
                                positions, page_size,
-                               positions_checked=prefill)
+                               positions_checked=prefill, decode_rows=rows)
     with region(prof, "model.head"):
         x = L.rms_norm(x, params["final_norm"])
         return L.lm_logits(comm, cfg, params["embed"], x), pool

@@ -42,8 +42,10 @@ and in the model ``model.embed``, ``model.layers`` (each layer's
 ``layer.attn.out`` and ``layer.mlp``) and ``model.head``.  A profile
 also tallies the padding (`Profiler.tallies`): per decode step
 ``serve.decode.kv_positions_live`` (the active slots' contexts) and
-``serve.decode.kv_positions_read`` (every slot's pages to `max_seq`, as
-the gather reads them), per prefill ``serve.prefill.prompt_tokens`` and
+``serve.decode.kv_positions_read`` (the positions of the pages that
+the decode's attention reads in a layer without a window: each slot's
+pages up to its position, an inactive slot's null page included), per
+prefill ``serve.prefill.prompt_tokens`` and
 ``serve.prefill.bucket_tokens``.  Both default to None: zero cost.
 """
 from __future__ import annotations
@@ -423,7 +425,7 @@ class ServeEngine:
                     prof.tally("serve.decode.kv_positions_live",
                                int(poss.sum()) + len(active))
                     prof.tally("serve.decode.kv_positions_read",
-                               self.max_slots * self.kv.max_pages
+                               int((poss // self.page_size + 1).sum())
                                * self.page_size)
                 t0 = time.perf_counter()
                 with self._span("serve.decode", n_pes=len(active)):

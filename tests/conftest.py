@@ -94,3 +94,11 @@ except ImportError:
     _hyp.__is_repro_shim__ = True
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    # a test that needs a CUDA card carries this marker and skips without
+    # one from inside a fixture (tests/test_torch_paged_decode.py `cuda`);
+    # on the card: `python -m pytest -m cuda tests/test_torch_paged_decode.py`
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")

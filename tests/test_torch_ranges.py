@@ -34,21 +34,24 @@ def _run(profile=None):
 def test_engine_tallies_the_padding(kind):
     """Two slots: requests 0 and 1 prefill in the first step and decode
     together for 3 steps, then request 2 prefills and decodes alone for
-    3: 6 decode steps, each gathering 2 slots x 4 pages x 8 positions.
-    A request of prompt p decodes its tokens 2..4 over contexts of
-    p + 1, p + 2 and p + 3 positions."""
+    3: 6 decode steps.  A request of prompt p decodes its tokens 2..4 at
+    positions p, p + 1 and p + 2, over contexts of p + 1, p + 2 and
+    p + 3 positions, reading the pages up to each position; the idle
+    slot of request 2's steps reads its null page."""
     prof = kind()
     eng, out = _run(prof)
     assert all(len(t) == MAX_NEW for t in out.values())
-    max_pages = -(-KW["max_seq"] // KW["page_size"])
+    ps = KW["page_size"]
     live = sum(p + j for p in LENS for j in range(1, MAX_NEW))
+    read = sum((p + j) // ps + 1 for p in LENS for j in range(MAX_NEW - 1)) \
+        * ps + 3 * ps
     assert prof.tallies() == {
         "serve.prefill.prompt_tokens": sum(LENS),
         "serve.prefill.bucket_tokens": len(LENS) * KW["prompt_bucket"],
         "serve.decode.kv_positions_live": live,
-        "serve.decode.kv_positions_read":
-            6 * KW["max_slots"] * max_pages * KW["page_size"]}
+        "serve.decode.kv_positions_read": read}
     assert live == 69
+    assert read == 120
     assert not any(k.startswith("serve.decode.kv")
                    for k in prof.counters())
 
